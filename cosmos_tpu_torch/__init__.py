@@ -1,0 +1,19 @@
+"""cosmos_tpu_torch: the PyTorch and CUDA port of cosmos_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package ``cosmos_tpu`` is the reference this port is tested
+against; this package imports neither it nor JAX.  Plain tensor code is
+PyTorch, and each Pallas kernel of ``cosmos_tpu`` on a ported path is a
+hand-written CUDA kernel for ``sm_90a`` under ``ops/csrc/``.  Entry points
+run on the card unless the caller passes ``device="cpu"``.
+"""
+
+from .models.convert import load_checkpoint, state_dict_from_jax_params
+from .models.factory import create_model, resolve_dtype
+
+__all__ = [
+    "create_model",
+    "load_checkpoint",
+    "resolve_dtype",
+    "state_dict_from_jax_params",
+]
