@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one Hopper card (sm_90a)
-and nvcc.  It builds every CUDA kernel of the serving path from the sources
-in the checkout and then:
+and nvcc.  It builds every CUDA kernel of the serving and training paths
+from the sources in the checkout and then:
 
   1. prints the card, its power limit and the torch / CUDA versions;
-  2. builds the packed-QKV attention kernel (K1) and prints the build time;
+  2. builds the packed-QKV attention forward (K1) and backward (K2), one
+     nvcc each, started together, and prints the build time and ptxas's
+     register and spill lines;
   3. holds K1 to its plain PyTorch version at the serving path's
      geometries in float32 and bfloat16, and times K1, the plain version
      and, as a yardstick only, F.scaled_dot_product_attention on the same
@@ -18,7 +20,20 @@ in the checkout and then:
      self-attention went through K1, times the encoders and gives K1's
      share of each tower call;
   5. runs the same float32 weights on the card and on the CPU and compares
-     the encoders and the COSMOS forward.
+     the encoders and the COSMOS forward;
+  6. holds K2 to its plain version at the training step's geometries in
+     float32 and bfloat16, times K2, the plain version and, as a yardstick
+     only, the backward of F.scaled_dot_product_attention, beside K2's
+     bound, and compares the autograd Function's gradient (K1 then K2) on
+     the card with the CPU's;
+  7. trains full-width ViT-B-16 COSMOS in bfloat16 (the bench recipe:
+     tanh GELU, text bucket 32, per-card batch 64 with 2 global 224px, 6
+     local 96px crops and 8 caption views) for 3 + 10 steps on a fixed
+     synthetic batch, checks finite, falling loss, the logit-scale clamp
+     and K1's and K2's launches per step, and times the 10 steps;
+  8. takes one training step of the same recipe, 2 layers per tower, batch
+     2, float32, on the card and on the CPU from the same weights, and
+     compares the loss, gradients and updated student and teacher.
 
 Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
@@ -58,6 +73,31 @@ GEOMETRIES = [
     ("head dim 128", 64, 197, 3 * 1024, 8, False),
 ]
 MAIN_GEOMETRY = (GEOMETRIES[0][0], torch.bfloat16)
+# (label, B, L, 3D, heads, causal): the training step's attention geometries
+# at a per-card batch of 64 (2 global crops, 6 local crops, 8 caption views:
+# 2 full-length head views, 288 bucketed at 32 tokens, the longest 96 at 77)
+TRAIN_GEOMETRIES = [
+    ("vision globals", 128, 197, 3 * 768, 12, False),
+    ("vision 96px locals", 384, 37, 3 * 768, 12, False),
+    ("text unbucketed", 512, 77, 3 * 512, 8, True),
+    ("text head views", 128, 77, 3 * 512, 8, True),
+    ("text short bucket", 288, 32, 3 * 512, 8, True),
+    ("text long quarter", 96, 77, 3 * 512, 8, True),
+    ("head dim 128", 64, 197, 3 * 1024, 8, False),
+]
+TRAIN_MAIN = ("vision globals", torch.bfloat16)
+# self-attention calls per training step with the text bucket: the
+# student's forward runs the globals, the locals and three text calls
+# (head, short bucket, long quarter), 12 layers each; the teacher's forward
+# (no gradient) runs the globals and the head views
+STUDENT_CALLS = {"vision globals": 12, "vision 96px locals": 12,
+                 "text head views": 12, "text short bucket": 12,
+                 "text long quarter": 12}
+TEACHER_CALLS = {"vision globals": 12, "text head views": 12}
+K1_PER_STEP = sum(STUDENT_CALLS.values()) + sum(TEACHER_CALLS.values())  # 84
+K2_PER_STEP = sum(STUDENT_CALLS.values())                                # 60
+TRAIN_RECIPE = dict(cosmos=True, output_all=True, attentional_pool=True,
+                    add_zero_attn=True, act_approx=True, text_bucket=32)
 # the serving phase's tower calls: 256 images at 224px, 256 captions whose
 # EOT positions (8..40) truncate to 48 tokens
 SERVING_GEOMETRIES = {"image": "vision ViT-B-16 224px",
@@ -67,6 +107,13 @@ SERVING_GEOMETRIES = {"image": "vision ViT-B-16 224px",
 # divides by the row sum at the end, the plain version rounds the
 # normalised P: one bf16 ulp of outputs |o| < 4 plus 1% relative
 KERNEL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
+# K2 vs plain version on the same card.  float32: summation order over up
+# to 197 keys or queries (FMA chains against cuBLAS blocked sums).
+# bfloat16: both round P and ds to bf16 before their products; a last-bit
+# float32 difference can move one across a bf16 boundary, so one bf16 ulp
+# of gradients |g| < 4 plus 1% relative, as for K1
+KERNEL_BWD_TOL = {torch.float32: (1e-4, 1e-4),
+                  torch.bfloat16: (1.6e-2, 1e-2)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -99,6 +146,26 @@ def attention_bound(b, l, d, causal, dtype):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def attention_bwd_bound(b, l, d, causal, dtype):
+    """(bound_ms, bound_by, bytes, ops) for one backward call: qkv and dout
+    read once and d(qkv) written once (7·B·L·D elements); 10·B·pairs·D
+    operations (S recomputed, dV, dP, dQ, dK), pairs the lower triangle
+    with the diagonal when causal (fused_attention.py:287-301)."""
+    nbytes = 7 * b * l * d * torch.tensor([], dtype=dtype).element_size()
+    pairs = l * (l + 1) // 2 if causal else l * l
+    ops = 10 * b * pairs * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def _within(got, want, tol):
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    return ok and bool(torch.isfinite(got).all()), diff.max().item()
+
+
 def phase_card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,10 +181,12 @@ def phase_build(fa, kernel_build) -> float:
     t0 = time.perf_counter()
     fa.build()
     seconds = time.perf_counter() - t0
-    print(f"[build] K1 {fa.SOURCE} ready in {seconds:.2f} s")
-    for line in kernel_build.build_logs.get(fa.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    print(f"[build] K1 {fa.SOURCE} and K2 {fa.SOURCE_BWD} ready in "
+          f"{seconds:.2f} s")
+    for source in (fa.SOURCE, fa.SOURCE_BWD):
+        for line in kernel_build.build_logs.get(source, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build]   {source}: {line.strip()}")
     return seconds
 
 
@@ -304,6 +373,302 @@ def phase_card_vs_cpu(fa):
     return errs
 
 
+def phase_kernel_bwd(fa):
+    """K2 against its plain version and timed, K1 timed, at the training
+    geometries; the autograd Function on the card against the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    for label, b, l, d3, heads, causal in TRAIN_GEOMETRIES:
+        d = d3 // 3
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(b, l, d, device="cuda", generator=gen).to(dtype)
+            got = fa.fused_attention_qkv_backward(x, g, heads, causal)
+            want = fa.fused_attention_qkv_backward_reference(x, g, heads,
+                                                             causal)
+            torch.cuda.synchronize()
+            ok, err = _within(got, want, KERNEL_BWD_TOL[dtype])
+            check(ok, f"K2 vs plain at {label} {dtype}: max err {err}")
+            ms = time_ms(lambda: fa.fused_attention_qkv_backward(
+                x, g, heads, causal))
+            plain_ms = time_ms(lambda: fa.fused_attention_qkv_backward_reference(
+                x, g, heads, causal), iters=5)
+            fwd_ms = time_ms(lambda: fa.fused_attention_qkv(x, heads, causal))
+            q, k, v = (t.view(b, l, heads, d // heads).transpose(1, 2)
+                       .detach().requires_grad_(True)
+                       for t in x.split(d, dim=-1))
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            g_heads = g.view(b, l, heads, d // heads).transpose(1, 2)
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                o, (q, k, v), g_heads, retain_graph=True))
+            bound_ms, bound_by, nbytes, ops = attention_bwd_bound(
+                b, l, d, causal, dtype)
+            row = dict(label=label, shape=[b, l, d3], heads=heads,
+                       causal=causal, dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, ops=ops,
+                       tflops=ops / ms / 1e9, k1_ms=fwd_ms)
+            rows.append(row)
+            print(f"[kernel-bwd] {label:20s} {row['dtype']:8s} [{b},{l},{d3}] "
+                  f"h={heads} causal={int(causal)} err={err:.3g} "
+                  f"K2={ms:.4f} ms plain={plain_ms:.4f} ms "
+                  f"sdpa-bwd={library_ms:.4f} ms bound={bound_ms:.4f} ms "
+                  f"({bound_by}) {row['tflops']:.1f} TFLOP/s K1={fwd_ms:.4f} ms")
+            del x, g, got, want, q, k, v, o, g_heads
+
+    # the autograd Function: K1 then K2 on the card, the plain versions on
+    # the CPU, same float32 input and output gradient
+    errs = {}
+    for label, b, l, d3, heads, causal in (TRAIN_GEOMETRIES[0],
+                                           TRAIN_GEOMETRIES[3]):
+        rng = np.random.default_rng(11)
+        x = torch.from_numpy(rng.standard_normal((4, l, d3)).astype(np.float32))
+        w = torch.from_numpy(
+            rng.standard_normal((4, l, d3 // 3)).astype(np.float32))
+        grads = {}
+        before = (fa.launches, fa.launches_bwd)
+        for dev in ("cpu", "cuda"):
+            xd = x.to(dev).detach().requires_grad_(True)
+            out = fa.fused_attention_qkv(xd, heads, causal)
+            check(out.grad_fn is not None, f"no grad_fn on {dev}")
+            (out * w.to(dev)).sum().backward()
+            grads[dev] = xd.grad.cpu()
+        check((fa.launches, fa.launches_bwd) == (before[0] + 1, before[1] + 1),
+              "the Function launched K1 and K2 once each on the card")
+        ok, err = _within(grads["cuda"], grads["cpu"], (1e-4, 1e-4))
+        check(ok, f"autograd Function card vs CPU at {label}: max err {err}")
+        errs[label] = err
+    print("[kernel-bwd] autograd Function card vs CPU max abs err " + " ".join(
+        f"{k}={v:.3g}" for k, v in errs.items()))
+    return rows, errs
+
+
+def _train_texts(rng, size):
+    """Synthetic captions with the textcrop length profile of
+    bench.py:237-257: views 0-1 are long (EOT at 58..76), views 2+ single
+    sentences (EOT at 8..24); ids below the EOT id."""
+    k_, b_, length = size
+    eots = np.where((np.arange(k_) < 2)[:, None],
+                    rng.integers(58, length, size=(k_, b_)),
+                    rng.integers(8, 25, size=(k_, b_)))
+    body = rng.integers(1, 49406, size=size)
+    pos = np.arange(length)
+    toks = np.where(pos < eots[..., None], np.where(pos == 0, 49406, body), 0)
+    np.put_along_axis(toks, eots[..., None], 49407, axis=-1)
+    return toks.astype(np.int64)
+
+
+def _train_batch(b, seed, device):
+    rng = np.random.default_rng(seed)
+    batch = {
+        "global_images": rng.integers(0, 256, (2, b, 224, 224, 3), np.uint8),
+        "local_images": rng.integers(0, 256, (6, b, 96, 96, 3), np.uint8),
+        "texts": _train_texts(rng, (8, b, 77)),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _train_setup(model, lr, dtype):
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
+    from cosmos_tpu_torch.training.train import TrainStepConfig
+
+    opt = create_optimizer(model, lr, beta1=0.9, beta2=0.98, eps=1e-8,
+                           weight_decay=0.5)
+    cfg = TrainStepConfig(cosmos=True, local_loss=True, momentum_teacher=0.999,
+                          fix_momentum=True, lr_schedule=lr, input_dtype=dtype)
+    return make_train_step(model, opt, cfg), create_train_state(model, opt)
+
+
+# kernel-name fragments -> the layer that launched the kernel
+KERNEL_CLASSES = (
+    ("K1", ("fused_attention_fwd_kernel",)),
+    ("K2", ("attention_bwd_rows_kernel", "attention_bwd_cols_kernel")),
+    ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "wgmma",
+                "sm90_")),
+    ("optimizer and EMA", ("multi_tensor_apply", "foreach")),
+)
+
+
+def _profile_steps(step, state, batch, n: int = 2):
+    """Device time by kernel over ``n`` training steps (torch.profiler),
+    and the device's busy share of the window: the kernels of one stream
+    do not overlap, so their summed time is the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = {e.key: e.self_device_time_total / 1e3 / n
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    classes = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    classes["other (elementwise, reductions, copies)"] = 0.0
+    for key, ms in kernels.items():
+        low = key.lower()
+        name = next((c for c, frags in KERNEL_CLASSES
+                     if any(f.lower() in low for f in frags)),
+                    "other (elementwise, reductions, copies)")
+        classes[name] += ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return dict(window_ms_per_step=window_ms, device_ms_per_step=busy,
+                busy_share=busy / window_ms if kernels else None,
+                by_class_ms=classes, top_kernels_ms=dict(top),
+                n_kernel_names=len(kernels))
+
+
+def phase_train(fa, bwd_rows):
+    """Full-width ViT-B-16 COSMOS training in bfloat16 at a per-card batch
+    of 64; ``bwd_rows`` are the K2 phase's measurements."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.training.scheduler import cosine_lr
+    from cosmos_tpu_torch.training.train import LN100
+
+    b, warmup, timed = 64, 3, 10
+    model = create_model("ViT-B-16", "bf16", device="cuda", seed=0,
+                         **TRAIN_RECIPE)
+    step, state = _train_setup(model, cosine_lr(5e-4, 2000, 100000),
+                               torch.bfloat16)
+    batch = _train_batch(b, seed=20, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.launches = fa.launches_bwd = 0
+    metrics = [step(state, batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics += [step(state, batch) for _ in range(timed)]
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k1, k2 = fa.launches, fa.launches_bwd
+    n = warmup + timed
+    step_ms = start.elapsed_time(end) / timed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [m["loss"].item() for m in metrics]
+    print(f"[train] losses {' '.join(f'{x:.5f}' for x in losses)}")
+    check(all(np.isfinite(losses)), f"finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss falls over {n} steps: {losses}")
+    for name in ("logit_scale", "distill_logit_scale"):
+        for module in (state.student, state.teacher):
+            v = getattr(module, name).item()
+            check(0.0 <= v <= LN100, f"{name} = {v} outside [0, ln 100]")
+    print(f"[train] K1 launches {k1} (expected {K1_PER_STEP} x {n}), "
+          f"K2 launches {k2} (expected {K2_PER_STEP} x {n})")
+    check(k1 == K1_PER_STEP * n and k2 == K2_PER_STEP * n,
+          "K1 / K2 launches per training step")
+    missing = [p for p, t in state.student.named_parameters() if t.grad is None]
+    check(not missing, f"student parameters without a gradient: {missing}")
+    profile = _profile_steps(step, state, batch)
+    if profile["busy_share"] is None:
+        print("[train] profiler: no device time recorded (busy share not "
+              "measured)")
+    else:
+        print(f"[train] profiler, per step: window {profile['window_ms_per_step']:.3f} ms, "
+              f"device busy {profile['device_ms_per_step']:.3f} ms "
+              f"(share {profile['busy_share']:.3f}); " + "; ".join(
+                  f"{k} {v:.3f} ms" for k, v in profile["by_class_ms"].items()))
+        for k, v in profile["top_kernels_ms"].items():
+            print(f"[train]   {v:8.3f} ms  {k[:110]}")
+
+    by = {r["label"]: r for r in bwd_rows if r["dtype"] == "bfloat16"}
+    k1_ms = sum(c * by[g]["k1_ms"] for calls in (STUDENT_CALLS, TEACHER_CALLS)
+                for g, c in calls.items())
+    k2_ms = sum(c * by[g]["ms"] for g, c in STUDENT_CALLS.items())
+    out = dict(batch=b, steps=n, timed_steps=timed, step_ms=step_ms,
+               samples_per_s=b / step_ms * 1e3, wall_s=wall_s,
+               losses=losses, k1_launches=k1, k2_launches=k2,
+               k1_ms_per_step=k1_ms, k2_ms_per_step=k2_ms,
+               k1_share=k1_ms / step_ms, k2_share=k2_ms / step_ms,
+               peak_mem_gb=peak_gb,
+               logit_scale=state.student.logit_scale.item(),
+               lr_last=metrics[-1]["lr"], profile=profile,
+               busy_share_of_step=(profile["device_ms_per_step"] / step_ms
+                                   if profile["busy_share"] is not None
+                                   else None))
+    print(f"[train] ViT-B-16 COSMOS bf16 batch {b}: {step_ms:.3f} ms/step, "
+          f"{out['samples_per_s']:.1f} samples/s, peak memory {peak_gb:.2f} GB")
+    print(f"[train] per step: K1 {k1_ms:.3f} ms (share {out['k1_share']:.3f}), "
+          f"K2 {k2_ms:.3f} ms (share {out['k2_share']:.3f}), from per-call "
+          f"times x launches; profiled device time over the unprofiled "
+          f"step: {out['busy_share_of_step']}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_card_vs_cpu(fa):
+    """One training step of the recipe, 2 layers per tower, batch 2, float32,
+    on the card (K1, K2) and on the CPU (plain versions), same weights."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.training.scheduler import const_lr
+
+    lr = 1e-4
+    cpu_model = create_model("ViT-B-16", "fp32", device="cpu", seed=7,
+                             vision_layers=2, text_layers=2, **TRAIN_RECIPE)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    batch = _train_batch(2, seed=21, device="cpu")
+    runs = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        step, state = _train_setup(model, const_lr(lr, 0, 100), torch.float32)
+        before = (fa.launches, fa.launches_bwd)
+        m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            # 2 layers per tower: student 5 calls, teacher 2
+            check((fa.launches - before[0], fa.launches_bwd - before[1])
+                  == (2 * 7, 2 * 5), "K1 / K2 launches in the 2-layer step")
+        missing = [n for n, p in model.named_parameters() if p.grad is None]
+        check(not missing, f"{dev}: parameters without a gradient {missing}")
+        runs[dev] = dict(
+            loss=m["loss"].item(),
+            grads={n: p.grad.detach().cpu()
+                   for n, p in model.named_parameters()},
+            student={k: v.cpu() for k, v in state.student.state_dict().items()},
+            teacher={k: v.cpu() for k, v in state.teacher.state_dict().items()})
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    errs = {"loss": abs(gpu["loss"] - cpu["loss"])}
+    check(errs["loss"] <= 1e-4 * abs(cpu["loss"]),
+          f"loss card {gpu['loss']} vs CPU {cpu['loss']}")
+    # float32 on both sides, TF32 off: summation order through 2 layers
+    for name in ("visual.conv1.weight",
+                 "visual.transformer.resblocks.0.attn.in_proj_weight",
+                 "transformer.resblocks.0.attn.in_proj_weight", "logit_scale"):
+        g, w = gpu["grads"][name], cpu["grads"][name]
+        errs[f"grad {name}"] = (g - w).abs().max().item()
+        check(errs[f"grad {name}"] <= 1e-3 * w.abs().max().item() + 1e-8,
+              f"grad {name}: max err {errs[f'grad {name}']}")
+    # the first AdamW step moves every parameter by about lr times the sign
+    # of its gradient; a gradient that is zero in exact arithmetic (the key
+    # bias of a self-attention) can take either sign, so the updated
+    # parameters are held to 2 lr
+    for which in ("student", "teacher"):
+        err = max((gpu[which][k] - cpu[which][k]).abs().max().item()
+                  for k in cpu[which])
+        errs[which] = err
+        check(err <= 2 * lr, f"updated {which} card vs CPU: max err {err}")
+    moved = max((cpu["student"][k] - init[k]).abs().max().item() for k in init)
+    check(moved > 0.5 * lr, "the step moved the student")
+    print("[train-card-vs-cpu] max abs err " + " ".join(
+        f"{k}={v:.3g}" for k, v in errs.items()))
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -319,23 +684,42 @@ def main() -> int:
     rows = phase_kernel(fa)
     serving = phase_serving(fa, rows)
     card_vs_cpu = phase_card_vs_cpu(fa)
+    bwd_rows, function_errs = phase_kernel_bwd(fa)
+    train = phase_train(fa, bwd_rows)
+    train_card_vs_cpu = phase_train_card_vs_cpu(fa)
 
-    main_row = next(r for r in rows if (r["label"], r["dtype"]) == (
-        MAIN_GEOMETRY[0], str(MAIN_GEOMETRY[1]).replace("torch.", "")))
+    def pick(table, geometry):
+        label, dtype = geometry
+        return next(r for r in table if (r["label"], r["dtype"]) == (
+            label, str(dtype).replace("torch.", "")))
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape", "dtype")
+    k1_row, k2_row = pick(rows, MAIN_GEOMETRY), pick(bwd_rows, TRAIN_MAIN)
     kernels = [{
         "name": "fused_attention_qkv_fwd",
         "route": "cuda",
         "source": "cosmos_tpu_torch/ops/csrc/fused_attention_fwd.cu",
         "replaces": "cosmos_tpu/ops/fused_attention.py:101",
-        "launches": serving["launches"],
-        **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")},
-        "shape": main_row["shape"],
-        "dtype": main_row["dtype"],
+        # the main paths' runs: serving (phase 4) and training (phase 7)
+        "launches": serving["launches"] + train["k1_launches"],
+        "launches_by_path": {"serving": serving["launches"],
+                             "training": train["k1_launches"]},
+        **{k: k1_row[k] for k in keys},
+    }, {
+        "name": "fused_attention_qkv_bwd",
+        "route": "cuda",
+        "source": "cosmos_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+        "replaces": "cosmos_tpu/ops/fused_attention.py:190",
+        "launches": train["k2_launches"],
+        "launches_by_path": {"training": train["k2_launches"]},
+        **{k: k2_row[k] for k in keys},
     }]
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
                   serving=serving, card_vs_cpu=card_vs_cpu,
+                  kernel_bwd_rows=bwd_rows, function_card_vs_cpu=function_errs,
+                  train=train, train_card_vs_cpu=train_card_vs_cpu,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,8 +4,8 @@
 Feature layout is views-major, as in the JAX package: V views of batch B
 are ``[V*B, ...]`` with view v at rows ``[v*B, (v+1)*B)``.
 
-The length-bucketed text tower of the training forward (``text_bucket``)
-is not here; it comes with the training step.
+``text_bucket > 0`` turns on the length-bucketed text tower of the COSMOS
+training forward (``_bucketed_text_pooled``).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ class CLIP(nn.Module):
     cross-modal forward creates them."""
 
     def __init__(self, cfg: CLIPCfg, cosmos: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, act_approx: bool = False,
+                 text_bucket: int = 0):
         super().__init__()
         v, t = cfg.vision_cfg, cfg.text_cfg
         if (v.timm_model_name or isinstance(v.layers, (tuple, list))
@@ -49,9 +50,13 @@ class CLIP(nn.Module):
         self.cfg = cfg
         self.cosmos = cosmos
         self.dtype = dtype
+        self.text_bucket = text_bucket
         self.output_all = v.output_all
         cross_pool = cosmos and v.output_all and v.attentional_pool
-        act = get_act_fn("quick_gelu" if cfg.quick_gelu else "gelu")
+        if cfg.quick_gelu:
+            act = get_act_fn("quick_gelu")
+        else:
+            act = get_act_fn("gelu_tanh" if act_approx else "gelu")
         self.visual = VisionTransformer(
             image_size=v.image_size, patch_size=v.patch_size, width=v.width,
             layers=v.layers, num_heads=v.heads, mlp_ratio=v.mlp_ratio,
@@ -108,6 +113,31 @@ class CLIP(nn.Module):
 
     # --- full forward --------------------------------------------------------
 
+    def _bucketed_text_pooled(self, toks: torch.Tensor,
+                              l_short: int) -> torch.Tensor:
+        """Pooled text features of caption views that need no token outputs,
+        with the shortest 3/4 run at ``l_short`` tokens when every one of
+        them fits (row order of ``toks`` kept).
+
+        Exact: under the causal mask and argmax-EOT pooling, truncating a
+        caption at >= eot+1 keeps its pooled feature.  The JAX package
+        picks the branch on the device (``nn.cond``); here the fit test is
+        one ``.item()``, a host sync per training forward."""
+        n = toks.shape[0]
+        eot = toks.argmax(dim=-1)
+        order = torch.argsort(eot, stable=True)
+        ns = (n * 3) // 4
+        short_idx, long_idx = order[:ns], order[ns:]
+        # sorted ascending: the short bucket's largest EOT is its last entry
+        fits = bool(eot[short_idx[-1]].item() + 1 <= l_short)
+        short_toks = toks[short_idx]
+        if fits:
+            short_toks = short_toks[:, :l_short]
+        f_short = encode_tokens(self, short_toks, self.dtype)[0]
+        f_long = encode_tokens(self, toks[long_idx], self.dtype)[0]
+        feats = torch.cat([f_short, f_long], dim=0)
+        return feats[torch.argsort(order)]                 # undo the sort
+
     def forward(
         self,
         global_images: Optional[torch.Tensor] = None,  # [2B, H, W, 3]
@@ -137,8 +167,32 @@ class CLIP(nn.Module):
 
         txt_features = txt_tokens = None
         if texts is not None:
-            txt_features, t_tokens = encode_tokens(self, texts, self.dtype)
+            b_ = batch_size if batch_size is not None else 0
+            bucket = (
+                self.text_bucket > 0
+                and b_ > 0
+                # views 0-1 (the teacher's targets and the pooler's token
+                # context) stay full length; at least one more view buckets
+                and texts.shape[0] >= 3 * b_
+                and texts.shape[0] % b_ == 0
+                and self.text_bucket < texts.shape[1]
+                # the exactness argument needs causal attention and argmax
+                # pooling: the gate of the eval-side EOT truncation
+                and self.text_cfg.eot_truncation_exact
+                and texts.shape[0] - 2 * b_ >= 4
+            )
+            if bucket:
+                head_features, t_tokens = encode_tokens(
+                    self, texts[:2 * b_], self.dtype)
+                rest_features = self._bucketed_text_pooled(
+                    texts[2 * b_:], self.text_bucket)
+                txt_features = torch.cat([head_features, rest_features])
+            else:
+                txt_features, t_tokens = encode_tokens(self, texts,
+                                                       self.dtype)
             if self.output_all:
+                # bucketed: token features of the 2 global views only, all
+                # that the pooler reads ([:B])
                 txt_tokens = self.text_token_mapping(t_tokens)
             if is_norm:
                 txt_features = l2_normalize(txt_features)

@@ -53,12 +53,16 @@ def create_model(
     output_all: bool = False,
     attentional_pool: bool = False,
     add_zero_attn: bool = False,
+    act_approx: bool = False,
+    text_bucket: int = 0,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
     **overrides: Any,
 ) -> CLIP:
     """Build a native-ViT CLIP config (e.g. ViT-B-16, ViT-B-32) with random
-    weights from ``seed``.  ``overrides`` follow ``build_clip_cfg``."""
+    weights from ``seed``.  ``act_approx`` picks the tanh GELU,
+    ``text_bucket > 0`` the length-bucketed text tower of the COSMOS
+    training forward.  ``overrides`` follow ``build_clip_cfg``."""
     dev = resolve_device(device)
     if output_all:
         overrides["output_all"] = True
@@ -67,6 +71,7 @@ def create_model(
     if add_zero_attn:
         overrides["add_zero_attn"] = True
     cfg = build_clip_cfg(model_name, overrides)
-    model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision))
+    model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
+                 act_approx=act_approx, text_bucket=text_bucket)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -4,7 +4,8 @@ Each kernel source under ``ops/csrc/`` has a plain C interface.  It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/cosmos_tpu_torch/`` at the root of the checkout, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged one
-loads the library already there.  Nothing here runs at import time.
+loads the library already there.  Each source has its own lock, so several
+sources compile at once (``build_all``).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosmos_tpu_torch"
@@ -27,7 +29,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()                 # guards _source_locks
+_source_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each library built by
 # this process, by source name
@@ -51,6 +54,8 @@ def find_nvcc() -> str:
 def load_kernel_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content hash) and load it."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         if source in _loaded:
             return _loaded[source]
         src = CSRC / source
@@ -74,3 +79,12 @@ def load_kernel_library(source: str) -> ctypes.CDLL:
             os.replace(tmp, lib_path)
         _loaded[source] = ctypes.CDLL(str(lib_path))
         return _loaded[source]
+
+
+def build_all(sources: Iterable[str]) -> None:
+    """Compile (or load) several sources, one nvcc process for each, all
+    started together."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        for _ in pool.map(load_kernel_library, sources):
+            pass
