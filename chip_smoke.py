@@ -8,8 +8,9 @@ and nvcc.  It builds every CUDA kernel of the serving and training paths
 from the sources in the checkout and then:
 
   1. prints the card, its power limit and the torch / CUDA versions;
-  2. builds the packed-QKV attention forward (K1) and backward (K2), one
-     nvcc each, started together, and prints the build time and ptxas's
+  2. builds every kernel of the port, the packed-QKV attention forward
+     (K1) and backward (K2) and the fused-LayerNorm kernels K3-K6, one nvcc
+     each, started together, and prints the build time and ptxas's
      register and spill lines;
   3. holds K1 to its plain PyTorch version at the serving path's
      geometries in float32 and bfloat16, and times K1, the plain version
@@ -30,10 +31,28 @@ from the sources in the checkout and then:
      tanh GELU, text bucket 32, per-card batch 64 with 2 global 224px, 6
      local 96px crops and 8 caption views) for 3 + 10 steps on a fixed
      synthetic batch, checks finite, falling loss, the logit-scale clamp
-     and K1's and K2's launches per step, and times the 10 steps;
+     and the launches of every kernel per step (K1 and K2; none of
+     K3-K6), and times the 10 steps;
   8. takes one training step of the same recipe, 2 layers per tower, batch
      2, float32, on the card and on the CPU from the same weights, and
-     compares the loss, gradients and updated student and teacher.
+     compares the loss, gradients and updated student and teacher;
+  9. holds the fused-LayerNorm kernels to their plain versions at the
+     training step's LayerNorm geometries in float32 and bfloat16: K3
+     (forward), K4 (backward), K5 (LayerNorm -> QKV projection) and K6
+     (LayerNorm -> MLP; tanh GELU, plus one geometry per other
+     activation), and times each beside its plain version, the stock
+     composition as a yardstick (F.layer_norm, its autograd backward,
+     F.layer_norm + F.linear, F.layer_norm + F.linear + F.gelu + F.linear)
+     and its bound;
+ 10. trains full-width ViT-B-16 COSMOS in bfloat16 (phase 7's recipe) for
+     3 + 5 steps under each setting of the fused-LayerNorm paths: (a)
+     layers.FUSED_LN, (b) layers.HYBRID_LN, (c) fuse_ln=True with
+     FUSED_LN; checks finite, falling losses, the clamps, every student
+     gradient and the exact launches of K1-K6 per step (derived from the
+     step's tower calls), and prints ms per step, samples/s, peak memory
+     and a profile beside phase 7's step;
+ 11. repeats phase 8's 2-layer float32 step, card against CPU, under each
+     of (a)-(c).
 
 Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
@@ -43,6 +62,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -94,8 +114,6 @@ STUDENT_CALLS = {"vision globals": 12, "vision 96px locals": 12,
                  "text head views": 12, "text short bucket": 12,
                  "text long quarter": 12}
 TEACHER_CALLS = {"vision globals": 12, "text head views": 12}
-K1_PER_STEP = sum(STUDENT_CALLS.values()) + sum(TEACHER_CALLS.values())  # 84
-K2_PER_STEP = sum(STUDENT_CALLS.values())                                # 60
 TRAIN_RECIPE = dict(cosmos=True, output_all=True, attentional_pool=True,
                     add_zero_attn=True, act_approx=True, text_bucket=32)
 # the serving phase's tower calls: 256 images at 224px, 256 captions whose
@@ -114,6 +132,31 @@ KERNEL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
 # of gradients |g| < 4 plus 1% relative, as for K1
 KERNEL_BWD_TOL = {torch.float32: (1e-4, 1e-4),
                   torch.bfloat16: (1.6e-2, 1e-2)}
+# (label, B, L, D): the training step's LayerNorm inputs at a per-card
+# batch of 64; K5 and K6 take the same rows flattened (R = B * L)
+LN_GEOMETRIES = [
+    ("vision globals", 128, 197, 768),
+    ("vision 96px locals", 384, 37, 768),
+    ("text head views", 128, 77, 512),
+    ("text short bucket", 288, 32, 512),
+    ("text long quarter", 96, 77, 512),
+]
+LN_MAIN = ("vision globals", torch.bfloat16)
+# K6's other activations, each at one geometry in bfloat16
+MLP_EXTRA_ACTS = (("gelu", "vision 96px locals"),
+                  ("quick_gelu", "text head views"))
+# fused-LayerNorm kernels vs their plain versions on the same card.
+# Tensors in the compute dtype (y, dx, the K5/K6 outputs): float32, the
+# row sums in another order (measured ~5e-6 on |o| < 12); bfloat16, a last
+# float32 bit can move one rounding: one bf16 ulp of |o| < 4 plus 1%
+# relative, as for K1.  float32 statistics (mean, rstd): 1e-5.  dscale and
+# dbias: float32 sums over up to 25216 rows in another order (measured
+# 1.8e-4 on |v| ~ 600): 1e-2 + 1e-5 |v|.
+LN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1.6e-2, 1e-2)}
+STATS_TOL = (1e-5, 1e-5)
+PARAM_GRAD_TOL = (1e-2, 1e-5)
+# the settings of the fused-LayerNorm paths (phases 10 and 11)
+LN_SETTINGS = ("FUSED_LN", "HYBRID_LN", "fuse_ln")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -134,6 +177,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes: float, ops: float, op_dtype):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[op_dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def attention_bound(b, l, d, causal, dtype):
     """(bound_ms, bound_by, bytes, ops) for one forward call: qkv read once
     and the output written once; QK^T and P.V over the key positions this
@@ -141,9 +192,7 @@ def attention_bound(b, l, d, causal, dtype):
     nbytes = 4 * b * l * d * torch.tensor([], dtype=dtype).element_size()
     pairs = l * (l + 1) // 2 if causal else l * l
     ops = 4 * b * pairs * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return (*_bound(nbytes, ops, dtype), nbytes, ops)
 
 
 def attention_bwd_bound(b, l, d, causal, dtype):
@@ -154,9 +203,7 @@ def attention_bwd_bound(b, l, d, causal, dtype):
     nbytes = 7 * b * l * d * torch.tensor([], dtype=dtype).element_size()
     pairs = l * (l + 1) // 2 if causal else l * l
     ops = 10 * b * pairs * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return (*_bound(nbytes, ops, dtype), nbytes, ops)
 
 
 def _within(got, want, tol):
@@ -177,13 +224,16 @@ def phase_card() -> str:
     return smi.splitlines()[0]
 
 
-def phase_build(fa, kernel_build) -> float:
+def phase_build(kernel_build, modules) -> float:
+    """Every kernel of the port, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    fa.build()
+    kernel_build.build_all()
+    for module in modules:
+        module.build()            # binds the libraries just built
     seconds = time.perf_counter() - t0
-    print(f"[build] K1 {fa.SOURCE} and K2 {fa.SOURCE_BWD} ready in "
+    print(f"[build] K1-K6 ({', '.join(kernel_build.SOURCES)}) ready in "
           f"{seconds:.2f} s")
-    for source in (fa.SOURCE, fa.SOURCE_BWD):
+    for source in kernel_build.SOURCES:
         for line in kernel_build.build_logs.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {source}: {line.strip()}")
@@ -232,6 +282,145 @@ def phase_kernel(fa):
                   f"sdpa={library_ms:.4f} ms bound={bound_ms:.4f} ms "
                   f"({bound_by}) {row['tflops']:.1f} TFLOP/s")
             del x, got, want, q, k, v
+    return rows
+
+
+def _held(what: str, got, want, tol) -> float:
+    ok, err = _within(got, want, tol)
+    check(ok, f"{what}: max err {err} (tolerance {tol})")
+    return err
+
+
+def phase_ln_kernels(K):
+    """K3-K6 against their plain versions at the training step's
+    LayerNorm geometries, float32 and bfloat16, and timed beside their
+    plain versions, the stock composition (yardstick only) and bounds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    f32 = torch.float32
+    rows = []
+
+    def rand(*shape, scale=1.0, shift=0.0, dtype=f32):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale
+                + shift).to(dtype)
+
+    def add(kernel, label, dtype, shape, errs, fn, plain, library, nbytes,
+            ops, op_dtype, iters=20, **extra):
+        ms = time_ms(fn, iters=iters)
+        plain_ms = time_ms(plain, iters=max(iters // 4, 3))
+        library_ms = time_ms(library, iters=iters)
+        bound_ms, bound_by = _bound(nbytes, ops, op_dtype)
+        row = dict(kernel=kernel, label=label, shape=list(shape),
+                   dtype=str(dtype).replace("torch.", ""),
+                   max_abs_err=max(errs.values()), errs=errs, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   ops=ops, x_bound=ms / bound_ms, **extra)
+        rows.append(row)
+        print(f"[ln-kernels] {kernel} {label:18s} {row['dtype']:8s} "
+              f"{list(shape)} {extra.get('act', '')} err "
+              + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+              + f" | {kernel}={ms:.4f} ms plain={plain_ms:.4f} ms "
+              f"stock={library_ms:.4f} ms bound={bound_ms:.4f} ms "
+              f"({bound_by}, x{row['x_bound']:.1f})")
+
+    for label, b, l, d in LN_GEOMETRIES:
+        r, o, hd = b * l, 3 * d, 4 * d
+        for dtype in (f32, torch.bfloat16):
+            isz = torch.tensor([], dtype=dtype).element_size()
+            tol = LN_TOL[dtype]
+            x = rand(b, l, d, scale=2.0, shift=0.5, dtype=dtype)
+            s, sh = rand(d, shift=1.0), rand(d)
+            s_c, sh_c = s.to(dtype), sh.to(dtype)
+
+            # K3: forward, with the float32 statistics
+            y, mean, rstd = K.ln.layer_norm_fwd(x, s, sh)
+            yr, mr, rr = K.ln.layer_norm_fwd_reference(x, s, sh)
+            torch.cuda.synchronize()
+            errs = {"y": _held(f"K3 y {label} {dtype}", y, yr, tol),
+                    "mean": _held(f"K3 mean {label} {dtype}", mean, mr,
+                                  STATS_TOL),
+                    "rstd": _held(f"K3 rstd {label} {dtype}", rstd, rr,
+                                  STATS_TOL)}
+            add("K3", label, dtype, x.shape, errs,
+                lambda: K.ln.layer_norm_fwd(x, s, sh),
+                lambda: K.ln.layer_norm_fwd_reference(x, s, sh),
+                lambda: F.layer_norm(x, (d,), s_c, sh_c),
+                2 * r * d * isz + 2 * d * 4 + 2 * r * 4, 7 * r * d, f32)
+
+            # K4: backward from the saved statistics
+            g = rand(b, l, d, dtype=dtype)
+            dx, ds, db = K.ln.layer_norm_bwd(x, s, mr, rr, g)
+            dxr, dsr, dbr = K.ln.layer_norm_bwd_reference(x, s, mr, rr, g)
+            torch.cuda.synchronize()
+            errs = {"dx": _held(f"K4 dx {label} {dtype}", dx, dxr, tol),
+                    "dscale": _held(f"K4 dscale {label} {dtype}", ds, dsr,
+                                    PARAM_GRAD_TOL),
+                    "dbias": _held(f"K4 dbias {label} {dtype}", db, dbr,
+                                   PARAM_GRAD_TOL)}
+            xl = x.detach().requires_grad_(True)
+            wl = s_c.detach().requires_grad_(True)
+            bl = sh_c.detach().requires_grad_(True)
+            yl = F.layer_norm(xl, (d,), wl, bl)
+            add("K4", label, dtype, x.shape, errs,
+                lambda: K.ln.layer_norm_bwd(x, s, mr, rr, g),
+                lambda: K.ln.layer_norm_bwd_reference(x, s, mr, rr, g),
+                lambda: torch.autograd.grad(yl, (xl, wl, bl), g,
+                                            retain_graph=True),
+                3 * r * d * isz + 2 * r * 4 + 3 * d * 4, 12 * r * d, f32)
+            del y, yr, dx, dxr, xl, wl, bl, yl, g
+
+            # K5: LayerNorm -> packed QKV projection
+            x2 = x.view(r, d)
+            w = rand(o, d, scale=d ** -0.5, dtype=dtype)
+            bias = rand(o).to(dtype).float()
+            out = K.lm.ln_matmul_fwd(x2, s, sh, w, bias)
+            want = K.lm.ln_matmul_reference(x2, s, sh, w, bias)
+            torch.cuda.synchronize()
+            errs = {"out": _held(f"K5 {label} {dtype}", out, want, tol)}
+            bias_c = bias.to(dtype)
+            add("K5", label, dtype, (r, d, o), errs,
+                lambda: K.lm.ln_matmul_fwd(x2, s, sh, w, bias),
+                lambda: K.lm.ln_matmul_reference(x2, s, sh, w, bias),
+                lambda: F.linear(F.layer_norm(x2, (d,), s_c, sh_c), w,
+                                 bias_c),
+                (r * d + o * d + r * o) * isz + (2 * d + o) * 4,
+                2 * r * d * o, dtype, iters=5 if dtype == f32 else 20)
+            del out, want, w
+
+            # K6: LayerNorm -> c_fc -> act -> c_proj
+            w1 = rand(hd, d, scale=d ** -0.5, dtype=dtype)
+            w2 = rand(d, hd, scale=hd ** -0.5, dtype=dtype)
+            b1, b2 = rand(hd, scale=0.1), rand(d, scale=0.1)
+            b1_c, b2_c = b1.to(dtype), b2.to(dtype)
+            acts = ["gelu_tanh"] + [a for a, geo in MLP_EXTRA_ACTS
+                                    if geo == label and dtype != f32]
+            for act in acts:
+                out = K.mb.mlp_block_fwd(x2, s, sh, w1, b1, w2, b2, 1e-5, act)
+                want = K.mb.mlp_block_reference(x2, s, sh, w1, b1, w2, b2,
+                                                1e-5, act)
+                torch.cuda.synchronize()
+                errs = {"out": _held(f"K6 {act} {label} {dtype}", out, want,
+                                     tol)}
+                stock_act = {
+                    "gelu": F.gelu,
+                    "gelu_tanh": lambda h: F.gelu(h, approximate="tanh"),
+                    "quick_gelu": lambda h: h * torch.sigmoid(1.702 * h)}[act]
+                add("K6", label, dtype, (r, d, hd), errs,
+                    lambda: K.mb.mlp_block_fwd(x2, s, sh, w1, b1, w2, b2,
+                                               1e-5, act),
+                    lambda: K.mb.mlp_block_reference(x2, s, sh, w1, b1, w2,
+                                                     b2, 1e-5, act),
+                    lambda: F.linear(stock_act(F.linear(
+                        F.layer_norm(x2, (d,), s_c, sh_c), w1, b1_c)), w2,
+                        b2_c),
+                    (2 * r * d + 2 * d * hd) * isz + (3 * d + hd) * 4,
+                    4 * r * d * hd, dtype, iters=3 if dtype == f32 else 10,
+                    act=act)
+                del out, want
+            del x, x2, w1, w2
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -487,6 +676,10 @@ def _train_setup(model, lr, dtype):
 KERNEL_CLASSES = (
     ("K1", ("fused_attention_fwd_kernel",)),
     ("K2", ("attention_bwd_rows_kernel", "attention_bwd_cols_kernel")),
+    ("K3", ("layer_norm_fwd_kernel",)),
+    ("K4", ("layer_norm_bwd_rows_kernel", "layer_norm_bwd_reduce_kernel")),
+    ("K5", ("ln_matmul_kernel",)),
+    ("K6", ("mlp_block_kernel",)),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "wgmma",
                 "sm90_")),
     ("optimizer and EMA", ("multi_tensor_apply", "foreach")),
@@ -527,23 +720,76 @@ def _profile_steps(step, state, batch, n: int = 2):
                 n_kernel_names=len(kernels))
 
 
-def phase_train(fa, bwd_rows):
-    """Full-width ViT-B-16 COSMOS training in bfloat16 at a per-card batch
-    of 64; ``bwd_rows`` are the K2 phase's measurements."""
-    from cosmos_tpu_torch import create_model
+def _counters(K):
+    """(module, attribute) of each kernel's launch count."""
+    return {"K1": (K.fa, "launches"), "K2": (K.fa, "launches_bwd"),
+            "K3": (K.ln, "launches"), "K4": (K.ln, "launches_bwd"),
+            "K5": (K.lm, "launches"), "K6": (K.mb, "launches")}
+
+
+def zero_launches(K) -> None:
+    for module, attr in _counters(K).values():
+        setattr(module, attr, 0)
+
+
+def read_launches(K) -> dict:
+    return {k: getattr(m, a) for k, (m, a) in _counters(K).items()}
+
+
+def step_launches(setting, layers: int, b: int) -> dict:
+    """Launches of K1-K6 in one training step of the recipe at per-card
+    batch ``b`` with ``layers`` blocks per tower, under ``setting`` (None:
+    the default path; or one of LN_SETTINGS), derived from the step's
+    tower calls: the student's globals, locals, caption head views and
+    the text bucket's short three quarters and long quarter of the other
+    6b views (all with a gradient), the teacher's globals and head views
+    (without), and the student's two cross poolers (ln_q and ln_k each,
+    batch b).  A LayerNorm takes K3/K4 only where ``supported`` holds:
+    every width here is a multiple of 128, so where the batch is even."""
+    n = 6 * b
+    short = n * 3 // 4
+    calls = [("vision", 2 * b, True), ("vision", 6 * b, True),
+             ("text", 2 * b, True), ("text", short, True),
+             ("text", n - short, True),
+             ("vision", 2 * b, False), ("text", 2 * b, False)]
+    fuse = setting == "fuse_ln"
+    k3 = setting in ("FUSED_LN", "fuse_ln")
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    for tower, batch, grad in calls:
+        out["K1"] += layers
+        out["K2"] += layers * grad
+        if fuse:
+            out["K5"] += layers
+            out["K6"] += layers
+        # ln_pre and ln_post, or ln_final; the blocks' ln_1 and ln_2 unless
+        # they are fused into K5 and K6
+        lns = (2 if tower == "vision" else 1) + (0 if fuse else 2 * layers)
+        if setting and batch % 2 == 0:
+            out["K3"] += lns * k3
+            out["K4"] += lns * grad
+    if setting and b % 2 == 0:
+        out["K3"] += 4 * k3
+        out["K4"] += 4
+    return out
+
+
+def _train_steps(K, model, warmup: int, timed: int, expected: dict,
+                 tag: str, profile_steps: int):
+    """``warmup`` + ``timed`` steps of the recipe at batch 64 on one fixed
+    synthetic batch; checks finite, falling losses, the clamps, every
+    student gradient and ``expected`` launches of K1-K6 per step; then a
+    profile of ``profile_steps`` steps."""
     from cosmos_tpu_torch.training.scheduler import cosine_lr
     from cosmos_tpu_torch.training.train import LN100
 
-    b, warmup, timed = 64, 3, 10
-    model = create_model("ViT-B-16", "bf16", device="cuda", seed=0,
-                         **TRAIN_RECIPE)
+    b = 64
     step, state = _train_setup(model, cosine_lr(5e-4, 2000, 100000),
                                torch.bfloat16)
     batch = _train_batch(b, seed=20, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches = fa.launches_bwd = 0
+    zero_launches(K)
     metrics = [step(state, batch) for _ in range(warmup)]
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -554,93 +800,161 @@ def phase_train(fa, bwd_rows):
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    k1, k2 = fa.launches, fa.launches_bwd
+    launches = read_launches(K)
     n = warmup + timed
     step_ms = start.elapsed_time(end) / timed
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     losses = [m["loss"].item() for m in metrics]
-    print(f"[train] losses {' '.join(f'{x:.5f}' for x in losses)}")
+    print(f"[{tag}] losses {' '.join(f'{x:.5f}' for x in losses)}")
     check(all(np.isfinite(losses)), f"finite losses {losses}")
     check(losses[-1] < losses[0], f"loss falls over {n} steps: {losses}")
     for name in ("logit_scale", "distill_logit_scale"):
         for module in (state.student, state.teacher):
             v = getattr(module, name).item()
             check(0.0 <= v <= LN100, f"{name} = {v} outside [0, ln 100]")
-    print(f"[train] K1 launches {k1} (expected {K1_PER_STEP} x {n}), "
-          f"K2 launches {k2} (expected {K2_PER_STEP} x {n})")
-    check(k1 == K1_PER_STEP * n and k2 == K2_PER_STEP * n,
-          "K1 / K2 launches per training step")
+    want = {k: v * n for k, v in expected.items()}
+    print(f"[{tag}] launches over {n} steps {launches} (expected {want}: "
+          f"{expected} per step)")
+    check(launches == want, f"{tag}: K1-K6 launches per training step")
     missing = [p for p, t in state.student.named_parameters() if t.grad is None]
     check(not missing, f"student parameters without a gradient: {missing}")
-    profile = _profile_steps(step, state, batch)
+    profile = _profile_steps(step, state, batch, profile_steps)
     if profile["busy_share"] is None:
-        print("[train] profiler: no device time recorded (busy share not "
+        print(f"[{tag}] profiler: no device time recorded (busy share not "
               "measured)")
     else:
-        print(f"[train] profiler, per step: window {profile['window_ms_per_step']:.3f} ms, "
-              f"device busy {profile['device_ms_per_step']:.3f} ms "
-              f"(share {profile['busy_share']:.3f}); " + "; ".join(
+        print(f"[{tag}] profiler, per step: window "
+              f"{profile['window_ms_per_step']:.3f} ms, device busy "
+              f"{profile['device_ms_per_step']:.3f} ms (share "
+              f"{profile['busy_share']:.3f}); " + "; ".join(
                   f"{k} {v:.3f} ms" for k, v in profile["by_class_ms"].items()))
         for k, v in profile["top_kernels_ms"].items():
-            print(f"[train]   {v:8.3f} ms  {k[:110]}")
-
-    by = {r["label"]: r for r in bwd_rows if r["dtype"] == "bfloat16"}
-    k1_ms = sum(c * by[g]["k1_ms"] for calls in (STUDENT_CALLS, TEACHER_CALLS)
-                for g, c in calls.items())
-    k2_ms = sum(c * by[g]["ms"] for g, c in STUDENT_CALLS.items())
+            print(f"[{tag}]   {v:8.3f} ms  {k[:110]}")
     out = dict(batch=b, steps=n, timed_steps=timed, step_ms=step_ms,
                samples_per_s=b / step_ms * 1e3, wall_s=wall_s,
-               losses=losses, k1_launches=k1, k2_launches=k2,
-               k1_ms_per_step=k1_ms, k2_ms_per_step=k2_ms,
-               k1_share=k1_ms / step_ms, k2_share=k2_ms / step_ms,
+               losses=losses, launches=launches, launches_per_step=expected,
                peak_mem_gb=peak_gb,
                logit_scale=state.student.logit_scale.item(),
                lr_last=metrics[-1]["lr"], profile=profile,
                busy_share_of_step=(profile["device_ms_per_step"] / step_ms
                                    if profile["busy_share"] is not None
                                    else None))
-    print(f"[train] ViT-B-16 COSMOS bf16 batch {b}: {step_ms:.3f} ms/step, "
+    print(f"[{tag}] ViT-B-16 COSMOS bf16 batch {b}: {step_ms:.3f} ms/step, "
           f"{out['samples_per_s']:.1f} samples/s, peak memory {peak_gb:.2f} GB")
+    del state, step, batch
+    return out
+
+
+def phase_train(K, bwd_rows):
+    """Full-width ViT-B-16 COSMOS training in bfloat16 at a per-card batch
+    of 64, the default path; ``bwd_rows`` are the K2 phase's
+    measurements."""
+    from cosmos_tpu_torch import create_model
+
+    model = create_model("ViT-B-16", "bf16", device="cuda", seed=0,
+                         **TRAIN_RECIPE)
+    out = _train_steps(K, model, 3, 10, step_launches(None, 12, 64),
+                       "train", 2)
+    out["k1_launches"] = out["launches"]["K1"]
+    out["k2_launches"] = out["launches"]["K2"]
+    by = {r["label"]: r for r in bwd_rows if r["dtype"] == "bfloat16"}
+    k1_ms = sum(c * by[g]["k1_ms"] for calls in (STUDENT_CALLS, TEACHER_CALLS)
+                for g, c in calls.items())
+    k2_ms = sum(c * by[g]["ms"] for g, c in STUDENT_CALLS.items())
+    step_ms = out["step_ms"]
+    out.update(k1_ms_per_step=k1_ms, k2_ms_per_step=k2_ms,
+               k1_share=k1_ms / step_ms, k2_share=k2_ms / step_ms)
     print(f"[train] per step: K1 {k1_ms:.3f} ms (share {out['k1_share']:.3f}), "
           f"K2 {k2_ms:.3f} ms (share {out['k2_share']:.3f}), from per-call "
           f"times x launches; profiled device time over the unprofiled "
           f"step: {out['busy_share_of_step']}")
-    del model, state, step, batch
+    del model
     torch.cuda.empty_cache()
     return out
 
 
-def phase_train_card_vs_cpu(fa):
+@contextlib.contextmanager
+def ln_setting(setting):
+    """Turn on the toggles of one fused-LayerNorm setting (None: none);
+    yields whether the model is built with fuse_ln."""
+    from cosmos_tpu_torch.models import layers
+
+    layers.FUSED_LN = setting in ("FUSED_LN", "fuse_ln")
+    layers.HYBRID_LN = setting == "HYBRID_LN"
+    try:
+        yield setting == "fuse_ln"
+    finally:
+        layers.FUSED_LN = layers.HYBRID_LN = False
+
+
+def phase_train_ln(K, default):
+    """Phase 7's training under each fused-LayerNorm setting, 3 + 5 steps;
+    ``default`` is phase 7's result."""
+    from cosmos_tpu_torch import create_model
+
+    out = {}
+    for setting in LN_SETTINGS:
+        tag = f"train-{setting}"
+        with ln_setting(setting) as fuse:
+            model = create_model("ViT-B-16", "bf16", device="cuda", seed=0,
+                                 fuse_ln=fuse, **TRAIN_RECIPE)
+            run = _train_steps(K, model, 3, 5, step_launches(setting, 12, 64),
+                               tag, 1)
+        del model
+        torch.cuda.empty_cache()
+        run["step_vs_default"] = run["step_ms"] / default["step_ms"]
+        print(f"[{tag}] {run['step_ms']:.3f} ms/step, "
+              f"{run['samples_per_s']:.1f} samples/s, peak "
+              f"{run['peak_mem_gb']:.2f} GB; default path (phase 7) "
+              f"{default['step_ms']:.3f} ms/step, "
+              f"{default['samples_per_s']:.1f} samples/s, peak "
+              f"{default['peak_mem_gb']:.2f} GB; ratio "
+              f"{run['step_vs_default']:.3f}")
+        out[setting] = run
+    return out
+
+
+def phase_train_card_vs_cpu(K, setting=None):
     """One training step of the recipe, 2 layers per tower, batch 2, float32,
-    on the card (K1, K2) and on the CPU (plain versions), same weights."""
+    on the card (the kernels) and on the CPU (plain versions), same
+    weights, under one fused-LayerNorm setting (None: the default path)."""
     from cosmos_tpu_torch import create_model
     from cosmos_tpu_torch.training.scheduler import const_lr
 
+    tag = "train-card-vs-cpu" + (f"-{setting}" if setting else "")
+    expected = step_launches(setting, 2, 2)
     lr = 1e-4
-    cpu_model = create_model("ViT-B-16", "fp32", device="cpu", seed=7,
-                             vision_layers=2, text_layers=2, **TRAIN_RECIPE)
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
-    batch = _train_batch(2, seed=21, device="cpu")
-    runs = {}
-    for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
-        step, state = _train_setup(model, const_lr(lr, 0, 100), torch.float32)
-        before = (fa.launches, fa.launches_bwd)
-        m = step(state, {k: v.to(dev) for k, v in batch.items()})
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            # 2 layers per tower: student 5 calls, teacher 2
-            check((fa.launches - before[0], fa.launches_bwd - before[1])
-                  == (2 * 7, 2 * 5), "K1 / K2 launches in the 2-layer step")
-        missing = [n for n, p in model.named_parameters() if p.grad is None]
-        check(not missing, f"{dev}: parameters without a gradient {missing}")
-        runs[dev] = dict(
-            loss=m["loss"].item(),
-            grads={n: p.grad.detach().cpu()
-                   for n, p in model.named_parameters()},
-            student={k: v.cpu() for k, v in state.student.state_dict().items()},
-            teacher={k: v.cpu() for k, v in state.teacher.state_dict().items()})
+    with ln_setting(setting) as fuse:
+        cpu_model = create_model("ViT-B-16", "fp32", device="cpu", seed=7,
+                                 vision_layers=2, text_layers=2, fuse_ln=fuse,
+                                 **TRAIN_RECIPE)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+        batch = _train_batch(2, seed=21, device="cpu")
+        runs = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            step, state = _train_setup(model, const_lr(lr, 0, 100),
+                                       torch.float32)
+            zero_launches(K)
+            m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                got = read_launches(K)
+                check(got == expected, f"{tag}: launches {got}, expected "
+                      f"{expected}")
+            missing = [n for n, p in model.named_parameters()
+                       if p.grad is None]
+            check(not missing,
+                  f"{dev}: parameters without a gradient {missing}")
+            runs[dev] = dict(
+                loss=m["loss"].item(),
+                grads={n: p.grad.detach().cpu()
+                       for n, p in model.named_parameters()},
+                student={k: v.cpu()
+                         for k, v in state.student.state_dict().items()},
+                teacher={k: v.cpu()
+                         for k, v in state.teacher.state_dict().items()})
     cpu, gpu = runs["cpu"], runs["cuda"]
     errs = {"loss": abs(gpu["loss"] - cpu["loss"])}
     check(errs["loss"] <= 1e-4 * abs(cpu["loss"]),
@@ -664,7 +978,7 @@ def phase_train_card_vs_cpu(fa):
         check(err <= 2 * lr, f"updated {which} card vs CPU: max err {err}")
     moved = max((cpu["student"][k] - init[k]).abs().max().item() for k in init)
     check(moved > 0.5 * lr, "the step moved the student")
-    print("[train-card-vs-cpu] max abs err " + " ".join(
+    print(f"[{tag}] max abs err " + " ".join(
         f"{k}={v:.3g}" for k, v in errs.items()))
     return errs
 
@@ -677,21 +991,30 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from cosmos_tpu_torch.ops import build as kernel_build
     from cosmos_tpu_torch.ops import fused_attention as fa
+    from cosmos_tpu_torch.ops.experimental import layer_norm as ln
+    from cosmos_tpu_torch.ops.experimental import ln_matmul as lm
+    from cosmos_tpu_torch.ops.experimental import mlp_block as mb
 
+    K = SimpleNamespace(fa=fa, ln=ln, lm=lm, mb=mb)
     t0 = time.perf_counter()
     card = phase_card()
-    build_s = phase_build(fa, kernel_build)
+    build_s = phase_build(kernel_build, (fa, ln, lm, mb))
     rows = phase_kernel(fa)
     serving = phase_serving(fa, rows)
     card_vs_cpu = phase_card_vs_cpu(fa)
     bwd_rows, function_errs = phase_kernel_bwd(fa)
-    train = phase_train(fa, bwd_rows)
-    train_card_vs_cpu = phase_train_card_vs_cpu(fa)
+    train = phase_train(K, bwd_rows)
+    train_card_vs_cpu = phase_train_card_vs_cpu(K)
+    ln_rows = phase_ln_kernels(K)
+    train_ln = phase_train_ln(K, train)
+    train_ln_card_vs_cpu = {s: phase_train_card_vs_cpu(K, s)
+                            for s in LN_SETTINGS}
 
-    def pick(table, geometry):
+    def pick(table, geometry, **match):
         label, dtype = geometry
         return next(r for r in table if (r["label"], r["dtype"]) == (
-            label, str(dtype).replace("torch.", "")))
+            label, str(dtype).replace("torch.", ""))
+            and all(r.get(k) == v for k, v in match.items()))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype")
@@ -701,25 +1024,52 @@ def main() -> int:
         "route": "cuda",
         "source": "cosmos_tpu_torch/ops/csrc/fused_attention_fwd.cu",
         "replaces": "cosmos_tpu/ops/fused_attention.py:101",
-        # the main paths' runs: serving (phase 4) and training (phase 7)
-        "launches": serving["launches"] + train["k1_launches"],
+        # the main paths' runs: serving (phase 4), training (phases 7, 10)
+        "launches": serving["launches"] + train["k1_launches"] + sum(
+            r["launches"]["K1"] for r in train_ln.values()),
         "launches_by_path": {"serving": serving["launches"],
-                             "training": train["k1_launches"]},
+                             "training": train["k1_launches"],
+                             **{f"training {s}": r["launches"]["K1"]
+                                for s, r in train_ln.items()}},
         **{k: k1_row[k] for k in keys},
     }, {
         "name": "fused_attention_qkv_bwd",
         "route": "cuda",
         "source": "cosmos_tpu_torch/ops/csrc/fused_attention_bwd.cu",
         "replaces": "cosmos_tpu/ops/fused_attention.py:190",
-        "launches": train["k2_launches"],
-        "launches_by_path": {"training": train["k2_launches"]},
+        "launches": train["k2_launches"] + sum(
+            r["launches"]["K2"] for r in train_ln.values()),
+        "launches_by_path": {"training": train["k2_launches"],
+                             **{f"training {s}": r["launches"]["K2"]
+                                for s, r in train_ln.items()}},
         **{k: k2_row[k] for k in keys},
     }]
+    for key, name, source, replaces, match in (
+            ("K3", "layer_norm_fwd", "layer_norm_fwd.cu",
+             "cosmos_tpu/ops/experimental/layer_norm.py:40", {}),
+            ("K4", "layer_norm_bwd", "layer_norm_bwd.cu",
+             "cosmos_tpu/ops/experimental/layer_norm.py:57", {}),
+            ("K5", "ln_matmul_fwd", "ln_matmul.cu",
+             "cosmos_tpu/ops/experimental/ln_matmul.py:59", {}),
+            ("K6", "mlp_block_fwd", "mlp_block.cu",
+             "cosmos_tpu/ops/experimental/mlp_block.py:70",
+             {"act": "gelu_tanh"})):
+        row = pick(ln_rows, LN_MAIN, kernel=key, **match)
+        by_path = {f"training {s}": r["launches"][key]
+                   for s, r in train_ln.items()}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"cosmos_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, **{k: row[k] for k in keys}})
+        check(kernels[-1]["launches"] > 0, f"{key} never launched")
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
                   serving=serving, card_vs_cpu=card_vs_cpu,
                   kernel_bwd_rows=bwd_rows, function_card_vs_cpu=function_errs,
                   train=train, train_card_vs_cpu=train_card_vs_cpu,
+                  ln_kernel_rows=ln_rows, train_ln=train_ln,
+                  train_ln_card_vs_cpu=train_ln_card_vs_cpu,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

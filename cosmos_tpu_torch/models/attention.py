@@ -6,6 +6,8 @@
 not, with no additive mask and no zero-attention slot, goes through the
 packed-QKV kernel (``ops.fused_attention``), which reads the projection's
 ``[B, L, 3D]`` output directly, when the head dim is one the kernel takes.
+With ``ln=(scale, bias)`` (the blocks' ``fuse_ln``) the projection is K5,
+the preceding LayerNorm fused into it (``ops.experimental.ln_matmul``).
 Cross-attention, ``add_zero_attn`` and additive masks use plain torch ops
 with the JAX package's XLA-path semantics: logits in the compute dtype,
 softmax reduced in float32.
@@ -13,12 +15,13 @@ softmax reduced in float32.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.experimental.ln_matmul import ln_matmul
 from ..ops.fused_attention import fused_attention_qkv, supported
 from .layers import LayerNorm, Linear
 
@@ -75,16 +78,28 @@ class MultiheadAttention(nn.Module):
         kv: Optional[torch.Tensor] = None,
         mask: Optional[torch.Tensor] = None,
         causal: bool = False,
+        ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
+        """``ln=(scale, bias)``: fuse the preceding LayerNorm into the packed
+        QKV projection (K5, ``ops.experimental.ln_matmul``); ``x`` is then
+        the un-normalised residual stream.  Self-attention only."""
         d = self.dim
-        w = self.in_proj_weight.to(self.dtype)
-        bias = self.in_proj_bias.to(self.dtype)
         xc = x.to(self.dtype)
+        if ln is not None:
+            if kv is not None:
+                raise ValueError("the fused LayerNorm -> QKV projection is a "
+                                 "self-attention path")
+            # K5 rounds the projection weight and bias to the compute dtype,
+            # as the JAX attention path casts them before ln_matmul
+            qkv = ln_matmul(xc, ln[0], ln[1], self.in_proj_weight,
+                            self.in_proj_bias)
+        elif kv is None:
+            qkv = F.linear(xc, self.in_proj_weight.to(self.dtype),
+                           self.in_proj_bias.to(self.dtype))
         if (kv is None and mask is None and not self.add_zero_attn
                 and supported(self.num_heads, d)):
             # packed path: the kernel reads every head by stride from the
             # row-major [B, L, 3D] projection output
-            qkv = F.linear(xc, w, bias)
             return self.out_proj(fused_attention_qkv(qkv, self.num_heads,
                                                      causal))
 
@@ -95,8 +110,10 @@ class MultiheadAttention(nn.Module):
             mask = torch.zeros(l_, l_, device=x.device).masked_fill(
                 above, -1e30)
         if kv is None:
-            q, k, v = F.linear(xc, w, bias).split(d, dim=-1)
+            q, k, v = qkv.split(d, dim=-1)
         else:
+            w = self.in_proj_weight.to(self.dtype)
+            bias = self.in_proj_bias.to(self.dtype)
             kvc = kv.to(self.dtype)
             q = F.linear(xc, w[:d], bias[:d])
             k = F.linear(kvc, w[d:2 * d], bias[d:2 * d])

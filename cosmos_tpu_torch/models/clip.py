@@ -5,7 +5,9 @@ Feature layout is views-major, as in the JAX package: V views of batch B
 are ``[V*B, ...]`` with view v at rows ``[v*B, (v+1)*B)``.
 
 ``text_bucket > 0`` turns on the length-bucketed text tower of the COSMOS
-training forward (``_bucketed_text_pooled``).
+training forward (``_bucketed_text_pooled``); ``fuse_ln=True`` runs the
+towers' blocks with their pre-LayerNorms fused into the QKV projection (K5)
+and the MLP (K6).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ class CLIP(nn.Module):
 
     def __init__(self, cfg: CLIPCfg, cosmos: bool = False,
                  dtype: torch.dtype = torch.float32, act_approx: bool = False,
-                 text_bucket: int = 0):
+                 text_bucket: int = 0, fuse_ln: bool = False):
         super().__init__()
         v, t = cfg.vision_cfg, cfg.text_cfg
         if (v.timm_model_name or isinstance(v.layers, (tuple, list))
@@ -63,8 +65,9 @@ class CLIP(nn.Module):
             output_dim=cfg.embed_dim, ls_init_value=v.ls_init_value,
             no_ln_pre=v.no_ln_pre, cross_pool=cross_pool,
             attn_pooler_heads=v.attn_pooler_heads,
-            add_zero_attn=v.add_zero_attn, act_fn=act, dtype=dtype)
-        add_text_tower(self, t, cfg.embed_dim, act, dtype)
+            add_zero_attn=v.add_zero_attn, act_fn=act, dtype=dtype,
+            fuse_ln=fuse_ln)
+        add_text_tower(self, t, cfg.embed_dim, act, dtype, fuse_ln)
         self.text_attn_cross_pool = (
             AttentionalCrossPooler(cfg.embed_dim, t.attn_pooler_heads,
                                    t.add_zero_attn, dtype)

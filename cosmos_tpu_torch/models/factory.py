@@ -55,6 +55,7 @@ def create_model(
     add_zero_attn: bool = False,
     act_approx: bool = False,
     text_bucket: int = 0,
+    fuse_ln: bool = False,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
     **overrides: Any,
@@ -62,7 +63,9 @@ def create_model(
     """Build a native-ViT CLIP config (e.g. ViT-B-16, ViT-B-32) with random
     weights from ``seed``.  ``act_approx`` picks the tanh GELU,
     ``text_bucket > 0`` the length-bucketed text tower of the COSMOS
-    training forward.  ``overrides`` follow ``build_clip_cfg``."""
+    training forward, ``fuse_ln`` the blocks' fused LayerNorm kernels (K5
+    before the QKV projection, K6 for the MLP; the state dict is the same).
+    ``overrides`` follow ``build_clip_cfg``."""
     dev = resolve_device(device)
     if output_all:
         overrides["output_all"] = True
@@ -72,6 +75,7 @@ def create_model(
         overrides["add_zero_attn"] = True
     cfg = build_clip_cfg(model_name, overrides)
     model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
-                 act_approx=act_approx, text_bucket=text_bucket)
+                 act_approx=act_approx, text_bucket=text_bucket,
+                 fuse_ln=fuse_ln)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

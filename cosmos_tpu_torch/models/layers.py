@@ -6,6 +6,17 @@ the compute dtype (``dtype``) at the same places the JAX modules do, so that
 a bfloat16 model rounds where the JAX package rounds.  LayerNorm always
 reduces in float32 and casts back to the input dtype.
 
+Two module-level toggles, off by default as in the JAX package, route
+LayerNorm through the fused kernels of ``ops.experimental.layer_norm`` for
+the inputs its ``supported`` accepts (3-D, D % 128 == 0, an even batch):
+
+- ``FUSED_LN``: K3 forward, K4 backward (checked first, as in JAX);
+- ``HYBRID_LN``: the plain forward, K4 backward.  In the JAX package it
+  takes effect only on the TPU (``_hybrid_ln_active``); here it takes
+  effect on CUDA and CPU tensors alike (on the CPU, K4's plain version).
+
+Set them before the forward, e.g. ``layers.FUSED_LN = True``.
+
 Every module with randomly drawn parameters of its own has
 ``init_weights(generator)``; ``models.factory.init_weights`` walks the model
 and calls each one in module order, so one ``torch.Generator`` seed fixes
@@ -14,11 +25,19 @@ every weight.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.experimental import layer_norm as fln
+from ..ops.experimental.mlp_block import mlp_block
+
+# LayerNorm through K3 forward and K4 backward (JAX: layers.py:34)
+FUSED_LN: bool = False
+# LayerNorm through the plain forward and K4 backward (JAX: layers.py:50)
+HYBRID_LN: bool = False
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -42,6 +61,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (FUSED_LN or HYBRID_LN) and fln.supported(x):
+            fn = fln.fused_layer_norm if FUSED_LN else fln.hybrid_layer_norm
+            return fn(x, self.weight, self.bias, self.eps)
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
         meansq = xf.square().mean(-1, keepdim=True)
@@ -96,6 +118,15 @@ def get_act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(f"unknown activation: {name}")
 
 
+def act_name(fn: Callable[[torch.Tensor], torch.Tensor]) -> str:
+    """Inverse of ``get_act_fn``: the fused MLP kernel takes the name."""
+    for name, f in (("gelu", gelu), ("gelu_tanh", gelu_tanh),
+                    ("quick_gelu", quick_gelu)):
+        if fn is f:
+            return name
+    raise ValueError(f"unregistered activation fn: {fn}")
+
+
 class LayerScale(nn.Module):
     """Per-channel learnable gain."""
 
@@ -118,7 +149,17 @@ class Mlp(nn.Module):
         self.c_fc = Linear(dim, hidden_dim, dtype=dtype)
         self.c_proj = Linear(hidden_dim, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``ln=(scale, bias)``: run LayerNorm → c_fc → act → c_proj as one
+        kernel (K6, ``ops.experimental.mlp_block``); ``x`` is then the
+        un-normalised input, and the biases stay float32 as in the fused
+        JAX kernel."""
+        if ln is not None:
+            return mlp_block(x, ln[0], ln[1], self.c_fc.weight,
+                             self.c_fc.bias, self.c_proj.weight,
+                             self.c_proj.bias, 1e-5, act_name(self.act_fn))
         return self.c_proj(self.act_fn(self.c_fc(x)))
 
 

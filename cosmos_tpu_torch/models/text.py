@@ -21,7 +21,7 @@ from .transformer import Transformer
 
 def add_text_tower(owner: nn.Module, cfg: TextCfg, output_dim: int,
                    act_fn: Callable[[torch.Tensor], torch.Tensor],
-                   dtype: torch.dtype) -> None:
+                   dtype: torch.dtype, fuse_ln: bool = False) -> None:
     """Register the text tower's parts on ``owner``."""
     if (cfg.embed_cls or cfg.proj_bias or cfg.hf_model_name
             or cfg.pool_type != "argmax"):
@@ -36,7 +36,7 @@ def add_text_tower(owner: nn.Module, cfg: TextCfg, output_dim: int,
         torch.empty(cfg.context_length, cfg.width))
     owner.transformer = Transformer(cfg.width, cfg.layers, cfg.heads,
                                     cfg.mlp_ratio, cfg.ls_init_value, act_fn,
-                                    dtype)
+                                    dtype, fuse_ln)
     owner.ln_final = LayerNorm(cfg.width)
     owner.text_projection = nn.Parameter(torch.empty(cfg.width, output_dim))
 

@@ -51,7 +51,7 @@ class VisionTransformer(nn.Module):
                  no_ln_pre: bool = False, cross_pool: bool = False,
                  attn_pooler_heads: int = 8, add_zero_attn: bool = False,
                  act_fn: Callable[[torch.Tensor], torch.Tensor] = gelu,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fuse_ln: bool = False):
         super().__init__()
         self.image_size = image_size
         self.patch_size = patch_size
@@ -67,7 +67,7 @@ class VisionTransformer(nn.Module):
             torch.empty(grid * grid + 1, width))
         self.ln_pre = nn.Identity() if no_ln_pre else LayerNorm(width)
         self.transformer = Transformer(width, layers, num_heads, mlp_ratio,
-                                       ls_init_value, act_fn, dtype)
+                                       ls_init_value, act_fn, dtype, fuse_ln)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
         self.attn_cross_pool = (

@@ -3,8 +3,9 @@
 Each kernel source under ``ops/csrc/`` has a plain C interface.  It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/cosmos_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads the library already there.  Each source has its own lock, so several
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads the library already
+there.  Each source has its own lock, so several
 sources compile at once (``build_all``).  Nothing here runs at import time.
 """
 
@@ -22,6 +23,11 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# every kernel of the port: K1, K2 (ops/fused_attention.py), K3, K4, K5, K6
+# (ops/experimental/)
+SOURCES = ("fused_attention_fwd.cu", "fused_attention_bwd.cu",
+           "layer_norm_fwd.cu", "layer_norm_bwd.cu", "ln_matmul.cu",
+           "mlp_block.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosmos_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,8 +65,10 @@ def load_kernel_library(source: str) -> ctypes.CDLL:
         if source in _loaded:
             return _loaded[source]
         src = CSRC / source
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
         lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,9 +89,9 @@ def load_kernel_library(source: str) -> ctypes.CDLL:
         return _loaded[source]
 
 
-def build_all(sources: Iterable[str]) -> None:
-    """Compile (or load) several sources, one nvcc process for each, all
-    started together."""
+def build_all(sources: Iterable[str] = SOURCES) -> None:
+    """Compile (or load) several sources (by default every kernel of the
+    port), one nvcc process for each, all started together."""
     sources = list(sources)
     with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
         for _ in pool.map(load_kernel_library, sources):
