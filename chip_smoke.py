@@ -23,16 +23,20 @@ from the sources in the checkout and then:
   5. runs the same float32 weights on the card and on the CPU and compares
      the encoders and the COSMOS forward;
   6. holds K2 to its plain version at the training step's geometries in
-     float32 and bfloat16, times K2, the plain version and, as a yardstick
+     float32 and bfloat16, checks that two launches on the same inputs give
+     the same bits, times K2, K1, the plain version and, as a yardstick
      only, the backward of F.scaled_dot_product_attention, beside K2's
-     bound, and compares the autograd Function's gradient (K1 then K2) on
-     the card with the CPU's;
+     bound, compares the
+     autograd Function's gradient (K1 then K2) on the card with the CPU's,
+     and holds K1 and K2 to their plain versions at ragged lengths
+     (L = 1, 63, 65, 130) in both dtypes;
   7. trains full-width ViT-B-16 COSMOS in bfloat16 (the bench recipe:
      tanh GELU, text bucket 32, per-card batch 64 with 2 global 224px, 6
      local 96px crops and 8 caption views) for 3 + 10 steps on a fixed
-     synthetic batch, checks finite, falling loss, the logit-scale clamp
-     and the launches of every kernel per step (K1 and K2; none of
-     K3-K6), and times the 10 steps;
+     synthetic batch, checks finite, falling loss (the 13th within 1e-3
+     of the FMA kernels' 8.20856), the logit-scale clamp and the launches
+     of every kernel per step (K1 and K2; none of K3-K6), and times the 10
+     steps;
   8. takes one training step of the same recipe, 2 layers per tower, batch
      2, float32, on the card and on the CPU from the same weights, and
      compares the loss, gradients and updated student and teacher;
@@ -132,6 +136,19 @@ KERNEL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
 # of gradients |g| < 4 plus 1% relative, as for K1
 KERNEL_BWD_TOL = {torch.float32: (1e-4, 1e-4),
                   torch.bfloat16: (1.6e-2, 1e-2)}
+# phase 7's 13th loss on the default path before the redesign (repeated to
+# every digit across runs); the tensor cores sum in another order, so the
+# loss is held within 1e-3 of it
+PREV_LOSS_13 = 8.20856
+LOSS_13_TOL = 1e-3
+# (B, L, 3D, heads, causal): lengths on both sides of the kernels' 64-row
+# tiles, checked against the plain versions but not timed
+RAGGED_GEOMETRIES = [
+    (3, 1, 3 * 768, 12, False),
+    (3, 65, 3 * 768, 12, True),
+    (2, 130, 3 * 512, 8, False),
+    (2, 63, 3 * 1024, 8, True),
+]
 # (label, B, L, D): the training step's LayerNorm inputs at a per-card
 # batch of 64; K5 and K6 take the same rows flattened (R = B * L)
 LN_GEOMETRIES = [
@@ -274,13 +291,16 @@ def phase_kernel(fa):
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms,
                        bound_by=bound_by, bytes=nbytes, ops=ops,
-                       tflops=ops / ms / 1e9)
+                       tflops=ops / ms / 1e9,
+                       x_bound=ms / bound_ms, x_library=ms / library_ms)
             rows.append(row)
             print(f"[kernel] {label:28s} {row['dtype']:8s} [{b},{l},{d3}] "
                   f"h={heads} causal={int(causal)} err={err:.3g} "
-                  f"K1={ms:.4f} ms plain={plain_ms:.4f} ms "
-                  f"sdpa={library_ms:.4f} ms bound={bound_ms:.4f} ms "
-                  f"({bound_by}) {row['tflops']:.1f} TFLOP/s")
+                  f"K1={ms:.4f} ms "
+                  f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms "
+                  f"bound={bound_ms:.4f} ms ({bound_by}) "
+                  f"x{row['x_bound']:.1f} bound x{row['x_library']:.2f} sdpa "
+                  f"{row['tflops']:.1f} TFLOP/s")
             del x, got, want, q, k, v
     return rows
 
@@ -575,11 +595,16 @@ def phase_kernel_bwd(fa):
             x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
             g = torch.randn(b, l, d, device="cuda", generator=gen).to(dtype)
             got = fa.fused_attention_qkv_backward(x, g, heads, causal)
+            again = fa.fused_attention_qkv_backward(x, g, heads, causal)
             want = fa.fused_attention_qkv_backward_reference(x, g, heads,
                                                              causal)
             torch.cuda.synchronize()
             ok, err = _within(got, want, KERNEL_BWD_TOL[dtype])
             check(ok, f"K2 vs plain at {label} {dtype}: max err {err}")
+            # no atomics and a fixed order of sums: the same bits every time
+            check(torch.equal(got, again),
+                  f"K2 repeated at {label} {dtype}: results differ")
+            del again
             ms = time_ms(lambda: fa.fused_attention_qkv_backward(
                 x, g, heads, causal))
             plain_ms = time_ms(lambda: fa.fused_attention_qkv_backward_reference(
@@ -599,13 +624,17 @@ def phase_kernel_bwd(fa):
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms,
                        bound_by=bound_by, bytes=nbytes, ops=ops,
-                       tflops=ops / ms / 1e9, k1_ms=fwd_ms)
+                       tflops=ops / ms / 1e9,
+                       x_bound=ms / bound_ms, x_library=ms / library_ms,
+                       k1_ms=fwd_ms)
             rows.append(row)
             print(f"[kernel-bwd] {label:20s} {row['dtype']:8s} [{b},{l},{d3}] "
                   f"h={heads} causal={int(causal)} err={err:.3g} "
-                  f"K2={ms:.4f} ms plain={plain_ms:.4f} ms "
-                  f"sdpa-bwd={library_ms:.4f} ms bound={bound_ms:.4f} ms "
-                  f"({bound_by}) {row['tflops']:.1f} TFLOP/s K1={fwd_ms:.4f} ms")
+                  f"K2={ms:.4f} ms "
+                  f"plain={plain_ms:.4f} ms sdpa-bwd={library_ms:.4f} ms "
+                  f"bound={bound_ms:.4f} ms ({bound_by}) "
+                  f"x{row['x_bound']:.1f} bound x{row['x_library']:.2f} sdpa "
+                  f"{row['tflops']:.1f} TFLOP/s K1={fwd_ms:.4f} ms")
             del x, g, got, want, q, k, v, o, g_heads
 
     # the autograd Function: K1 then K2 on the card, the plain versions on
@@ -633,6 +662,32 @@ def phase_kernel_bwd(fa):
     print("[kernel-bwd] autograd Function card vs CPU max abs err " + " ".join(
         f"{k}={v:.3g}" for k, v in errs.items()))
     return rows, errs
+
+
+def phase_ragged(fa):
+    """K1 and K2 against their plain versions at lengths that end inside,
+    on, or one past a 64-row tile, and K2's repeat to the bit."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errs = {}
+    for b, l, d3, heads, causal in RAGGED_GEOMETRIES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(b, l, d3 // 3, device="cuda", generator=gen).to(dtype)
+            what = f"[{b},{l},{d3}] causal={int(causal)} {dtype}"
+            k1 = _held(f"K1 vs plain at {what}",
+                       fa.fused_attention_qkv(x, heads, causal),
+                       fa.fused_attention_qkv_reference(x, heads, causal),
+                       KERNEL_TOL[dtype])
+            got = fa.fused_attention_qkv_backward(x, g, heads, causal)
+            check(torch.equal(got, fa.fused_attention_qkv_backward(
+                x, g, heads, causal)), f"K2 repeated at {what}: results differ")
+            k2 = _held(f"K2 vs plain at {what}", got,
+                       fa.fused_attention_qkv_backward_reference(
+                           x, g, heads, causal), KERNEL_BWD_TOL[dtype])
+            errs[what] = {"K1": k1, "K2": k2}
+    print("[ragged] K1/K2 max abs err " + " ".join(
+        f"{k}: {v['K1']:.3g}/{v['K2']:.3g}" for k, v in errs.items()))
+    return errs
 
 
 def _train_texts(rng, size):
@@ -856,6 +911,12 @@ def phase_train(K, bwd_rows):
                          **TRAIN_RECIPE)
     out = _train_steps(K, model, 3, 10, step_launches(None, 12, 64),
                        "train", 2)
+    last = out["losses"][-1]
+    print(f"[train] 13th loss {last:.5f}; before the tensor-core K1/K2 "
+          f"{PREV_LOSS_13:.5f} (difference {last - PREV_LOSS_13:.3g}, "
+          f"tolerance {LOSS_13_TOL})")
+    check(abs(last - PREV_LOSS_13) <= LOSS_13_TOL,
+          f"13th loss {last} vs {PREV_LOSS_13}")
     out["k1_launches"] = out["launches"]["K1"]
     out["k2_launches"] = out["launches"]["K2"]
     by = {r["label"]: r for r in bwd_rows if r["dtype"] == "bfloat16"}
@@ -1003,6 +1064,7 @@ def main() -> int:
     serving = phase_serving(fa, rows)
     card_vs_cpu = phase_card_vs_cpu(fa)
     bwd_rows, function_errs = phase_kernel_bwd(fa)
+    ragged = phase_ragged(fa)
     train = phase_train(K, bwd_rows)
     train_card_vs_cpu = phase_train_card_vs_cpu(K)
     ln_rows = phase_ln_kernels(K)
@@ -1018,6 +1080,7 @@ def main() -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype")
+    attention_keys = keys + ("x_bound", "x_library")
     k1_row, k2_row = pick(rows, MAIN_GEOMETRY), pick(bwd_rows, TRAIN_MAIN)
     kernels = [{
         "name": "fused_attention_qkv_fwd",
@@ -1031,7 +1094,7 @@ def main() -> int:
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
                                 for s, r in train_ln.items()}},
-        **{k: k1_row[k] for k in keys},
+        **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
         "route": "cuda",
@@ -1042,7 +1105,7 @@ def main() -> int:
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()}},
-        **{k: k2_row[k] for k in keys},
+        **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
             ("K3", "layer_norm_fwd", "layer_norm_fwd.cu",
@@ -1067,6 +1130,7 @@ def main() -> int:
                   cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
                   serving=serving, card_vs_cpu=card_vs_cpu,
                   kernel_bwd_rows=bwd_rows, function_card_vs_cpu=function_errs,
+                  ragged=ragged,
                   train=train, train_card_vs_cpu=train_card_vs_cpu,
                   ln_kernel_rows=ln_rows, train_ln=train_ln,
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
