@@ -44,17 +44,21 @@ from the sources in the checkout and then:
      training step's LayerNorm geometries in float32 and bfloat16: K3
      (forward), K4 (backward), K5 (LayerNorm -> QKV projection) and K6
      (LayerNorm -> MLP; tanh GELU, plus one geometry per other
-     activation), and times each beside its plain version, the stock
-     composition as a yardstick (F.layer_norm, its autograd backward,
-     F.layer_norm + F.linear, F.layer_norm + F.linear + F.gelu + F.linear)
-     and its bound;
+     activation), checks that two launches of K5 and of K6 give the same
+     bits, and times each beside its plain version, the stock composition
+     as a yardstick (F.layer_norm, its autograd backward, F.layer_norm +
+     F.linear, F.layer_norm + F.linear + F.gelu + F.linear), its bound and,
+     for K5/K6 in bfloat16, the time before the Hopper redesign; then holds
+     K5 and K6 to their plain versions at ragged row counts (R = 1, 63,
+     65, 130, 7392) in both dtypes, with the same bits on a repeat;
  10. trains full-width ViT-B-16 COSMOS in bfloat16 (phase 7's recipe) for
      3 + 5 steps under each setting of the fused-LayerNorm paths: (a)
      layers.FUSED_LN, (b) layers.HYBRID_LN, (c) fuse_ln=True with
      FUSED_LN; checks finite, falling losses, the clamps, every student
      gradient and the exact launches of K1-K6 per step (derived from the
-     step's tower calls), and prints ms per step, samples/s, peak memory
-     and a profile beside phase 7's step;
+     step's tower calls), holds (c)'s 8th loss within 1e-3 of the loss
+     before the K5/K6 redesign, and prints ms per step, samples/s, peak
+     memory and a profile beside phase 7's step;
  11. repeats phase 8's 2-layer float32 step, card against CPU, under each
      of (a)-(c).
 
@@ -141,6 +145,10 @@ KERNEL_BWD_TOL = {torch.float32: (1e-4, 1e-4),
 # loss is held within 1e-3 of it
 PREV_LOSS_13 = 8.20856
 LOSS_13_TOL = 1e-3
+# phase 10(c)'s 8th loss under fuse_ln with the K5/K6 of before the Hopper
+# redesign (the mma.sync kernels; PERF.md, PR 3's findings); the wgmma
+# kernels sum in another order, so it is held within LOSS_13_TOL
+PREV_LOSS_FUSE_LN_8 = 8.25550
 # (B, L, 3D, heads, causal): lengths on both sides of the kernels' 64-row
 # tiles, checked against the plain versions but not timed
 RAGGED_GEOMETRIES = [
@@ -159,6 +167,19 @@ LN_GEOMETRIES = [
     ("text long quarter", 96, 77, 512),
 ]
 LN_MAIN = ("vision globals", torch.bfloat16)
+# K5 and K6 in bfloat16 before the Hopper redesign, ms per call at each
+# geometry (PERF.md, PR 3's kernel table: the mma.sync kernels, NVIDIA H100
+# 80GB HBM3 at 700 W); printed beside this run's times, not checked
+PREV_LN_BF16_MS = {
+    ("K5", "vision globals"): 1.3405, ("K6", "vision globals"): 5.7767,
+    ("K5", "vision 96px locals"): 0.7677, ("K6", "vision 96px locals"): 4.6423,
+    ("K5", "text head views"): 0.2381, ("K6", "text head views"): 1.3606,
+    ("K5", "text short bucket"): 0.2352, ("K6", "text short bucket"): 1.3419,
+    ("K5", "text long quarter"): 0.1915, ("K6", "text long quarter"): 0.9209,
+}
+# row counts on both sides of K5's 128-row and K6's 64-row tiles, and one
+# that is not a multiple of either cluster's rows; checked, not timed
+LN_RAGGED_ROWS = (1, 63, 65, 130, 7392)
 # K6's other activations, each at one geometry in bfloat16
 MLP_EXTRA_ACTS = (("gelu", "vision 96px locals"),
                   ("quick_gelu", "text head views"))
@@ -223,6 +244,26 @@ def attention_bwd_bound(b, l, d, causal, dtype):
     return (*_bound(nbytes, ops, dtype), nbytes, ops)
 
 
+def ln_matmul_bound(r, d, o, dtype):
+    """(bound_ms, bound_by, bytes, ops) for one K5 call: x, W and the
+    output once in the compute dtype, g, b and the bias once in float32;
+    2·R·D·O operations."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (r * d + o * d + r * o) * isz + (2 * d + o) * 4
+    ops = 2 * r * d * o
+    return (*_bound(nbytes, ops, dtype), nbytes, ops)
+
+
+def mlp_block_bound(r, d, hd, dtype):
+    """(bound_ms, bound_by, bytes, ops) for one K6 call: x, W1, W2 and the
+    output once in the compute dtype, g, b, b1 and b2 once in float32;
+    4·R·D·HD operations (the two products)."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * r * d + 2 * d * hd) * isz + (3 * d + hd) * 4
+    ops = 4 * r * d * hd
+    return (*_bound(nbytes, ops, dtype), nbytes, ops)
+
+
 def _within(got, want, tol):
     atol, rtol = tol
     diff = (got.float() - want.float()).abs()
@@ -252,7 +293,8 @@ def phase_build(kernel_build, modules) -> float:
           f"{seconds:.2f} s")
     for source in kernel_build.SOURCES:
         for line in kernel_build.build_logs.get(source, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(k in line.lower() for k in ("registers", "spill",
+                                               "compiling", "warning")):
                 print(f"[build]   {source}: {line.strip()}")
     return seconds
 
@@ -331,19 +373,26 @@ def phase_ln_kernels(K):
         plain_ms = time_ms(plain, iters=max(iters // 4, 3))
         library_ms = time_ms(library, iters=iters)
         bound_ms, bound_by = _bound(nbytes, ops, op_dtype)
+        prev_ms = (PREV_LN_BF16_MS.get((kernel, label))
+                   if dtype == torch.bfloat16 and extra.get("act") in (
+                       None, "gelu_tanh") else None)
         row = dict(kernel=kernel, label=label, shape=list(shape),
                    dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=max(errs.values()), errs=errs, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   ops=ops, x_bound=ms / bound_ms, **extra)
+                   ops=ops, x_bound=ms / bound_ms,
+                   x_library=ms / library_ms, prev_ms=prev_ms, **extra)
         rows.append(row)
         print(f"[ln-kernels] {kernel} {label:18s} {row['dtype']:8s} "
               f"{list(shape)} {extra.get('act', '')} err "
               + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
               + f" | {kernel}={ms:.4f} ms plain={plain_ms:.4f} ms "
               f"stock={library_ms:.4f} ms bound={bound_ms:.4f} ms "
-              f"({bound_by}, x{row['x_bound']:.1f})")
+              f"({bound_by}, x{row['x_bound']:.1f}, "
+              f"x{row['x_library']:.2f} stock)"
+              + (f" before the redesign {prev_ms:.4f} ms "
+                 f"(x{ms / prev_ms:.3f})" if prev_ms else ""))
 
     for label, b, l, d in LN_GEOMETRIES:
         r, o, hd = b * l, 3 * d, 4 * d
@@ -399,14 +448,17 @@ def phase_ln_kernels(K):
             want = K.lm.ln_matmul_reference(x2, s, sh, w, bias)
             torch.cuda.synchronize()
             errs = {"out": _held(f"K5 {label} {dtype}", out, want, tol)}
+            # no atomics and a fixed order of sums: the same bits every time
+            check(torch.equal(out, K.lm.ln_matmul_fwd(x2, s, sh, w, bias)),
+                  f"K5 repeated at {label} {dtype}: results differ")
             bias_c = bias.to(dtype)
+            _, _, nbytes, ops = ln_matmul_bound(r, d, o, dtype)
             add("K5", label, dtype, (r, d, o), errs,
                 lambda: K.lm.ln_matmul_fwd(x2, s, sh, w, bias),
                 lambda: K.lm.ln_matmul_reference(x2, s, sh, w, bias),
                 lambda: F.linear(F.layer_norm(x2, (d,), s_c, sh_c), w,
                                  bias_c),
-                (r * d + o * d + r * o) * isz + (2 * d + o) * 4,
-                2 * r * d * o, dtype, iters=5 if dtype == f32 else 20)
+                nbytes, ops, dtype, iters=5 if dtype == f32 else 20)
             del out, want, w
 
             # K6: LayerNorm -> c_fc -> act -> c_proj
@@ -423,10 +475,14 @@ def phase_ln_kernels(K):
                 torch.cuda.synchronize()
                 errs = {"out": _held(f"K6 {act} {label} {dtype}", out, want,
                                      tol)}
+                check(torch.equal(out, K.mb.mlp_block_fwd(
+                    x2, s, sh, w1, b1, w2, b2, 1e-5, act)),
+                    f"K6 {act} repeated at {label} {dtype}: results differ")
                 stock_act = {
                     "gelu": F.gelu,
                     "gelu_tanh": lambda h: F.gelu(h, approximate="tanh"),
                     "quick_gelu": lambda h: h * torch.sigmoid(1.702 * h)}[act]
+                _, _, nbytes, ops = mlp_block_bound(r, d, hd, dtype)
                 add("K6", label, dtype, (r, d, hd), errs,
                     lambda: K.mb.mlp_block_fwd(x2, s, sh, w1, b1, w2, b2,
                                                1e-5, act),
@@ -435,13 +491,50 @@ def phase_ln_kernels(K):
                     lambda: F.linear(stock_act(F.linear(
                         F.layer_norm(x2, (d,), s_c, sh_c), w1, b1_c)), w2,
                         b2_c),
-                    (2 * r * d + 2 * d * hd) * isz + (3 * d + hd) * 4,
-                    4 * r * d * hd, dtype, iters=3 if dtype == f32 else 10,
+                    nbytes, ops, dtype, iters=3 if dtype == f32 else 10,
                     act=act)
                 del out, want
             del x, x2, w1, w2
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_ln_ragged(K):
+    """K5 and K6 against their plain versions at row counts that end
+    inside, on or one past their row tiles, at both widths and in both
+    dtypes, with the same bits on a repeat."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    errs = {}
+    for d in (768, 512):
+        for r in LN_RAGGED_ROWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                def rand(*shape, scale=1.0, shift=0.0, dt=torch.float32):
+                    return (torch.randn(*shape, device="cuda", generator=gen)
+                            * scale + shift).to(dt)
+                tol = LN_TOL[dtype]
+                what = f"R={r} D={d} {str(dtype).replace('torch.', '')}"
+                x = rand(r, d, scale=2.0, shift=0.5, dt=dtype)
+                s, sh = rand(d, shift=1.0), rand(d)
+                w = rand(3 * d, d, scale=d ** -0.5, dt=dtype)
+                bias = rand(3 * d).to(dtype).float()
+                got = K.lm.ln_matmul_fwd(x, s, sh, w, bias)
+                check(torch.equal(got, K.lm.ln_matmul_fwd(x, s, sh, w, bias)),
+                      f"K5 repeated at {what}: results differ")
+                k5 = _held(f"K5 vs plain at {what}", got,
+                           K.lm.ln_matmul_reference(x, s, sh, w, bias), tol)
+                w1 = rand(4 * d, d, scale=d ** -0.5, dt=dtype)
+                w2 = rand(d, 4 * d, scale=(4 * d) ** -0.5, dt=dtype)
+                b1, b2 = rand(4 * d, scale=0.1), rand(d, scale=0.1)
+                args = (x, s, sh, w1, b1, w2, b2, 1e-5, "gelu_tanh")
+                got = K.mb.mlp_block_fwd(*args)
+                check(torch.equal(got, K.mb.mlp_block_fwd(*args)),
+                      f"K6 repeated at {what}: results differ")
+                k6 = _held(f"K6 vs plain at {what}", got,
+                           K.mb.mlp_block_reference(*args), tol)
+                errs[what] = {"K5": k5, "K6": k6}
+    print("[ln-ragged] K5/K6 max abs err " + " ".join(
+        f"{k}: {v['K5']:.3g}/{v['K6']:.3g}" for k, v in errs.items()))
+    return errs
 
 
 def _captions(n: int, length: int, seed: int) -> np.ndarray:
@@ -965,6 +1058,14 @@ def phase_train_ln(K, default):
         del model
         torch.cuda.empty_cache()
         run["step_vs_default"] = run["step_ms"] / default["step_ms"]
+        if setting == "fuse_ln":
+            last = run["losses"][-1]
+            print(f"[{tag}] 8th loss {last:.5f}; before the K5/K6 redesign "
+                  f"{PREV_LOSS_FUSE_LN_8:.5f} (difference "
+                  f"{last - PREV_LOSS_FUSE_LN_8:.3g}, tolerance "
+                  f"{LOSS_13_TOL})")
+            check(abs(last - PREV_LOSS_FUSE_LN_8) <= LOSS_13_TOL,
+                  f"fuse_ln 8th loss {last} vs {PREV_LOSS_FUSE_LN_8}")
         print(f"[{tag}] {run['step_ms']:.3f} ms/step, "
               f"{run['samples_per_s']:.1f} samples/s, peak "
               f"{run['peak_mem_gb']:.2f} GB; default path (phase 7) "
@@ -1068,6 +1169,7 @@ def main() -> int:
     train = phase_train(K, bwd_rows)
     train_card_vs_cpu = phase_train_card_vs_cpu(K)
     ln_rows = phase_ln_kernels(K)
+    ln_ragged = phase_ln_ragged(K)
     train_ln = phase_train_ln(K, train)
     train_ln_card_vs_cpu = {s: phase_train_card_vs_cpu(K, s)
                             for s in LN_SETTINGS}
@@ -1124,7 +1226,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"cosmos_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, **{k: row[k] for k in keys}})
+            "launches_by_path": by_path,
+            **{k: row[k] for k in keys + ("x_bound", "x_library")}})
         check(kernels[-1]["launches"] > 0, f"{key} never launched")
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
@@ -1132,7 +1235,8 @@ def main() -> int:
                   kernel_bwd_rows=bwd_rows, function_card_vs_cpu=function_errs,
                   ragged=ragged,
                   train=train, train_card_vs_cpu=train_card_vs_cpu,
-                  ln_kernel_rows=ln_rows, train_ln=train_ln,
+                  ln_kernel_rows=ln_rows, ln_ragged=ln_ragged,
+                  train_ln=train_ln,
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"

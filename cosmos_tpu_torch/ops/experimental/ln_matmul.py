@@ -23,7 +23,8 @@ On a CUDA tensor the forward launches K5 (``csrc/ln_matmul.cu``), built at
 first use, or raises; on a CPU tensor it computes ``ln_matmul_reference``,
 the plain version the tests and ``chip_smoke.py`` hold the kernel to.  The
 TPU kernel's VMEM budget (``_pick_row_block`` refuses float32 ViT-B widths)
-has no counterpart: K5 takes any number of rows.
+has no counterpart: K5 takes any number of rows, with ``D`` a multiple of
+64 up to 1024 and ``O`` a multiple of 256 (``check_shapes``).
 """
 
 from __future__ import annotations
@@ -40,8 +41,11 @@ from ._cuda import (DTYPE_CODES, check_cuda, needs_grad, raise_on_error,
                     stream)
 
 SOURCE = "ln_matmul.cu"    # K5
-_ROWS = 32                 # rows per block: the kernel's shared [32][D + 8] tile
-_SMEM_LIMIT = 232448       # bytes of shared memory a block can have
+# the kernel's tiles (csrc/ln_matmul.cu): bfloat16 BM rows x BN columns per
+# block, k-slices of BK in a ring of STAGES; float32 F32_ROWS rows per block
+BM, BN, BK, STAGES = 128, 256, 64, 4
+F32_ROWS = 32
+SMEM_LIMIT = 232448        # bytes of shared memory a block can have
 
 # kernel launches by this process; chip_smoke.py zeroes and reads it
 launches = 0
@@ -88,10 +92,33 @@ def ln_matmul_reference(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (mm_f32(y, w.t()) + bias).to(x2.dtype)
 
 
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of K5 at width ``d``."""
+    if dtype == torch.bfloat16:
+        # the x and W ring, row statistics, g and b, the barriers, and the
+        # slack that aligns the base to 1024 bytes
+        return (STAGES * (BM + BN) * BK * 2 + BM * 8 + d * 8
+                + 2 * STAGES * 8 + 1024)
+    return F32_ROWS * (d + 8) * 4      # the [32][D + 8] row tile
+
+
+def check_shapes(x2: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise unless K5 takes ``x2`` [R, D] and ``w`` [O, D]: any R, D a
+    multiple of 64 up to 1024, O a multiple of 256."""
+    if x2.dim() != 2 or w.dim() != 2 or w.shape[1] != x2.shape[1]:
+        raise ValueError(f"ln_matmul: x {tuple(x2.shape)} and w "
+                         f"{tuple(w.shape)} are not [R, D] and [O, D]")
+    d, o = x2.shape[1], w.shape[0]
+    if (d % BK or not BK <= d <= 1024 or o % BN
+            or smem_bytes(d, x2.dtype) > SMEM_LIMIT):
+        raise ValueError(f"ln_matmul: need D % {BK} == 0, D <= 1024 and "
+                         f"O % {BN} == 0, got D={d} O={o}")
+
+
 @functools.lru_cache(maxsize=None)
 def _function():
     fn = load_kernel_library(SOURCE).cosmos_ln_matmul_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_float,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -113,16 +140,10 @@ def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     if x2.device.type == "cpu":
         return ln_matmul_reference(x2, g, b, w, bias, eps)
     op = "ln_matmul"
-    if x2.dim() != 2 or w.dim() != 2 or w.shape[1] != x2.shape[1]:
-        raise ValueError(f"{op}: x {tuple(x2.shape)} and w {tuple(w.shape)} "
-                         "are not [R, D] and [O, D]")
+    check_cuda(op, "x", x2)
+    check_shapes(x2, w)
     r, d = x2.shape
     o = w.shape[0]
-    smem = _ROWS * (d + 8) * x2.element_size()
-    if d % 16 or o % 2 or smem > _SMEM_LIMIT:
-        raise ValueError(f"{op}: need D % 16 == 0, O even and D small enough "
-                         f"for the shared row tile, got D={d} O={o}")
-    check_cuda(op, "x", x2)
     check_cuda(op, "w", w, x2.dtype, x2.device)
     for name, t, n in (("g", g, d), ("b", b, d), ("bias", bias, o)):
         if t.shape != (n,):
@@ -130,12 +151,14 @@ def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                              f"expected ({n},)")
         check_cuda(op, name, t, torch.float32, x2.device)
     out = torch.empty(r, o, dtype=x2.dtype, device=x2.device)
+    # the bf16 kernel's per-row (mean, rstd), written by its first pass
+    stats = torch.empty(r, 2, dtype=torch.float32, device=x2.device)
     if r:
         with torch.cuda.device(x2.device):
             rc = _function()(
                 x2.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), r, d, o, eps,
-                DTYPE_CODES[x2.dtype], stream(x2))
+                bias.data_ptr(), out.data_ptr(), stats.data_ptr(), r, d, o,
+                eps, DTYPE_CODES[x2.dtype], stream(x2))
         raise_on_error(op, rc, f"R={r} D={d} O={o} dtype={x2.dtype}")
         launches += 1
     return out

@@ -26,7 +26,9 @@ first use, or raises; on a CPU tensor it computes ``mlp_block_reference``,
 the plain version the tests and ``chip_smoke.py`` hold the kernel to.  The
 ``[R, HD]`` hidden never exists in device memory in the forward.  The TPU
 kernel's VMEM budget (``_pick_row_block`` raises for ViT-B widths in
-float32) has no counterpart: K6 takes any number of rows.
+float32) has no counterpart: K6 takes any number of rows, at ``D`` 512 or
+768 (the widths of the ported towers) and ``HD`` a multiple of 128
+(``check_shapes``).
 """
 
 from __future__ import annotations
@@ -43,8 +45,14 @@ from ._cuda import (DTYPE_CODES, check_cuda, needs_grad, raise_on_error,
 from .ln_matmul import ln_backward, ln_stats, mm_f32
 
 SOURCE = "mlp_block.cu"    # K6
-_ROWS = 32                 # rows per block
-_SMEM_LIMIT = 232448
+# the kernel's tiles (csrc/mlp_block.cu): bfloat16 BM rows per cluster of
+# two blocks, hidden chunks of HC (HCW per warpgroup), W1 k-slices of BK1 in
+# a ring of S1, W2 k-slices of BK2 in a ring of S2; float32 F32_ROWS rows
+# per block and chunks of F32_HC
+BM, HC, HCW, BK1, BK2, S1, S2 = 64, 128, 32, 64, 32, 6, 2
+F32_ROWS, F32_HC = 32, 64
+WIDTHS = (512, 768)        # the D the kernel is compiled for
+SMEM_LIMIT = 232448
 
 _ACT_CODES = {"gelu": 0, "gelu_tanh": 1, "quick_gelu": 2}
 
@@ -69,6 +77,34 @@ def mlp_block_reference(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     y = (xhat * g + b).to(x2.dtype)
     h = _act_fn(act)(mm_f32(y, w1.t()) + b1).to(x2.dtype)
     return (mm_f32(h, w2.t()) + b2).to(x2.dtype)
+
+
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of K6 at width ``d``."""
+    if dtype == torch.bfloat16:
+        # normalised rows, two h buffers of the cluster's chunk, the W1 and
+        # W2 rings, the barriers, and the slack that aligns the base
+        return (BM * d * 2 + 2 * 4 * BM * HCW * 2 + S1 * 2 * HCW * BK1 * 2
+                + S2 * (d // 2) * BK2 * 2 + (2 * S1 + 2 * S2 + 4) * 8 + 1024)
+    return F32_ROWS * (d + 8 + F32_HC + 8) * 4
+
+
+def check_shapes(x2: torch.Tensor, w1: torch.Tensor,
+                 w2: torch.Tensor) -> None:
+    """Raise unless K6 takes ``x2`` [R, D], ``w1`` [HD, D] and ``w2``
+    [D, HD]: any R, D 512 or 768, HD a multiple of 128."""
+    if x2.dim() != 2 or w1.dim() != 2:
+        raise ValueError(f"mlp_block: x {tuple(x2.shape)} and w1 "
+                         f"{tuple(w1.shape)} are not [R, D] and [HD, D]")
+    d, hd = x2.shape[1], w1.shape[0]
+    if (d not in WIDTHS or hd % HC
+            or smem_bytes(d, x2.dtype) > SMEM_LIMIT):
+        raise ValueError(f"mlp_block: need D in {WIDTHS} and HD % {HC} == 0,"
+                         f" got D={d} HD={hd}")
+    for name, t, shape in (("w1", w1, (hd, d)), ("w2", w2, (d, hd))):
+        if t.shape != shape:
+            raise ValueError(f"mlp_block: {name} shape {tuple(t.shape)}, "
+                             f"expected {shape}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,19 +136,11 @@ def mlp_block_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     if x2.device.type == "cpu":
         return mlp_block_reference(x2, g, b, w1, b1, w2, b2, eps, act)
     op = "mlp_block"
-    if x2.dim() != 2:
-        raise ValueError(f"{op}: x must be [R, D], got {tuple(x2.shape)}")
+    check_cuda(op, "x", x2)
+    check_shapes(x2, w1, w2)
     r, d = x2.shape
     hd = w1.shape[0]
-    smem = _ROWS * (d + 8 + 72) * x2.element_size()
-    if d % 64 or d > 1024 or hd % 64 or smem > _SMEM_LIMIT:
-        raise ValueError(f"{op}: need D % 64 == 0, D <= 1024 and "
-                         f"HD % 64 == 0, got D={d} HD={hd}")
-    check_cuda(op, "x", x2)
-    for name, t, shape in (("w1", w1, (hd, d)), ("w2", w2, (d, hd))):
-        if t.shape != shape:
-            raise ValueError(f"{op}: {name} shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+    for name, t in (("w1", w1), ("w2", w2)):
         check_cuda(op, name, t, x2.dtype, x2.device)
     for name, t, n in (("g", g, d), ("b", b, d), ("b1", b1, hd),
                        ("b2", b2, d)):
