@@ -11,7 +11,9 @@ from the sources in the checkout and then:
   2. builds every kernel of the port, the packed-QKV attention forward
      (K1) and backward (K2) and the fused-LayerNorm kernels K3-K6, one nvcc
      each, started together, and prints the build time and ptxas's
-     register and spill lines;
+     register and spill lines; then the host us per call of the K3 and
+     K4 wrappers beside F.layer_norm's and the parts of a launch path,
+     while the process is still small;
   3. holds K1 to its plain PyTorch version at the serving path's
      geometries in float32 and bfloat16, and times K1, the plain version
      and, as a yardstick only, F.scaled_dot_product_attention on the same
@@ -44,13 +46,18 @@ from the sources in the checkout and then:
      training step's LayerNorm geometries in float32 and bfloat16: K3
      (forward), K4 (backward), K5 (LayerNorm -> QKV projection) and K6
      (LayerNorm -> MLP; tanh GELU, plus one geometry per other
-     activation), checks that two launches of K5 and of K6 give the same
-     bits, and times each beside its plain version, the stock composition
-     as a yardstick (F.layer_norm, its autograd backward, F.layer_norm +
+     activation), checks that two launches of each give the same bits and
+     that K3's bfloat16 statistics are the bits of K5's statistics pass,
+     and times each beside its plain version, the stock composition as a
+     yardstick (F.layer_norm, its autograd backward, F.layer_norm +
      F.linear, F.layer_norm + F.linear + F.gelu + F.linear), its bound and,
-     for K5/K6 in bfloat16, the time before the Hopper redesign; then holds
-     K5 and K6 to their plain versions at ragged row counts (R = 1, 63,
-     65, 130, 7392) in both dtypes, with the same bits on a repeat;
+     in bfloat16, the time before its Hopper redesign (PR 3's kernels); K3,
+     K4 and their stock yardsticks also get device ms per launch (the
+     profiler's kernel time) and host us per call (200 calls enqueued)
+     apart from the wall ms of back-to-back calls; then holds K3-K6 to
+     their plain versions at ragged row counts (R = 1, 63, 65, 130, 7392)
+     in both dtypes, and K3/K4 at D = 1024, 1536 and 7168 (their general
+     paths), with the same bits on a repeat;
  10. trains full-width ViT-B-16 COSMOS in bfloat16 (phase 7's recipe) for
      3 + 5 steps under each setting of the fused-LayerNorm paths: (a)
      layers.FUSED_LN, (b) layers.HYBRID_LN, (c) fuse_ln=True with
@@ -167,10 +174,16 @@ LN_GEOMETRIES = [
     ("text long quarter", 96, 77, 512),
 ]
 LN_MAIN = ("vision globals", torch.bfloat16)
-# K5 and K6 in bfloat16 before the Hopper redesign, ms per call at each
-# geometry (PERF.md, PR 3's kernel table: the mma.sync kernels, NVIDIA H100
-# 80GB HBM3 at 700 W); printed beside this run's times, not checked
+# K3-K6 in bfloat16 before their Hopper redesigns, ms per call at each
+# geometry (PR 3's kernel table, `git show ac95ce3:PERF.md`: K3/K4 as first
+# ported, K5/K6 the mma.sync kernels, NVIDIA H100 80GB HBM3 at 700 W);
+# printed beside this run's times, not checked
 PREV_LN_BF16_MS = {
+    ("K3", "vision globals"): 0.0604, ("K4", "vision globals"): 0.1440,
+    ("K3", "vision 96px locals"): 0.0624, ("K4", "vision 96px locals"): 0.0864,
+    ("K3", "text head views"): 0.0630, ("K4", "text head views"): 0.0851,
+    ("K3", "text short bucket"): 0.0647, ("K4", "text short bucket"): 0.0644,
+    ("K3", "text long quarter"): 0.0523, ("K4", "text long quarter"): 0.0773,
     ("K5", "vision globals"): 1.3405, ("K6", "vision globals"): 5.7767,
     ("K5", "vision 96px locals"): 0.7677, ("K6", "vision 96px locals"): 4.6423,
     ("K5", "text head views"): 0.2381, ("K6", "text head views"): 1.3606,
@@ -180,6 +193,10 @@ PREV_LN_BF16_MS = {
 # row counts on both sides of K5's 128-row and K6's 64-row tiles, and one
 # that is not a multiple of either cluster's rows; checked, not timed
 LN_RAGGED_ROWS = (1, 63, 65, 130, 7392)
+# K3/K4 beyond the ported widths: ViT-L's 1024 (the widest ring path of
+# K4), then K4's general path (1536) and both kernels' general paths
+# (7168, K4's widest); (D, rows)
+LN_WIDE = ((1024, (65, 7392)), (1536, (65, 7392)), (7168, (65, 1030)))
 # K6's other activations, each at one geometry in bfloat16
 MLP_EXTRA_ACTS = (("gelu", "vision 96px locals"),
                   ("quick_gelu", "text head views"))
@@ -200,6 +217,43 @@ LN_SETTINGS = ("FUSED_LN", "HYBRID_LN", "fuse_ln")
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def device_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Device time per call: every kernel that ``n`` calls launch, summed
+    by torch.profiler, over ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # a profile can come back without a single kernel (seen on the card):
+    # it is taken again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / n / 1e3
+    check(False, "the profiler recorded no device time in three profiles")
+
+
+def host_us(fn, n: int = 200, warmup: int = 3) -> float:
+    """Host time per call: ``n`` calls enqueued back to back on the host
+    clock, then one synchronize (outside the timing)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -353,6 +407,52 @@ def _held(what: str, got, want, tol) -> float:
     return err
 
 
+def _same_bits(what: str, first, again) -> None:
+    """A second launch on the same inputs gave the same bits."""
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"{what} repeated: results differ")
+
+
+def _same_stats(what: str, mean, rstd, k5_stats) -> None:
+    """K3's statistics are the bits of K5's first pass (bf16): one order of
+    sums, shared through ln_tile.cuh."""
+    check(torch.equal(mean.reshape(-1), k5_stats[:, 0])
+          and torch.equal(rstd.reshape(-1), k5_stats[:, 1]),
+          f"K3 statistics vs K5's at {what}: bits differ")
+
+
+def phase_host_floor(K) -> dict:
+    """Host us per call, early in the process (little state, few Python
+    objects): the K3 and K4 wrappers and F.layer_norm at the text head
+    views in bfloat16, and the parts of a wrapper's launch path: the two
+    ways to fetch the current stream (the wrappers take the raw getter)
+    and the allocation of K3's statistics."""
+    index = torch.cuda.current_device()
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    _, b, l, d = LN_GEOMETRIES[2]
+    x = torch.randn(b, l, d, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(b, l, d, device="cuda", generator=gen).bfloat16()
+    s, sh = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+    s_c, sh_c = s.bfloat16(), sh.bfloat16()
+    _, mean, rstd = K.ln.layer_norm_fwd(x, s, sh)
+    out = {"K3 wrapper": host_us(lambda: K.ln.layer_norm_fwd(x, s, sh),
+                                 n=2000),
+           "K4 wrapper": host_us(
+               lambda: K.ln.layer_norm_bwd(x, s, mean, rstd, g), n=2000),
+           "F.layer_norm": host_us(lambda: F.layer_norm(x, (d,), s_c, sh_c),
+                                   n=2000),
+           "torch.cuda.current_stream().cuda_stream": host_us(
+               lambda: torch.cuda.current_stream().cuda_stream, n=2000),
+           "torch._C._cuda_getCurrentRawStream": host_us(
+               lambda: torch._C._cuda_getCurrentRawStream(index), n=2000),
+           "torch.empty of K3's statistics": host_us(
+               lambda: torch.empty((2, b, l, 1), dtype=torch.float32,
+                                   device="cuda"), n=2000)}
+    print(f"[host-floor] [{b},{l},{d}] bfloat16, host us per call: "
+          + "; ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
 def phase_ln_kernels(K):
     """K3-K6 against their plain versions at the training step's
     LayerNorm geometries, float32 and bfloat16, and timed beside their
@@ -383,14 +483,30 @@ def phase_ln_kernels(K):
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                    ops=ops, x_bound=ms / bound_ms,
                    x_library=ms / library_ms, prev_ms=prev_ms, **extra)
+        split = ""
+        if kernel in ("K3", "K4"):
+            # device time apart from the host's: the wall time of
+            # back-to-back calls is the larger of the two
+            row.update(device_ms=device_ms(fn), host_us=host_us(fn),
+                       library_device_ms=device_ms(library),
+                       library_host_us=host_us(library))
+            row.update(x_bound_device=row["device_ms"] / bound_ms,
+                       x_library_device=(row["device_ms"]
+                                         / row["library_device_ms"]))
+            split = (f" | device {row['device_ms']:.4f} ms "
+                     f"(x{row['x_bound_device']:.2f} bound, "
+                     f"x{row['x_library_device']:.2f} stock device "
+                     f"{row['library_device_ms']:.4f} ms) host "
+                     f"{row['host_us']:.1f} us (stock "
+                     f"{row['library_host_us']:.1f} us)")
         rows.append(row)
         print(f"[ln-kernels] {kernel} {label:18s} {row['dtype']:8s} "
               f"{list(shape)} {extra.get('act', '')} err "
               + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
-              + f" | {kernel}={ms:.4f} ms plain={plain_ms:.4f} ms "
+              + f" | {kernel}={ms:.4f} ms wall plain={plain_ms:.4f} ms "
               f"stock={library_ms:.4f} ms bound={bound_ms:.4f} ms "
               f"({bound_by}, x{row['x_bound']:.1f}, "
-              f"x{row['x_library']:.2f} stock)"
+              f"x{row['x_library']:.2f} stock)" + split
               + (f" before the redesign {prev_ms:.4f} ms "
                  f"(x{ms / prev_ms:.3f})" if prev_ms else ""))
 
@@ -412,6 +528,8 @@ def phase_ln_kernels(K):
                                   STATS_TOL),
                     "rstd": _held(f"K3 rstd {label} {dtype}", rstd, rr,
                                   STATS_TOL)}
+            _same_bits(f"K3 at {label} {dtype}", (y, mean, rstd),
+                       K.ln.layer_norm_fwd(x, s, sh))
             add("K3", label, dtype, x.shape, errs,
                 lambda: K.ln.layer_norm_fwd(x, s, sh),
                 lambda: K.ln.layer_norm_fwd_reference(x, s, sh),
@@ -428,6 +546,9 @@ def phase_ln_kernels(K):
                                     PARAM_GRAD_TOL),
                     "dbias": _held(f"K4 dbias {label} {dtype}", db, dbr,
                                    PARAM_GRAD_TOL)}
+            # K4's column sums have one fixed order: the same bits again
+            _same_bits(f"K4 at {label} {dtype}", (dx, ds, db),
+                       K.ln.layer_norm_bwd(x, s, mr, rr, g))
             xl = x.detach().requires_grad_(True)
             wl = s_c.detach().requires_grad_(True)
             bl = sh_c.detach().requires_grad_(True)
@@ -444,10 +565,13 @@ def phase_ln_kernels(K):
             x2 = x.view(r, d)
             w = rand(o, d, scale=d ** -0.5, dtype=dtype)
             bias = rand(o).to(dtype).float()
-            out = K.lm.ln_matmul_fwd(x2, s, sh, w, bias)
+            out, k5_stats = K.lm.ln_matmul_fwd(x2, s, sh, w, bias,
+                                               return_stats=True)
             want = K.lm.ln_matmul_reference(x2, s, sh, w, bias)
             torch.cuda.synchronize()
             errs = {"out": _held(f"K5 {label} {dtype}", out, want, tol)}
+            if dtype == torch.bfloat16:
+                _same_stats(f"{label} {dtype}", mean, rstd, k5_stats)
             # no atomics and a fixed order of sums: the same bits every time
             check(torch.equal(out, K.lm.ln_matmul_fwd(x2, s, sh, w, bias)),
                   f"K5 repeated at {label} {dtype}: results differ")
@@ -459,7 +583,7 @@ def phase_ln_kernels(K):
                 lambda: F.linear(F.layer_norm(x2, (d,), s_c, sh_c), w,
                                  bias_c),
                 nbytes, ops, dtype, iters=5 if dtype == f32 else 20)
-            del out, want, w
+            del out, want, w, k5_stats, mean, rstd
 
             # K6: LayerNorm -> c_fc -> act -> c_proj
             w1 = rand(hd, d, scale=d ** -0.5, dtype=dtype)
@@ -499,25 +623,53 @@ def phase_ln_kernels(K):
     return rows
 
 
+def _ln_rows_held(K, what, x, s, sh, g, tol, k5_stats=None) -> dict:
+    """K3 and K4 on rows ``x`` [R, D] against their plain versions, the
+    same bits on a repeat, and (given K5's bf16 statistics of the same
+    rows) K3's statistics equal to K5's."""
+    y, mean, rstd = K.ln.layer_norm_fwd(x, s, sh)
+    _same_bits(f"K3 at {what}", (y, mean, rstd),
+               K.ln.layer_norm_fwd(x, s, sh))
+    yr, mr, rr = K.ln.layer_norm_fwd_reference(x, s, sh)
+    err = {"K3": max(_held(f"K3 y at {what}", y, yr, tol),
+                     _held(f"K3 mean at {what}", mean, mr, STATS_TOL),
+                     _held(f"K3 rstd at {what}", rstd, rr, STATS_TOL))}
+    if k5_stats is not None:
+        _same_stats(what, mean, rstd, k5_stats)
+    got = K.ln.layer_norm_bwd(x, s, mr, rr, g)
+    _same_bits(f"K4 at {what}", got, K.ln.layer_norm_bwd(x, s, mr, rr, g))
+    want = K.ln.layer_norm_bwd_reference(x, s, mr, rr, g)
+    err["K4"] = max(_held(f"K4 dx at {what}", got[0], want[0], tol),
+                    _held(f"K4 dscale at {what}", got[1], want[1],
+                          PARAM_GRAD_TOL),
+                    _held(f"K4 dbias at {what}", got[2], want[2],
+                          PARAM_GRAD_TOL))
+    return err
+
+
 def phase_ln_ragged(K):
-    """K5 and K6 against their plain versions at row counts that end
-    inside, on or one past their row tiles, at both widths and in both
-    dtypes, with the same bits on a repeat."""
+    """K3-K6 against their plain versions at row counts that end inside,
+    on or one past their row tiles, at both widths and in both dtypes, with
+    the same bits on a repeat (and K3's bf16 statistics equal to K5's);
+    then K3 and K4 at the wider widths of LN_WIDE."""
     gen = torch.Generator(device="cuda").manual_seed(31)
     errs = {}
+
+    def rand(*shape, scale=1.0, shift=0.0, dt=torch.float32):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale + shift).to(dt)
+
     for d in (768, 512):
         for r in LN_RAGGED_ROWS:
             for dtype in (torch.float32, torch.bfloat16):
-                def rand(*shape, scale=1.0, shift=0.0, dt=torch.float32):
-                    return (torch.randn(*shape, device="cuda", generator=gen)
-                            * scale + shift).to(dt)
                 tol = LN_TOL[dtype]
                 what = f"R={r} D={d} {str(dtype).replace('torch.', '')}"
                 x = rand(r, d, scale=2.0, shift=0.5, dt=dtype)
                 s, sh = rand(d, shift=1.0), rand(d)
                 w = rand(3 * d, d, scale=d ** -0.5, dt=dtype)
                 bias = rand(3 * d).to(dtype).float()
-                got = K.lm.ln_matmul_fwd(x, s, sh, w, bias)
+                got, k5_stats = K.lm.ln_matmul_fwd(x, s, sh, w, bias,
+                                                   return_stats=True)
                 check(torch.equal(got, K.lm.ln_matmul_fwd(x, s, sh, w, bias)),
                       f"K5 repeated at {what}: results differ")
                 k5 = _held(f"K5 vs plain at {what}", got,
@@ -531,9 +683,20 @@ def phase_ln_ragged(K):
                       f"K6 repeated at {what}: results differ")
                 k6 = _held(f"K6 vs plain at {what}", got,
                            K.mb.mlp_block_reference(*args), tol)
-                errs[what] = {"K5": k5, "K6": k6}
-    print("[ln-ragged] K5/K6 max abs err " + " ".join(
-        f"{k}: {v['K5']:.3g}/{v['K6']:.3g}" for k, v in errs.items()))
+                errs[what] = {"K5": k5, "K6": k6, **_ln_rows_held(
+                    K, what, x, s, sh, rand(r, d, dt=dtype), tol,
+                    k5_stats if dtype == torch.bfloat16 else None)}
+    for d, rows in LN_WIDE:
+        for r in rows:
+            for dtype in (torch.float32, torch.bfloat16):
+                what = f"R={r} D={d} {str(dtype).replace('torch.', '')}"
+                x = rand(r, d, scale=2.0, shift=0.5, dt=dtype)
+                errs[what] = _ln_rows_held(
+                    K, what, x, rand(d, shift=1.0), rand(d),
+                    rand(r, d, dt=dtype), LN_TOL[dtype])
+    print("[ln-ragged] max abs err " + " ".join(
+        f"{k}: " + "/".join(f"{n} {v:.3g}" for n, v in e.items())
+        for k, e in errs.items()))
     return errs
 
 
@@ -824,8 +987,8 @@ def _train_setup(model, lr, dtype):
 KERNEL_CLASSES = (
     ("K1", ("fused_attention_fwd_kernel",)),
     ("K2", ("attention_bwd_rows_kernel", "attention_bwd_cols_kernel")),
-    ("K3", ("layer_norm_fwd_kernel",)),
-    ("K4", ("layer_norm_bwd_rows_kernel", "layer_norm_bwd_reduce_kernel")),
+    ("K3", ("layer_norm_fwd_",)),
+    ("K4", ("layer_norm_bwd_",)),
     ("K5", ("ln_matmul_kernel",)),
     ("K6", ("mlp_block_kernel",)),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "wgmma",
@@ -1161,6 +1324,7 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
     build_s = phase_build(kernel_build, (fa, ln, lm, mb))
+    host_floor = phase_host_floor(K)
     rows = phase_kernel(fa)
     serving = phase_serving(fa, rows)
     card_vs_cpu = phase_card_vs_cpu(fa)
@@ -1227,7 +1391,10 @@ def main() -> int:
             "source": f"cosmos_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            **{k: row[k] for k in keys + ("x_bound", "x_library")}})
+            **{k: row[k] for k in keys + ("x_bound", "x_library")},
+            **{k: row[k] for k in ("device_ms", "host_us",
+                                   "library_device_ms", "library_host_us")
+               if k in row}})
         check(kernels[-1]["launches"] > 0, f"{key} never launched")
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
@@ -1236,6 +1403,7 @@ def main() -> int:
                   ragged=ragged,
                   train=train, train_card_vs_cpu=train_card_vs_cpu,
                   ln_kernel_rows=ln_rows, ln_ragged=ln_ragged,
+                  host_floor=host_floor,
                   train_ln=train_ln,
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
                   total_s=time.perf_counter() - t0, kernels=kernels)

@@ -1,14 +1,17 @@
-// Shared device code of the fused LayerNorm -> matmul kernels (K5,
-// ln_matmul.cu) and the fused MLP block (K6, mlp_block.cu).
+// Shared device code of the LayerNorm kernels: the forward and backward
+// (K3, layer_norm_fwd.cu; K4, layer_norm_bwd.cu), the fused LayerNorm ->
+// matmul (K5, ln_matmul.cu) and the fused MLP block (K6, mlp_block.cu).
 //
-// row_stats (finish_stats) and ln_value give the JAX kernels'
+// row_stats (add_stats, finish_stats) and ln_value give the JAX kernels'
 // normalisation: float32 single-pass statistics (E[x^2] - E[x]^2, clamped
 // at 0), then y = ((x - mean) * rstd) * g + b in float32 with every step
 // rounded (no FMA contraction), rounded to the compute dtype before the
 // product.  Every kernel sums a row in the same order (each lane its
 // columns lane * 16 / sizeof(T) + 512 / sizeof(T) * i in increasing order,
-// then the warp's butterfly), so the normalised rows are the same bits
-// whatever the kernel.
+// through add_stats, then the warp's butterfly in finish_stats), so the
+// statistics and the normalised rows are the same bits whatever the
+// kernel: K3 sums 16-byte chunks it holds in registers, K5 chunks it
+// loads from device memory, both through add_stats.
 //
 // The float32 kernels stage BM rows at a time with stage_ln_rows (a block
 // of THREADS threads) and multiply them by rows of a weight matrix read
@@ -49,6 +52,19 @@ __device__ __forceinline__ float2 finish_stats(float s, float ss, int D, float e
   return make_float2(mean, rsqrtf(var + eps));
 }
 
+// adds one lane's 16 bytes of a row (16 / sizeof(T) elements, in column
+// order) to its float32 sums of x and x^2
+template <typename T>
+__device__ __forceinline__ void add_stats(const uint4& raw, float& s, float& ss) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 16 / (int)sizeof(T); ++k) {
+    const float v = to_f32(e[k]);
+    s += v;
+    ss += __fmul_rn(v, v);
+  }
+}
+
 // (mean, rstd) of row xr (D elements, 16-byte aligned, D % (16 /
 // sizeof(T)) == 0) by one warp: lane-strided 16-byte loads, up to 4 of
 // them in flight, float32 single pass (each lane sums its columns in
@@ -67,17 +83,42 @@ __device__ __forceinline__ float2 row_stats(const T* __restrict__ xr, int D, flo
       raw[u] = c0 + u * STEP < D ? *reinterpret_cast<const uint4*>(xr + c0 + u * STEP)
                                  : make_uint4(0, 0, 0, 0);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const T* e = reinterpret_cast<const T*>(&raw[u]);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float v = to_f32(e[k]);
-        s += v;
-        ss += __fmul_rn(v, v);
-      }
-    }
+    for (int u = 0; u < U; ++u) add_stats<T>(raw[u], s, ss);
   }
   return finish_stats(s, ss, D, eps);
+}
+
+// 16 / sizeof(T) float32 values (one lane's columns of a 16-byte chunk of
+// a row of T) from p, 16-byte aligned
+template <typename T>
+__device__ __forceinline__ void load_cols(float (&v)[16 / sizeof(T)], const float* p) {
+#pragma unroll
+  for (int q = 0; q < 4 / (int)sizeof(T); ++q) {
+    const float4 t = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = t.x;
+    v[4 * q + 1] = t.y;
+    v[4 * q + 2] = t.z;
+    v[4 * q + 3] = t.w;
+  }
+}
+
+// 16 / sizeof(T) float32 values rounded to T (to nearest even), as 16 bytes
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float (&v)[16 / sizeof(T)]);
+template <>
+__device__ __forceinline__ uint4 pack16<float>(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = reinterpret_cast<const uint32_t&>(h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // ((x - mean) * rstd) * g + b, every step rounded

@@ -11,9 +11,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_cuda(op: str, name: str, t: torch.Tensor,
                dtype: Optional[torch.dtype] = None,
-               device: Optional[torch.device] = None) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of
-    ``dtype`` (float32 or bfloat16 when None) on ``device``."""
+               device: Optional[torch.device] = None, align: int = 16) -> None:
+    """Raise unless ``t`` is a contiguous, ``align``-byte aligned CUDA tensor
+    of ``dtype`` (float32 or bfloat16 when None) on ``device``."""
     if t.device.type != "cuda":
         raise ValueError(f"{op}: {name} is on {t.device}; no kernel there")
     if device is not None and t.device != device:
@@ -25,8 +25,8 @@ def check_cuda(op: str, name: str, t: torch.Tensor,
         raise TypeError(f"{op}: {name} dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{op}: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{op}: {name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{op}: {name} must be {align}-byte aligned")
 
 
 def needs_grad(*tensors: torch.Tensor) -> bool:
@@ -37,6 +37,21 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def call_on(device: torch.device, fn, pack, *args) -> int:
+    """``fn(pack(*args, stream))``, with ``stream`` the handle of PyTorch's
+    current stream on ``device``, made the current device only when it is
+    not already: ``pack`` lays the arguments out as the kernel library's
+    argument struct, so one pointer crosses ctypes.  The handle comes from
+    the raw getter that PyTorch's own generated kernels use:
+    ``torch.cuda.current_stream().cuda_stream`` builds a Stream object
+    (PERF.md, PR 6, for both costs on the card's host)."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(pack(*args, torch._C._cuda_getCurrentRawStream(index)))
+    with torch.cuda.device(device):
+        return fn(pack(*args, torch._C._cuda_getCurrentRawStream(index)))
 
 
 def raise_on_error(op: str, rc: int, what: str) -> None:

@@ -12,7 +12,15 @@ function with the plain PyTorch forward and the same backward.
 
 On a CUDA tensor the forward launches K3 (``csrc/layer_norm_fwd.cu``) and
 the backward K4 (``csrc/layer_norm_bwd.cu``), both built at first use (see
-``ops/build.py``), or raise; there is no fallback.  On a CPU tensor they
+``ops/build.py``), or raise; there is no fallback.  Both hold a warp's
+rows in registers, the next row loaded while this one is reduced; how
+many rows each block owns, how many blocks, and the shared memory are
+``launch_geometry(R, D, dtype)``, a function of the shapes alone.  The
+launch path is lean: one combined validity test (the detailed errors are
+built only when it fails), no device switch when the input lies on the
+current device, the arguments packed into one buffer, one allocation for
+the statistics and one for K4's workspace and parameter gradients.  On a
+CPU tensor they
 compute the same functions with ``layer_norm_fwd_reference`` and
 ``layer_norm_bwd_reference``, the plain versions that the tests and
 ``chip_smoke.py`` hold the kernels to.
@@ -27,26 +35,74 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+import struct
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..build import build_all, load_kernel_library
-from ._cuda import (DTYPE_CODES, check_cuda, needs_grad, raise_on_error,
-                    stream)
+from ._cuda import (DTYPE_CODES, call_on, check_cuda, needs_grad,
+                    raise_on_error)
 
 SOURCE = "layer_norm_fwd.cu"       # K3
 SOURCE_BWD = "layer_norm_bwd.cu"   # K4
 _VMEM_BUDGET = 12 * 1024 * 1024
-_MAX_D_BWD = 7168     # K4's per-warp column sums: 32·D bytes of shared memory
-_BWD_WARPS = 4        # warps per block of K4's rows pass
-_BWD_MAX_BLOCKS = 1024
+_F32 = torch.float32
+# the kernels' partition (csrc/layer_norm_{fwd,bwd}.cu): blocks of 8 warps
+# own whole tiles of TILE_ROWS rows, one row a warp, at most MAX_BLOCKS
+# blocks (two on each of the H100's 132 SMs)
+TILE_ROWS = 8
+MAX_BLOCKS = 264
+MAX_D_REGS = 1024        # K3 holds rows, K4 rows and column sums, in registers
+SMEM_LIMIT = 232448      # bytes of shared memory a block can have
+# the general paths: K3 a warp per row, GEN_ROWS_FWD rows a block; K4
+# GEN_WARPS_BWD warps' float32 column sums, 2·D each, in shared memory
+# (229,376 bytes at the widest D)
+GEN_ROWS_FWD = 8
+GEN_WARPS_BWD = 4
+GEN_MAX_BLOCKS_BWD = 1024
+MAX_D_BWD = 7168
+
+# a launch's arguments as csrc/layer_norm_fwd.cu's LnFwdArgs and
+# layer_norm_bwd.cu's LnBwdArgs lay them out (8-byte pointers, int64 R,
+# 4-byte ints and float, padding before the stream)
+_FWD_ARGS = struct.Struct("=6Qqif3i4xQ")
+_BWD_ARGS = struct.Struct("=8Qq5i4xQ")
 
 # kernel launches by this process (K3; K4 counted once per call of its two
 # passes); chip_smoke.py zeroes and reads them
 launches = 0
 launches_bwd = 0
+
+
+class Geometry(NamedTuple):
+    """A launch of K3 or K4: each of ``blocks`` blocks owns
+    ``rows_per_block`` consecutive rows, with ``smem`` bytes of dynamic
+    shared memory."""
+    rows_per_block: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_geometry(r: int, d: int, dtype: torch.dtype,
+                    backward: bool = False) -> Geometry:
+    """K3's (or with ``backward`` K4's) launch for ``r`` rows of width ``d``
+    in ``dtype``: a function of these alone, never of the card, so the
+    partition of rows, and with it the order of K4's column sums, is the
+    same on every launch.  Up to ``MAX_D_REGS`` both kernels hand each of
+    at most ``MAX_BLOCKS`` blocks whole tiles of ``TILE_ROWS`` rows; K4's
+    blocks add their warps' column sums in ``64 * d`` bytes of shared
+    memory.  Wider rows take the general paths.  ``dtype`` is part of the
+    key, though no choice depends on it yet."""
+    if d <= MAX_D_REGS:
+        rows = TILE_ROWS * max(1, -(-(-(-r // TILE_ROWS)) // MAX_BLOCKS))
+        return Geometry(rows, -(-r // rows), 64 * d if backward else 0)
+    if backward:
+        rows = max(GEN_WARPS_BWD, -(-r // GEN_MAX_BLOCKS_BWD))
+        return Geometry(rows, -(-r // rows), GEN_WARPS_BWD * 2 * d * 4)
+    return Geometry(GEN_ROWS_FWD, -(-r // GEN_ROWS_FWD), 0)
 
 
 def _row_bytes(d: int, itemsize: int) -> int:
@@ -100,9 +156,7 @@ def layer_norm_bwd_reference(x: torch.Tensor, scale: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _function():
     fn = load_kernel_library(SOURCE).cosmos_layer_norm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_char_p]        # a packed LnFwdArgs
     fn.restype = ctypes.c_int
     return fn
 
@@ -110,9 +164,7 @@ def _function():
 @functools.lru_cache(maxsize=None)
 def _function_bwd():
     fn = load_kernel_library(SOURCE_BWD).cosmos_layer_norm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_char_p]        # a packed LnBwdArgs
     fn.restype = ctypes.c_int
     return fn
 
@@ -125,85 +177,133 @@ def build() -> None:
 
 
 def _check_params(op: str, x: torch.Tensor, *params: torch.Tensor) -> int:
-    if x.dim() < 1 or x.shape[-1] % 8:
-        raise ValueError(f"{op}: need a last axis that is a multiple of 8, "
-                         f"got shape {tuple(x.shape)}")
+    if x.dim() < 1 or x.shape[-1] % 8 or not x.shape[-1]:
+        raise ValueError(f"{op}: need a last axis that is a positive "
+                         f"multiple of 8, got shape {tuple(x.shape)}")
     d = x.shape[-1]
     check_cuda(op, "x", x)
     for i, p in enumerate(params):
         if p.shape != (d,):
             raise ValueError(f"{op}: parameter {i} has shape "
                              f"{tuple(p.shape)}, expected ({d},)")
-        check_cuda(op, f"parameter {i}", p, torch.float32, x.device)
+        check_cuda(op, f"parameter {i}", p, _F32, x.device)
     return d
+
+
+def _params_ok(d: int, dev: torch.device, *params: torch.Tensor) -> bool:
+    return all(p.device == dev and p.dtype is _F32 and p.shape == (d,)
+               and p.is_contiguous() and not p.data_ptr() % 16
+               for p in params)
+
+
+def _fwd_errors(op, x, scale, bias):
+    """Raise the error that the first failed check of ``layer_norm_fwd``
+    gives."""
+    _check_params(op, x, scale, bias)
+    raise AssertionError(f"{op}: the fast check failed, the detailed "
+                         "checks passed")
 
 
 def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(y, mean, rstd)``: K3 on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor.  ``mean`` and ``rstd`` are two views of one allocation."""
     global launches
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return layer_norm_fwd_reference(x, scale, bias, eps)
     op = "fused_layer_norm"
-    x = x.contiguous()
-    d = _check_params(op, x, scale, bias)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    shape = x.shape
+    d = shape[-1] if shape else 0
+    code = DTYPE_CODES.get(x.dtype)
+    if (dev.type != "cuda" or code is None or not d or d % 8
+            or x.data_ptr() % 16 or not _params_ok(d, dev, scale, bias)):
+        _fwd_errors(op, x, scale, bias)
     r = x.numel() // d
     y = torch.empty_like(x)
-    mean = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32,
-                       device=x.device)
-    rstd = torch.empty_like(mean)
+    stats = torch.empty((2,) + shape[:-1] + (1,), dtype=_F32, device=dev)
     if r:
-        with torch.cuda.device(x.device):
-            rc = _function()(
-                x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                mean.data_ptr(), rstd.data_ptr(), r, d, eps,
-                DTYPE_CODES[x.dtype], stream(x))
-        raise_on_error(op, rc, f"R={r} D={d} dtype={x.dtype}")
+        m = stats.data_ptr()
+        geo = launch_geometry(r, d, x.dtype)
+        rc = call_on(dev, _function(), _FWD_ARGS.pack, x.data_ptr(),
+                     scale.data_ptr(), bias.data_ptr(), y.data_ptr(), m,
+                     m + 4 * r, r, d, eps, code, geo.rows_per_block,
+                     geo.blocks)
+        if rc:
+            raise_on_error(op, rc, f"R={r} D={d} dtype={x.dtype}")
         launches += 1
+    mean, rstd = stats.unbind(0)
     return y, mean, rstd
+
+
+def _bwd_errors(op, x, scale, mean, rstd, g):
+    """Raise the error that the first failed check of ``layer_norm_bwd``
+    gives."""
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"{op}: gradient {tuple(g.shape)} {g.dtype}, "
+                         f"expected {tuple(x.shape)} {x.dtype}")
+    d = _check_params(op, x, scale)
+    if d > MAX_D_BWD:
+        raise ValueError(f"{op}: D={d} above the kernel's {MAX_D_BWD}")
+    check_cuda(op, "gradient", g, x.dtype, x.device)
+    r = x.numel() // d
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        # read one float a row: natural alignment
+        check_cuda(op, name, t, _F32, x.device, align=4)
+        if t.numel() != r:
+            raise ValueError(f"{op}: {name} has {t.numel()} rows, x {r}")
+    raise AssertionError(f"{op}: the fast check failed, the detailed "
+                         "checks passed")
 
 
 def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
                    rstd: torch.Tensor, g: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dscale, dbias)``: K4 on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    CPU tensor.  ``dscale`` and ``dbias`` are views of K4's workspace."""
     global launches_bwd
-    if x.device.type == "cpu" and g.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu" and g.device.type == "cpu":
         return layer_norm_bwd_reference(x, scale, mean, rstd, g)
     op = "fused_layer_norm backward"
     # autograd may hand over a strided gradient; K4 reads rows densely
-    x, g = x.contiguous(), g.contiguous()
-    if g.shape != x.shape or g.dtype != x.dtype:
-        raise ValueError(f"{op}: gradient {tuple(g.shape)} {g.dtype}, "
-                         f"expected {tuple(x.shape)} {x.dtype}")
-    d = _check_params(op, x, scale)
-    if d > _MAX_D_BWD:
-        raise ValueError(f"{op}: D={d} above the kernel's {_MAX_D_BWD}")
-    check_cuda(op, "gradient", g, x.dtype, x.device)
-    r = x.numel() // d
-    for name, t in (("mean", mean), ("rstd", rstd)):
-        check_cuda(op, name, t, torch.float32, x.device)
-        if t.numel() != r:
-            raise ValueError(f"{op}: {name} has {t.numel()} rows, x {r}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not g.is_contiguous():
+        g = g.contiguous()
+    shape = x.shape
+    d = shape[-1] if shape else 0
+    code = DTYPE_CODES.get(x.dtype)
+    r = x.numel() // d if d else 0
+    if (dev.type != "cuda" or code is None or not d or d % 8 or d > MAX_D_BWD
+            or g.device != dev or g.dtype is not x.dtype or g.shape != shape
+            or (x.data_ptr() | g.data_ptr()) % 16
+            or not _params_ok(d, dev, scale)
+            or not all(t.device == dev and t.dtype is _F32
+                       and t.numel() == r and t.is_contiguous()
+                       and not t.data_ptr() % 4 for t in (mean, rstd))):
+        _bwd_errors(op, x, scale, mean, rstd, g)
     dx = torch.empty_like(x)
-    dsb = torch.zeros(2, d, dtype=torch.float32, device=x.device)
+    geo = launch_geometry(r, d, x.dtype, True)
+    # dscale, dbias and the blocks' partial rows [2][blocks][D]: one
+    # allocation, every element written by K4
+    ds, db, partial = torch.empty(2 * d * (1 + geo.blocks), dtype=_F32,
+                                  device=dev).split([d, d, 2 * d * geo.blocks])
     if r:
-        rows_per_block = max(_BWD_WARPS, -(-r // _BWD_MAX_BLOCKS))
-        nblocks = -(-r // rows_per_block)
-        partial = torch.empty(2, nblocks, d, dtype=torch.float32,
-                              device=x.device)
-        with torch.cuda.device(x.device):
-            rc = _function_bwd()(
-                x.data_ptr(), g.data_ptr(), scale.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                dsb.data_ptr(), r, d, rows_per_block, DTYPE_CODES[x.dtype],
-                stream(x))
-        raise_on_error(op, rc, f"R={r} D={d} dtype={x.dtype}")
+        rc = call_on(dev, _function_bwd(), _BWD_ARGS.pack, x.data_ptr(),
+                     g.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+                     rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                     ds.data_ptr(), r, d, code, *geo)
+        if rc:
+            raise_on_error(op, rc, f"R={r} D={d} dtype={x.dtype}")
         launches_bwd += 1
-    return dx, dsb[0], dsb[1]
+    else:
+        ds.zero_()
+        db.zero_()
+    return dx, ds, db
 
 
 class _FusedLayerNorm(torch.autograd.Function):

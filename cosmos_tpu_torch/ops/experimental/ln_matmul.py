@@ -132,13 +132,21 @@ def build() -> None:
 
 
 def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                  w: torch.Tensor, bias: torch.Tensor,
-                  eps: float = 1e-5) -> torch.Tensor:
+                  w: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+                  return_stats: bool = False):
     """``[R, O]``: K5 on a CUDA tensor, the plain version on a CPU tensor
-    (arguments as ``ln_matmul_reference``)."""
+    (arguments as ``ln_matmul_reference``).  With ``return_stats``,
+    ``(out, stats)``: the float32 ``[R, 2]`` per-row (mean, rstd) that the
+    bf16 kernel's first pass writes (K3 holds its statistics to them bit
+    for bit); the float32 kernel leaves them unwritten."""
     global launches
     if x2.device.type == "cpu":
-        return ln_matmul_reference(x2, g, b, w, bias, eps)
+        out = ln_matmul_reference(x2, g, b, w, bias, eps)
+        if not return_stats:
+            return out
+        xf = x2.float()
+        _, rstd = ln_stats(x2, eps)
+        return out, torch.cat([xf.mean(-1, keepdim=True), rstd], 1)
     op = "ln_matmul"
     check_cuda(op, "x", x2)
     check_shapes(x2, w)
@@ -161,7 +169,7 @@ def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                 eps, DTYPE_CODES[x2.dtype], stream(x2))
         raise_on_error(op, rc, f"R={r} D={d} O={o} dtype={x2.dtype}")
         launches += 1
-    return out
+    return (out, stats) if return_stats else out
 
 
 def _forward(x, g, b, w, bias, eps):
