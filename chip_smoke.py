@@ -53,7 +53,9 @@ from the sources in the checkout and then:
      F.linear, F.layer_norm + F.linear + F.gelu + F.linear), its bound and,
      in bfloat16, the time before its Hopper redesign (PR 3's kernels); K3,
      K4 and their stock yardsticks also get device ms per launch (the
-     profiler's kernel time) and host us per call (200 calls enqueued)
+     profiler's kernel time, or CUDA events around calls held behind a
+     sleep kernel where the profiler records none; K3/K4's events time
+     is printed beside it) and host us per call (200 calls enqueued)
      apart from the wall ms of back-to-back calls; then holds K3-K6 to
      their plain versions at ragged row counts (R = 1, 63, 65, 130, 7392)
      in both dtypes, and K3/K4 at D = 1024, 1536 and 7168 (their general
@@ -67,7 +69,20 @@ from the sources in the checkout and then:
      before the K5/K6 redesign, and prints ms per step, samples/s, peak
      memory and a profile beside phase 7's step;
  11. repeats phase 8's 2-layer float32 step, card against CPU, under each
-     of (a)-(c).
+     of (a)-(c);
+ 12. drives the trainer, python -m cosmos_tpu_torch.training.main, through
+     main([...]) at full width: ViT-B-16 COSMOS with scripts/train_cc3m.sh's
+     flags (amp, exact GELU, no text bucket, multi-crop 2 + 6, textcrop
+     with 8 captions, momentum 0.999 fixed, a checkpoint every epoch) at
+     batch 64 on webdataset shards of synthetic JPEGs written from a seed
+     (min(8, cpus - 1) loader workers), 2 epochs of 4 steps with val and
+     COCO retrieval evals of student and teacher, then --resume latest for
+     a third; checks finite losses, the logit-scale clamp, the exact K1/K2
+     launches of every step (none of K3-K6), K1 only in the evals, the
+     resumed run's epoch and LR, the metrics' ranges and that every
+     checkpoint loads; prints ms per step (CUDA events), samples/s, the
+     data-wait share, the loader alone (samples/s, per worker) and each
+     eval's wall time.
 
 Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
@@ -219,16 +234,16 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def device_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Device time per call: every kernel that ``n`` calls launch, summed
-    by torch.profiler, over ``n``."""
+def device_ms(fn, n: int = 20, warmup: int = 3):
+    """(device time per call, how it was read): every kernel that ``n``
+    calls launch, summed by torch.profiler, over ``n``; or, where three
+    profiles come back without a single kernel (seen on the card), the
+    CUDA-event time of ``events_device_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a profile can come back without a single kernel (seen on the card):
-    # it is taken again, up to three times
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -238,8 +253,35 @@ def device_ms(fn, n: int = 20, warmup: int = 3) -> float:
         total = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
         if total > 0:
-            return total / n / 1e3
-    check(False, "the profiler recorded no device time in three profiles")
+            return total / n / 1e3, "profiler"
+    print("[device-ms] the profiler recorded no device time in three "
+          "profiles: CUDA events behind a sleep kernel instead")
+    return events_device_ms(fn, n), "events"
+
+
+def events_device_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Device time per call from CUDA events around ``n`` calls, enqueued
+    while a sleep kernel holds the stream, so that the calls run back to
+    back and the events do not time the host's launches.  The sleep is
+    lengthened until it outlasts the enqueueing."""
+    for _ in range(warmup):
+        fn()
+    cycles = 10 ** 8
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+        cycles *= 4
+    check(False, "the calls took longer to enqueue than four sleeps")
 
 
 def host_us(fn, n: int = 200, warmup: int = 3) -> float:
@@ -487,13 +529,18 @@ def phase_ln_kernels(K):
         if kernel in ("K3", "K4"):
             # device time apart from the host's: the wall time of
             # back-to-back calls is the larger of the two
-            row.update(device_ms=device_ms(fn), host_us=host_us(fn),
-                       library_device_ms=device_ms(library),
+            dev, dev_by = device_ms(fn)
+            lib_dev, lib_dev_by = device_ms(library)
+            row.update(device_ms=dev, device_ms_by=dev_by,
+                       device_events_ms=events_device_ms(fn),
+                       host_us=host_us(fn), library_device_ms=lib_dev,
+                       library_device_ms_by=lib_dev_by,
                        library_host_us=host_us(library))
             row.update(x_bound_device=row["device_ms"] / bound_ms,
                        x_library_device=(row["device_ms"]
                                          / row["library_device_ms"]))
-            split = (f" | device {row['device_ms']:.4f} ms "
+            split = (f" | device {row['device_ms']:.4f} ms ({dev_by}; "
+                     f"events {row['device_events_ms']:.4f} ms) "
                      f"(x{row['x_bound_device']:.2f} bound, "
                      f"x{row['x_library_device']:.2f} stock device "
                      f"{row['library_device_ms']:.4f} ms) host "
@@ -1047,21 +1094,24 @@ def read_launches(K) -> dict:
     return {k: getattr(m, a) for k, (m, a) in _counters(K).items()}
 
 
-def step_launches(setting, layers: int, b: int) -> dict:
+def step_launches(setting, layers: int, b: int, bucketed: bool = True
+                  ) -> dict:
     """Launches of K1-K6 in one training step of the recipe at per-card
     batch ``b`` with ``layers`` blocks per tower, under ``setting`` (None:
     the default path; or one of LN_SETTINGS), derived from the step's
     tower calls: the student's globals, locals, caption head views and
     the text bucket's short three quarters and long quarter of the other
-    6b views (all with a gradient), the teacher's globals and head views
-    (without), and the student's two cross poolers (ln_q and ln_k each,
-    batch b).  A LayerNorm takes K3/K4 only where ``supported`` holds:
-    every width here is a multiple of 128, so where the batch is even."""
+    6b views (one call of all 8b caption views when not ``bucketed``; all
+    with a gradient), the teacher's globals and head views (without), and
+    the student's two cross poolers (ln_q and ln_k each, batch b).  A
+    LayerNorm takes K3/K4 only where ``supported`` holds: every width here
+    is a multiple of 128, so where the batch is even."""
     n = 6 * b
     short = n * 3 // 4
-    calls = [("vision", 2 * b, True), ("vision", 6 * b, True),
-             ("text", 2 * b, True), ("text", short, True),
-             ("text", n - short, True),
+    text = ([("text", 2 * b, True), ("text", short, True),
+             ("text", n - short, True)] if bucketed
+            else [("text", 8 * b, True)])
+    calls = [("vision", 2 * b, True), ("vision", 6 * b, True), *text,
              ("vision", 2 * b, False), ("text", 2 * b, False)]
     fuse = setting == "fuse_ln"
     k3 = setting in ("FUSED_LN", "fuse_ln")
@@ -1308,6 +1358,331 @@ def phase_train_card_vs_cpu(K, setting=None):
     return errs
 
 
+# the trainer phase (12): train_cc3m.sh's recipe through the port's
+# entry point on local webdataset shards; see phase_trainer
+TRAINER_BATCH = 64
+TRAINER_STEPS = 4
+TRAINER_SHARD_SAMPLES = 96
+# steps of the trainer phase taken under the profiler: the first after an
+# epoch boundary (epoch 1's first) and the one after it
+TRAINER_PROFILED_STEPS = (TRAINER_STEPS, TRAINER_STEPS + 1)
+
+
+def _trainer_argv(data, logs, workers, *extra):
+    """scripts/train_cc3m.sh's flags with the paths and the cut-down
+    counts of the smoke run."""
+    return [
+        "--logs-dir", logs, "--name", "trainer",
+        "--model", "ViT-B-16", "--dataset-type", "webdataset",
+        "--lr", "5e-4", "--warmup", "2000",
+        "--train-data",
+        f"{data}/train-{{0000..{max(8, workers) - 1:04d}}}.tar",
+        "--train-num-samples", "768",
+        "--val-data", f"{data}/val-0000.tar", "--val-num-samples", "128",
+        "--batch-size", str(TRAINER_BATCH), "--precision", "amp",
+        "--workers", str(workers), "--save-frequency", "1",
+        "--log-every-n-steps", "1", "--wd", "0.5", "--beta1", "0.9",
+        "--beta2", "0.98", "--eps", "1e-8", "--use-imagecrop-aug",
+        "--global-crops-number", "2", "--local-crops-number", "6",
+        "--crop-scale", "0.4", "--caption-sampling-mode", "textcrop",
+        "--num-sampled-captions", "8", "--momentum-teacher", "0.999",
+        "--fix-momentum", "--output-all", "--attentional-pool", "--cosmos",
+        "--steps-per-epoch", str(TRAINER_STEPS),
+        "--data-root-dir", f"{data}/eval", *extra]
+
+
+def _profile_step(step, state, batch):
+    """One step under torch.profiler, synchronised before and after:
+    the window on the host clock, the device's busy time (kernels of one
+    stream do not overlap), the kernels and the host calls (CUDA runtime
+    calls included) that took most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = {e.key: e.self_device_time_total / 1e3 for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0}
+    host = {e.key: e.self_cpu_time_total / 1e3 for e in events
+            if e.self_cpu_time_total > 0}
+    busy = sum(device.values())
+    top = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1])[:6])
+    return m, dict(window_ms=window_ms, device_busy_ms=busy,
+                   busy_share=busy / window_ms if device else None,
+                   top_device_ms=top(device), top_host_ms=top(host))
+
+
+@contextlib.contextmanager
+def _gc_pauses(record):
+    """Record the host-clock length (ms) of each collection of Python's
+    oldest generation in the block: a pause of the host that a training
+    step meets as device idle."""
+    import gc
+
+    started = {}
+
+    def callback(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            record.append((time.perf_counter() - started.pop("t")) * 1e3)
+
+    gc.callbacks.append(callback)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(callback)
+
+
+@contextlib.contextmanager
+def _instrumented_trainer(K, record):
+    """Wrap the trainer's step and evaluation (main() imports both at call
+    time) to count K1/K2 launches per step and per eval, and to check that
+    every batch reaches the step on the card."""
+    from cosmos_tpu_torch.training import evaluate as ev
+    from cosmos_tpu_torch.training import train as tr
+
+    make_step, evaluate = tr.make_train_step, ev.evaluate
+
+    def counted_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def counted(state, batch):
+            check(all(t.is_cuda for t in batch.values()),
+                  "the prefetcher handed the step a host tensor")
+            before = read_launches(K)
+            if len(record["steps"]) in TRAINER_PROFILED_STEPS:
+                m, prof = _profile_step(step, state, batch)
+                record["profiles"][len(record["steps"])] = prof
+            else:
+                m = step(state, batch)
+            after = read_launches(K)
+            record["steps"].append({k: after[k] - before[k] for k in after})
+            return m
+        return counted
+
+    def counted_evaluate(*a, **kw):
+        before = read_launches(K)
+        out = evaluate(*a, **kw)
+        after = read_launches(K)
+        record["evals"].append({k: after[k] - before[k] for k in after})
+        return out
+
+    tr.make_train_step, ev.evaluate = counted_make_step, counted_evaluate
+    try:
+        with _as_main_module("cosmos_tpu_torch.training.main"):
+            yield
+    finally:
+        tr.make_train_step, ev.evaluate = make_step, evaluate
+
+
+@contextlib.contextmanager
+def _as_main_module(name: str):
+    """Make ``name`` the ``__main__`` module for the block.  The loader's
+    worker processes re-import ``__main__``: as under ``python -m
+    cosmos_tpu_torch.training.main``, they then import that module, which
+    imports no torch, and not this script, which imports torch at its top."""
+    import importlib
+
+    saved = sys.modules["__main__"]
+    sys.modules["__main__"] = importlib.import_module(name)
+    try:
+        yield
+    finally:
+        sys.modules["__main__"] = saved
+
+
+def _loader_alone(argv, batches: int = 20):
+    """The trainer's WdsTrainLoader on its own: time to the first batch,
+    then samples/s over ``batches`` more, no step."""
+    from cosmos_tpu_torch.models.factory import get_tokenizer
+    from cosmos_tpu_torch.training.data_pipeline import get_data
+    from cosmos_tpu_torch.training.params import parse_args
+
+    args = parse_args(argv)
+    loader = get_data(args, get_tokenizer("ViT-B-16"))["train"].dataloader
+    try:
+        with _as_main_module("cosmos_tpu_torch.training.main"):
+            t0 = time.perf_counter()
+            it = iter(loader)
+            next(it)
+        t1 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        seconds = time.perf_counter() - t1
+    finally:
+        loader.shutdown()
+    return dict(first_batch_s=t1 - t0, batches=batches,
+                samples_per_s=batches * TRAINER_BATCH / seconds)
+
+
+def phase_trainer(K):
+    """python -m cosmos_tpu_torch.training.main at full width: ViT-B-16
+    COSMOS, train_cc3m.sh's recipe (amp, exact GELU, no text bucket,
+    multi-crop 2 + 6, textcrop with 8 captions, momentum 0.999 fixed),
+    batch 64, on webdataset shards of synthetic JPEGs made from a seed;
+    2 epochs of 4 steps with val and COCO retrieval evals of student and
+    teacher and a checkpoint each, then --resume latest for a third."""
+    import os
+    import tempfile
+
+    from cosmos_tpu_torch.data.synthetic import write_coco, write_shards
+    from cosmos_tpu_torch.models.convert import load_checkpoint
+    from cosmos_tpu_torch.models.factory import create_model
+    from cosmos_tpu_torch.training import main as trainer
+    from cosmos_tpu_torch.training.scheduler import get_lr_scheduler
+    from cosmos_tpu_torch.training.train import LN100
+
+    cpus = os.cpu_count() or 1
+    workers = max(1, min(8, cpus - 1))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cosmos_trainer_") as tmp:
+        data, logs = f"{tmp}/data", f"{tmp}/logs"
+        t0 = time.perf_counter()
+        write_shards(data + "/train-{i:04d}.tar", max(8, workers),
+                     TRAINER_SHARD_SAMPLES, seed=0)
+        write_shards(data + "/val-{i:04d}.tar", 1, 128, seed=1)
+        write_coco(data + "/eval/coco", 64, seed=2)
+        data_s = time.perf_counter() - t0
+        print(f"[trainer] {max(8, workers)} train shards of "
+              f"{TRAINER_SHARD_SAMPLES} JPEGs (256-640 px), 1 val shard of "
+              f"128, COCO layout of 64 images x 5 captions in {data_s:.1f} s; "
+              f"{workers} workers, os.cpu_count() {cpus}")
+        argv = _trainer_argv(data, logs, workers)
+        record = {"steps": [], "evals": [], "profiles": {}, "gc_ms": []}
+        zero_launches(K)
+        t0 = time.perf_counter()
+        with _instrumented_trainer(K, record), _gc_pauses(record["gc_ms"]):
+            run1 = trainer.main(argv + ["--epochs", "2"])
+            run2 = trainer.main(argv + ["--epochs", "3", "--resume", "latest"])
+        wall_s = time.perf_counter() - t0
+        launches = read_launches(K)
+        loader = _loader_alone(argv + ["--epochs", "3"])
+        ckpt_dir = f"{logs}/trainer/checkpoints"
+        model = create_model("ViT-B-16", "amp", device="cuda", cosmos=True,
+                             output_all=True, attentional_pool=True)
+        for epoch in (1, 2, 3):
+            for which in ("student", "teacher"):
+                sd = load_checkpoint(f"{ckpt_dir}/epoch_{epoch}.pt", which)
+                model.load_state_dict(sd, strict=True)
+                for name in ("logit_scale", "distill_logit_scale"):
+                    v = float(sd[name])
+                    check(0.0 <= v <= LN100,
+                          f"epoch {epoch} {which} {name} = {v}")
+        del model
+        torch.cuda.empty_cache()
+
+    epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
+    check([s["epoch"] for s in epochs] == [0, 1, 2],
+          f"epochs run {[s['epoch'] for s in epochs]}: the resumed run "
+          "starts at epoch 2")
+    logged = [line for s in epochs for line in s["logged"]]
+    losses = [line["loss"] for line in logged]
+    print(f"[trainer] losses {' '.join(f'{x:.5f}' for x in losses)}")
+    check(len(losses) == 3 * TRAINER_STEPS and all(np.isfinite(losses)),
+          f"a finite loss at every step: {losses}")
+    for line in logged:
+        check(0.0 < line["logit_scale"] <= 100.0 + 1e-3,
+              f"exp(logit_scale) {line['logit_scale']} outside (0, 100]")
+    lr = get_lr_scheduler("cosine", 5e-4, 2000, 3 * TRAINER_STEPS)
+    first = epochs[2]["logged"][0]["lr"]
+    check(first == lr(2 * TRAINER_STEPS),
+          f"resumed lr {first} vs the schedule at update "
+          f"{2 * TRAINER_STEPS}: {lr(2 * TRAINER_STEPS)}")
+    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+    want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
+    for i, got in enumerate(record["steps"]):
+        check(got == want, f"step {i}: launches {got}, expected {want}")
+    check(len(record["steps"]) == 3 * TRAINER_STEPS, "steps counted")
+    for got in record["evals"]:
+        check(got["K1"] > 0 and all(got[k] == 0 for k in got if k != "K1"),
+              f"an eval launches K1 only: {got}")
+    check(len(record["evals"]) == 3, "one eval per epoch")
+    for prefix in ("", "ema_"):
+        for key in ("clip_val_loss", "coco_image_to_text_R@1",
+                    "coco_text_to_image_R@10", "image_to_text_R@5"):
+            v = run2.get(prefix + key)
+            check(v is not None and np.isfinite(v), f"{prefix}{key}: {v}")
+            check(0.0 <= v <= (100.0 if "loss" in key else 1.0),
+                  f"{prefix}{key} = {v}")
+        for key in ("coco_image_to_text_mean_rank",
+                    "coco_text_to_image_median_rank"):
+            v = run2[prefix + key]
+            check(1.0 <= v <= 320.0, f"{prefix}{key} = {v}")
+
+    # steady state: each epoch's steps after its first, but for the
+    # profiled ones
+    def steady(e, i):
+        return i > 0 and e * TRAINER_STEPS + i not in TRAINER_PROFILED_STEPS
+
+    step_ms = [ms for e, s in enumerate(epochs)
+               for i, ms in enumerate(s["step_ms"]) if steady(e, i)]
+    samples_s = [line["samples_per_s"] for e, s in enumerate(epochs)
+                 for line in s["logged"] if steady(e, line["step"])]
+    out = dict(
+        workers=workers, cpu_count=cpus, data_write_s=data_s, wall_s=wall_s,
+        launches=launches, launches_per_step=want,
+        eval_launches=record["evals"], losses=losses,
+        resumed_first_lr=first,
+        epochs=[{k: s[k] for k in ("epoch", "wall_s", "data_wait_s",
+                                   "data_wait_share", "samples_per_s",
+                                   "step_ms", "eval_s")} for s in epochs],
+        step_ms_mean=float(np.mean(step_ms)),
+        window_samples_per_s_mean=float(np.mean(samples_s)),
+        data_wait_share=(sum(s["data_wait_s"] for s in epochs)
+                         / sum(s["wall_s"] for s in epochs)),
+        loader_alone=dict(loader, workers=workers,
+                          samples_per_s_per_worker=loader["samples_per_s"]
+                          / workers),
+        eval_s=[s["eval_s"] for s in epochs],
+        profiled_steps=record["profiles"],
+        gc_gen2_ms=record["gc_ms"],
+        metrics={k: v for k, v in run2.items()
+                 if isinstance(v, (int, float))},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"[trainer] ms per step (CUDA events around the step calls, data "
+          f"wait apart; steps 2+ of each epoch, not the profiled ones) "
+          f"{out['step_ms_mean']:.3f}; "
+          f"samples/s (train_one_epoch's windows) "
+          f"{out['window_samples_per_s_mean']:.1f}; data-wait share "
+          f"{out['data_wait_share']:.3f} ("
+          + ", ".join(f"epoch {s['epoch']} {s['data_wait_share']:.3f}"
+                      for s in epochs) + ")")
+    print(f"[trainer] loader alone: {loader['samples_per_s']:.1f} samples/s "
+          f"({out['loader_alone']['samples_per_s_per_worker']:.1f} per "
+          f"worker, {workers} workers, os.cpu_count() {cpus}), first batch "
+          f"after {loader['first_batch_s']:.2f} s")
+    print(f"[trainer] evals (val + COCO retrieval, student and teacher) "
+          + ", ".join(f"{s:.2f} s" for s in out["eval_s"])
+          + f"; K1 launches per eval {[e['K1'] for e in record['evals']]}")
+    for i, prof in record["profiles"].items():
+        busy = ("not measured (no device time recorded)"
+                if prof["busy_share"] is None
+                else f"{prof['device_busy_ms']:.3f} ms busy (share "
+                     f"{prof['busy_share']:.3f})")
+        print(f"[trainer] step {i} profiled: window "
+              f"{prof['window_ms']:.3f} ms, device {busy}; top device "
+              + "; ".join(f"{k[:60]} {v:.2f}"
+                          for k, v in prof["top_device_ms"].items())
+              + "; top host " + "; ".join(
+                  f"{k[:40]} {v:.2f}" for k, v in prof["top_host_ms"].items()))
+    gc_ms = record["gc_ms"]
+    print(f"[trainer] Python gen-2 collections during the two runs: "
+          f"{len(gc_ms)}, {sum(gc_ms):.1f} ms in all, longest "
+          f"{max(gc_ms, default=0.0):.1f} ms")
+    print(f"[trainer] launches {launches}; per step {want}; resumed lr "
+          f"{first:.6g}; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -1337,6 +1712,7 @@ def main() -> int:
     train_ln = phase_train_ln(K, train)
     train_ln_card_vs_cpu = {s: phase_train_card_vs_cpu(K, s)
                             for s in LN_SETTINGS}
+    trainer = phase_trainer(K)
 
     def pick(table, geometry, **match):
         label, dtype = geometry
@@ -1353,13 +1729,16 @@ def main() -> int:
         "route": "cuda",
         "source": "cosmos_tpu_torch/ops/csrc/fused_attention_fwd.cu",
         "replaces": "cosmos_tpu/ops/fused_attention.py:101",
-        # the main paths' runs: serving (phase 4), training (phases 7, 10)
+        # the main paths' runs: serving (phase 4), training (phases 7, 10),
+        # the trainer (phase 12: its steps and evals)
         "launches": serving["launches"] + train["k1_launches"] + sum(
-            r["launches"]["K1"] for r in train_ln.values()),
+            r["launches"]["K1"] for r in train_ln.values())
+        + trainer["launches"]["K1"],
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
-                                for s, r in train_ln.items()}},
+                                for s, r in train_ln.items()},
+                             "trainer": trainer["launches"]["K1"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
@@ -1367,10 +1746,12 @@ def main() -> int:
         "source": "cosmos_tpu_torch/ops/csrc/fused_attention_bwd.cu",
         "replaces": "cosmos_tpu/ops/fused_attention.py:190",
         "launches": train["k2_launches"] + sum(
-            r["launches"]["K2"] for r in train_ln.values()),
+            r["launches"]["K2"] for r in train_ln.values())
+        + trainer["launches"]["K2"],
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
-                                for s, r in train_ln.items()}},
+                                for s, r in train_ln.items()},
+                             "trainer": trainer["launches"]["K2"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -1392,7 +1773,8 @@ def main() -> int:
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             **{k: row[k] for k in keys + ("x_bound", "x_library")},
-            **{k: row[k] for k in ("device_ms", "host_us",
+            **{k: row[k] for k in ("device_ms", "device_ms_by",
+                                   "device_events_ms", "host_us",
                                    "library_device_ms", "library_host_us")
                if k in row}})
         check(kernels[-1]["launches"] > 0, f"{key} never launched")
@@ -1406,6 +1788,7 @@ def main() -> int:
                   host_floor=host_floor,
                   train_ln=train_ln,
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
+                  trainer=trainer,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,111 @@
+"""Synthetic data on disk, made from a seed with numpy, in the layouts the
+trainer reads: webdataset tar shards whose samples carry an image and a
+JSON with the seven DreamLIP caption fields, and a COCO retrieval
+directory.  For smoke runs of the trainer and for tests; no counterpart in
+the JAX package.
+
+    write_shards("data/train-{i:04d}.tar", n_shards=8, samples_per_shard=96)
+    write_coco("data/coco", n_images=64)
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import tarfile
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Tuple
+
+import numpy as np
+
+from .caption import DREAMLIP_FIELDS
+
+WORDS = (
+    "a photo of the cat dog tree house car boat sky cloud river mountain red "
+    "green blue tiny huge wooden plastic shiny old young running sitting "
+    "under over near with beside street field beach forest city night day"
+).split()
+
+
+def _sentence(rng: np.random.Generator) -> str:
+    return " ".join(rng.choice(WORDS, size=int(rng.integers(3, 12))))
+
+
+def _caption(rng: np.random.Generator) -> str:
+    """1-3 sentences."""
+    return ". ".join(_sentence(rng) for _ in range(int(rng.integers(1, 4))))
+
+
+def _image_bytes(rng: np.random.Generator, size: Tuple[int, int],
+                 fmt: str) -> bytes:
+    """A smooth random image (w, h) as PNG or JPEG bytes."""
+    from PIL import Image
+
+    w, h = size
+    coarse = rng.integers(0, 208, (h // 32 + 2, w // 32 + 2, 3), np.uint8)
+    img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+    arr = np.asarray(img) + rng.integers(0, 48, (h, w, 3), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG" if fmt == "png" else "JPEG",
+                              **({} if fmt == "png" else {"quality": 90}))
+    return buf.getvalue()
+
+
+def _add(tf: tarfile.TarFile, name: str, data: bytes) -> None:
+    info = tarfile.TarInfo(name)
+    info.size = len(data)
+    tf.addfile(info, io.BytesIO(data))
+
+
+def write_shards(pattern: str, n_shards: int, samples_per_shard: int, *,
+                 seed: int = 0, fmt: str = "jpg",
+                 size_range: Tuple[int, int] = (256, 640)) -> List[str]:
+    """``n_shards`` tars named ``pattern.format(i=shard)``, each with
+    ``samples_per_shard`` samples: an image of width and height drawn from
+    ``size_range`` (``fmt`` 'jpg' or 'png') and a JSON with the seven
+    DreamLIP caption fields of 1-3 sentences each; shard i draws from the
+    seed (seed, i).  Returns the paths."""
+    def write(s: int) -> str:
+        rng = np.random.default_rng([seed, s])
+        path = pattern.format(i=s)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with tarfile.open(path, "w") as tf:
+            for j in range(samples_per_shard):
+                key = f"{s:04d}{j:05d}"
+                size = tuple(int(v) for v in rng.integers(
+                    size_range[0], size_range[1] + 1, 2))
+                meta = {f: [_caption(rng)] for f in DREAMLIP_FIELDS}
+                _add(tf, f"{key}.{fmt}", _image_bytes(rng, size, fmt))
+                _add(tf, f"{key}.json", json.dumps(meta).encode())
+        return path
+
+    # one thread a shard: PIL's encoders release the GIL
+    with ThreadPoolExecutor(min(8, n_shards)) as pool:
+        return list(pool.map(write, range(n_shards)))
+
+
+def write_coco(root: str, n_images: int, *, captions_per_image: int = 5,
+               seed: int = 0, fmt: str = "jpg",
+               size_range: Tuple[int, int] = (256, 640)) -> str:
+    """A COCO val layout under ``root``: ``annotations/
+    captions_val2017.json`` and ``images/val2017/``.  Returns ``root``."""
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images", "val2017")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, annotations = [], []
+    for i in range(n_images):
+        name = f"{i:012d}.{fmt}"
+        size = tuple(int(v) for v in rng.integers(
+            size_range[0], size_range[1] + 1, 2))
+        with open(os.path.join(img_dir, name), "wb") as f:
+            f.write(_image_bytes(rng, size, fmt))
+        images.append({"id": i, "file_name": name})
+        for _ in range(captions_per_image):
+            annotations.append({"id": len(annotations), "image_id": i,
+                                "caption": _sentence(rng)})
+    with open(os.path.join(root, "annotations", "captions_val2017.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+    return root

@@ -79,3 +79,19 @@ def create_model(
                  fuse_ln=fuse_ln)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def get_tokenizer(model_name: str = ""):
+    """The byte-BPE tokenizer at the config's context length (77 without a
+    config).  The native-ViT configs the port builds all use it; a config
+    that names an HF tokenizer is refused."""
+    from ..data.tokenizer import SimpleTokenizer
+    from .config import get_model_config
+
+    cfg = get_model_config(model_name) if model_name else None
+    text_cfg = (cfg or {}).get("text_cfg", {})
+    if text_cfg.get("hf_tokenizer_name"):
+        raise NotImplementedError(
+            f"{model_name}: HF tokenizers are not ported (ROADMAP queue 1, "
+            "item 4)")
+    return SimpleTokenizer(context_length=text_cfg.get("context_length", 77))

@@ -42,10 +42,25 @@ launches = 0
 launches_bwd = 0
 
 
+def _head_group(num_heads: int, dh: int) -> int:
+    """The JAX kernel's heads per grid step (``cosmos_tpu/ops/
+    fused_attention.py`` ``_head_group``): the widest group of 4, 2 or 1
+    heads whose width is a multiple of 128 and that divides the head count;
+    0 when there is none (an odd head count at Dh 64)."""
+    for hg in (4, 2, 1):
+        if num_heads % hg == 0 and (hg * dh) % 128 == 0:
+            return hg
+    return 0
+
+
 def supported(num_heads: int, d: int) -> bool:
-    """True when the kernels take this geometry: the head dim is 64 or 128.
-    Neither kernel bounds L."""
-    return d % num_heads == 0 and d // num_heads in HEAD_DIMS
+    """True when the kernels take this geometry: the head dim is 64 or 128
+    and the heads form a group as the JAX kernel's do, so that a head count
+    JAX sends to its XLA path (an odd count at Dh 64) takes the stock path
+    here too.  Neither kernel bounds L."""
+    if d % num_heads or d // num_heads not in HEAD_DIMS:
+        return False
+    return _head_group(num_heads, d // num_heads) > 0
 
 
 def _geometry(qkv: torch.Tensor, num_heads: int):
@@ -58,7 +73,8 @@ def _geometry(qkv: torch.Tensor, num_heads: int):
     if not supported(num_heads, d):
         raise ValueError(
             f"fused_attention_qkv: unsupported geometry D={d} "
-            f"num_heads={num_heads} (need a head dim in {HEAD_DIMS})")
+            f"num_heads={num_heads} (need a head dim in {HEAD_DIMS} and "
+            "heads that form a group: an even count at head dim 64)")
     return b, l, d, d // num_heads
 
 

@@ -1,5 +1,6 @@
 """cosmos_tpu_torch stands alone: no module of it (nor chip_smoke.py)
-imports jax, flax or cosmos_tpu, and its entry points do not fall back to
+imports jax, flax, cosmos_tpu or regex (absent on the card's machine), and
+its entry points do not fall back to
 the CPU when CUDA is missing."""
 
 import ast
@@ -15,7 +16,7 @@ from cosmos_tpu_torch import create_model
 
 PKG = Path(cosmos_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
-FORBIDDEN = ("jax", "flax", "cosmos_tpu")
+FORBIDDEN = ("jax", "flax", "cosmos_tpu", "regex")
 
 
 def _top_level_imports(path: Path):
