@@ -82,7 +82,28 @@ from the sources in the checkout and then:
      resumed run's epoch and LR, the metrics' ranges and that every
      checkpoint loads; prints ms per step (CUDA events), samples/s, the
      data-wait share, the loader alone (samples/s, per worker) and each
-     eval's wall time.
+     eval's wall time;
+ 13. drives the zero-shot classification eval through the trainer's entry
+     point, main([... "--eval-mode", "classification" ...]): ViT-B-16
+     COSMOS in bfloat16 (amp) from a checkpoint of random weights, student
+     and teacher, on an ImageNet val layout of 1000 class dirs x 1 seeded
+     JPEG and a CIFAR-10 test batch of 2000 seeded images; checks 12 K1
+     launches in every text and image call and none of K2-K6, the
+     classifiers' prompt counts (80000 for ImageNet), the images of each
+     pass and top-1/top-5 in [0, 1]; prints the classifier's build time
+     and prompts/s, images/s, and holds the ImageNet classifier's columns
+     of 8 classes, card against CPU, in float32;
+ 14. drives the segmentation eval, python -m
+     cosmos_tpu_torch.training.seg_eval, through main([...]) in float32
+     (its default) from the same checkpoint's weights on a voc20 layout
+     (16 seeded 500x375 images) and an ade20k layout (16 images, 4 with a
+     short side below 336), with --use-csa and without, then 10 PAMR
+     steps on 2 images; checks 11 K1 launches in every vision call with
+     CSA and 12 without (at most 8 windows a call), 12 in every text call,
+     none of K2-K6, and mIoU/aAcc/mAcc in [0, 100]; prints images/s and
+     windows/s, holds one image's logits, card against CPU, and times K1
+     in float32 at a chunk of 8 windows [8, 197, 2304] beside SDPA and its
+     bound.
 
 Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
@@ -97,6 +118,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -395,52 +417,53 @@ def phase_build(kernel_build, modules) -> float:
     return seconds
 
 
+def kernel_row(fa, label, b, l, d3, heads, causal, dtype, gen) -> dict:
+    """K1 against its plain version at one geometry, and its time beside
+    the plain version's, F.scaled_dot_product_attention's (a yardstick
+    only) and its bound."""
+    x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
+    got = fa.fused_attention_qkv(x, heads, causal)
+    want = fa.fused_attention_qkv_reference(x, heads, causal)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    atol, rtol = KERNEL_TOL[dtype]
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    err = diff.max().item()
+    check(ok and torch.isfinite(got).all().item(),
+          f"K1 vs plain at {label} {dtype}: max err {err}")
+    d = d3 // 3
+    q, k, v = (t.view(b, l, heads, d // heads).transpose(1, 2)
+               for t in x.split(d, dim=-1))
+    ms = time_ms(lambda: fa.fused_attention_qkv(x, heads, causal))
+    plain_ms = time_ms(
+        lambda: fa.fused_attention_qkv_reference(x, heads, causal), iters=5)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal))
+    bound_ms, bound_by, nbytes, ops = attention_bound(b, l, d, causal, dtype)
+    row = dict(label=label, shape=[b, l, d3], heads=heads, causal=causal,
+               dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+               tflops=ops / ms / 1e9, x_bound=ms / bound_ms,
+               x_library=ms / library_ms)
+    print(f"[kernel] {label:28s} {row['dtype']:8s} [{b},{l},{d3}] "
+          f"h={heads} causal={int(causal)} err={err:.3g} "
+          f"K1={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms "
+          f"bound={bound_ms:.4f} ms ({bound_by}) "
+          f"x{row['x_bound']:.1f} bound x{row['x_library']:.2f} sdpa "
+          f"{row['tflops']:.1f} TFLOP/s")
+    return row
+
+
 def phase_kernel(fa):
     """K1 against its plain version, and times, at every geometry."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    for label, b, l, d3, heads, causal in GEOMETRIES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
-            got = fa.fused_attention_qkv(x, heads, causal)
-            want = fa.fused_attention_qkv_reference(x, heads, causal)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            atol, rtol = KERNEL_TOL[dtype]
-            ok = bool((diff <= atol + rtol * want.float().abs()).all())
-            err = diff.max().item()
-            check(ok and torch.isfinite(got).all().item(),
-                  f"K1 vs plain at {label} {dtype}: max err {err}")
-            d = d3 // 3
-            q, k, v = (t.view(b, l, heads, d // heads).transpose(1, 2)
-                       for t in x.split(d, dim=-1))
-            ms = time_ms(lambda: fa.fused_attention_qkv(x, heads, causal))
-            plain_ms = time_ms(
-                lambda: fa.fused_attention_qkv_reference(x, heads, causal),
-                iters=5)
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal))
-            bound_ms, bound_by, nbytes, ops = attention_bound(
-                b, l, d, causal, dtype)
-            row = dict(label=label, shape=[b, l, d3], heads=heads,
-                       causal=causal, dtype=str(dtype).replace("torch.", ""),
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes, ops=ops,
-                       tflops=ops / ms / 1e9,
-                       x_bound=ms / bound_ms, x_library=ms / library_ms)
-            rows.append(row)
-            print(f"[kernel] {label:28s} {row['dtype']:8s} [{b},{l},{d3}] "
-                  f"h={heads} causal={int(causal)} err={err:.3g} "
-                  f"K1={ms:.4f} ms "
-                  f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms "
-                  f"bound={bound_ms:.4f} ms ({bound_by}) "
-                  f"x{row['x_bound']:.1f} bound x{row['x_library']:.2f} sdpa "
-                  f"{row['tflops']:.1f} TFLOP/s")
-            del x, got, want, q, k, v
-    return rows
+    return [kernel_row(fa, label, b, l, d3, heads, causal, dtype, gen)
+            for label, b, l, d3, heads, causal in GEOMETRIES
+            for dtype in (torch.float32, torch.bfloat16)]
 
 
 def _held(what: str, got, want, tol) -> float:
@@ -1683,6 +1706,389 @@ def phase_trainer(K):
     return out
 
 
+# the eval phases (13, 14): ViT-B-16 COSMOS from one random checkpoint,
+# the classification eval through the trainer's entry point and the
+# segmentation eval through its own
+EVAL_MODEL_SEED = 7
+CLS_IMAGENET_CLASSES = 1000
+CLS_CIFAR_IMAGES = 2000
+CLS_BATCH = 256
+# ImageNet classes held card against CPU
+CLS_CARD_VS_CPU_CLASSES = 8
+# float32 on both sides, TF32 off: summation order through 12 layers; the
+# classifier's columns and the segmentor's logits are cosines
+EVAL_CARD_VS_CPU_TOL = (1e-4, 0.0)
+SEG_VOC_SIZES = [(500, 375)] * 16
+# ADE20K: 4 of 16 images with a short side below 336, which SegDataset
+# enlarges, so that the final logits shrink to the label's shape
+SEG_ADE_SIZES = [(640, 480), (512, 683), (600, 400)] * 4 + [
+    (400, 300), (300, 250), (500, 320), (256, 256)]
+SEG_PAMR_IMAGES = 2
+# the K1 geometry of one chunk of 8 segmentation windows in float32
+SEG_K1_GEOMETRY = ("segmentation windows", 8, 197, 3 * 768, 12, False)
+
+
+def _eval_checkpoint(path: str) -> str:
+    """A bare state dict of ViT-B-16 COSMOS with random weights from
+    EVAL_MODEL_SEED (the trainer and seg_eval load it as student and as
+    teacher)."""
+    from cosmos_tpu_torch.models.factory import create_model
+
+    model = create_model("ViT-B-16", "fp32", device="cpu",
+                         seed=EVAL_MODEL_SEED, **COSMOS)
+    torch.save(model.state_dict(), path)
+    return path
+
+
+@contextlib.contextmanager
+def _counted_evals(K, record):
+    """Wrap the zero-shot evals' and the segmentor's device calls (each
+    module looks them up at call time) to record, per text, image and
+    vision call, the rows and the launches of K1-K6, and the wall time of
+    each classifier build, classification pass and segmentor prediction
+    (each ends on the host, so its wall time holds the device's)."""
+    from cosmos_tpu_torch.segmentation.segmentor import CLIPSegmentor
+    from cosmos_tpu_torch.training import zero_shot as zs
+
+    build, run = zs.build_zero_shot_classifier, zs.run_classification_eval
+    forward, predict = CLIPSegmentor._forward_feature, CLIPSegmentor.predict
+
+    def counted(kind, fn):
+        def call(x):
+            before = read_launches(K)
+            out = fn(x)
+            after = read_launches(K)
+            record[kind].append(dict(rows=len(x), **{
+                k: after[k] - before[k] for k in after}))
+            return out
+        return call
+
+    def timed_build(encode_text_fn, tokenizer, classnames, templates,
+                    *a, **kw):
+        t0 = time.perf_counter()
+        out = build(counted("text_calls", encode_text_fn), tokenizer,
+                    classnames, templates, *a, **kw)
+        torch.cuda.synchronize()
+        record["builds"].append(dict(
+            classes=len(classnames), prompts=len(classnames) * len(templates),
+            s=time.perf_counter() - t0))
+        return out
+
+    def timed_run(encode_image_fn, classifier, dataloader):
+        t0 = time.perf_counter()
+        n0 = sum(c["rows"] for c in record["image_calls"])
+        out = run(counted("image_calls", encode_image_fn), classifier,
+                  dataloader)
+        record["passes"].append(dict(
+            images=sum(c["rows"] for c in record["image_calls"]) - n0,
+            s=time.perf_counter() - t0))
+        return out
+
+    def counted_forward(self, images):
+        return counted("vision_calls", lambda x: forward(self, x))(images)
+
+    def timed_predict(self, image_u8, ori_shape=None):
+        t0 = time.perf_counter()
+        w0 = sum(c["rows"] for c in record["vision_calls"])
+        out = predict(self, image_u8, ori_shape)
+        record["predictions"].append(dict(
+            windows=sum(c["rows"] for c in record["vision_calls"]) - w0,
+            s=time.perf_counter() - t0, csa=self.use_csa))
+        return out
+
+    zs.build_zero_shot_classifier = timed_build
+    zs.run_classification_eval = timed_run
+    CLIPSegmentor._forward_feature = counted_forward
+    CLIPSegmentor.predict = timed_predict
+    try:
+        yield
+    finally:
+        zs.build_zero_shot_classifier = build
+        zs.run_classification_eval = run
+        CLIPSegmentor._forward_feature = forward
+        CLIPSegmentor.predict = predict
+
+
+@contextlib.contextmanager
+def _timed_benchmarks(seg_eval, record):
+    """Record the wall time of each seg_eval.evaluate_benchmark call
+    (segmentor build, then the loop over the benchmark's images)."""
+    evaluate = seg_eval.evaluate_benchmark
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(*a, **kw)
+        record["benchmarks"].append(time.perf_counter() - t0)
+        return out
+
+    seg_eval.evaluate_benchmark = timed
+    try:
+        yield
+    finally:
+        seg_eval.evaluate_benchmark = evaluate
+
+
+def _eval_record():
+    return {"text_calls": [], "image_calls": [], "vision_calls": [],
+            "builds": [], "passes": [], "predictions": [],
+            "benchmarks": []}
+
+
+def _k1_only(calls, per_call, what):
+    """Every call launched ``per_call`` K1 and none of K2-K6."""
+    for i, c in enumerate(calls):
+        check(c["K1"] == per_call and all(c[k] == 0 for k in c
+                                           if k not in ("K1", "rows")),
+              f"{what} call {i}: launches {c}, expected K1 {per_call} only")
+
+
+def phase_classification(K, ckpt: str):
+    """python -m cosmos_tpu_torch.training.main --eval-mode classification
+    at full width: ViT-B-16 COSMOS in bfloat16 (amp) from a random
+    checkpoint, student and teacher, on an ImageNet val layout of 1000
+    classes x 1 seeded JPEG (256-500 px) and a CIFAR-10 test batch of 2000
+    seeded images; then the ImageNet classifier's columns of 8 classes,
+    card against CPU, on the same float32 weights."""
+    import tempfile
+
+    from cosmos_tpu_torch.data.synthetic import (write_cifar10,
+                                                 write_image_folder)
+    from cosmos_tpu_torch.models.factory import create_model, get_tokenizer
+    from cosmos_tpu_torch.training import main as trainer
+    from cosmos_tpu_torch.training import zero_shot as zs
+    from cosmos_tpu_torch.training.evaluate import make_encoders
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cosmos_cls_") as tmp:
+        t0 = time.perf_counter()
+        write_image_folder(f"{tmp}/imagenet/val", CLS_IMAGENET_CLASSES, 1,
+                           seed=10)
+        write_cifar10(f"{tmp}/classification/cifar10", CLS_CIFAR_IMAGES,
+                      seed=11)
+        data_s = time.perf_counter() - t0
+        argv = ["--model", "ViT-B-16", "--pretrained", ckpt,
+                "--cosmos", "--output-all", "--attentional-pool",
+                "--add-zero-attn", "--precision", "amp",
+                "--eval-mode", "classification",
+                "--imagenet-val", f"{tmp}/imagenet/val",
+                "--classification-data-dir", f"{tmp}/classification",
+                "--zeroshot-eval-datasets", "cifar10",
+                "--batch-size", str(CLS_BATCH), "--logs-dir", f"{tmp}/logs",
+                "--name", "classification"]
+        record = _eval_record()
+        zero_launches(K)
+        t0 = time.perf_counter()
+        with _counted_evals(K, record):
+            metrics = trainer.main(argv)
+        wall_s = time.perf_counter() - t0
+        launches = read_launches(K)
+
+    _k1_only(record["text_calls"], 12, "text")
+    _k1_only(record["image_calls"], 12, "image")
+    calls = len(record["text_calls"]) + len(record["image_calls"])
+    check(launches["K1"] == 12 * calls
+          and all(launches[k] == 0 for k in launches if k != "K1"),
+          f"the run's launches {launches} vs 12 K1 a call x {calls} calls")
+    # student and teacher: one ImageNet (1000 x 80 prompts) and one CIFAR-10
+    # (10 x 18) classifier each
+    meta = zs.load_imagenet_metadata()
+    n_prompts = len(meta["classnames"]) * len(meta["templates"])
+    imagenet = [b for b in record["builds"]
+                if b["classes"] == len(meta["classnames"])]
+    check(len(imagenet) == 2
+          and all(b["prompts"] == n_prompts for b in imagenet)
+          and len(record["builds"]) == 4, f"builds {record['builds']}")
+    images = [p["images"] for p in record["passes"]]
+    check(images == [CLS_IMAGENET_CLASSES, CLS_CIFAR_IMAGES] * 2,
+          f"images per pass {images}")
+    keys = [f"{p}{n}-zeroshot-val-top{k}" for p in ("", "ema_")
+            for n in ("imagenet", "cifar10") for k in (1, 5)]
+    for key in keys:
+        v = metrics.get(key)
+        check(v is not None and 0.0 <= v <= 1.0, f"{key} = {v}")
+    check(not any("retrieval" in k or "R@" in k for k in metrics),
+          "--eval-mode classification ran no retrieval")
+
+    # card against CPU: the ImageNet classifier of 8 classes, float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    classnames = meta["classnames"][:CLS_CARD_VS_CPU_CLASSES]
+    templates = meta["templates"]
+    columns = {}
+    for device in ("cuda", "cpu"):
+        model = create_model("ViT-B-16", "fp32", device=device, **COSMOS)
+        model.load_state_dict(torch.load(ckpt, map_location=device,
+                                         weights_only=True), strict=True)
+        columns[device] = zs.build_zero_shot_classifier(
+            make_encoders(model)[2], get_tokenizer("ViT-B-16"), classnames,
+            templates, eot_truncate=True).cpu()
+        del model
+    torch.cuda.empty_cache()
+    err = _held("ImageNet classifier, card vs CPU (float32, 8 classes)",
+                columns["cuda"], columns["cpu"], EVAL_CARD_VS_CPU_TOL)
+
+    builds = {"imagenet": imagenet, "cifar10": [
+        b for b in record["builds"] if b not in imagenet]}
+    prompts_s = [b["prompts"] / b["s"] for b in imagenet]
+    passes = {"imagenet": record["passes"][0::2],
+              "cifar10": record["passes"][1::2]}
+    images_s = {k: [p["images"] / p["s"] for p in v]
+                for k, v in passes.items()}
+    out = dict(
+        data_write_s=data_s, wall_s=wall_s, launches=launches,
+        text_calls=len(record["text_calls"]),
+        image_calls=len(record["image_calls"]),
+        k1_per_text_call=12, k1_per_image_call=12,
+        classifier_build_s={k: [b["s"] for b in v] for k, v in
+                            builds.items()},
+        imagenet_prompts_per_s=prompts_s, images_per_s=images_s,
+        metrics={k: metrics[k] for k in keys},
+        classifier_card_vs_cpu_max_abs_err=err,
+        phase_s=time.perf_counter() - t_phase)
+    print(f"[classification] {CLS_IMAGENET_CLASSES} ImageNet-layout JPEGs "
+          f"(256-500 px) and a CIFAR-10 batch of {CLS_CIFAR_IMAGES} in "
+          f"{data_s:.1f} s; trainer --eval-mode classification {wall_s:.1f} s "
+          f"(student and teacher, amp)")
+    print(f"[classification] ImageNet classifier ({n_prompts} prompts) "
+          "built in "
+          + ", ".join(f"{b['s']:.2f} s ({r:.0f} prompts/s)"
+                      for b, r in zip(imagenet, prompts_s))
+          + "; images/s ImageNet "
+          + ", ".join(f"{r:.1f}" for r in images_s["imagenet"])
+          + ", CIFAR-10 " + ", ".join(f"{r:.1f}" for r in images_s["cifar10"])
+          + " (host decode and transform included)")
+    print(f"[classification] launches {launches}: 12 K1 in each of "
+          f"{out['text_calls']} text and {out['image_calls']} image calls; "
+          + " ".join(f"{k} {metrics[k]:.4f}" for k in keys))
+    print(f"[classification] classifier card vs CPU (float32, "
+          f"{CLS_CARD_VS_CPU_CLASSES} classes): max abs err {err:.3g}; "
+          f"phase {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_segmentation(K, ckpt: str):
+    """python -m cosmos_tpu_torch.training.seg_eval at full width, float32
+    (its default): ViT-B-16 COSMOS teacher weights from a random
+    checkpoint on a voc20 layout (16 seeded 500x375 images, labels 0-20
+    and 255) and an ade20k layout (16 images, 4 with a short side below
+    336), with CSA and without, then PAMR (10 steps) on 2 voc20 images;
+    then one image's segmentor logits, card against CPU, and K1 in float32
+    at a chunk of 8 windows."""
+    import tempfile
+
+    from cosmos_tpu_torch.data.synthetic import write_segmentation
+    from cosmos_tpu_torch.models.factory import create_model, get_tokenizer
+    from cosmos_tpu_torch.segmentation import (SEG_BENCHMARKS, CLIPSegmentor,
+                                               SegDataset,
+                                               load_seg_classnames)
+    from cosmos_tpu_torch.training import seg_eval
+
+    t_phase = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="cosmos_seg_") as tmp:
+        t0 = time.perf_counter()
+        write_segmentation(tmp, "voc", SEG_VOC_SIZES, n_labels=21, seed=20)
+        write_segmentation(tmp, "ade20k", SEG_ADE_SIZES, n_labels=151,
+                           seed=21)
+        data_s = time.perf_counter() - t0
+        base = ["--model", "ViT-B-16", "--pretrained", ckpt,
+                "--seg-data-root", tmp]
+        for name, extra in (
+                ("csa", ["--benchmarks", "voc20,ade20k", "--use-csa"]),
+                ("plain", ["--benchmarks", "voc20,ade20k"]),
+                ("csa + pamr 10", ["--benchmarks", "voc20", "--use-csa",
+                                   "--pamr-steps", "10", "--limit",
+                                   str(SEG_PAMR_IMAGES)])):
+            record = _eval_record()
+            zero_launches(K)
+            t0 = time.perf_counter()
+            with _counted_evals(K, record), _timed_benchmarks(
+                    seg_eval, record):
+                results = seg_eval.main(base + extra)
+            runs[name] = dict(results=results, record=record,
+                              launches=read_launches(K),
+                              wall_s=time.perf_counter() - t0)
+        bench = SEG_BENCHMARKS["voc20"]
+        image, label = SegDataset(bench, data_root=tmp)[0]
+
+    for name, run in runs.items():
+        record, launches = run["record"], run["launches"]
+        per_vision = 11 if "csa" in name else 12
+        _k1_only(record["text_calls"], 12, f"{name} text")
+        _k1_only(record["vision_calls"], per_vision, f"{name} vision")
+        calls = len(record["text_calls"]), len(record["vision_calls"])
+        check(launches["K1"] == 12 * calls[0] + per_vision * calls[1]
+              and all(launches[k] == 0 for k in launches if k != "K1"),
+              f"{name}: launches {launches} vs {calls} text/vision calls")
+        check(all(c["rows"] <= 8 for c in record["vision_calls"]),
+              f"{name}: a vision call of more than 8 windows")
+        want_images = (SEG_PAMR_IMAGES if "pamr" in name
+                       else len(SEG_VOC_SIZES) + len(SEG_ADE_SIZES))
+        check(len(record["predictions"]) == want_images,
+              f"{name}: {len(record['predictions'])} images predicted")
+        for bench_name, m in run["results"].items():
+            for key in ("mIoU", "aAcc", "mAcc"):
+                check(np.isfinite(m[key]) and 0.0 <= m[key] <= 100.0,
+                      f"{name} {bench_name} {key} = {m[key]}")
+        check(set(run["results"]) == ({"voc20"} if "pamr" in name
+                                      else {"voc20", "ade20k"}),
+              f"{name}: benchmarks {sorted(run['results'])}")
+        seconds = sum(p["s"] for p in record["predictions"])
+        windows = sum(p["windows"] for p in record["predictions"])
+        # the benchmark loops: the dataset's decode and resize, predict and
+        # the IoU update, each benchmark's query features left out
+        loop_s = sum(record["benchmarks"]) - sum(b["s"] for b in
+                                                 record["builds"])
+        run.update(images=len(record["predictions"]), windows=windows,
+                   predict_s=seconds, loop_s=loop_s,
+                   images_per_s=len(record["predictions"]) / seconds,
+                   windows_per_s=windows / seconds,
+                   loop_images_per_s=len(record["predictions"]) / loop_s,
+                   k1_per_vision_call=per_vision,
+                   text_calls=calls[0], vision_calls=calls[1],
+                   query_build_s=[b["s"] for b in record["builds"]])
+        del run["record"]
+        print(f"[segmentation] {name}: {run['images']} images "
+              f"({windows} windows) in {seconds:.2f} s of predict: "
+              f"{run['images_per_s']:.2f} images/s, "
+              f"{run['windows_per_s']:.1f} windows/s "
+              f"({run['loop_images_per_s']:.2f} images/s with the "
+              f"dataset's decode and IoU, {loop_s:.2f} s); query features "
+              + ", ".join(f"{s:.2f} s" for s in run["query_build_s"])
+              + f"; launches {launches} ({per_vision} K1 in each of "
+              f"{calls[1]} vision calls, 12 in each of {calls[0]} text "
+              f"calls); wall {run['wall_s']:.1f} s; "
+              + "; ".join(f"{b} mIoU {m['mIoU']:.3f} aAcc {m['aAcc']:.3f}"
+                          for b, m in run["results"].items()))
+
+    # card against CPU: one voc20 image's logits through the segmentor
+    # with CSA, float32, 4 of voc20's class lines
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = create_model("ViT-B-16", "fp32", device=device, **COSMOS)
+        model.load_state_dict(torch.load(ckpt, map_location=device,
+                                         weights_only=True), strict=True)
+        seg = CLIPSegmentor(model, get_tokenizer("ViT-B-16"),
+                            load_seg_classnames("voc20")[:4], use_csa=True)
+        logits[device] = seg.seg_logits(image, label.shape[:2]).cpu()
+        del model, seg
+    torch.cuda.empty_cache()
+    err = _held("segmentor logits, card vs CPU (float32, CSA)",
+                logits["cuda"], logits["cpu"], EVAL_CARD_VS_CPU_TOL)
+    print(f"[segmentation] {data_s:.1f} s to write the layouts; one image's "
+          f"logits {tuple(logits['cuda'].shape)} card vs CPU: max abs err "
+          f"{err:.3g}")
+
+    label_, b, l, d3, heads, causal = SEG_K1_GEOMETRY
+    row = kernel_row(K.fa, label_, b, l, d3, heads, causal, torch.float32,
+                     torch.Generator(device="cuda").manual_seed(1))
+    out = dict(data_write_s=data_s, runs=runs,
+               logits_card_vs_cpu_max_abs_err=err, k1_f32_row=row,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[segmentation] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -1713,6 +2119,11 @@ def main() -> int:
     train_ln_card_vs_cpu = {s: phase_train_card_vs_cpu(K, s)
                             for s in LN_SETTINGS}
     trainer = phase_trainer(K)
+    with tempfile.TemporaryDirectory(prefix="cosmos_evals_") as tmp:
+        ckpt = _eval_checkpoint(f"{tmp}/vit_b_16_cosmos.pt")
+        classification = phase_classification(K, ckpt)
+        segmentation = phase_segmentation(K, ckpt)
+    seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
 
     def pick(table, geometry, **match):
         label, dtype = geometry
@@ -1730,15 +2141,20 @@ def main() -> int:
         "source": "cosmos_tpu_torch/ops/csrc/fused_attention_fwd.cu",
         "replaces": "cosmos_tpu/ops/fused_attention.py:101",
         # the main paths' runs: serving (phase 4), training (phases 7, 10),
-        # the trainer (phase 12: its steps and evals)
+        # the trainer (phase 12: its steps and evals), the classification
+        # and segmentation evals (phases 13, 14)
         "launches": serving["launches"] + train["k1_launches"] + sum(
             r["launches"]["K1"] for r in train_ln.values())
-        + trainer["launches"]["K1"],
+        + trainer["launches"]["K1"] + classification["launches"]["K1"]
+        + seg_k1,
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
                                 for s, r in train_ln.items()},
-                             "trainer": trainer["launches"]["K1"]},
+                             "trainer": trainer["launches"]["K1"],
+                             "classification":
+                                 classification["launches"]["K1"],
+                             "segmentation": seg_k1},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
@@ -1788,7 +2204,8 @@ def main() -> int:
                   host_floor=host_floor,
                   train_ln=train_ln,
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
-                  trainer=trainer,
+                  trainer=trainer, classification=classification,
+                  segmentation=segmentation,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

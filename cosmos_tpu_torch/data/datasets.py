@@ -1,15 +1,18 @@
-"""Map-style datasets: COCO and Flickr retrieval pairs and the synthetic
-train source (counterpart of ``cosmos_tpu/data/datasets.py``).
+"""Map-style datasets: COCO and Flickr retrieval pairs, the ImageNet class
+folders and the synthetic train source (counterpart of
+``cosmos_tpu/data/datasets.py``).
 
   - read_coco_pairs: ``annotations/captions_{split}2017.json`` -> a list of
     {image_id, image path, caption, caption_id};
   - read_flickr_pairs: ``flickr30k_{split}.json`` entries with an image path
     and a caption list;
   - map_img_cap: the image <-> caption id maps R@k needs;
+  - ImageFolderDataset: torchvision ImageFolder's order (ImageNet val, and
+    ImageNetV2's numeric class dirs);
   - SyntheticDataset: an in-memory random image/caption source shaped like
     the recaptioned webdataset stream.
 
-The CSV and ImageFolder readers are not ported yet.
+The CSV reader is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import json
 import os
 import random
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -114,6 +117,50 @@ class RetrievalData:
         image_ids = np.asarray(list(seen.keys()))
         image_paths = list(seen.values())
         return cls(captions, caption_ids, image_paths, image_ids, img2txt, txt2img)
+
+
+class ImageFolderDataset:
+    """(transformed image, label) over class dirs in torchvision
+    ImageFolder's order: dirs sorted by name, or by number when every dir
+    name is an integer (ImageNetV2's ``0..999``, label = int(dirname));
+    files sorted in each.  ``max_per_class`` keeps a seeded sample of each
+    class's files."""
+
+    def __init__(
+        self,
+        root: str,
+        transform: Optional[Callable] = None,
+        max_per_class: Optional[int] = None,
+        seed: int = 42,
+    ):
+        self.root = root
+        self.transform = transform
+        classes = [d.name for d in os.scandir(root) if d.is_dir()]
+        if classes and all(c.isdigit() for c in classes):
+            classes.sort(key=int)
+        else:
+            classes.sort()
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List[Tuple[str, int]] = []
+        for c in classes:
+            files = sorted(os.listdir(os.path.join(root, c)))
+            if max_per_class is not None and len(files) > max_per_class:
+                files = random.Random(seed).sample(files, max_per_class)
+            self.samples.extend(
+                (os.path.join(root, c, f), self.class_to_idx[c]) for f in files
+            )
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        from PIL import Image
+
+        path, label = self.samples[idx]
+        img = Image.open(path).convert("RGB")
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, label
 
 
 class SyntheticDataset:

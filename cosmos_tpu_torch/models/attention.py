@@ -3,14 +3,18 @@
 
 ``MultiheadAttention`` keeps torch's packed in-projection
 (``in_proj_weight`` ``[3D, D]``, thirds q|k|v).  Self-attention, causal or
-not, with no additive mask and no zero-attention slot, goes through the
-packed-QKV kernel (``ops.fused_attention``), which reads the projection's
-``[B, L, 3D]`` output directly, when the head dim is one the kernel takes.
+not, with no additive mask, no zero-attention slot and no CSA, goes through
+the packed-QKV kernel (``ops.fused_attention``), which reads the
+projection's ``[B, L, 3D]`` output directly, when JAX's gate
+(``fused_attention.supported``: head dim, head group, and the length at the
+compute dtype's width) sends the geometry to its kernel.
 With ``ln=(scale, bias)`` (the blocks' ``fuse_ln``) the projection is K5,
 the preceding LayerNorm fused into it (``ops.experimental.ln_matmul``).
-Cross-attention, ``add_zero_attn`` and additive masks use plain torch ops
-with the JAX package's XLA-path semantics: logits in the compute dtype,
-softmax reduced in float32.
+Cross-attention, ``add_zero_attn``, additive masks and the lengths the gate
+refuses use plain torch ops with the JAX package's XLA-path semantics:
+logits in the compute dtype, softmax reduced in float32.  ``csa=True`` is
+SCLIP's correlative self-attention, ``softmax(q qᵀ s) + softmax(k kᵀ s)``
+applied to v (the weights of a row sum to 2), on the plain path only.
 """
 
 from __future__ import annotations
@@ -53,6 +57,20 @@ def dot_product_attention(
     return torch.matmul(weights.to(v.dtype), v)
 
 
+def correlative_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """SCLIP's CSA over [B, H, L, Dh] (``cosmos_tpu/models/attention.py``
+    ``csa``): float32 logits q qᵀ s and k kᵀ s, the sum of their softmaxes
+    cast to v's dtype before the product, as JAX casts it."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf = q.float(), k.float()
+    weights = (torch.softmax(torch.matmul(qf, qf.transpose(-1, -2)) * scale,
+                             dim=-1)
+               + torch.softmax(torch.matmul(kf, kf.transpose(-1, -2)) * scale,
+                               dim=-1))
+    return torch.matmul(weights.to(v.dtype), v)
+
+
 class MultiheadAttention(nn.Module):
     """Packed-QKV multi-head attention (self or cross)."""
 
@@ -79,10 +97,12 @@ class MultiheadAttention(nn.Module):
         mask: Optional[torch.Tensor] = None,
         causal: bool = False,
         ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        csa: bool = False,
     ) -> torch.Tensor:
         """``ln=(scale, bias)``: fuse the preceding LayerNorm into the packed
         QKV projection (K5, ``ops.experimental.ln_matmul``); ``x`` is then
-        the un-normalised residual stream.  Self-attention only."""
+        the un-normalised residual stream.  Self-attention only.
+        ``csa``: correlative self-attention (SCLIP), never on K1."""
         d = self.dim
         xc = x.to(self.dtype)
         if ln is not None:
@@ -96,8 +116,9 @@ class MultiheadAttention(nn.Module):
         elif kv is None:
             qkv = F.linear(xc, self.in_proj_weight.to(self.dtype),
                            self.in_proj_bias.to(self.dtype))
-        if (kv is None and mask is None and not self.add_zero_attn
-                and supported(self.num_heads, d)):
+        if (kv is None and mask is None and not csa and not self.add_zero_attn
+                and supported(self.num_heads, d, x.shape[1],
+                              xc.dtype.itemsize)):
             # packed path: the kernel reads every head by stride from the
             # row-major [B, L, 3D] projection output
             return self.out_proj(fused_attention_qkv(qkv, self.num_heads,
@@ -124,9 +145,11 @@ class MultiheadAttention(nn.Module):
             v = torch.cat([v, zeros], dim=-2)
             if mask is not None:
                 mask = F.pad(mask, (0, 1))
-        out = dot_product_attention(
-            _split_heads(q, self.num_heads), _split_heads(k, self.num_heads),
-            _split_heads(v, self.num_heads), mask=mask)
+        qh, kh, vh = (_split_heads(t, self.num_heads) for t in (q, k, v))
+        if csa:
+            out = correlative_attention(qh, kh, vh)
+        else:
+            out = dot_product_attention(qh, kh, vh, mask=mask)
         return self.out_proj(_merge_heads(out))
 
 

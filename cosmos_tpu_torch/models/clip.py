@@ -90,9 +90,9 @@ class CLIP(nn.Module):
 
     # --- encoders ----------------------------------------------------------
 
-    def encode_image(self, images: torch.Tensor, normalize: bool = False
-                     ) -> Dict[str, torch.Tensor]:
-        pooled, tokens = self.visual(images)
+    def encode_image(self, images: torch.Tensor, normalize: bool = False,
+                     csa: bool = False) -> Dict[str, torch.Tensor]:
+        pooled, tokens = self.visual(images, csa=csa)
         out = {"image_features": l2_normalize(pooled) if normalize else pooled}
         if self.output_all:
             out["image_tokens"] = self.image_token_mapping(tokens)

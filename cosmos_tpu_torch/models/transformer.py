@@ -38,15 +38,17 @@ class ResidualAttentionBlock(nn.Module):
         self.ls_2 = (LayerScale(width, ls_init_value)
                      if ls_init_value is not None else nn.Identity())
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                csa: bool = False) -> torch.Tensor:
         # the blocks of both towers are self-attention (kv is None and no
         # cross-attention), so the JAX gate reduces to fuse_ln
         if self.fuse_ln:
             x = x + self.ls_1(self.attn(
-                x, causal=causal, ln=(self.ln_1.weight, self.ln_1.bias)))
+                x, causal=causal, ln=(self.ln_1.weight, self.ln_1.bias),
+                csa=csa))
             return x + self.ls_2(self.mlp(
                 x, ln=(self.ln_2.weight, self.ln_2.bias)))
-        x = x + self.ls_1(self.attn(self.ln_1(x), causal=causal))
+        x = x + self.ls_1(self.attn(self.ln_1(x), causal=causal, csa=csa))
         return x + self.ls_2(self.mlp(self.ln_2(x)))
 
 
@@ -63,7 +65,14 @@ class Transformer(nn.Module):
             for _ in range(layers)
         )
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        for block in self.resblocks:
-            x = block(x, causal=causal)
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                csa_last_block: bool = False) -> torch.Tensor:
+        """``csa_last_block``: the last block runs SCLIP's correlative
+        self-attention with no causal structure (the segmentor's path)."""
+        last = len(self.resblocks) - 1
+        for i, block in enumerate(self.resblocks):
+            if csa_last_block and i == last:
+                x = block(x, csa=True)
+            else:
+                x = block(x, causal=causal)
         return x

@@ -92,9 +92,10 @@ class VisionTransformer(nn.Module):
         kernel = self.conv1.weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
         return torch.matmul(x.to(self.dtype), kernel.to(self.dtype))
 
-    def forward(self, images: torch.Tensor
+    def forward(self, images: torch.Tensor, csa: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (pooled [B, output_dim], tokens [B, N, width])."""
+        """Returns (pooled [B, output_dim], tokens [B, N, width]).  ``csa``:
+        the last block runs correlative self-attention (segmentation)."""
         b, h, w, _ = images.shape
         x = self.patchify(images)
         cls = self.class_embedding.to(x.dtype).expand(b, 1, self.width)
@@ -104,7 +105,7 @@ class VisionTransformer(nn.Module):
             (h // self.patch_size, w // self.patch_size))
         x = x + pe.to(x.dtype)
         x = self.ln_pre(x)
-        x = self.transformer(x)
+        x = self.transformer(x, csa_last_block=csa)
         x = self.ln_post(x)
         pooled, tokens = x[:, 0], x[:, 1:]
         pooled = torch.matmul(pooled.to(self.dtype), self.proj.to(self.dtype))

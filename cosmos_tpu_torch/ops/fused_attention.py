@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -53,14 +54,43 @@ def _head_group(num_heads: int, dh: int) -> int:
     return 0
 
 
-def supported(num_heads: int, d: int) -> bool:
-    """True when the kernels take this geometry: the head dim is 64 or 128
-    and the heads form a group as the JAX kernel's do, so that a head count
-    JAX sends to its XLA path (an odd count at Dh 64) takes the stock path
-    here too.  Neither kernel bounds L."""
+# the JAX kernel's per-grid-step VMEM budget (``cosmos_tpu/ops/
+# fused_attention.py`` ``_COMPILE_SAFE_WS``): a length whose one-row
+# backward working set exceeds it goes to JAX's XLA path, and so to the
+# plain path here
+_COMPILE_SAFE_WS = 12 * 1024 * 1024
+
+
+def _working_set(blk: int, l: int, d: int, dh: int, itemsize: int,
+                 backward: bool) -> int:
+    """The JAX kernel's VMEM bytes for one batch block (``_working_set``
+    there): the in/out slabs, the float32 P/dP matrices and head slices."""
+    slabs = 3 * l * d + l * d
+    if backward:
+        slabs += 3 * l * d + l * d
+    varying = 2 * l * l * 4 + 6 * l * dh * itemsize
+    return blk * (slabs * itemsize + varying)
+
+
+def supported(num_heads: int, d: int, l: Optional[int] = None,
+              itemsize: int = 2) -> bool:
+    """JAX's routing gate (``cosmos_tpu/ops/fused_attention.py``
+    ``supported``): the head dim is 64 or 128, the heads form a group as
+    the JAX kernel's do (an odd count at Dh 64 takes the stock path), and,
+    when the length is known, the one-row backward working set at the
+    input's ``itemsize`` fits ``_COMPILE_SAFE_WS``: at ViT-B width L <= 680
+    in bfloat16 and L <= 426 in float32.  The kernels themselves do not
+    bound L; a length the gate refuses takes the plain path, as JAX's takes
+    XLA."""
     if d % num_heads or d // num_heads not in HEAD_DIMS:
         return False
-    return _head_group(num_heads, d // num_heads) > 0
+    dh = d // num_heads
+    if _head_group(num_heads, dh) == 0:
+        return False
+    if l is not None and _working_set(1, l, d, dh, itemsize,
+                                      backward=True) > _COMPILE_SAFE_WS:
+        return False
+    return True
 
 
 def _geometry(qkv: torch.Tensor, num_heads: int):

@@ -2,14 +2,16 @@
 (counterpart of ``cosmos_tpu/training/data_pipeline.py``).
 
 Returns ``{'train': DataInfo, 'val': WdsValLoader, 'train_eval': ...,
-'coco-retrieval': RetrievalData, 'flickr-retrieval': RetrievalData}`` for
-the keys the flags ask for.  Batches are numpy; the trainer moves them to
-the device (``data/prefetch.py``).  The CSV loader and the ImageNet and
-classification sets are not ported yet; the trainer refuses their flags.
+'coco-retrieval': RetrievalData, 'flickr-retrieval': RetrievalData,
+'imagenet-val' / 'imagenet-v2' / a classification set's name:
+MapDatasetLoader}`` for the keys the flags ask for.  Batches are numpy; the
+trainer moves them to the device (``data/prefetch.py``).  The CSV loader is
+not ported yet; the trainer refuses its flags.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import random
 from typing import Dict, Iterator
@@ -17,11 +19,14 @@ from typing import Dict, Iterator
 import numpy as np
 
 from ..data.caption import sample_captions
-from ..data.datasets import RetrievalData, SyntheticDataset
-from ..data.loader import (DataInfo, WdsTrainConfig, WdsTrainLoader,
-                           WdsValLoader, collate_views, train_transform)
+from ..data.datasets import ImageFolderDataset, RetrievalData, SyntheticDataset
+from ..data.loader import (DataInfo, MapDatasetLoader, WdsTrainConfig,
+                           WdsTrainLoader, WdsValLoader, collate_views,
+                           train_transform)
 from ..data.transforms import eval_transform_from_args
 from ..data.webdataset import expand_urls
+
+logger = logging.getLogger(__name__)
 
 
 class SyntheticTrainLoader:
@@ -188,4 +193,36 @@ def get_data(
             data["flickr-retrieval"] = RetrievalData.load(
                 "flickr", flickr_dir, tokenizer, split="test"
             )
+
+    if args.imagenet_val:
+        ds = ImageFolderDataset(args.imagenet_val, transform=eval_tf)
+        data["imagenet-val"] = MapDatasetLoader(ds, args.batch_size)
+
+    if args.imagenet_v2:
+        # integer class dirs 0..999, in numeric order
+        ds = ImageFolderDataset(args.imagenet_v2, transform=eval_tf)
+        data["imagenet-v2"] = MapDatasetLoader(ds, args.batch_size)
+
+    if args.classification_data_dir and args.zeroshot_eval_datasets:
+        from ..data.classification import ClassificationDataset
+        from .zero_shot import bank_key
+
+        for name in args.zeroshot_eval_datasets.split(","):
+            name = name.strip()
+            if not name:
+                continue
+            root = os.path.join(args.classification_data_dir, name)
+            if not os.path.isdir(root):
+                logger.warning(f"classification dataset dir missing: {root}")
+                continue
+            try:
+                ds = ClassificationDataset(name, root, transform=eval_tf)
+            except (KeyError, FileNotFoundError) as e:
+                logger.warning(
+                    f"{name}: native reader failed ({e}); "
+                    "falling back to class-folder layout"
+                )
+                ds = ImageFolderDataset(root, transform=eval_tf)
+            # stored under the canonical name, the one the evals look up
+            data[bank_key(name)] = MapDatasetLoader(ds, args.batch_size)
     return data

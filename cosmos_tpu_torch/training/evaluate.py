@@ -3,17 +3,17 @@
 
   - ``make_encoders``: the normalised image and text encoders and the raw
     text encoder of one model;
-  - ``evaluate_model``: COCO/Flickr retrieval for one model;
+  - ``evaluate_model``: COCO/Flickr retrieval, ImageNet (val, V2) and the
+    classification sets' zero-shot top-1/top-5 for one model;
   - ``evaluate_on_split``: the in-batch contrastive val loss and
     ``get_clip_metrics`` over a val split;
   - ``evaluate``: all of these for the student and the EMA teacher, at the
-    cadences of --val-frequency / --retrieval-frequency and --eval-mode,
-    appended to ``results.jsonl``.
+    cadences of --zeroshot-frequency / --retrieval-frequency and the
+    narrowing of --eval-mode, appended to ``results.jsonl``.
 
 Every forward runs in eval mode without autograd on the model's device, so
 the self-attentions take K1 and never K2; a model that was in train mode is
-put back in it.  Zero-shot classification is not ported yet: the trainer
-refuses its flags.
+put back in it.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from ..data.datasets import RetrievalData
 from ..data.loader import MapDatasetLoader
 from ..data.transforms import EvalTransform, eval_transform_from_args
 from .retrieval import evaluate_retrieval, get_clip_metrics
-from .zero_shot import supports_eot_truncation
+from .zero_shot import (CLASSIFICATION_DATASETS, supports_eot_truncation,
+                        zero_shot_classification_eval, zero_shot_eval)
 
 logger = logging.getLogger(__name__)
 
@@ -91,19 +92,24 @@ def evaluate_model(
     model: torch.nn.Module,
     data: Dict,
     *,
+    tokenizer=None,
     prefix: str = "",
     batch_size: int = 256,
     image_size: int = 224,
+    zero_shot: bool = True,
+    retrieval: bool = True,
     eval_transform=None,
 ) -> Dict[str, float]:
-    """COCO/Flickr retrieval (R@1/5/10, mean and median rank both ways) for
-    every retrieval set in ``data``."""
+    """Every eval ``data`` carries for one model: COCO/Flickr retrieval
+    (R@1/5/10, mean and median rank both ways) when ``retrieval``; with
+    ``zero_shot``, ImageNet's 1000-class and each classification set's
+    prompt-bank classifier (``tokenizer`` needed), top-1 and top-5."""
     metrics: Dict[str, float] = {}
-    enc_image, enc_text_norm, _ = make_encoders(model)
+    enc_image, enc_text_norm, enc_text_raw = make_encoders(model)
     eot_truncate = supports_eot_truncation(model)
     with eval_mode(model):
         for name in ("coco-retrieval", "flickr-retrieval"):
-            if name not in data:
+            if not retrieval or name not in data:
                 continue
             rd: RetrievalData = data[name]
             img_loader = MapDatasetLoader(
@@ -119,6 +125,20 @@ def evaluate_model(
             metrics.update(m)
             logger.info(f"{name} [{prefix or 'student'}]: "
                         + json.dumps({k: round(v, 4) for k, v in m.items()}))
+        if not zero_shot:
+            return metrics
+        if "imagenet-val" in data or "imagenet-v2" in data:
+            m = zero_shot_eval(enc_image, enc_text_raw, tokenizer, data,
+                               eot_truncate=eot_truncate)
+            metrics.update({f"{prefix}{k}": v for k, v in m.items()})
+            logger.info(f"imagenet [{prefix or 'student'}]: {m}")
+        for name in CLASSIFICATION_DATASETS:
+            if name in data:
+                m = zero_shot_classification_eval(
+                    enc_image, enc_text_raw, tokenizer, name, data[name],
+                    eot_truncate=eot_truncate)
+                metrics.update({f"{prefix}{k}": v for k, v in m.items()})
+                logger.info(f"{name} [{prefix or 'student'}]: {m}")
     return metrics
 
 
@@ -175,18 +195,24 @@ def evaluate(
     data: Dict,
     epoch: int,
     args,
+    tokenizer,
 ) -> Dict[str, float]:
     """Student and EMA-teacher evaluation: val loss on the val and
-    train-eval splits, and retrieval at --retrieval-frequency (or the last
-    epoch).  ``teacher=None`` or --no-eval-teacher: the student only."""
+    train-eval splits, zero-shot classification at --zeroshot-frequency
+    and retrieval at --retrieval-frequency (each also at the last epoch);
+    --eval-mode retrieval / classification keeps only that family.
+    ``teacher=None`` or --no-eval-teacher: the student only."""
     metrics: Dict[str, float] = {"epoch": epoch}
+    zs_freq = getattr(args, "zeroshot_frequency", 1)
     rt_freq = getattr(args, "retrieval_frequency", 1)
     epochs = getattr(args, "epochs", epoch)
+    zero_shot = bool(zs_freq) and (epoch % zs_freq == 0 or epoch == epochs)
     retrieval = bool(rt_freq) and (epoch % rt_freq == 0 or epoch == epochs)
-    if getattr(args, "eval_mode", "") not in ("", "retrieval"):
-        raise NotImplementedError(
-            f"--eval-mode {args.eval_mode} is not ported (ROADMAP queue 1, "
-            "item 7)")
+    mode = getattr(args, "eval_mode", "")
+    if mode == "retrieval":
+        zero_shot = False
+    elif mode == "classification":
+        retrieval = False
     if not getattr(args, "eval_teacher", True):
         teacher = None
     models = [("", student)] + ([("ema_", teacher)] if teacher is not None
@@ -198,13 +224,14 @@ def evaluate(
             keyword = (f"ema_{kw}" if kw else "ema") if prefix else kw
             metrics.update(evaluate_on_split(model, data[split],
                                              keyword=keyword))
-    if retrieval:
+    if retrieval or zero_shot:
         eval_transform = eval_transform_from_args(
             args, student.cfg.vision_cfg.image_size)
         for prefix, model in models:
             metrics.update(evaluate_model(
-                model, data, prefix=prefix, batch_size=args.batch_size,
-                eval_transform=eval_transform))
+                model, data, tokenizer=tokenizer, prefix=prefix,
+                batch_size=args.batch_size, zero_shot=zero_shot,
+                retrieval=retrieval, eval_transform=eval_transform))
     if getattr(args, "checkpoint_path", None):
         results_file = os.path.join(
             os.path.dirname(args.checkpoint_path), "results.jsonl"

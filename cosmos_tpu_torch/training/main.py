@@ -12,8 +12,13 @@ the LR schedule, the teacher-momentum schedule, resume (a path or
 ``latest``), the epoch loop over the webdataset loader with a CUDA-stream
 prefetcher, the per-epoch val and retrieval evals of student and teacher,
 and ``.pt`` checkpoints in the reference's layout (``training/
-checkpoint.py``).  Without train data, or with ``--eval-mode retrieval``, it
-only evaluates (``--pretrained`` a local ``.pt``).
+checkpoint.py``).  The evals: val loss, COCO/Flickr retrieval, and zero-shot
+classification on ImageNet (``--imagenet-val``, ``--imagenet-v2``) and the
+classification sets (``--zeroshot-eval-datasets`` under
+``--classification-data-dir``).  Without train data, or with ``--eval-mode
+retrieval/classification``, it only evaluates (``--pretrained`` a local
+``.pt``); ``--eval-mode segmentation`` exits naming its own entry point,
+``python -m cosmos_tpu_torch.training.seg_eval``.
 
 ``main(argv, device=None)`` runs on the card and raises without CUDA;
 ``device="cpu"`` runs on the CPU.  The module imports no torch at its top:
@@ -75,16 +80,6 @@ UNPORTED = (
     ("--fsdp", lambda a: a.fsdp, "queue 1, item 10"),
     ("--num-slices", lambda a: a.num_slices != 1 or a.gather_scope != "global",
      "queue 1, item 10"),
-    ("--imagenet-val", lambda a: a.imagenet_val is not None, "queue 1, item 7"),
-    ("--imagenet-v2", lambda a: a.imagenet_v2 is not None, "queue 1, item 7"),
-    ("--zeroshot-eval-datasets/--classification-data-dir",
-     lambda a: bool(a.zeroshot_eval_datasets or a.classification_data_dir),
-     "queue 1, item 7"),
-    ("--eval-mode classification/segmentation",
-     lambda a: a.eval_mode in ("classification", "segmentation"),
-     "queue 1, item 7"),
-    ("--use-csa/--seg-w-background", lambda a: a.use_csa or a.seg_w_background,
-     "queue 1, item 7"),
     ("--siglip", lambda a: a.siglip, "queue 1, item 8"),
     ("--distill-model", lambda a: a.distill, "queue 1, item 8"),
     ("CoCa models and --coca-*", lambda a: ("coca" in a.model.lower()
@@ -235,6 +230,12 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     )
 
     # --- eval-only -------------------------------------------------------
+    if args.eval_mode == "segmentation":
+        raise SystemExit(
+            "--eval-mode segmentation: segmentation has its own CLI — "
+            "python -m cosmos_tpu_torch.training.seg_eval (see "
+            "scripts/inference_segmentation.sh)"
+        )
     if "train" not in data or args.eval_mode:
         teacher = None
         if pretrained:
@@ -245,7 +246,7 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
             teacher = copy.deepcopy(model).requires_grad_(False)
             teacher.load_state_dict(load_checkpoint(pretrained, "teacher"),
                                     strict=True)
-        metrics = evaluate(model, teacher, data, 0, args)
+        metrics = evaluate(model, teacher, data, 0, args, tokenizer)
         print(json.dumps(metrics, default=float))
         return metrics
 
@@ -359,7 +360,7 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
             if eval_now:
                 t0 = time.perf_counter()
                 eval_metrics = evaluate(state.student, state.teacher, data,
-                                        completed, args)
+                                        completed, args, tokenizer)
                 stats["eval_s"] = time.perf_counter() - t0
                 all_metrics.update(eval_metrics)
                 if writer is not None:

@@ -98,12 +98,6 @@ UNPORTED_ARGV = {
     "mesh": ["--mesh-shape", "4,2"],
     "fsdp": ["--fsdp"],
     "num-slices": ["--num-slices", "2"],
-    "imagenet-val": ["--imagenet-val", "/data/val"],
-    "imagenet-v2": ["--imagenet-v2", "/data/v2"],
-    "zeroshot": ["--zeroshot-eval-datasets", "cifar10"],
-    "eval-classification": ["--eval-mode", "classification"],
-    "eval-segmentation": ["--eval-mode", "segmentation"],
-    "csa": ["--use-csa"],
     "siglip": ["--siglip"],
     "distill": ["--distill-model", "ViT-B-32", "--distill-pretrained", "x"],
     "coca": ["--coca-caption-loss-weight", "1.0"],
