@@ -103,7 +103,26 @@ from the sources in the checkout and then:
      none of K2-K6, and mIoU/aAcc/mAcc in [0, 100]; prints images/s and
      windows/s, holds one image's logits, card against CPU, and times K1
      in float32 at a chunk of 8 windows [8, 197, 2304] beside SDPA and its
-     bound.
+     bound;
+ 15. the trainer's options and modes: (a) holds K1 and K2 to their plain
+     versions, and times them, at the lengths patch dropout at p = 0.5
+     leaves ViT-B-16 at batch 64 ([128,99,2304] globals, [384,19,2304]
+     locals) in float32 and bfloat16; (b) takes one 2-layer float32 step
+     at batch 2 on the card and on the CPU from the same weights for plain
+     CLIP with 2 micro-batches and patch dropout, SigLIP, distillation,
+     LiT-locked COSMOS and COSMOS under each remat policy family, and
+     compares the loss, every gradient and the updated student and
+     teacher (each remat policy also against no remat on the card); (c)
+     drives main([...]) at full width (ViT-B-16, amp, batch 64, phase 12's
+     shards and flags, 1 epoch of 4 steps) for plain CLIP (--accum-freq 2
+     --force-patch-dropout 0.5 --grad-checkpointing), LiT-locked COSMOS
+     with --init-last-layer and remat, --siglip --accum-freq 2,
+     --distill-model ViT-B-16 from a random .pt, and COSMOS with
+     --flash-attention off; checks the exact K1/K2 launches of every step
+     (none in the last; none of K3-K6), finite losses, the clamp, frozen
+     parameters unchanged, the re-drawn last blocks, the samples of a step
+     and one COCO retrieval eval after the locked run, and prints ms per
+     step, samples/s and peak memory beside phase 12's step.
 
 Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
@@ -908,60 +927,63 @@ def phase_card_vs_cpu(fa):
     return errs
 
 
+def kernel_bwd_row(fa, label, b, l, d3, heads, causal, dtype, gen) -> dict:
+    """K2 against its plain version at one geometry, the same bits on a
+    repeat, and its time beside the plain version's, K1's, the backward of
+    F.scaled_dot_product_attention (a yardstick only) and its bound."""
+    d = d3 // 3
+    x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(b, l, d, device="cuda", generator=gen).to(dtype)
+    got = fa.fused_attention_qkv_backward(x, g, heads, causal)
+    again = fa.fused_attention_qkv_backward(x, g, heads, causal)
+    want = fa.fused_attention_qkv_backward_reference(x, g, heads, causal)
+    torch.cuda.synchronize()
+    ok, err = _within(got, want, KERNEL_BWD_TOL[dtype])
+    check(ok, f"K2 vs plain at {label} {dtype}: max err {err}")
+    # no atomics and a fixed order of sums: the same bits every time
+    check(torch.equal(got, again),
+          f"K2 repeated at {label} {dtype}: results differ")
+    del again
+    ms = time_ms(lambda: fa.fused_attention_qkv_backward(x, g, heads, causal))
+    plain_ms = time_ms(lambda: fa.fused_attention_qkv_backward_reference(
+        x, g, heads, causal), iters=5)
+    fwd_ms = time_ms(lambda: fa.fused_attention_qkv(x, heads, causal))
+    q, k, v = (t.view(b, l, heads, d // heads).transpose(1, 2)
+               .detach().requires_grad_(True)
+               for t in x.split(d, dim=-1))
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    g_heads = g.view(b, l, heads, d // heads).transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        o, (q, k, v), g_heads, retain_graph=True))
+    bound_ms, bound_by, nbytes, ops = attention_bwd_bound(
+        b, l, d, causal, dtype)
+    row = dict(label=label, shape=[b, l, d3], heads=heads,
+               causal=causal, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, ops=ops,
+               tflops=ops / ms / 1e9,
+               x_bound=ms / bound_ms, x_library=ms / library_ms,
+               k1_ms=fwd_ms)
+    print(f"[kernel-bwd] {label:20s} {row['dtype']:8s} [{b},{l},{d3}] "
+          f"h={heads} causal={int(causal)} err={err:.3g} "
+          f"K2={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms sdpa-bwd={library_ms:.4f} ms "
+          f"bound={bound_ms:.4f} ms ({bound_by}) "
+          f"x{row['x_bound']:.1f} bound x{row['x_library']:.2f} sdpa "
+          f"{row['tflops']:.1f} TFLOP/s K1={fwd_ms:.4f} ms")
+    return row
+
+
 def phase_kernel_bwd(fa):
     """K2 against its plain version and timed, K1 timed, at the training
     geometries; the autograd Function on the card against the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(10)
-    rows = []
-    for label, b, l, d3, heads, causal in TRAIN_GEOMETRIES:
-        d = d3 // 3
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
-            g = torch.randn(b, l, d, device="cuda", generator=gen).to(dtype)
-            got = fa.fused_attention_qkv_backward(x, g, heads, causal)
-            again = fa.fused_attention_qkv_backward(x, g, heads, causal)
-            want = fa.fused_attention_qkv_backward_reference(x, g, heads,
-                                                             causal)
-            torch.cuda.synchronize()
-            ok, err = _within(got, want, KERNEL_BWD_TOL[dtype])
-            check(ok, f"K2 vs plain at {label} {dtype}: max err {err}")
-            # no atomics and a fixed order of sums: the same bits every time
-            check(torch.equal(got, again),
-                  f"K2 repeated at {label} {dtype}: results differ")
-            del again
-            ms = time_ms(lambda: fa.fused_attention_qkv_backward(
-                x, g, heads, causal))
-            plain_ms = time_ms(lambda: fa.fused_attention_qkv_backward_reference(
-                x, g, heads, causal), iters=5)
-            fwd_ms = time_ms(lambda: fa.fused_attention_qkv(x, heads, causal))
-            q, k, v = (t.view(b, l, heads, d // heads).transpose(1, 2)
-                       .detach().requires_grad_(True)
-                       for t in x.split(d, dim=-1))
-            o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-            g_heads = g.view(b, l, heads, d // heads).transpose(1, 2)
-            library_ms = time_ms(lambda: torch.autograd.grad(
-                o, (q, k, v), g_heads, retain_graph=True))
-            bound_ms, bound_by, nbytes, ops = attention_bwd_bound(
-                b, l, d, causal, dtype)
-            row = dict(label=label, shape=[b, l, d3], heads=heads,
-                       causal=causal, dtype=str(dtype).replace("torch.", ""),
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes, ops=ops,
-                       tflops=ops / ms / 1e9,
-                       x_bound=ms / bound_ms, x_library=ms / library_ms,
-                       k1_ms=fwd_ms)
-            rows.append(row)
-            print(f"[kernel-bwd] {label:20s} {row['dtype']:8s} [{b},{l},{d3}] "
-                  f"h={heads} causal={int(causal)} err={err:.3g} "
-                  f"K2={ms:.4f} ms "
-                  f"plain={plain_ms:.4f} ms sdpa-bwd={library_ms:.4f} ms "
-                  f"bound={bound_ms:.4f} ms ({bound_by}) "
-                  f"x{row['x_bound']:.1f} bound x{row['x_library']:.2f} sdpa "
-                  f"{row['tflops']:.1f} TFLOP/s K1={fwd_ms:.4f} ms")
-            del x, g, got, want, q, k, v, o, g_heads
+    rows = [kernel_bwd_row(fa, label, b, l, d3, heads, causal, dtype, gen)
+            for label, b, l, d3, heads, causal in TRAIN_GEOMETRIES
+            for dtype in (torch.float32, torch.bfloat16)]
 
     # the autograd Function: K1 then K2 on the card, the plain versions on
     # the CPU, same float32 input and output gradient
@@ -1466,10 +1488,13 @@ def _gc_pauses(record):
 
 
 @contextlib.contextmanager
-def _instrumented_trainer(K, record):
+def _instrumented_trainer(K, record, profiled=TRAINER_PROFILED_STEPS,
+                          inspect=None):
     """Wrap the trainer's step and evaluation (main() imports both at call
     time) to count K1/K2 launches per step and per eval, and to check that
-    every batch reaches the step on the card."""
+    every batch reaches the step on the card.  The steps whose index is in
+    ``profiled`` run under the profiler; ``inspect(state, batch)`` is
+    called before every step."""
     from cosmos_tpu_torch.training import evaluate as ev
     from cosmos_tpu_torch.training import train as tr
 
@@ -1481,8 +1506,10 @@ def _instrumented_trainer(K, record):
         def counted(state, batch):
             check(all(t.is_cuda for t in batch.values()),
                   "the prefetcher handed the step a host tensor")
+            if inspect is not None:
+                inspect(state, batch)
             before = read_launches(K)
-            if len(record["steps"]) in TRAINER_PROFILED_STEPS:
+            if len(record["steps"]) in profiled:
                 m, prof = _profile_step(step, state, batch)
                 record["profiles"][len(record["steps"])] = prof
             else:
@@ -1547,15 +1574,16 @@ def _loader_alone(argv, batches: int = 20):
                 samples_per_s=batches * TRAINER_BATCH / seconds)
 
 
-def phase_trainer(K):
+def phase_trainer(K, tmp: str):
     """python -m cosmos_tpu_torch.training.main at full width: ViT-B-16
     COSMOS, train_cc3m.sh's recipe (amp, exact GELU, no text bucket,
     multi-crop 2 + 6, textcrop with 8 captions, momentum 0.999 fixed),
     batch 64, on webdataset shards of synthetic JPEGs made from a seed;
     2 epochs of 4 steps with val and COCO retrieval evals of student and
-    teacher and a checkpoint each, then --resume latest for a third."""
+    teacher and a checkpoint each, then --resume latest for a third.
+    The shards go to ``tmp``/data, where phase 15 reads them too."""
     import os
-    import tempfile
+    import shutil
 
     from cosmos_tpu_torch.data.synthetic import write_coco, write_shards
     from cosmos_tpu_torch.models.convert import load_checkpoint
@@ -1567,41 +1595,41 @@ def phase_trainer(K):
     cpus = os.cpu_count() or 1
     workers = max(1, min(8, cpus - 1))
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="cosmos_trainer_") as tmp:
-        data, logs = f"{tmp}/data", f"{tmp}/logs"
-        t0 = time.perf_counter()
-        write_shards(data + "/train-{i:04d}.tar", max(8, workers),
-                     TRAINER_SHARD_SAMPLES, seed=0)
-        write_shards(data + "/val-{i:04d}.tar", 1, 128, seed=1)
-        write_coco(data + "/eval/coco", 64, seed=2)
-        data_s = time.perf_counter() - t0
-        print(f"[trainer] {max(8, workers)} train shards of "
-              f"{TRAINER_SHARD_SAMPLES} JPEGs (256-640 px), 1 val shard of "
-              f"128, COCO layout of 64 images x 5 captions in {data_s:.1f} s; "
-              f"{workers} workers, os.cpu_count() {cpus}")
-        argv = _trainer_argv(data, logs, workers)
-        record = {"steps": [], "evals": [], "profiles": {}, "gc_ms": []}
-        zero_launches(K)
-        t0 = time.perf_counter()
-        with _instrumented_trainer(K, record), _gc_pauses(record["gc_ms"]):
-            run1 = trainer.main(argv + ["--epochs", "2"])
-            run2 = trainer.main(argv + ["--epochs", "3", "--resume", "latest"])
-        wall_s = time.perf_counter() - t0
-        launches = read_launches(K)
-        loader = _loader_alone(argv + ["--epochs", "3"])
-        ckpt_dir = f"{logs}/trainer/checkpoints"
-        model = create_model("ViT-B-16", "amp", device="cuda", cosmos=True,
-                             output_all=True, attentional_pool=True)
-        for epoch in (1, 2, 3):
-            for which in ("student", "teacher"):
-                sd = load_checkpoint(f"{ckpt_dir}/epoch_{epoch}.pt", which)
-                model.load_state_dict(sd, strict=True)
-                for name in ("logit_scale", "distill_logit_scale"):
-                    v = float(sd[name])
-                    check(0.0 <= v <= LN100,
-                          f"epoch {epoch} {which} {name} = {v}")
-        del model
-        torch.cuda.empty_cache()
+    data, logs = f"{tmp}/data", f"{tmp}/logs"
+    t0 = time.perf_counter()
+    write_shards(data + "/train-{i:04d}.tar", max(8, workers),
+                 TRAINER_SHARD_SAMPLES, seed=0)
+    write_shards(data + "/val-{i:04d}.tar", 1, 128, seed=1)
+    write_coco(data + "/eval/coco", 64, seed=2)
+    data_s = time.perf_counter() - t0
+    print(f"[trainer] {max(8, workers)} train shards of "
+          f"{TRAINER_SHARD_SAMPLES} JPEGs (256-640 px), 1 val shard of "
+          f"128, COCO layout of 64 images x 5 captions in {data_s:.1f} s; "
+          f"{workers} workers, os.cpu_count() {cpus}")
+    argv = _trainer_argv(data, logs, workers)
+    record = {"steps": [], "evals": [], "profiles": {}, "gc_ms": []}
+    zero_launches(K)
+    t0 = time.perf_counter()
+    with _instrumented_trainer(K, record), _gc_pauses(record["gc_ms"]):
+        run1 = trainer.main(argv + ["--epochs", "2"])
+        run2 = trainer.main(argv + ["--epochs", "3", "--resume", "latest"])
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(K)
+    loader = _loader_alone(argv + ["--epochs", "3"])
+    ckpt_dir = f"{logs}/trainer/checkpoints"
+    model = create_model("ViT-B-16", "amp", device="cuda", cosmos=True,
+                         output_all=True, attentional_pool=True)
+    for epoch in (1, 2, 3):
+        for which in ("student", "teacher"):
+            sd = load_checkpoint(f"{ckpt_dir}/epoch_{epoch}.pt", which)
+            model.load_state_dict(sd, strict=True)
+            for name in ("logit_scale", "distill_logit_scale"):
+                v = float(sd[name])
+                check(0.0 <= v <= LN100,
+                      f"epoch {epoch} {which} {name} = {v}")
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(logs)   # 7 GB of checkpoints; the shards stay for phase 15
 
     epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
     check([s["epoch"] for s in epochs] == [0, 1, 2],
@@ -1651,6 +1679,7 @@ def phase_trainer(K):
     samples_s = [line["samples_per_s"] for e, s in enumerate(epochs)
                  for line in s["logged"] if steady(e, line["step"])]
     out = dict(
+        data_dir=data,
         workers=workers, cpu_count=cpus, data_write_s=data_s, wall_s=wall_s,
         launches=launches, launches_per_step=want,
         eval_launches=record["evals"], losses=losses,
@@ -2089,6 +2118,338 @@ def phase_segmentation(K, ckpt: str):
     return out
 
 
+# phase 15: the trainer's options and modes (the rest of the one-card
+# training step): the kernels at the patch-dropped lengths, each mode and
+# option card against CPU, and five full-width trainer runs
+# (label, B, L, 3D, heads, causal): patch dropout at p = 0.5 keeps 98 of
+# the globals' 196 patches and 18 of the 96px locals' 36, behind the class
+# token, at a per-card batch of 64
+DROP_GEOMETRIES = [
+    ("vision globals, patch dropout 0.5", 128, 99, 3 * 768, 12, False),
+    ("vision 96px locals, patch dropout 0.5", 384, 19, 3 * 768, 12, False),
+]
+OPTIONS_STEPS = 4
+# JAX's remat policies, one name of each family the port maps
+REMAT_FAMILIES = ("", "dots_saveable", "dots_with_no_batch_dims_saveable",
+                  "everything_saveable")
+# a remat step against the same step without remat, on the card: the same
+# kernels on the same inputs, so float rounding at most
+REMAT_RTOL = 1e-5
+LOCK = dict(lock_image=True, lock_text=True, unlocked_groups=2,
+            text_unlocked_layers=1)
+# (name, the run's flags, micro-batches a step, remat, the blocks of each
+# tower call of a micro-batch that get a gradient): the student's calls are
+# the globals, the locals and one call of the 8 caption views (the trainer
+# runs no text bucket); the teacher's (COSMOS) the globals and the first 2
+# caption views, the distillation model's the student's three, none with
+# a gradient
+OPTION_RUNS = [
+    ("clip", ["--accum-freq", "2", "--force-patch-dropout", "0.5",
+              "--grad-checkpointing"], 2, True,
+     # the exact accumulation's cache pass, then its gradient pass
+     (0, 0, 0, 12, 12, 12)),
+    ("cosmos-locked", ["--cosmos", "--lock-image",
+                       "--lock-image-unlocked-groups", "2", "--lock-text",
+                       "--lock-text-unlocked-layers", "1",
+                       "--init-last-layer", "--grad-checkpointing",
+                       "--remat-policy", "dots_with_no_batch_dims_saveable",
+                       "--val-frequency", "1"], 1, True,
+     # the last block of each student tower is trainable
+     (1, 1, 1, 0, 0)),
+    ("siglip", ["--siglip", "--accum-freq", "2"], 2, False, (12, 12, 12)),
+    ("distill", ["--distill-model", "ViT-B-16"], 1, False,
+     (12, 12, 12, 0, 0, 0)),
+    ("cosmos-flash-off", ["--cosmos", "--flash-attention", "off"], 1, False,
+     None),
+]
+
+
+def option_launches(accum: int, remat: bool, calls, layers: int = 12
+                    ) -> dict:
+    """K1/K2 per step of a trainer run from its tower calls: every call
+    launches K1 once a block; a block that gets a gradient launches K2 in
+    the backward and, under remat, K1 again.  ``calls`` None: the plain
+    attention path, no launch."""
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    for grad_blocks in calls or ():
+        out["K1"] += accum * (layers + (grad_blocks if remat else 0))
+        out["K2"] += accum * grad_blocks
+    return out
+
+
+def _drop_flags(argv, values=(), switches=()):
+    """``argv`` without the ``switches`` and the ``values`` flags (each with
+    the value after it)."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in values:
+            skip = True
+        elif a not in switches:
+            out.append(a)
+    return out
+
+
+def _options_kernel_rows(fa):
+    """15(a): K1 and K2 held to their plain versions, and timed, at the
+    patch-dropped lengths in both dtypes."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = [kernel_row(fa, label, b, l, d3, heads, causal, dtype, gen)
+            for label, b, l, d3, heads, causal in DROP_GEOMETRIES
+            for dtype in (torch.float32, torch.bfloat16)]
+    bwd = [kernel_bwd_row(fa, label, b, l, d3, heads, causal, dtype, gen)
+           for label, b, l, d3, heads, causal in DROP_GEOMETRIES
+           for dtype in (torch.float32, torch.bfloat16)]
+    return rows, bwd
+
+
+def _step_run(model, cfg_kw, batch, lr, frozen=None, dist=None):
+    """One training step of ``model`` on its device: (loss, every
+    gradient, the updated student and teacher), all on the CPU."""
+    from cosmos_tpu_torch import create_optimizer, create_train_state
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import (TrainStepConfig, freeze,
+                                                 make_train_step)
+
+    dev = next(model.parameters()).device
+    if frozen is not None:
+        freeze(model, frozen)
+    opt = create_optimizer(model, const_lr(lr, 0, 100), beta1=0.9,
+                           beta2=0.98, eps=1e-8, weight_decay=0.5)
+    cfg = TrainStepConfig(momentum_teacher=0.999, fix_momentum=True,
+                          frozen=frozen, seed=3, **cfg_kw)
+    step = make_train_step(model, opt, cfg, dist_model=dist)
+    state = create_train_state(model, opt)
+    m = step(state, {k: v.to(dev) for k, v in batch.items()})
+    return dict(
+        loss=m["loss"].item(),
+        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()
+               if p.grad is not None},
+        student={k: v.cpu() for k, v in state.student.state_dict().items()},
+        teacher={k: v.cpu() for k, v in state.teacher.state_dict().items()})
+
+
+def _grad_errs(got, want, rel, atol, what):
+    """Max abs error of every gradient, each held to ``rel`` times its
+    tensor's largest magnitude plus ``atol``."""
+    check(got.keys() == want.keys(),
+          f"{what}: gradients of {sorted(got.keys() ^ want.keys())} on one "
+          "side only")
+    worst = 0.0
+    for name, w in want.items():
+        err = (got[name] - w).abs().max().item()
+        check(err <= rel * w.abs().max().item() + atol,
+              f"{what}: grad {name} max err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def _options_card_vs_cpu(lr: float = 1e-4):
+    """15(b): one 2-layer float32 step at batch 2 of each mode and option,
+    on the card and on the CPU from the same weights: the loss, every
+    gradient and the updated student and teacher at phase 8's tolerance;
+    and each remat policy on the card against no remat."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.training.train import frozen_mask
+
+    small = dict(vision_layers=2, text_layers=2, seed=7)
+    plain = dict(act_approx=True)   # TRAIN_RECIPE's GELU, without COSMOS
+    b1 = _train_batch(2, seed=31, device="cpu")
+    b2 = _train_batch(2, seed=32, device="cpu")
+    stacked = {k: torch.stack([b1[k], b2[k]]) for k in b1}
+    cases = [
+        ("clip accum 2, patch dropout 0.5",
+         dict(plain, force_patch_dropout=0.5),
+         dict(cosmos=False, accum_freq=2), stacked),
+        ("siglip", dict(plain, init_logit_scale=float(np.log(10.0)),
+                        init_logit_bias=-10.0),
+         dict(cosmos=False, siglip=True), b1),
+        ("distill", plain, dict(cosmos=False, distill=True), b1),
+        ("cosmos LiT-locked", dict(TRAIN_RECIPE), dict(cosmos=True), b1),
+    ] + [(f"cosmos remat {p or 'nothing_saveable'}",
+          dict(TRAIN_RECIPE, grad_checkpointing=True, remat_policy=p),
+          dict(cosmos=True), b1) for p in REMAT_FAMILIES]
+    errs, card = {}, {}
+    no_remat = None
+    for name, model_kw, cfg_kw, batch in cases:
+        cpu_model = create_model("ViT-B-16", "fp32", device="cpu",
+                                 **small, **model_kw)
+        init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        frozen = (frozen_mask(cpu_model, **LOCK)
+                  if name == "cosmos LiT-locked" else None)
+        dist = None
+        if cfg_kw.get("distill"):
+            dist = create_model("ViT-B-16", "fp32", device="cpu",
+                                **dict(small, seed=8), **plain)
+        runs = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            runs[dev] = _step_run(
+                model, cfg_kw, batch, lr, frozen,
+                None if dist is None else copy.deepcopy(dist).to(dev))
+        cpu, gpu = runs["cpu"], runs["cuda"]
+        e = {"loss": abs(gpu["loss"] - cpu["loss"])}
+        check(e["loss"] <= 1e-4 * abs(cpu["loss"]),
+              f"{name}: loss card {gpu['loss']} vs CPU {cpu['loss']}")
+        e["grads"] = _grad_errs(gpu["grads"], cpu["grads"], 1e-3, 1e-8, name)
+        for which in ("student", "teacher"):
+            e[which] = max((gpu[which][k] - cpu[which][k]).abs().max().item()
+                           for k in cpu[which])
+            check(e[which] <= 2 * lr,
+                  f"{name}: updated {which} card vs CPU max err {e[which]}")
+        if frozen is not None:
+            check(all(torch.equal(gpu["student"][k], init[k])
+                      for k in frozen if frozen[k]),
+                  f"{name}: a frozen parameter moved")
+            check(not any(frozen[k] for k in gpu["grads"]),
+                  f"{name}: a frozen parameter got a gradient")
+        if name.startswith("cosmos remat"):
+            if no_remat is None:
+                base = create_model("ViT-B-16", "fp32", device="cpu",
+                                    **small, **TRAIN_RECIPE).to("cuda")
+                no_remat = _step_run(base, cfg_kw, batch, lr)
+            e["vs no remat"] = _grad_errs(gpu["grads"], no_remat["grads"],
+                                          REMAT_RTOL, 0.0, name)
+            check(abs(gpu["loss"] - no_remat["loss"])
+                  <= REMAT_RTOL * abs(no_remat["loss"]),
+                  f"{name}: loss {gpu['loss']} vs {no_remat['loss']} "
+                  "without remat")
+        errs[name] = e
+        print(f"[options-card-vs-cpu] {name}: loss {gpu['loss']:.6f}, max "
+              "abs err " + " ".join(f"{k}={v:.3g}" for k, v in e.items()))
+    return errs
+
+
+def phase_trainer_options(K, card: str, trainer_record, tmp: str):
+    """Phase 15: the trainer's options and modes.  (a) K1 and K2 at the
+    patch-dropped lengths; (b) each mode and option card against CPU;
+    (c) python -m cosmos_tpu_torch.training.main at full width for each of
+    OPTION_RUNS: ViT-B-16, amp, batch 64, phase 12's shards and flags, 1
+    epoch of OPTIONS_STEPS steps, one COCO retrieval eval (after the
+    LiT-locked run); the exact K1/K2 launches of every step, finite losses,
+    the clamp, frozen parameters unchanged, the re-drawn last blocks, the
+    samples of a step; ms per step (CUDA events), samples/s, peak memory."""
+    from cosmos_tpu_torch.models.factory import create_model
+    from cosmos_tpu_torch.training import main as trainer
+
+    t_phase = time.perf_counter()
+    rows, bwd_rows = _options_kernel_rows(K.fa)
+    card_vs_cpu = _options_card_vs_cpu()
+
+    data = trainer_record["data_dir"]
+    workers = trainer_record["workers"]
+    dist_pt = f"{tmp}/distill_vit_b_16.pt"
+    torch.save(create_model("ViT-B-16", "fp32", device="cpu",
+                            seed=11).state_dict(), dist_pt)
+    base = _drop_flags(
+        _trainer_argv(data, f"{tmp}/option_logs", workers),
+        values=("--val-data", "--val-num-samples", "--steps-per-epoch"),
+        switches=("--cosmos",))
+    base += ["--epochs", "1", "--steps-per-epoch", str(OPTIONS_STEPS),
+             "--val-frequency", "0"]
+    runs = {}
+    zero_launches(K)
+    for name, flags, accum, remat, calls in OPTION_RUNS:
+        if name == "distill":
+            flags = flags + ["--distill-pretrained", dist_pt]
+        record = {"steps": [], "evals": [], "profiles": {}}
+        seen = {"samples": []}
+
+        def inspect(state, batch, seen=seen):
+            g = batch["global_images"]
+            seen["samples"].append(g.shape[0] * g.shape[2] if accum > 1
+                                   else g.shape[1])
+            if "state" in seen:
+                return
+            seen["state"] = state
+            seen["frozen"] = {n: p.detach().clone() for n, p in
+                              state.student.named_parameters()
+                              if not p.requires_grad}
+            last = "visual.transformer.resblocks.11.attn.in_proj_weight"
+            first = "visual.transformer.resblocks.0.attn.in_proj_weight"
+            s, t = state.student.state_dict(), state.teacher.state_dict()
+            seen["last_differs"] = not torch.equal(s[last], t[last])
+            seen["first_equal"] = torch.equal(s[first], t[first])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _instrumented_trainer(K, record, profiled=(), inspect=inspect):
+            metrics = trainer.main(base + ["--name", name] + flags)
+        wall_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = option_launches(accum, remat, calls)
+        stats = metrics["train_epoch_stats"][0]
+        logged = stats["logged"]
+        losses = [line["loss"] for line in logged]
+        check(len(record["steps"]) == OPTIONS_STEPS, f"{name}: steps run")
+        for i, got in enumerate(record["steps"]):
+            check(got == want, f"{name} step {i}: launches {got}, "
+                  f"expected {want}")
+        check(len(losses) == OPTIONS_STEPS and all(np.isfinite(losses)),
+              f"{name}: a finite loss at every step {losses}")
+        for line in logged:
+            check(0.0 < line["logit_scale"] <= 100.0 + 1e-3,
+                  f"{name}: exp(logit_scale) {line['logit_scale']}")
+        check(seen["samples"] == [TRAINER_BATCH * accum] * OPTIONS_STEPS,
+              f"{name}: samples a step {seen['samples']}")
+        student = seen["state"].student
+        params = dict(student.named_parameters())
+        moved = [n for n, v in seen["frozen"].items()
+                 if not torch.equal(v, params[n])]
+        check(not moved, f"{name}: frozen parameters moved: {moved[:4]}")
+        if name == "cosmos-locked":
+            check(len(seen["frozen"]) > 0, "the locked run froze nothing")
+            check(seen["last_differs"] and seen["first_equal"],
+                  "--init-last-layer: the student's and teacher's last "
+                  "blocks are redrawn apart, the first stays the copy")
+            check(len(record["evals"]) == 1 and record["evals"][0]["K1"] > 0
+                  and all(v == 0 for k, v in record["evals"][0].items()
+                          if k != "K1"), f"one eval, K1 only: "
+                  f"{record['evals']}")
+            for prefix in ("", "ema_"):
+                v = metrics.get(prefix + "coco_image_to_text_R@1")
+                check(v is not None and 0.0 <= v <= 1.0,
+                      f"{prefix}coco_image_to_text_R@1 = {v}")
+        else:
+            check(not record["evals"], f"{name}: no eval")
+        step_ms = float(np.mean(stats["step_ms"][1:]))
+        samples = TRAINER_BATCH * accum
+        windows = [line["samples_per_s"] for line in logged
+                   if line["step"] > 0]
+        runs[name] = dict(
+            flags=flags, accum_freq=accum, launches_per_step=want,
+            launches={k: v * OPTIONS_STEPS for k, v in want.items()},
+            losses=losses, step_ms=stats["step_ms"],
+            step_ms_mean=step_ms, samples_per_step=samples,
+            samples_per_s=samples / step_ms * 1e3,
+            window_samples_per_s=windows, peak_mem_gb=peak_gb,
+            frozen_tensors=len(seen["frozen"]), wall_s=wall_s,
+            evals=record["evals"])
+        del seen, student, params
+        torch.cuda.empty_cache()
+        print(f"[options] {name}: {step_ms:.3f} ms/step (CUDA events, steps "
+              f"2+), {samples / step_ms * 1e3:.1f} samples/s ({samples} a "
+              f"step), peak memory {peak_gb:.2f} GB; losses "
+              + " ".join(f"{x:.5f}" for x in losses)
+              + f"; K1/K2 per step {want['K1']}/{want['K2']}; wall "
+              f"{wall_s:.1f} s")
+    launches = read_launches(K)
+    want_all = {k: sum(r["launches_per_step"][k] for r in runs.values())
+                * OPTIONS_STEPS for k in launches}
+    evals_k1 = sum(e["K1"] for r in runs.values() for e in r["evals"])
+    want_all["K1"] += evals_k1
+    check(launches == want_all, f"phase 15 launches {launches}, expected "
+          f"{want_all}")
+    print(f"[options] {card}: beside phase 12's step "
+          f"{trainer_record['step_ms_mean']:.3f} ms (COSMOS, no option); "
+          f"launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernel_rows=rows, kernel_bwd_rows=bwd_rows,
+                card_vs_cpu=card_vs_cpu, runs=runs, launches=launches,
+                eval_k1=evals_k1, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -2118,11 +2479,13 @@ def main() -> int:
     train_ln = phase_train_ln(K, train)
     train_ln_card_vs_cpu = {s: phase_train_card_vs_cpu(K, s)
                             for s in LN_SETTINGS}
-    trainer = phase_trainer(K)
-    with tempfile.TemporaryDirectory(prefix="cosmos_evals_") as tmp:
-        ckpt = _eval_checkpoint(f"{tmp}/vit_b_16_cosmos.pt")
-        classification = phase_classification(K, ckpt)
-        segmentation = phase_segmentation(K, ckpt)
+    with tempfile.TemporaryDirectory(prefix="cosmos_trainer_") as work:
+        trainer = phase_trainer(K, work)
+        with tempfile.TemporaryDirectory(prefix="cosmos_evals_") as tmp:
+            ckpt = _eval_checkpoint(f"{tmp}/vit_b_16_cosmos.pt")
+            classification = phase_classification(K, ckpt)
+            segmentation = phase_segmentation(K, ckpt)
+        options = phase_trainer_options(K, card, trainer, work)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
 
     def pick(table, geometry, **match):
@@ -2142,11 +2505,12 @@ def main() -> int:
         "replaces": "cosmos_tpu/ops/fused_attention.py:101",
         # the main paths' runs: serving (phase 4), training (phases 7, 10),
         # the trainer (phase 12: its steps and evals), the classification
-        # and segmentation evals (phases 13, 14)
+        # and segmentation evals (phases 13, 14), the trainer's options and
+        # modes (phase 15: its steps and eval)
         "launches": serving["launches"] + train["k1_launches"] + sum(
             r["launches"]["K1"] for r in train_ln.values())
         + trainer["launches"]["K1"] + classification["launches"]["K1"]
-        + seg_k1,
+        + seg_k1 + options["launches"]["K1"],
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -2154,7 +2518,8 @@ def main() -> int:
                              "trainer": trainer["launches"]["K1"],
                              "classification":
                                  classification["launches"]["K1"],
-                             "segmentation": seg_k1},
+                             "segmentation": seg_k1,
+                             "trainer options": options["launches"]["K1"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
@@ -2163,11 +2528,12 @@ def main() -> int:
         "replaces": "cosmos_tpu/ops/fused_attention.py:190",
         "launches": train["k2_launches"] + sum(
             r["launches"]["K2"] for r in train_ln.values())
-        + trainer["launches"]["K2"],
+        + trainer["launches"]["K2"] + options["launches"]["K2"],
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
-                             "trainer": trainer["launches"]["K2"]},
+                             "trainer": trainer["launches"]["K2"],
+                             "trainer options": options["launches"]["K2"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -2205,7 +2571,7 @@ def main() -> int:
                   train_ln=train_ln,
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
                   trainer=trainer, classification=classification,
-                  segmentation=segmentation,
+                  segmentation=segmentation, trainer_options=options,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

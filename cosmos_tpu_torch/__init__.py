@@ -6,9 +6,10 @@ against; this package imports neither it nor JAX.  Plain tensor code is
 PyTorch, and each Pallas kernel of ``cosmos_tpu`` on a ported path is a
 hand-written CUDA kernel for ``sm_90a`` under ``ops/csrc/``.  Entry points
 run on the card unless the caller passes ``device="cpu"``.  Ported: the
-serving path (``create_model``, the encoders), the COSMOS pre-training step
-(``create_optimizer``, ``create_train_state``, ``make_train_step``,
-``COSMOSLoss``), the host data pipeline (``data/``) and the trainer
+serving path (``create_model``, the encoders), the training step in the
+COSMOS, plain CLIP, SigLIP and distillation modes with accumulation, remat
+and LiT locking (``create_optimizer``, ``create_train_state``,
+``make_train_step``, ``COSMOSLoss``), the host data pipeline (``data/``) and the trainer
 (``python -m cosmos_tpu_torch.training.main``).
 
 The names below are imported on first use, so that the data loader's worker

@@ -1,3 +1,3 @@
-from .contrastive import ClipLoss, COSMOSLoss
+from .contrastive import ClipLoss, COSMOSLoss, DistillClipLoss, SigLipLoss
 
-__all__ = ["ClipLoss", "COSMOSLoss"]
+__all__ = ["ClipLoss", "COSMOSLoss", "DistillClipLoss", "SigLipLoss"]

@@ -1,16 +1,19 @@
 """Contrastive and self-distillation losses (counterpart of
-``cosmos_tpu/losses/contrastive.py:36-216``).
+``cosmos_tpu/losses/contrastive.py``, all but ``CoCaLoss``).
 
 Features arrive views-leading, ``[V, B, D]`` (a ``[B, D]`` input is one
 view).  ``ClipLoss`` is InfoNCE averaged over every (image view, text view)
 pair, from one batched ``[Vi, Vt, B, B]`` contraction with a float32 result;
 ``COSMOSLoss`` adds the 4-term cross-modal distillation against the detached
-teacher features.
+teacher features; ``DistillClipLoss`` adds a soft cross-entropy against a
+frozen model's logits; ``SigLipLoss`` is the pairwise sigmoid loss of one
+``[B, B]`` block with ``logit_bias``.  The last two read the first view
+only, as the JAX package's do.
 
-Single process only: the all-gather with gradient and the rank-offset
-labels of ``local_loss`` come with data parallelism.  ``local_loss`` is
-accepted because with one process it changes nothing; a process group of
-more than one rank raises.
+Single process only: the all-gather with gradient, the rank-offset labels
+of ``local_loss`` and SigLIP's ring of negatives come with data
+parallelism.  ``local_loss`` is accepted because with one process it
+changes nothing; a process group of more than one rank raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import dataclasses
 from typing import Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 
 def _as_views(x: torch.Tensor) -> torch.Tensor:
@@ -39,7 +43,8 @@ def _single_process() -> None:
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             "the contrastive losses are single-process: the feature "
-            "all-gather across ranks is not ported yet")
+            "all-gather across ranks and SigLIP's ring are not ported yet "
+            "(ROADMAP queue 1, item 6)")
 
 
 @dataclasses.dataclass
@@ -109,3 +114,70 @@ class COSMOSLoss:
         if output_dict:
             return {"distill_loss": distill, "clip_loss": clip}
         return distill + clip
+
+
+def _pair_logits(img: torch.Tensor, txt: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """``scale * img @ txt.T`` as float32 from [B, D] features."""
+    return scale.float() * torch.matmul(img.float(), txt.float().T)
+
+
+@dataclasses.dataclass
+class DistillClipLoss(ClipLoss):
+    """The CLIP loss of the first views plus a soft cross-entropy against
+    the logits of a frozen model's features, which take no gradient."""
+
+    def __call__(self, image_features: torch.Tensor,
+                 text_features: torch.Tensor, logit_scale: torch.Tensor,
+                 dist_image_features: torch.Tensor,
+                 dist_text_features: torch.Tensor,
+                 dist_logit_scale: torch.Tensor, output_dict: bool = False):
+        _single_process()
+        img = _as_views(image_features)[0]
+        txt = _as_views(text_features)[0]
+        d_img = _as_views(dist_image_features)[0].detach()
+        d_txt = _as_views(dist_text_features)[0].detach()
+        dist_logit_scale = dist_logit_scale.detach()
+        li, lt = (_pair_logits(img, txt, logit_scale),
+                  _pair_logits(txt, img, logit_scale))
+        dli, dlt = (_pair_logits(d_img, d_txt, dist_logit_scale),
+                    _pair_logits(d_txt, d_img, dist_logit_scale))
+        labels = torch.arange(li.shape[0], device=li.device)
+        contrastive = 0.5 * (_cross_entropy(li, labels)
+                             + _cross_entropy(lt, labels))
+        distill = 0.5 * (_soft_cross_entropy(dli, li)
+                         + _soft_cross_entropy(dlt, lt))
+        if output_dict:
+            return {"contrastive_loss": contrastive, "distill_loss": distill}
+        return contrastive, distill
+
+
+def _soft_cross_entropy(teacher_logits: torch.Tensor,
+                        student_logits: torch.Tensor) -> torch.Tensor:
+    t = torch.softmax(teacher_logits, dim=1)
+    s = torch.log_softmax(student_logits, dim=1)
+    return -(t * s).sum(dim=1).mean(dim=0)
+
+
+@dataclasses.dataclass
+class SigLipLoss:
+    """Pairwise sigmoid loss over one [B, B] block of the first views:
+    ``-sum(log sigmoid(label * (scale * img @ txt.T + bias))) / B`` with
+    label +1 on the diagonal and -1 elsewhere."""
+
+    bidir: bool = True
+
+    def __call__(self, image_features: torch.Tensor,
+                 text_features: torch.Tensor, logit_scale: torch.Tensor,
+                 logit_bias: Optional[torch.Tensor] = None,
+                 output_dict: bool = False):
+        _single_process()
+        img = _as_views(image_features)[0]
+        txt = _as_views(text_features)[0]
+        logits = _pair_logits(img, txt, logit_scale)
+        if logit_bias is not None:
+            logits = logits + logit_bias.float()
+        b = img.shape[0]
+        labels = 2.0 * torch.eye(b, txt.shape[0], device=logits.device) - 1.0
+        loss = -F.logsigmoid(labels * logits).sum() / b
+        return {"contrastive_loss": loss} if output_dict else loss

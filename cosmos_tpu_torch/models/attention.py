@@ -15,6 +15,12 @@ refuses use plain torch ops with the JAX package's XLA-path semantics:
 logits in the compute dtype, softmax reduced in float32.  ``csa=True`` is
 SCLIP's correlative self-attention, ``softmax(q qᵀ s) + softmax(k kᵀ s)``
 applied to v (the weights of a row sum to 2), on the plain path only.
+
+``use_flash`` is JAX's tri-state (``resolve_fused``): ``False`` sends every
+self-attention to the plain path (JAX's XLA path), so K1 and K2 never run;
+``True`` and ``None`` (auto) take the kernel path wherever the gate admits
+it, on a CPU tensor through the wrappers' plain versions (the counterpart
+of JAX's interpret mode off the TPU).
 """
 
 from __future__ import annotations
@@ -75,9 +81,11 @@ class MultiheadAttention(nn.Module):
     """Packed-QKV multi-head attention (self or cross)."""
 
     def __init__(self, dim: int, num_heads: int, add_zero_attn: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_flash: Optional[bool] = None):
         super().__init__()
         self.dim = dim
+        self.use_flash = use_flash
         self.num_heads = num_heads
         self.add_zero_attn = add_zero_attn
         self.dtype = dtype
@@ -116,7 +124,8 @@ class MultiheadAttention(nn.Module):
         elif kv is None:
             qkv = F.linear(xc, self.in_proj_weight.to(self.dtype),
                            self.in_proj_bias.to(self.dtype))
-        if (kv is None and mask is None and not csa and not self.add_zero_attn
+        if (self.use_flash is not False and kv is None and mask is None
+                and not csa and not self.add_zero_attn
                 and supported(self.num_heads, d, x.shape[1],
                               xc.dtype.itemsize)):
             # packed path: the kernel reads every head by stride from the

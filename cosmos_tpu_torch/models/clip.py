@@ -7,7 +7,12 @@ are ``[V*B, ...]`` with view v at rows ``[v*B, (v+1)*B)``.
 ``text_bucket > 0`` turns on the length-bucketed text tower of the COSMOS
 training forward (``_bucketed_text_pooled``); ``fuse_ln=True`` runs the
 towers' blocks with their pre-LayerNorms fused into the QKV projection (K5)
-and the MLP (K6).
+and the MLP (K6); ``remat`` recomputes each block in the backward
+(``remat_policy`` names what it keeps, ``transformer.REMAT_POLICIES``);
+``use_flash=False`` keeps every self-attention off K1 and K2.  A config with
+``init_logit_bias`` (SigLIP) has ``logit_bias``; one with
+``vision_cfg.patch_dropout > 0`` drops patch tokens in the forwards that
+pass a ``patch_drop`` generator (the student's training forwards).
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ class CLIP(nn.Module):
 
     def __init__(self, cfg: CLIPCfg, cosmos: bool = False,
                  dtype: torch.dtype = torch.float32, act_approx: bool = False,
-                 text_bucket: int = 0, fuse_ln: bool = False):
+                 text_bucket: int = 0, fuse_ln: bool = False,
+                 remat: bool = False, remat_policy: str = "",
+                 use_flash: Optional[bool] = None):
         super().__init__()
         v, t = cfg.vision_cfg, cfg.text_cfg
         if (v.timm_model_name or isinstance(v.layers, (tuple, list))
@@ -47,14 +54,14 @@ class CLIP(nn.Module):
             raise ValueError(
                 "the vision tower takes the CLS-token, 'tok'-pooled, "
                 "learned-position OpenCLIP ViT only")
-        if cfg.init_logit_bias is not None:
-            raise ValueError("logit_bias (SigLIP) configs are not ported")
         self.cfg = cfg
         self.cosmos = cosmos
         self.dtype = dtype
         self.text_bucket = text_bucket
         self.output_all = v.output_all
         cross_pool = cosmos and v.output_all and v.attentional_pool
+        blocks = dict(dtype=dtype, fuse_ln=fuse_ln, remat=remat,
+                      remat_policy=remat_policy, use_flash=use_flash)
         if cfg.quick_gelu:
             act = get_act_fn("quick_gelu")
         else:
@@ -65,9 +72,9 @@ class CLIP(nn.Module):
             output_dim=cfg.embed_dim, ls_init_value=v.ls_init_value,
             no_ln_pre=v.no_ln_pre, cross_pool=cross_pool,
             attn_pooler_heads=v.attn_pooler_heads,
-            add_zero_attn=v.add_zero_attn, act_fn=act, dtype=dtype,
-            fuse_ln=fuse_ln)
-        add_text_tower(self, t, cfg.embed_dim, act, dtype, fuse_ln)
+            add_zero_attn=v.add_zero_attn, act_fn=act,
+            patch_dropout=v.patch_dropout, **blocks)
+        add_text_tower(self, t, cfg.embed_dim, act, **blocks)
         self.text_attn_cross_pool = (
             AttentionalCrossPooler(cfg.embed_dim, t.attn_pooler_heads,
                                    t.add_zero_attn, dtype)
@@ -75,6 +82,8 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.empty(()))
         self.distill_logit_scale = (
             nn.Parameter(torch.empty(())) if cosmos else None)
+        self.logit_bias = (nn.Parameter(torch.empty(()))
+                           if cfg.init_logit_bias is not None else None)
         if self.output_all:
             self.image_token_mapping = Linear(v.width, cfg.embed_dim,
                                               dtype=dtype)
@@ -87,6 +96,8 @@ class CLIP(nn.Module):
         if self.distill_logit_scale is not None:
             nn.init.constant_(self.distill_logit_scale,
                               self.cfg.init_logit_scale)
+        if self.logit_bias is not None:
+            nn.init.constant_(self.logit_bias, self.cfg.init_logit_bias)
 
     # --- encoders ----------------------------------------------------------
 
@@ -112,6 +123,8 @@ class CLIP(nn.Module):
         img = self.encode_image(images, normalize=True)["image_features"]
         txt = self.encode_text(text, normalize=True)["text_features"]
         logits_per_image = self.logit_scale.exp() * img @ txt.T
+        if self.logit_bias is not None:
+            logits_per_image = logits_per_image + self.logit_bias
         return logits_per_image, logits_per_image.T
 
     # --- full forward --------------------------------------------------------
@@ -147,20 +160,28 @@ class CLIP(nn.Module):
         texts: Optional[torch.Tensor] = None,          # [kB, L]
         local_images: Optional[torch.Tensor] = None,   # [nB, h, w, 3]
         batch_size: Optional[int] = None,
+        patch_drop: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """COSMOS forward.  With ``batch_size=None`` it is the teacher/eval
-        forward: features are normalised and no cross-modal heads run."""
+        forward: features are normalised and no cross-modal heads run.
+        ``patch_drop``: the generator of the vision tower's patch dropout
+        (drawn from in the order of the tower calls: globals, then locals);
+        without it no token is dropped."""
         out: Dict[str, torch.Tensor] = {"logit_scale": self.logit_scale.exp()}
         if self.distill_logit_scale is not None:
             out["distill_logit_scale"] = self.distill_logit_scale.exp()
+        if self.logit_bias is not None:
+            out["logit_bias"] = self.logit_bias
         is_norm = not (self.output_all and batch_size is not None)
 
         img_features = img_tokens = None
         if global_images is not None:
-            g_pooled, g_tokens = self.visual(global_images)
+            g_pooled, g_tokens = self.visual(global_images,
+                                             patch_drop=patch_drop)
             feats = [g_pooled]
             if local_images is not None and local_images.numel():
-                feats.append(self.visual(local_images)[0])
+                feats.append(self.visual(local_images,
+                                         patch_drop=patch_drop)[0])
             img_features = torch.cat(feats, dim=0)
             if self.output_all:
                 # only the global crops' tokens are kept

@@ -64,6 +64,8 @@ def build_name_map(vision_layers: int, text_layers: int) -> List[Entry]:
     COSMOS CLIP may have; entries whose flax path is absent are skipped."""
     entries: List[Entry] = [
         ("logit_scale", ("logit_scale",), None),
+        # SigLIP-initialised models (init_logit_bias); OpenCLIP's name
+        ("logit_bias", ("logit_bias",), None),
         ("token_embedding.weight",
          ("text", "token_embedding", "embedding"), None),
         ("positional_embedding", ("text", "positional_embedding"), None),

@@ -8,7 +8,7 @@ are then moved.
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -56,6 +56,10 @@ def create_model(
     act_approx: bool = False,
     text_bucket: int = 0,
     fuse_ln: bool = False,
+    grad_checkpointing: bool = False,
+    remat_policy: str = "",
+    use_flash: Optional[bool] = None,
+    force_patch_dropout: Optional[float] = None,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
     **overrides: Any,
@@ -65,8 +69,14 @@ def create_model(
     ``text_bucket > 0`` the length-bucketed text tower of the COSMOS
     training forward, ``fuse_ln`` the blocks' fused LayerNorm kernels (K5
     before the QKV projection, K6 for the MLP; the state dict is the same).
-    ``overrides`` follow ``build_clip_cfg``."""
+    ``grad_checkpointing`` recomputes every block in the backward, keeping
+    what ``remat_policy`` names; ``use_flash`` is the attention tri-state
+    (``False``: never K1/K2); ``force_patch_dropout`` sets the vision
+    tower's patch dropout.  ``overrides`` follow ``build_clip_cfg``
+    (``init_logit_scale``, ``init_logit_bias`` among them)."""
     dev = resolve_device(device)
+    if force_patch_dropout is not None:
+        overrides["vision_patch_dropout"] = force_patch_dropout
     if output_all:
         overrides["output_all"] = True
     if attentional_pool:
@@ -76,7 +86,8 @@ def create_model(
     cfg = build_clip_cfg(model_name, overrides)
     model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
                  act_approx=act_approx, text_bucket=text_bucket,
-                 fuse_ln=fuse_ln)
+                 fuse_ln=fuse_ln, remat=grad_checkpointing,
+                 remat_policy=remat_policy, use_flash=use_flash)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

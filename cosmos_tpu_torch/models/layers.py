@@ -163,6 +163,37 @@ class Mlp(nn.Module):
         return self.c_proj(self.act_fn(self.c_fc(x)))
 
 
+def patch_dropout(x: torch.Tensor, prob: float,
+                  generator: Optional[torch.Generator] = None,
+                  keep_idx: Optional[torch.Tensor] = None,
+                  exclude_first_token: bool = True) -> torch.Tensor:
+    """Keep ``max(1, int(n (1 - prob)))`` of the ``n`` patch tokens of each
+    row of ``x`` [B, 1 + n, D] (``cosmos_tpu/models/layers.py``
+    ``patch_dropout``): the top-k of standard-normal scores, in the order
+    of their scores, the class token first.  With ``exclude_first_token``
+    False every token is in the pool and nothing is prepended.
+
+    The scores are drawn on the CPU from ``generator``, so a seed gives the
+    same tokens on every device (JAX draws other bits from its key);
+    ``keep_idx`` [B, k] skips the draw and keeps those tokens."""
+    if prob <= 0.0:
+        return x
+    if exclude_first_token:
+        cls_tokens, tokens = x[:, :1], x[:, 1:]
+    else:
+        cls_tokens, tokens = None, x
+    b, n, d = tokens.shape
+    if keep_idx is None:
+        num_keep = max(1, int(n * (1.0 - prob)))
+        scores = torch.randn(b, n, generator=generator)
+        keep_idx = scores.topk(num_keep, dim=-1).indices
+    keep_idx = keep_idx.to(x.device)
+    kept = tokens.gather(1, keep_idx[..., None].expand(-1, -1, d))
+    if cls_tokens is not None:
+        kept = torch.cat([cls_tokens, kept], dim=1)
+    return kept
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """F.normalize equivalent computed in float32 and cast back."""

@@ -9,7 +9,7 @@ the owning module, and ``encode_tokens`` runs them.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,7 +21,9 @@ from .transformer import Transformer
 
 def add_text_tower(owner: nn.Module, cfg: TextCfg, output_dim: int,
                    act_fn: Callable[[torch.Tensor], torch.Tensor],
-                   dtype: torch.dtype, fuse_ln: bool = False) -> None:
+                   dtype: torch.dtype, fuse_ln: bool = False,
+                   remat: bool = False, remat_policy: str = "",
+                   use_flash: Optional[bool] = None) -> None:
     """Register the text tower's parts on ``owner``."""
     if (cfg.embed_cls or cfg.proj_bias or cfg.hf_model_name
             or cfg.pool_type != "argmax"):
@@ -36,7 +38,8 @@ def add_text_tower(owner: nn.Module, cfg: TextCfg, output_dim: int,
         torch.empty(cfg.context_length, cfg.width))
     owner.transformer = Transformer(cfg.width, cfg.layers, cfg.heads,
                                     cfg.mlp_ratio, cfg.ls_init_value, act_fn,
-                                    dtype, fuse_ln)
+                                    dtype, fuse_ln, remat, remat_policy,
+                                    use_flash)
     owner.ln_final = LayerNorm(cfg.width)
     owner.text_projection = nn.Parameter(torch.empty(cfg.width, output_dim))
 

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import AttentionalCrossPooler
-from .layers import LayerNorm, gelu, lecun_normal_
+from .layers import LayerNorm, gelu, lecun_normal_, patch_dropout
 from .transformer import Transformer
 
 
@@ -42,7 +42,8 @@ class VisionTransformer(nn.Module):
     """CLS-token ViT with learned position embedding and 'tok' pooling.
 
     ``cross_pool`` adds the COSMOS image-token cross pooler
-    (``attn_cross_pool``) at ``output_dim``."""
+    (``attn_cross_pool``) at ``output_dim``; ``patch_dropout`` is the share
+    of patch tokens a forward given a ``patch_drop`` generator drops."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  width: int = 768, layers: int = 12, num_heads: int = 12,
@@ -51,9 +52,13 @@ class VisionTransformer(nn.Module):
                  no_ln_pre: bool = False, cross_pool: bool = False,
                  attn_pooler_heads: int = 8, add_zero_attn: bool = False,
                  act_fn: Callable[[torch.Tensor], torch.Tensor] = gelu,
-                 dtype: torch.dtype = torch.float32, fuse_ln: bool = False):
+                 patch_dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, fuse_ln: bool = False,
+                 remat: bool = False, remat_policy: str = "",
+                 use_flash: Optional[bool] = None):
         super().__init__()
         self.image_size = image_size
+        self.patch_dropout = patch_dropout
         self.patch_size = patch_size
         self.width = width
         self.dtype = dtype
@@ -67,7 +72,8 @@ class VisionTransformer(nn.Module):
             torch.empty(grid * grid + 1, width))
         self.ln_pre = nn.Identity() if no_ln_pre else LayerNorm(width)
         self.transformer = Transformer(width, layers, num_heads, mlp_ratio,
-                                       ls_init_value, act_fn, dtype, fuse_ln)
+                                       ls_init_value, act_fn, dtype, fuse_ln,
+                                       remat, remat_policy, use_flash)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
         self.attn_cross_pool = (
@@ -92,10 +98,14 @@ class VisionTransformer(nn.Module):
         kernel = self.conv1.weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
         return torch.matmul(x.to(self.dtype), kernel.to(self.dtype))
 
-    def forward(self, images: torch.Tensor, csa: bool = False
+    def forward(self, images: torch.Tensor, csa: bool = False,
+                patch_drop: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (pooled [B, output_dim], tokens [B, N, width]).  ``csa``:
-        the last block runs correlative self-attention (segmentation)."""
+        the last block runs correlative self-attention (segmentation).
+        ``patch_drop``: drop patch tokens after the position embedding,
+        drawing from this generator (training only; the reference's
+        PatchDropout is the identity in eval)."""
         b, h, w, _ = images.shape
         x = self.patchify(images)
         cls = self.class_embedding.to(x.dtype).expand(b, 1, self.width)
@@ -104,6 +114,8 @@ class VisionTransformer(nn.Module):
             self.positional_embedding, self.grid_size,
             (h // self.patch_size, w // self.patch_size))
         x = x + pe.to(x.dtype)
+        if self.patch_dropout > 0.0 and patch_drop is not None:
+            x = patch_dropout(x, self.patch_dropout, patch_drop)
         x = self.ln_pre(x)
         x = self.transformer(x, csa_last_block=csa)
         x = self.ln_post(x)

@@ -8,9 +8,12 @@ optimizer.state_dict(), "step": ..., "num_updates": ...}``: the reference
 trainer's dict, plus the two counts the schedules read (the teacher
 momentum reads ``TrainState.step``, the LR ``ScheduledAdamW.num_updates``,
 neither of which is in ``optimizer.state_dict()``), so a resumed run does
-not restart its warm-up.  The JAX package's ``models/checkpoint.py``
-``load_checkpoint`` reads these files, and so does this package's
-``models/convert.py`` ``load_checkpoint``.  Every file is written to a
+not restart its warm-up.  The state dicts carry every parameter
+(``logit_bias`` of a SigLIP model among them); the optimizer's holds the
+trainable parameters only (LiT-locked ones are not in the optimizer); the
+frozen model of ``--distill-model`` is not in the file.  The JAX
+package's ``models/checkpoint.py`` ``load_checkpoint`` reads these files,
+and so does this package's ``models/convert.py`` ``load_checkpoint``.  Every file is written to a
 temporary name and then ``os.replace``d.
 """
 

@@ -9,8 +9,13 @@
 The JAX trainer's flags (``training/params.py``), on one card in one
 process: the model and its EMA teacher, AdamW with the weight-decay mask and
 the LR schedule, the teacher-momentum schedule, resume (a path or
-``latest``), the epoch loop over the webdataset loader with a CUDA-stream
-prefetcher, the per-epoch val and retrieval evals of student and teacher,
+``latest``), the step's modes (COSMOS, plain CLIP, ``--siglip``,
+``--distill-model`` with a local ``.pt``) and options (``--accum-freq``,
+``--force-patch-dropout``, ``--grad-checkpointing``/``--remat-policy``,
+``--lock-image*``/``--lock-text*``, ``--init-last-layer``,
+``--flash-attention``), the epoch loop over the webdataset loader with a
+CUDA-stream prefetcher, the per-epoch val and retrieval evals of student and
+teacher,
 and ``.pt`` checkpoints in the reference's layout (``training/
 checkpoint.py``).  The evals: val loss, COCO/Flickr retrieval, and zero-shot
 classification on ImageNet (``--imagenet-val``, ``--imagenet-v2``) and the
@@ -44,20 +49,6 @@ logger = logging.getLogger(__name__)
 # (flag as given, whether the args set it, ROADMAP item): features the port
 # does not have yet.  Each is refused at start-up when set.
 UNPORTED = (
-    ("--accum-freq > 1", lambda a: a.accum_freq != 1, "queue 1, item 3"),
-    ("--force-patch-dropout", lambda a: a.force_patch_dropout is not None,
-     "queue 1, item 3"),
-    ("--grad-checkpointing", lambda a: a.grad_checkpointing,
-     "queue 1, item 3"),
-    ("--remat-policy", lambda a: bool(a.remat_policy), "queue 1, item 3"),
-    ("--lock-image", lambda a: a.lock_image or a.lock_image_unlocked_groups,
-     "queue 1, item 3"),
-    ("--lock-text", lambda a: (a.lock_text or a.lock_text_unlocked_layers
-                               or a.lock_text_freeze_layer_norm is not None),
-     "queue 1, item 3"),
-    ("--init-last-layer", lambda a: a.init_last_layer, "queue 1, item 3"),
-    ("--flash-attention off", lambda a: a.flash_attention == "off",
-     "queue 1, item 3"),
     ("--dataset-type csv", lambda a: a.dataset_type == "csv"
      or (a.dataset_type == "auto" and a.train_data is not None
          and a.train_data.split(".")[-1] in ("csv", "tsv")),
@@ -80,35 +71,26 @@ UNPORTED = (
     ("--fsdp", lambda a: a.fsdp, "queue 1, item 10"),
     ("--num-slices", lambda a: a.num_slices != 1 or a.gather_scope != "global",
      "queue 1, item 10"),
-    ("--siglip", lambda a: a.siglip, "queue 1, item 8"),
-    ("--distill-model", lambda a: a.distill, "queue 1, item 8"),
     ("CoCa models and --coca-*", lambda a: ("coca" in a.model.lower()
                                              or a.coca_caption_loss_weight != 2.0
                                              or a.coca_contrastive_loss_weight
-                                             != 1.0), "queue 1, item 8"),
-    ("training without --cosmos (the plain CLIP step)",
-     lambda a: not a.cosmos and not a.eval_mode
-     and (a.train_data is not None or a.dataset_type == "synthetic"),
-     "queue 1, item 8"),
+                                             != 1.0), "queue 1, items 8-9"),
     ("--trace", lambda a: a.trace or a.trace_path is not None,
      "queue 1, item 9"),
     ("--profile-steps", lambda a: a.profile_steps > 0, "queue 1, item 9"),
 )
 
 
-def check_ported(args, device: "torch.device") -> None:
+def check_ported(args) -> None:
     """Raise NotImplementedError for the first flag whose feature is not
-    ported, naming its ROADMAP item."""
+    ported, or a ``--distill-pretrained`` that is not a local file, naming
+    its ROADMAP item."""
     for flag, is_set, item in UNPORTED:
         if is_set(args):
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
-    if args.flash_attention == "on" and device.type != "cuda":
-        # JAX's 'on' runs the Pallas kernel in interpret mode off the TPU;
-        # the port has no interpret mode: its kernels run on the card only
-        raise NotImplementedError(
-            "--flash-attention on needs the card: off it the port has no "
-            "kernel interpret mode (ROADMAP queue 1, item 3)")
+    if args.distill:
+        _pretrained_path(args.distill_pretrained, "--distill-pretrained")
 
 
 def random_seed(seed: int = 42) -> None:
@@ -134,10 +116,10 @@ def experiment_name(args) -> str:
     return "-".join(parts)
 
 
-def _pretrained_path(pretrained: str) -> str:
+def _pretrained_path(pretrained: str, flag: str = "--pretrained") -> str:
     if not os.path.isfile(pretrained):
         raise NotImplementedError(
-            f"--pretrained {pretrained!r}: only a local .pt file is ported; "
+            f"{flag} {pretrained!r}: only a local .pt file is ported; "
             "a pretrained tag needs a download (ROADMAP queue 1, item 9)")
     return pretrained
 
@@ -155,11 +137,11 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     from .params import parse_args
     from .scheduler import cosine_scheduler, get_lr_scheduler
     from .train import (TrainStepConfig, create_optimizer, create_train_state,
-                        make_train_step)
+                        freeze, frozen_mask, make_train_step)
 
     args = parse_args(argv)
     dev = resolve_device(device)
-    check_ported(args, dev)
+    check_ported(args)
     random_seed(args.seed)
 
     args.name = experiment_name(args)
@@ -194,6 +176,10 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
 
     # --- model -----------------------------------------------------------
     overrides: Dict[str, Any] = {}
+    if args.siglip:
+        # SigLIP's init: logit scale ln 10, bias -10
+        overrides.update(init_logit_scale=float(np.log(10.0)),
+                         init_logit_bias=-10.0)
     if args.pool_type:
         overrides["vision_pool_type"] = args.pool_type
     if args.force_image_size is not None:
@@ -209,6 +195,13 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
         add_zero_attn=args.add_zero_attn,
         act_approx=args.gelu_approx,
         text_bucket=args.text_bucket,
+        grad_checkpointing=args.grad_checkpointing,
+        remat_policy=args.remat_policy,
+        # 'on' and 'auto' take the kernel path where its gate admits it
+        # (on the CPU its plain version), 'off' the plain attention
+        use_flash={"auto": None, "on": True, "off": False}[
+            args.flash_attention],
+        force_patch_dropout=args.force_patch_dropout,
         seed=args.seed,
         device=dev,
         **overrides,
@@ -220,6 +213,17 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     tokenizer = get_tokenizer(args.model)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model {args.model}: {n_params / 1e6:.1f}M params")
+
+    # the frozen model of --distill-model: never in the optimizer, the EMA
+    # or the checkpoint
+    dist_model = None
+    if args.distill:
+        dist_model = create_model(args.distill_model,
+                                  precision=args.precision, device=dev)
+        dist_model.load_state_dict(load_checkpoint(args.distill_pretrained),
+                                   strict=True)
+        logger.info(f"distilling from {args.distill_model} "
+                    f"({args.distill_pretrained})")
 
     # --- data ------------------------------------------------------------
     data = get_data(
@@ -272,6 +276,17 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
             cooldown_power=args.lr_cooldown_power,
             cooldown_end_lr=args.lr_cooldown_end,
         )
+    # LiT locking: frozen parameters take no gradient and stay out of the
+    # optimizer
+    frozen = None
+    if args.lock_image or args.lock_text:
+        frozen = frozen_mask(model, args.lock_image, args.lock_text,
+                             args.lock_image_unlocked_groups,
+                             args.lock_text_unlocked_layers,
+                             args.lock_text_freeze_layer_norm)
+        freeze(model, frozen)
+        logger.info(f"locked {sum(frozen.values())} of {len(frozen)} "
+                    "parameter tensors")
     optimizer = create_optimizer(
         model,
         lr_schedule,
@@ -286,6 +301,11 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     )
     step_cfg = TrainStepConfig(
         cosmos=args.cosmos,
+        siglip=args.siglip,
+        distill=args.distill,
+        accum_freq=args.accum_freq,
+        frozen=frozen,
+        seed=args.seed,
         local_loss=args.local_loss,
         momentum_teacher=args.momentum_teacher,
         fix_momentum=args.fix_momentum,
@@ -299,7 +319,18 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     model.train()
     # the teacher starts as a copy of the (possibly pretrained) student
     state = create_train_state(model, optimizer)
-    step_fn = make_train_step(model, optimizer, step_cfg)
+    if args.init_last_layer:
+        import torch
+
+        from ..models.init_utils import reinit_last_transformer_layer
+
+        # after the teacher's copy, an independent draw for each
+        reinit_last_transformer_layer(
+            state.student, torch.Generator().manual_seed(args.seed + 1))
+        reinit_last_transformer_layer(
+            state.teacher, torch.Generator().manual_seed(args.seed + 2))
+    step_fn = make_train_step(model, optimizer, step_cfg,
+                              dist_model=dist_model)
 
     # --- resume ------------------------------------------------------------
     start_epoch = 0
@@ -418,7 +449,12 @@ def train_one_epoch(
 
     def _host_batches():
         for _ in range(steps_per_epoch):
-            yield next(loader_iter)
+            if args.accum_freq > 1:
+                # one update's micro-batches, stacked: [A, V, B, ...]
+                micro = [next(loader_iter) for _ in range(args.accum_freq)]
+                yield {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+            else:
+                yield next(loader_iter)
 
     depth = max(0, args.prefetch_depth)
     if depth:

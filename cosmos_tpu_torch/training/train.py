@@ -1,24 +1,35 @@
-"""The COSMOS pre-training step (counterpart of
-``cosmos_tpu/training/train.py``).
+"""The training step (counterpart of ``cosmos_tpu/training/train.py``
+``_build_step`` on one process, all but CoCa).
 
 One call of the step function does, in the reference's order:
 
-  - the student's COSMOS forward on every crop and caption view and the
-    EMA teacher's forward on the 2 global crops and the first 2 caption
-    views (``torch.no_grad``);
-  - ``COSMOSLoss`` and its backward (every self-attention through K1 and
-    K2 on the card);
+  - the student's forward and the loss of the step's mode: COSMOS
+    (``COSMOSLoss`` against the EMA teacher's forward on the 2 global crops
+    and the first 2 caption views, ``torch.no_grad``), plain CLIP
+    (``ClipLoss`` over every view), SigLIP (``SigLipLoss``) or distillation
+    (``DistillClipLoss`` against a frozen second model's forward on the same
+    views); every self-attention through K1 and K2 on the card;
+  - the backward, once, or over ``accum_freq`` micro-batches: the plain
+    CLIP step accumulates OpenCLIP's exact way (``_accum_exact``), COSMOS
+    and SigLIP average the micro-batches' gradients;
   - the EMA update ``k + (1 - m)(q - k)`` from the PRE-update student;
-  - AdamW with the gain/bias/LN/logit-scale weight-decay exemption, its LR
-    taken from the schedule at the number of updates so far;
+  - AdamW over the trainable parameters with the gain/bias/LN/logit-scale
+    weight-decay exemption, its LR taken from the schedule at the number of
+    updates so far, after global-norm clipping of the trainable gradients;
   - the clamps of ``logit_scale`` and ``distill_logit_scale`` to
     ``[0, ln 100]`` on the student and the teacher.
 
 The batch is views-leading, as in the JAX package: ``global_images``
 ``[2, B, H, W, 3]``, ``local_images`` ``[n, B, h, w, 3]`` (optional),
-``texts`` ``[k, B, L]``; uint8 images are normalised on the device.
-Single process; gradient accumulation, patch dropout, frozen towers and the
-other training modes (SigLIP, CoCa, distillation) are not ported yet.
+``texts`` ``[k, B, L]``, with a leading ``[A, ...]`` micro-batch axis when
+``accum_freq`` is A > 1; uint8 images are normalised on the device.
+
+LiT locking (``frozen_mask``, ``freeze``) is the reference's: frozen
+parameters take no gradient (``requires_grad=False``) and are not in the
+optimizer, so clipping, the grad-norm metric and the optimizer's state
+see the trainable parameters only.  Patch dropout draws from a CPU
+``torch.Generator`` seeded from (``seed``, 17, step[, micro-batch]), JAX's
+keying of its stream, but not its bits.
 """
 
 from __future__ import annotations
@@ -27,10 +38,13 @@ import copy
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..losses.contrastive import COSMOSLoss
+from ..losses.contrastive import (ClipLoss, COSMOSLoss, DistillClipLoss,
+                                  SigLipLoss)
+from ..models.convert import build_name_map
 
 LN100 = 4.605170185988092  # ln(100)
 _NO_DECAY = ("ln", "bias", "logit_scale", "bn")
@@ -44,6 +58,79 @@ def wd_mask(model: nn.Module) -> Dict[str, bool]:
     return {name: p.ndim >= 2 and not any(t in name.lower()
                                           for t in _NO_DECAY)
             for name, p in model.named_parameters()}
+
+
+_STEM = ("conv1_kernel", "conv1_bias", "class_embedding",
+         "positional_embedding", "ln_pre")
+
+
+def frozen_mask(model: nn.Module, lock_image: bool = False,
+                lock_text: bool = False, unlocked_groups: int = 0,
+                text_unlocked_layers: int = 0,
+                text_freeze_layer_norm: Optional[bool] = None
+                ) -> Dict[str, bool]:
+    """Parameter name -> True where LiT locking freezes it (the JAX
+    package's ``frozen_mask``, applied to each parameter's path in the
+    weight bridge's name map).
+
+    ``unlocked_groups`` > 0 keeps the last n image-tower groups trainable:
+    group 1 is ``visual.proj``, group 2 the last block and ``ln_post``,
+    groups 3.. the blocks before it, group ``layers + 2`` the stem
+    (``conv1``, the class and position embeddings, ``ln_pre``); more
+    groups than that raise.  ``text_unlocked_layers`` > 0 keeps the last n
+    text blocks, ``ln_final`` and ``text_projection`` trainable.
+    ``text_freeze_layer_norm``: None (the default) freezes the locked text
+    tower's LayerNorms, as the reference's native tower does; False leaves
+    every text LayerNorm (``ln_*``) trainable."""
+    v_layers = len(model.visual.transformer.resblocks)
+    t_layers = len(model.transformer.resblocks)
+    paths = {key: path for key, path, _ in build_name_map(v_layers, t_layers)}
+    unlocked_layers, text_unlocked = set(), set()
+    proj_unlocked = lnpost_unlocked = stem_unlocked = False
+    if lock_image and unlocked_groups > 0:
+        if unlocked_groups > v_layers + 2:
+            raise ValueError(
+                f"--lock-image-unlocked-groups {unlocked_groups} exceeds the "
+                f"{v_layers + 2} lock groups of this tower")
+        proj_unlocked = True
+        lnpost_unlocked = unlocked_groups >= 2
+        stem_unlocked = unlocked_groups >= v_layers + 2
+        unlocked_layers = {f"resblocks_{v_layers - 1 - i}"
+                           for i in range(min(unlocked_groups - 1, v_layers))}
+    if lock_text and text_unlocked_layers > 0:
+        text_unlocked = {f"resblocks_{t_layers - 1 - i}"
+                         for i in range(min(text_unlocked_layers, t_layers))}
+    freeze_ln = True if text_freeze_layer_norm is None \
+        else text_freeze_layer_norm
+
+    def mark(names) -> bool:
+        top = names[0]
+        if lock_image and top == "visual":
+            return not ((proj_unlocked and "proj" in names)
+                        or (lnpost_unlocked and "ln_post" in names)
+                        or (stem_unlocked and any(n in _STEM for n in names))
+                        or any(n in unlocked_layers for n in names))
+        if lock_text and top == "text":
+            if text_unlocked_layers > 0 and any(
+                    n in text_unlocked or n == "ln_final"
+                    or n.startswith("text_projection") for n in names):
+                return False
+            return freeze_ln or not any(n.startswith("ln_") for n in names)
+        return False
+
+    out = {}
+    for name, _ in model.named_parameters():
+        if name not in paths:
+            raise ValueError(f"{name}: no path in the weight bridge's map")
+        out[name] = mark(paths[name])
+    return out
+
+
+def freeze(model: nn.Module, mask: Dict[str, bool]) -> None:
+    """``requires_grad_(False)`` for the parameters ``mask`` marks, True for
+    the others."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(not mask[name])
 
 
 class ScheduledAdamW(torch.optim.AdamW):
@@ -81,9 +168,10 @@ def create_optimizer(
     weight_decay: float = 0.2,
     grad_clip_norm: Optional[float] = None,
 ) -> ScheduledAdamW:
-    """AdamW over two param groups, decayed (``wd_mask``) and not."""
+    """AdamW over two param groups, decayed (``wd_mask``) and not, of the
+    parameters that require a gradient (call ``freeze`` first)."""
     mask = wd_mask(model)
-    named = list(model.named_parameters())
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     groups = [
         {"params": [p for n, p in named if mask[n]],
          "weight_decay": weight_decay},
@@ -96,7 +184,11 @@ def create_optimizer(
 
 @dataclasses.dataclass
 class TrainStepConfig:
+    # the step's mode: COSMOS, SigLIP or distillation (at most one), or
+    # none of them for the plain CLIP step
     cosmos: bool = True
+    siglip: bool = False
+    distill: bool = False
     local_loss: bool = False
     momentum_teacher: float = 0.999
     fix_momentum: bool = True
@@ -105,6 +197,14 @@ class TrainStepConfig:
     input_dtype: torch.dtype = torch.float32
     image_mean: Tuple[float, ...] = (0.48145466, 0.4578275, 0.40821073)
     image_std: Tuple[float, ...] = (0.26862954, 0.26130258, 0.27577711)
+    # micro-batches per update, stacked on a leading axis of the batch:
+    # the plain CLIP step accumulates exactly (the big batch's gradient),
+    # COSMOS and SigLIP average the micro-batches' gradients
+    accum_freq: int = 1
+    # parameter name -> frozen (``frozen_mask``); the step freezes them
+    frozen: Optional[Dict[str, bool]] = None
+    # base seed of the patch-dropout stream
+    seed: int = 0
     log_grad_norm: bool = False
 
 
@@ -137,29 +237,73 @@ def _views(x: torch.Tensor, v: int) -> torch.Tensor:
     return x.reshape(v, x.shape[0] // v, *x.shape[1:])
 
 
+def patch_drop_generator(seed: int, step: int,
+                         micro: Optional[int] = None) -> torch.Generator:
+    """The CPU generator of the student's patch dropout at ``step`` (and
+    micro-batch ``micro`` of the exact accumulation): seeded from (seed,
+    17, step[, micro]), where 17 tags the stream apart from the other uses
+    of the seed, as JAX folds its key."""
+    key = (seed % 2 ** 63, 17, step, 0 if micro is None else micro + 1)
+    state = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def _trainable_grads(model: nn.Module):
+    return [p.grad for p in model.parameters() if p.grad is not None]
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    cfg: TrainStepConfig
+                    cfg: TrainStepConfig,
+                    dist_model: Optional[nn.Module] = None
                     ) -> Callable[[TrainState, Dict[str, Any]],
                                   Dict[str, Any]]:
     """Returns ``step(state, batch) -> metrics``, which updates the state's
     student, teacher and optimizer in place and advances ``state.step``.
+    ``dist_model``: the frozen model of ``cfg.distill``, kept out of the
+    state (never updated, averaged or saved).
 
-    Metrics: ``loss``, ``clip_loss``, ``distill_loss`` and ``logit_scale``
-    as detached 0-d tensors on the model's device (reading one syncs the
-    host), ``momentum`` and ``lr`` as floats, and ``grad_norm`` when
+    Metrics: ``loss``, the mode's losses (COSMOS: ``clip_loss``,
+    ``distill_loss``; CLIP and SigLIP: ``contrastive_loss``; distillation:
+    ``contrastive_loss``, ``distill_loss``) and ``logit_scale`` as detached
+    0-d tensors on the model's device (reading one syncs the host),
+    ``momentum`` and ``lr`` as floats, and ``grad_norm`` when
     ``cfg.log_grad_norm``."""
-    if not cfg.cosmos:
-        raise NotImplementedError(
-            "only the COSMOS training step is ported (cfg.cosmos=True)")
-    if getattr(model, "distill_logit_scale", None) is None:
+    if sum((cfg.cosmos, cfg.siglip, cfg.distill)) > 1:
+        raise ValueError(
+            "cosmos / siglip / distill / coca train modes are exclusive")
+    if cfg.distill and dist_model is None:
+        raise ValueError("cfg.distill needs the frozen dist_model module")
+    if cfg.accum_freq > 1 and cfg.distill:
+        raise ValueError("accum_freq > 1 unsupported with distill/coca")
+    if cfg.accum_freq < 1:
+        raise ValueError(f"accum_freq must be >= 1, got {cfg.accum_freq}")
+    if cfg.cosmos and getattr(model, "distill_logit_scale", None) is None:
         raise ValueError("the COSMOS step needs a model built with "
                          "cosmos=True, output_all=True, attentional_pool=True")
-    loss_fn = COSMOSLoss(local_loss=cfg.local_loss)
+    if cfg.frozen is not None:
+        freeze(model, cfg.frozen)
+        held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+        if any(id(p) in held for n, p in model.named_parameters()
+               if cfg.frozen[n]):
+            raise ValueError("the optimizer holds frozen parameters: build "
+                             "it after freeze(model, mask)")
+    if dist_model is not None:
+        dist_model.requires_grad_(False).eval()
+    if cfg.cosmos:
+        loss_fn_obj = COSMOSLoss(local_loss=cfg.local_loss)
+    elif cfg.siglip:
+        loss_fn_obj = SigLipLoss()
+    elif cfg.distill:
+        loss_fn_obj = DistillClipLoss(local_loss=cfg.local_loss)
+    else:
+        loss_fn_obj = ClipLoss(local_loss=cfg.local_loss)
     device = next(model.parameters()).device
     mean = torch.tensor(cfg.image_mean, dtype=torch.float32,
                         device=device) * 255.0
     inv_std = 1.0 / (torch.tensor(cfg.image_std, dtype=torch.float32,
                                   device=device) * 255.0)
+    patch_drop = model.visual.patch_dropout > 0.0
+    accum = cfg.accum_freq
 
     def prep_images(x) -> torch.Tensor:
         """uint8 [..., H, W, 3] -> normalised ``input_dtype``."""
@@ -168,58 +312,155 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             return ((x.float() - mean) * inv_std).to(cfg.input_dtype)
         return x.to(cfg.input_dtype)
 
-    def step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, Any]:
-        if state.student is not model or state.optimizer is not optimizer:
-            raise ValueError("the train state holds another model or "
-                             "optimizer than this step was made for")
-        student, teacher, opt = model, state.teacher, optimizer
-        g = torch.as_tensor(batch["global_images"])
+    def unpack(mb):
+        """(global crops, local crops or None, captions) flattened views-
+        major, and their view counts and batch."""
+        g = torch.as_tensor(mb["global_images"])
         vg, b = g.shape[0], g.shape[1]
         g_flat = prep_images(g.reshape(vg * b, *g.shape[2:]))
-        loc = batch.get("local_images")
+        loc = mb.get("local_images")
         l_flat, vl = None, 0
         if loc is not None:
             loc = torch.as_tensor(loc)
             vl = loc.shape[0]
             l_flat = prep_images(loc.reshape(vl * b, *loc.shape[2:]))
-        t = torch.as_tensor(batch["texts"]).to(device, non_blocking=True)
+        t = torch.as_tensor(mb["texts"]).to(device, non_blocking=True)
         k = t.shape[0]
-        if k < 2:
-            # the teacher distills against two global caption views
-            raise ValueError(
-                f"COSMOS training needs >= 2 caption views, got k={k}")
-        t_flat = t.reshape(k * b, t.shape[2])
+        return g_flat, l_flat, t.reshape(k * b, t.shape[2]), vg + vl, k, b
 
-        opt.zero_grad(set_to_none=True)
-        s_out = student(g_flat, t_flat, l_flat, batch_size=b)
+    def generator(step: int, micro: Optional[int] = None):
+        return patch_drop_generator(cfg.seed, step, micro) \
+            if patch_drop else None
+
+    def loss_fn(mb, teacher, step: int):
+        """(total loss, {the mode's losses, logit_scale}) of one batch."""
+        g_flat, l_flat, t_flat, vi, k, b = unpack(mb)
+        gen = generator(step)
+        if cfg.cosmos:
+            if k < 2:
+                # the teacher distills against two global caption views
+                raise ValueError(
+                    f"COSMOS training needs >= 2 caption views, got k={k}")
+            s_out = model(g_flat, t_flat, l_flat, batch_size=b,
+                          patch_drop=gen)
+            with torch.no_grad():
+                t_out = teacher(g_flat, t_flat[:2 * b])
+            losses = loss_fn_obj(
+                s_image_features=_views(s_out["image_features"], vi),
+                s_text_features=_views(s_out["text_features"], k),
+                logit_scale=s_out["logit_scale"],
+                t_image_features=_views(t_out["image_features"], 2),
+                t_text_features=_views(t_out["text_features"], 2),
+                distill_logit_scale=s_out["distill_logit_scale"],
+                s_img_crossmodal_features=_views(
+                    s_out["img_crossmodal_features"], vi),
+                s_txt_crossmodal_features=_views(
+                    s_out["txt_crossmodal_features"], k),
+                output_dict=True)
+        else:
+            s_out = model(g_flat, t_flat, l_flat, patch_drop=gen)
+            img = _views(s_out["image_features"], vi)
+            txt = _views(s_out["text_features"], k)
+            if cfg.siglip:
+                losses = loss_fn_obj(img[0], txt[0], s_out["logit_scale"],
+                                     s_out.get("logit_bias"),
+                                     output_dict=True)
+            elif cfg.distill:
+                with torch.no_grad():
+                    d_out = dist_model(g_flat, t_flat, l_flat)
+                losses = loss_fn_obj(
+                    img, txt, s_out["logit_scale"],
+                    _views(d_out["image_features"], vi),
+                    _views(d_out["text_features"], k),
+                    d_out["logit_scale"], output_dict=True)
+            else:
+                losses = loss_fn_obj(img, txt, s_out["logit_scale"],
+                                     output_dict=True)
+        total = sum(losses.values())
+        return total, dict(losses, logit_scale=s_out["logit_scale"])
+
+    def features(mb, step: int, micro: int):
+        """(image views, text views, logit_scale) of one micro-batch: the
+        eval-style forward, with the micro-batch's patch-dropout draw."""
+        g_flat, l_flat, t_flat, vi, k, _ = unpack(mb)
+        s_out = model(g_flat, t_flat, l_flat, patch_drop=generator(step,
+                                                                   micro))
+        return (_views(s_out["image_features"], vi),
+                _views(s_out["text_features"], k), s_out["logit_scale"])
+
+    def accum_exact(batch, step: int):
+        """OpenCLIP's exact accumulation for the contrastive loss: pass 1
+        caches every micro-batch's features without a gradient; pass 2
+        re-forwards each micro-batch, with pass 1's patch-dropout draw, and
+        takes the loss against the whole batch of negatives, so the summed
+        gradients are the big batch's.  The logit scale and bias see the
+        whole loss in every pass: their gradients are divided by A.
+        Returns the last pass's loss and metrics."""
+        micro = [{k: v[m] for k, v in batch.items()} for m in range(accum)]
         with torch.no_grad():
-            t_out = teacher(g_flat, t_flat[:2 * b])
-        losses = loss_fn(
-            s_image_features=_views(s_out["image_features"], vg + vl),
-            s_text_features=_views(s_out["text_features"], k),
-            logit_scale=s_out["logit_scale"],
-            t_image_features=_views(t_out["image_features"], 2),
-            t_text_features=_views(t_out["text_features"], 2),
-            distill_logit_scale=s_out["distill_logit_scale"],
-            s_img_crossmodal_features=_views(
-                s_out["img_crossmodal_features"], vg + vl),
-            s_txt_crossmodal_features=_views(
-                s_out["txt_crossmodal_features"], k),
-            output_dict=True)
-        total = losses["distill_loss"] + losses["clip_loss"]
-        total.backward()
+            cached = [features(mb, step, m)[:2] for m, mb in enumerate(micro)]
+        img_cache = torch.cat([c[0] for c in cached], dim=1)   # [V, A*B, D]
+        txt_cache = torch.cat([c[1] for c in cached], dim=1)
+        for m, mb in enumerate(micro):
+            img_m, txt_m, scale = features(mb, step, m)
+            b = img_m.shape[1]
 
-        params = [p for p in student.parameters()]
+            def splice(cache, part):
+                return torch.cat([cache[:, :m * b], part,
+                                  cache[:, (m + 1) * b:]], dim=1)
+
+            losses = loss_fn_obj(splice(img_cache, img_m),
+                                 splice(txt_cache, txt_m), scale,
+                                 output_dict=True)
+            total = sum(losses.values())
+            total.backward()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if p.grad is not None and ("logit_scale" in name
+                                           or "logit_bias" in name):
+                    p.grad.div_(accum)
+        return total, dict(losses, logit_scale=scale)
+
+    def accum_mean(batch, teacher, step: int):
+        """Each micro-batch's own loss and backward; the gradients, losses
+        and metrics averaged over the A micro-batches."""
+        total, aux = 0.0, {}
+        for m in range(accum):
+            t, a = loss_fn({k: v[m] for k, v in batch.items()}, teacher, step)
+            t.backward()
+            total = total + t.detach()
+            aux = {k: aux.get(k, 0.0) + v.detach() for k, v in a.items()}
+        with torch.no_grad():
+            torch._foreach_mul_(_trainable_grads(model), 1.0 / accum)
+        return total / accum, {k: v / accum for k, v in aux.items()}
+
+    def step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, Any]:
+        if state.student is not model or state.optimizer is not optimizer:
+            raise ValueError("the train state holds another model or "
+                             "optimizer than this step was made for")
+        student, teacher, opt = model, state.teacher, optimizer
+        opt.zero_grad(set_to_none=True)
+        if accum > 1:
+            lead = torch.as_tensor(batch["global_images"]).shape[0]
+            if lead != accum:
+                raise ValueError(f"accum_freq {accum} needs [A, V, B, ...] "
+                                 f"batches, got A={lead}")
+            if cfg.cosmos or cfg.siglip:
+                total, aux = accum_mean(batch, teacher, state.step)
+            else:
+                total, aux = accum_exact(batch, state.step)
+        else:
+            total, aux = loss_fn(batch, teacher, state.step)
+            total.backward()
+
+        params = list(student.parameters())
         metrics: Dict[str, Any] = {
             "loss": total.detach(),
-            "clip_loss": losses["clip_loss"].detach(),
-            "distill_loss": losses["distill_loss"].detach(),
-            "logit_scale": s_out["logit_scale"].detach(),
-        }
+            **{k: v.detach() for k, v in aux.items()}}
         if cfg.log_grad_norm:
             metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(p.grad.float())
-                 for p in params if p.grad is not None]))
+                [torch.linalg.vector_norm(g.float())
+                 for g in _trainable_grads(student)]))
 
         if cfg.fix_momentum or cfg.momentum_schedule is None:
             momentum = float(cfg.momentum_teacher)

@@ -231,8 +231,7 @@ PORTED_ARGV = {
 
 @pytest.mark.parametrize("name", sorted(PORTED_ARGV))
 def test_eval_flags_are_no_longer_refused(name):
-    pmain.check_ported(pparams.parse_args(PORTED_ARGV[name]),
-                       torch.device("cpu"))
+    pmain.check_ported(pparams.parse_args(PORTED_ARGV[name]))
 
 
 
