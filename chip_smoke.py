@@ -122,9 +122,28 @@ from the sources in the checkout and then:
      (none in the last; none of K3-K6), finite losses, the clamp, frozen
      parameters unchanged, the re-drawn last blocks, the samples of a step
      and one COCO retrieval eval after the locked run, and prints ms per
-     step, samples/s and peak memory beside phase 12's step.
+     step, samples/s and peak memory beside phase 12's step;
+ 16. data parallelism: (a) runs the trainer at world 1 on NCCL under
+     torchrun (python -m torch.distributed.run --standalone
+     --nproc-per-node 1 chip_smoke.py --dp-rank OUT <flags>, this script as
+     the rank, which drives main([...]) as phase 12 does) with phase 12's
+     flags and shards, one loader thread, 1 epoch of 4 steps and then
+     --resume latest into a second, beside the same two runs in this
+     process without a process group; checks that the logged metrics of
+     every step and epoch_2.pt (student, teacher, optimizer state) are the
+     same bits, the exact K1/K2 launches of every step (phase 12's), K1
+     only in the evals; prints ms per step of both and the ms of the step's
+     cross-rank mean of the gradients; (b) takes 3 steps of make_train_step
+     (COSMOS, float32, full width and depth) at world 2, 32 rows a rank,
+     one rank a card under NCCL where the machine has two cards, else both
+     on this card under gloo, and holds the first to the world-1 step on
+     all 64 rows in this process (loss, every gradient, the updated
+     student and teacher) and the ranks to the same bits after the third;
+     SigLIP's ring at world 2 runs under NCCL, and under gloo a send/recv
+     of a CUDA tensor is tried and its refusal reported.
 
-Any failed check raises, so the script exits non-zero.  The last lines are
+With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
+and nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
 and {"ok": true, "device": {...}}.  The full record is also written to
 chiprun_out/chip_smoke.json.
@@ -1121,6 +1140,445 @@ def _profile_steps(step, state, batch, n: int = 2):
                 busy_share=busy / window_ms if kernels else None,
                 by_class_ms=classes, top_kernels_ms=dict(top),
                 n_kernel_names=len(kernels))
+
+
+# the data-parallel phase (16): (a) the trainer at world 1 on NCCL under
+# torchrun against the same trainer in this process; (b) the step at world 2
+DP_RANK_FLAG = "--dp-rank"
+DP_STEPS = 4            # steps an epoch in 16(a)
+DP_WORLD = 2
+DP_BATCH = 32           # rows a rank in 16(b)
+DP_STEPS_B = 3
+# 16(b)'s AdamW: eps 1e-3 keeps the first update a smooth function of the
+# gradient, so the updated weights hold the gradients' agreement
+DP_LR, DP_EPS = 1e-4, 1e-3
+# 16(b) in float32, TF32 off: two ranks' halves against the whole batch are
+# the same arithmetic in another summation order
+DP_LOSS_RTOL = 1e-5
+DP_GRAD_RTOL = 1e-4
+DP_WEIGHT_ATOL = 1e-5
+
+
+def _dp_trainer_argv(data, logs):
+    """Phase 12's flags for 16(a): one loader thread (--workers 0), so that
+    two runs read the same batches in the same order, DP_STEPS steps an
+    epoch, the val eval only, one checkpoint kept."""
+    argv = _drop_flags(_trainer_argv(data, logs, 0),
+                       values=("--data-root-dir", "--steps-per-epoch"))
+    return argv + ["--steps-per-epoch", str(DP_STEPS),
+                   "--delete-previous-checkpoint"]
+
+
+@contextlib.contextmanager
+def _timed_means(record):
+    """CUDA events around every call of the step's cross-rank mean
+    (``distributed.all_reduce_mean_``): (start, end, bytes) in ``record``."""
+    from cosmos_tpu_torch.parallel import distributed
+
+    mean = distributed.all_reduce_mean_
+
+    def timed(tensors):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mean(tensors)
+        end.record()
+        record.append((start, end,
+                       sum(t.numel() * t.element_size() for t in tensors)))
+
+    distributed.all_reduce_mean_ = timed
+    try:
+        yield
+    finally:
+        distributed.all_reduce_mean_ = mean
+
+
+def _dp_trainer_runs(K, argv):
+    """main([...]) for one epoch, then --resume latest into a second, with
+    the K1/K2 launches of every step and eval, the logged step metrics,
+    the step's ms (CUDA events) and the ms of the cross-rank mean in it."""
+    from cosmos_tpu_torch.training import main as trainer
+
+    record = {"steps": [], "evals": [], "profiles": {}}
+    means = []
+    zero_launches(K)
+    with _instrumented_trainer(K, record, profiled=()), _timed_means(means):
+        runs = [trainer.main(argv + ["--epochs", "1"]),
+                trainer.main(argv + ["--epochs", "2", "--resume", "latest"])]
+    torch.cuda.synchronize()
+    stats = [s for r in runs for s in r["train_epoch_stats"]]
+    timing = ("samples_per_s", "data_t")
+    return dict(
+        epochs=[s["epoch"] for s in stats],
+        logged=[{k: v for k, v in line.items() if k not in timing}
+                for s in stats for line in s["logged"]],
+        steps=record["steps"], evals=record["evals"],
+        step_ms=[s["step_ms"] for s in stats],
+        mean_ms=[a.elapsed_time(b) for a, b, _ in means],
+        mean_bytes=means[0][2] if means else 0)
+
+
+def _kernel_modules():
+    from cosmos_tpu_torch.ops import fused_attention as fa
+    from cosmos_tpu_torch.ops.experimental import layer_norm as ln
+    from cosmos_tpu_torch.ops.experimental import ln_matmul as lm
+    from cosmos_tpu_torch.ops.experimental import mlp_block as mb
+
+    return SimpleNamespace(fa=fa, ln=ln, lm=lm, mb=mb)
+
+
+def dp_rank(out: str, argv) -> int:
+    """16(a)'s rank, started by torchrun: _dp_trainer_runs under the world
+    torchrun made, its record written to ``out`` as JSON."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record = _dp_trainer_runs(_kernel_modules(), argv)
+    Path(out).write_text(json.dumps(record))
+    return 0
+
+
+def _checkpoint_diffs(a: str, b: str) -> dict:
+    """Tensor name -> max abs difference, for every tensor of the student,
+    the teacher and the optimizer state that differs between two
+    checkpoint files (empty when they hold the same bits)."""
+    ca, cb = (torch.load(p, map_location="cpu", weights_only=True)
+              for p in (a, b))
+    diffs = {}
+    for which in ("student", "teacher"):
+        for k, v in ca[which].items():
+            if not torch.equal(v, cb[which][k]):
+                diffs[f"{which} {k}"] = (v - cb[which][k]).abs().max().item()
+    for i, st in ca["optimizer"]["state"].items():
+        for k, v in st.items():
+            w = cb["optimizer"]["state"][i][k]
+            if not torch.equal(v, w):
+                diffs[f"optimizer {i} {k}"] = (v - w).abs().max().item()
+    for key in ("epoch", "step", "num_updates"):
+        if ca[key] != cb[key]:
+            diffs[key] = abs(ca[key] - cb[key])
+    return diffs
+
+
+def _phase_dp_world1(K, data: str, tmp: str) -> dict:
+    """16(a): the trainer at world 1 on NCCL (torchrun --standalone
+    --nproc-per-node 1, this script's --dp-rank) against the same trainer
+    in this process without a process group."""
+    import shutil
+
+    one_logs, rank_logs = f"{tmp}/dp_one", f"{tmp}/dp_world1"
+    t0 = time.perf_counter()
+    one = _dp_trainer_runs(K, _dp_trainer_argv(data, one_logs))
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out = f"{tmp}/dp_rank.json"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"),
+           DP_RANK_FLAG, out, *_dp_trainer_argv(data, rank_logs)]
+    # torchrun sets OMP_NUM_THREADS=1 where it is unset; the rank gets this
+    # process's thread count, so that the two runs differ by the world alone
+    import os
+
+    threads = torch.get_num_threads()
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    rank_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun world 1 exited "
+          f"{proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    rank = json.loads(Path(out).read_text())
+
+    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+    want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
+    steps = 2 * DP_STEPS
+    for tag, rec in (("one process", one), ("world 1", rank)):
+        check(rec["epochs"] == [0, 1], f"16(a) {tag}: epochs {rec['epochs']}")
+        check(len(rec["steps"]) == steps and all(
+            got == want for got in rec["steps"]),
+            f"16(a) {tag}: launches {rec['steps']}, expected {want} a step")
+        check(len(rec["evals"]) == 2 and all(
+            e["K1"] > 0 and all(v == 0 for k, v in e.items() if k != "K1")
+            for e in rec["evals"]), f"16(a) {tag}: evals {rec['evals']}")
+        check(len(rec["logged"]) == steps and all(
+            np.isfinite(line["loss"]) for line in rec["logged"]),
+            f"16(a) {tag}: losses")
+    same_metrics = rank["logged"] == one["logged"]
+    ckpt = "trainer/checkpoints/epoch_2.pt"
+    diffs = _checkpoint_diffs(f"{one_logs}/{ckpt}", f"{rank_logs}/{ckpt}")
+    shutil.rmtree(one_logs)
+    shutil.rmtree(rank_logs)
+    check(same_metrics, "16(a): world 1's logged metrics differ from the "
+          "one-process run's:\n" + "\n".join(
+              f"{a} | {b}" for a, b in zip(one["logged"], rank["logged"])
+              if a != b))
+    check(not diffs, f"16(a): world 1's epoch_2.pt differs from the "
+          f"one-process run's in {len(diffs)} tensors, e.g. "
+          f"{dict(list(diffs.items())[:8])}")
+
+    def steady(rec):
+        return [ms for epoch in rec["step_ms"] for ms in epoch[1:]]
+
+    mean_ms = rank["mean_ms"]
+    res = dict(
+        launches_per_step=want,
+        launches={k: 2 * v * steps for k, v in want.items()},
+        eval_k1=sum(e["K1"] for r in (one, rank) for e in r["evals"]),
+        losses=[line["loss"] for line in rank["logged"]],
+        same_bits=True,
+        step_ms_one=steady(one), step_ms_world1=steady(rank),
+        step_ms_one_mean=float(np.mean(steady(one))),
+        step_ms_world1_mean=float(np.mean(steady(rank))),
+        mean_ms=mean_ms, mean_ms_median=float(np.median(mean_ms)),
+        mean_bytes=rank["mean_bytes"], threads=threads, one_s=one_s,
+        torchrun_s=rank_s)
+    print(f"[dp] (a) world 1 on NCCL under torchrun: the logged metrics of "
+          f"{steps} steps and epoch_2.pt (student, teacher, optimizer) are "
+          f"the one-process run's bits; ms a step (CUDA events, steps 2+ of "
+          f"each epoch) world 1 {res['step_ms_world1_mean']:.3f}, one "
+          f"process {res['step_ms_one_mean']:.3f}; the step's cross-rank "
+          f"mean of {rank['mean_bytes'] / 1e9:.3f} GB median "
+          f"{res['mean_ms_median']:.3f} ms (max {max(mean_ms):.3f}); "
+          f"K1/K2 a step {want['K1']}/{want['K2']}; runs {one_s:.1f} s and "
+          f"{rank_s:.1f} s (torchrun, OMP_NUM_THREADS={threads})")
+    return res
+
+
+def _dp_step_setup(model, siglip: bool):
+    """16(b)'s step: the trainer's COSMOS (or SigLIP) step in float32 with
+    DP_LR and DP_EPS."""
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import TrainStepConfig
+
+    lr = const_lr(DP_LR, 0, 100)
+    opt = create_optimizer(model, lr, beta1=0.9, beta2=0.98, eps=DP_EPS,
+                           weight_decay=0.5)
+    mode = (dict(cosmos=False, siglip=True) if siglip
+            else dict(cosmos=True, local_loss=True))
+    cfg = TrainStepConfig(momentum_teacher=0.999, fix_momentum=True,
+                          lr_schedule=lr, log_grad_norm=True, **mode)
+    return make_train_step(model, opt, cfg), create_train_state(model, opt)
+
+
+def _dp_model(siglip: bool, device):
+    from cosmos_tpu_torch import create_model
+
+    kw = (dict(act_approx=True, init_logit_scale=float(np.log(10.0)),
+               init_logit_bias=-10.0) if siglip else TRAIN_RECIPE)
+    return create_model("ViT-B-16", "fp32", device=device, seed=7, **kw)
+
+
+def _dp_batch(rank=None):
+    """16(b)'s batch of DP_WORLD * DP_BATCH rows on the CPU, or ``rank``'s
+    contiguous block of it."""
+    batch = _train_batch(DP_WORLD * DP_BATCH, seed=41, device="cpu")
+    if rank is None:
+        return batch
+    return {k: v[:, rank * DP_BATCH:(rank + 1) * DP_BATCH]
+            for k, v in batch.items()}
+
+
+def _state_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for module in (state.student, state.teacher):
+        for k, v in module.state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_step_rank(rank: int, spec: dict) -> None:
+    """16(b)'s rank: DP_STEPS_B steps of each mode on its block of the
+    batch under a world of DP_WORLD, the first held to the world-1
+    reference; then, under gloo, a send/recv of a CUDA tensor."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK=str(rank if spec["backend"] == "nccl" else 0),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(spec["port"]))
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cosmos_tpu_torch.losses.contrastive import _exchange
+    from cosmos_tpu_torch.parallel import distributed
+
+    distributed.init_distributed(None, backend=spec["backend"])
+    out = {"device": str(torch.device("cuda", torch.cuda.current_device()))}
+    try:
+        for mode in spec["modes"]:
+            model = _dp_model(mode == "siglip", None)
+            step, state = _dp_step_setup(model, mode == "siglip")
+            batch = {k: v.cuda() for k, v in _dp_batch(rank).items()}
+            means, events, metrics = [], [], []
+            with _timed_means(means):
+                for i in range(DP_STEPS_B):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    m = step(state, batch)
+                    end.record()
+                    events.append((start, end))
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    if i == 0 and rank == 0:
+                        first = dict(
+                            grads={n: p.grad.detach().cpu()
+                                   for n, p in model.named_parameters()},
+                            student={k: v.cpu() for k, v in
+                                     state.student.state_dict().items()},
+                            teacher={k: v.cpu() for k, v in
+                                     state.teacher.state_dict().items()})
+            torch.cuda.synchronize()
+            res = dict(metrics=metrics, digest=_state_digest(state),
+                       step_ms=[a.elapsed_time(b) for a, b in events],
+                       mean_ms=[a.elapsed_time(b) for a, b, _ in means],
+                       mean_bytes=means[0][2])
+            if rank == 0:
+                ref = torch.load(spec["ref"][mode], map_location="cpu",
+                                 weights_only=True)
+                res["errs"] = dict(
+                    loss=abs(metrics[0]["loss"] - ref["loss"]),
+                    loss_ref=ref["loss"],
+                    grads={n: ((g - ref["grads"][n]).abs().max().item(),
+                               ref["grads"][n].abs().max().item())
+                           for n, g in first["grads"].items()},
+                    **{which: max((v - ref[which][k]).abs().max().item()
+                                  for k, v in first[which].items())
+                       for which in ("student", "teacher")})
+            out[mode] = res
+            del model, step, state, batch
+            torch.cuda.empty_cache()
+        if spec["backend"] == "gloo":
+            # the ring's send/recv, on CUDA tensors, under gloo; last, as a
+            # refusal leaves the process group unusable
+            try:
+                _exchange([torch.ones(4, device="cuda")],
+                          [(rank + 1) % DP_WORLD], [(rank - 1) % DP_WORLD])
+                out["p2p"] = "accepted"
+            except RuntimeError as e:
+                out["p2p"] = f"refused: {str(e).splitlines()[0][:200]}"
+    finally:
+        torch.save(out, f"{spec['out']}.{rank}")
+        distributed.destroy()
+
+
+def _dp_reference(mode: str, path: str) -> float:
+    """The world-1 step of 16(b) on all DP_WORLD * DP_BATCH rows in this
+    process: its loss, gradients and updated student and teacher, saved to
+    ``path`` on the CPU.  Returns its ms (CUDA events)."""
+    model = _dp_model(mode == "siglip", "cuda")
+    step, state = _dp_step_setup(model, mode == "siglip")
+    batch = {k: v.cuda() for k, v in _dp_batch().items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    m = step(state, batch)
+    end.record()
+    torch.save(dict(
+        loss=float(m["loss"]),
+        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+        student={k: v.cpu() for k, v in state.student.state_dict().items()},
+        teacher={k: v.cpu() for k, v in state.teacher.state_dict().items()}),
+        path)
+    ms = start.elapsed_time(end)
+    del model, step, state, batch, m
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _phase_dp_world2(tmp: str) -> dict:
+    """16(b): make_train_step at world DP_WORLD, one rank a card under NCCL
+    where the machine has the cards, else both ranks on this card under
+    gloo; COSMOS, then SigLIP's ring where the backend passes CUDA tensors
+    point to point."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DP_WORLD else "gloo"
+    modes = ["cosmos"] + (["siglip"] if backend == "nccl" else [])
+    ref = {m: f"{tmp}/dp_ref_{m}.pt" for m in modes}
+    ref_ms = {m: _dp_reference(m, ref[m]) for m in modes}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    spec = dict(backend=backend, modes=modes, ref=ref, port=port,
+                out=f"{tmp}/dp_world2")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_step_rank, args=(spec,), nprocs=DP_WORLD,
+                             join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline, "16(b): the ranks outlasted "
+                  "300 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{spec['out']}.{r}", weights_only=False)
+             for r in range(DP_WORLD)]
+    res = dict(backend=backend, cards=cards, devices=[r["device"]
+                                                      for r in ranks],
+               ref_ms=ref_ms, wall_s=wall_s, runs={})
+    for mode in modes:
+        r0, r1 = ranks[0][mode], ranks[1][mode]
+        e = r0["errs"]
+        check(r0["metrics"] == r1["metrics"],
+              f"16(b) {mode}: the ranks' averaged metrics differ")
+        check(r0["digest"] == r1["digest"], f"16(b) {mode}: the ranks hold "
+              f"other bits after {DP_STEPS_B} steps")
+        check(e["loss"] <= DP_LOSS_RTOL * abs(e["loss_ref"]),
+              f"16(b) {mode}: loss {r0['metrics'][0]['loss']} at world "
+              f"{DP_WORLD}, {e['loss_ref']} at world 1")
+        worst = max(err / max(top, 1e-30) for err, top in e["grads"].values())
+        bad = {n: v for n, v in e["grads"].items()
+               if v[0] > DP_GRAD_RTOL * v[1] + 1e-12}
+        check(not bad, f"16(b) {mode}: gradients off the world-1 step: "
+              f"{dict(list(bad.items())[:6])}")
+        for which in ("student", "teacher"):
+            check(e[which] <= DP_WEIGHT_ATOL, f"16(b) {mode}: updated "
+                  f"{which} max err {e[which]}")
+        res["runs"][mode] = dict(
+            loss=r0["metrics"][0]["loss"], loss_world1=e["loss_ref"],
+            loss_err=e["loss"], grad_rel_err_max=worst,
+            student_err=e["student"], teacher_err=e["teacher"],
+            step_ms=[r0["step_ms"], r1["step_ms"]],
+            mean_ms=[r0["mean_ms"], r1["mean_ms"]],
+            mean_bytes=r0["mean_bytes"], same_bits_after=DP_STEPS_B)
+        print(f"[dp] (b) {mode} at world {DP_WORLD} ({backend}, ranks on "
+              f"{res['devices']}), {DP_BATCH} rows a rank against world 1 on "
+              f"{DP_WORLD * DP_BATCH}: loss {r0['metrics'][0]['loss']:.7f} vs "
+              f"{e['loss_ref']:.7f} (err {e['loss']:.3g}), gradients max "
+              f"rel err {worst:.3g}, updated student {e['student']:.3g}, "
+              f"teacher {e['teacher']:.3g}; the same bits on both ranks after "
+              f"{DP_STEPS_B} steps; ms a step {r0['step_ms']}, the mean of "
+              f"{r0['mean_bytes'] / 1e9:.3f} GB {r0['mean_ms']} ms "
+              f"(world 1 step {ref_ms[mode]:.1f} ms)")
+    if backend == "gloo":
+        res["siglip"] = (f"world {DP_WORLD}: not run on the card (one card: "
+                         f"NCCL takes one rank a card, and gloo's send/recv "
+                         f"of a CUDA tensor was {ranks[0]['p2p']}); the CPU "
+                         "tests carry the ring")
+        print(f"[dp] (b) siglip {res['siglip']}")
+    return res
+
+
+def phase_data_parallel(K, data: str, tmp: str) -> dict:
+    """Phase 16: (a) the trainer at world 1 on NCCL against one process;
+    (b) the step at world DP_WORLD against world 1."""
+    t_phase = time.perf_counter()
+    world1 = _phase_dp_world1(K, data, tmp)
+    world2 = _phase_dp_world2(tmp)
+    out = dict(world1=world1, world2=world2,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[dp] phase {out['phase_s']:.1f} s")
+    return out
 
 
 def _counters(K):
@@ -2456,13 +2914,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == [DP_RANK_FLAG]:
+        return dp_rank(sys.argv[2], sys.argv[3:])
     from cosmos_tpu_torch.ops import build as kernel_build
-    from cosmos_tpu_torch.ops import fused_attention as fa
-    from cosmos_tpu_torch.ops.experimental import layer_norm as ln
-    from cosmos_tpu_torch.ops.experimental import ln_matmul as lm
-    from cosmos_tpu_torch.ops.experimental import mlp_block as mb
 
-    K = SimpleNamespace(fa=fa, ln=ln, lm=lm, mb=mb)
+    K = _kernel_modules()
+    fa, ln, lm, mb = K.fa, K.ln, K.lm, K.mb
     t0 = time.perf_counter()
     card = phase_card()
     build_s = phase_build(kernel_build, (fa, ln, lm, mb))
@@ -2486,7 +2943,10 @@ def main() -> int:
             classification = phase_classification(K, ckpt)
             segmentation = phase_segmentation(K, ckpt)
         options = phase_trainer_options(K, card, trainer, work)
+        data_parallel = phase_data_parallel(K, trainer["data_dir"], work)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
+    dp_k1 = (data_parallel["world1"]["launches"]["K1"]
+             + data_parallel["world1"]["eval_k1"])
 
     def pick(table, geometry, **match):
         label, dtype = geometry
@@ -2506,11 +2966,12 @@ def main() -> int:
         # the main paths' runs: serving (phase 4), training (phases 7, 10),
         # the trainer (phase 12: its steps and evals), the classification
         # and segmentation evals (phases 13, 14), the trainer's options and
-        # modes (phase 15: its steps and eval)
+        # modes (phase 15: its steps and eval), the trainer in one process
+        # and at world 1 under torchrun (phase 16(a): steps and evals)
         "launches": serving["launches"] + train["k1_launches"] + sum(
             r["launches"]["K1"] for r in train_ln.values())
         + trainer["launches"]["K1"] + classification["launches"]["K1"]
-        + seg_k1 + options["launches"]["K1"],
+        + seg_k1 + options["launches"]["K1"] + dp_k1,
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -2519,7 +2980,8 @@ def main() -> int:
                              "classification":
                                  classification["launches"]["K1"],
                              "segmentation": seg_k1,
-                             "trainer options": options["launches"]["K1"]},
+                             "trainer options": options["launches"]["K1"],
+                             "data parallel": dp_k1},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
@@ -2528,12 +2990,15 @@ def main() -> int:
         "replaces": "cosmos_tpu/ops/fused_attention.py:190",
         "launches": train["k2_launches"] + sum(
             r["launches"]["K2"] for r in train_ln.values())
-        + trainer["launches"]["K2"] + options["launches"]["K2"],
+        + trainer["launches"]["K2"] + options["launches"]["K2"]
+        + data_parallel["world1"]["launches"]["K2"],
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
                              "trainer": trainer["launches"]["K2"],
-                             "trainer options": options["launches"]["K2"]},
+                             "trainer options": options["launches"]["K2"],
+                             "data parallel":
+                                 data_parallel["world1"]["launches"]["K2"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -2572,6 +3037,7 @@ def main() -> int:
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
                   trainer=trainer, classification=classification,
                   segmentation=segmentation, trainer_options=options,
+                  data_parallel=data_parallel,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

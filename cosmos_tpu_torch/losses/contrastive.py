@@ -10,19 +10,28 @@ frozen model's logits; ``SigLipLoss`` is the pairwise sigmoid loss of one
 ``[B, B]`` block with ``logit_bias``.  The last two read the first view
 only, as the JAX package's do.
 
-Single process only: the all-gather with gradient, the rank-offset labels
-of ``local_loss`` and SigLIP's ring of negatives come with data
-parallelism.  ``local_loss`` is accepted because with one process it
-changes nothing; a process group of more than one rank raises.
+Under a ``torch.distributed`` process group each rank holds its block of
+the global batch, as a device does under JAX's ``shard_map``: the CLIP
+losses all-gather the features along the batch axis (with the gradient, or
+without it and the local block spliced back), ``local_loss`` keeps this
+rank's query rows against the gathered keys with rank-offset labels, and
+SigLIP passes the text features round the ring of ranks, each hop adding a
+block of negatives.  The loss of each rank is the one JAX's device
+computes; the step averages the gradients across ranks.  Without a process
+group nothing is gathered.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..parallel.distributed import is_initialized as _distributed
+from ..parallel.distributed import world_size
 
 
 def _as_views(x: torch.Tensor) -> torch.Tensor:
@@ -37,35 +46,121 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels[..., None])[..., 0].mean()
 
 
-def _single_process() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "the contrastive losses are single-process: the feature "
-            "all-gather across ranks and SigLIP's ring are not ported yet "
-            "(ROADMAP queue 1, item 6)")
+def _all_gather(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``[V, B, D]`` block, concatenated in rank order along
+    the batch axis: ``[V, N*B, D]``."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x)
+    return torch.cat(parts, dim=1)
+
+
+class _GatherWithGrad(torch.autograd.Function):
+    """``_all_gather`` whose backward is JAX's transpose of ``all_gather``:
+    the cotangents summed across ranks, this rank's block kept."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.block = (dist.get_rank() * x.shape[1], x.shape[1])
+        return _all_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        summed = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(summed)
+        # in the cotangent's own layout, so that the backward below takes
+        # the kernels it takes without a process group
+        summed = torch.empty_like(grad).copy_(summed)
+        start, b = ctx.block
+        return summed[:, start:start + b]
+
+
+def _exchange(tensors: Sequence[torch.Tensor], send_to: Sequence[int],
+              recv_from: Sequence[int]) -> List[torch.Tensor]:
+    """Send ``tensors[k]`` to rank ``send_to[k]`` and receive the k-th
+    result from rank ``recv_from[k]``, all in one batch of point-to-point
+    operations (tag k)."""
+    outs = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), to, tag=k)
+           for k, (t, to) in enumerate(zip(tensors, send_to))]
+    ops += [dist.P2POp(dist.irecv, o, frm, tag=k)
+            for k, (o, frm) in enumerate(zip(outs, recv_from))]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return outs
+
+
+class _NeighbourExchange(torch.autograd.Function):
+    """``_exchange`` whose backward sends each result's gradient back to
+    the rank it came from (the reference's ``NeighbourExchange`` and
+    ``NeighbourExchangeBidir``; JAX's transpose of ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, send_to: Tuple[int, ...], recv_from: Tuple[int, ...],
+                *tensors: torch.Tensor):
+        ctx.send_to, ctx.recv_from = send_to, recv_from
+        return tuple(_exchange(tensors, send_to, recv_from))
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        # (unused results come as zeros: grads are materialised)
+        back = _exchange(grads, ctx.recv_from, ctx.send_to)
+        return (None, None, *back)
 
 
 @dataclasses.dataclass
 class ClipLoss:
     local_loss: bool = False
+    # the exact gradient through the gather; False is the reference's
+    # default, the no-grad gather with this rank's block spliced back
+    gather_with_grad: bool = True
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[V, B, D] -> [V, N*B, D] across ranks."""
+        if self.gather_with_grad:
+            return _GatherWithGrad.apply(x)
+        with torch.no_grad():
+            gathered = _all_gather(x)
+        if not self.local_loss:
+            # this rank's block keeps its gradient
+            start, b = dist.get_rank() * x.shape[1], x.shape[1]
+            gathered = torch.cat([gathered[:, :start], x,
+                                  gathered[:, start + b:]], dim=1)
+        return gathered
+
+    def _labels(self, n: int, device) -> torch.Tensor:
+        """The positives of ``n`` query rows: offset by this rank's block
+        when the queries are local."""
+        labels = torch.arange(n, device=device)
+        if self.local_loss and _distributed():
+            labels = labels + n * dist.get_rank()
+        return labels
 
     def __call__(self, image_features: torch.Tensor,
                  text_features: torch.Tensor, logit_scale: torch.Tensor,
                  output_dict: bool = False
                  ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
-        _single_process()
         img = _as_views(image_features)
         txt = _as_views(text_features)
+        local = self.local_loss and _distributed()
+        if _distributed():
+            all_img, all_txt = self._gather(img), self._gather(txt)
+        else:
+            all_img, all_txt = img, txt
+        q_img = img if local else all_img
         # the features enter the product as float32, so the logits are the
         # float32 result of the compute-dtype features (the JAX package's
         # preferred_element_type=float32), never a rounded product cast up
-        logits_per_image = logit_scale.float() * torch.einsum(
-            "ibd,jkd->ijbk", img.float(), txt.float())   # [Vi, Vt, B, B]
-        # one process: the text logits are the transpose of the image ones
-        logits_per_text = logits_per_image.transpose(-1, -2)
-        labels = torch.arange(img.shape[1], device=img.device)
+        scale = logit_scale.float()
+        logits_per_image = scale * torch.einsum(
+            "ibd,jkd->ijbk", q_img.float(), all_txt.float())  # [Vi, Vt, Bq, Bk]
+        if local:
+            logits_per_text = scale * torch.einsum(
+                "jbd,ikd->ijbk", txt.float(), all_img.float())
+        else:
+            # the queries are the keys: the text logits are the transpose
+            logits_per_text = logits_per_image.transpose(-1, -2)
+        labels = self._labels(q_img.shape[1], img.device)
         total = 0.5 * (
             _cross_entropy(logits_per_image,
                            labels.expand(logits_per_image.shape[:-1]))
@@ -77,9 +172,11 @@ class ClipLoss:
 @dataclasses.dataclass
 class COSMOSLoss:
     local_loss: bool = False
+    gather_with_grad: bool = True
 
     def __post_init__(self):
-        self.clip_loss = ClipLoss(local_loss=self.local_loss)
+        self.clip_loss = ClipLoss(local_loss=self.local_loss,
+                                  gather_with_grad=self.gather_with_grad)
 
     def __call__(
         self,
@@ -127,22 +224,31 @@ class DistillClipLoss(ClipLoss):
     """The CLIP loss of the first views plus a soft cross-entropy against
     the logits of a frozen model's features, which take no gradient."""
 
+    def _logits_pair(self, img: torch.Tensor, txt: torch.Tensor,
+                     scale: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(image -> text, text -> image) logits of [B, D] features: the
+        local or gathered queries against the gathered keys."""
+        if not _distributed():
+            return _pair_logits(img, txt, scale), _pair_logits(txt, img, scale)
+        all_img, all_txt = self._gather(img[None])[0], self._gather(txt[None])[0]
+        if not self.local_loss:
+            img, txt = all_img, all_txt
+        return _pair_logits(img, all_txt, scale), _pair_logits(txt, all_img,
+                                                               scale)
+
     def __call__(self, image_features: torch.Tensor,
                  text_features: torch.Tensor, logit_scale: torch.Tensor,
                  dist_image_features: torch.Tensor,
                  dist_text_features: torch.Tensor,
                  dist_logit_scale: torch.Tensor, output_dict: bool = False):
-        _single_process()
-        img = _as_views(image_features)[0]
-        txt = _as_views(text_features)[0]
-        d_img = _as_views(dist_image_features)[0].detach()
-        d_txt = _as_views(dist_text_features)[0].detach()
-        dist_logit_scale = dist_logit_scale.detach()
-        li, lt = (_pair_logits(img, txt, logit_scale),
-                  _pair_logits(txt, img, logit_scale))
-        dli, dlt = (_pair_logits(d_img, d_txt, dist_logit_scale),
-                    _pair_logits(d_txt, d_img, dist_logit_scale))
-        labels = torch.arange(li.shape[0], device=li.device)
+        li, lt = self._logits_pair(_as_views(image_features)[0],
+                                   _as_views(text_features)[0], logit_scale)
+        dli, dlt = self._logits_pair(
+            _as_views(dist_image_features)[0].detach(),
+            _as_views(dist_text_features)[0].detach(),
+            dist_logit_scale.detach())
+        labels = self._labels(li.shape[0], li.device)
         contrastive = 0.5 * (_cross_entropy(li, labels)
                              + _cross_entropy(lt, labels))
         distill = 0.5 * (_soft_cross_entropy(dli, li)
@@ -161,23 +267,62 @@ def _soft_cross_entropy(teacher_logits: torch.Tensor,
 
 @dataclasses.dataclass
 class SigLipLoss:
-    """Pairwise sigmoid loss over one [B, B] block of the first views:
+    """Pairwise sigmoid loss of the first views: each block adds
     ``-sum(log sigmoid(label * (scale * img @ txt.T + bias))) / B`` with
-    label +1 on the diagonal and -1 elsewhere."""
+    label -1, and +1 on the diagonal of this rank's own block.  Under a
+    process group the text features go round the ring of ranks (JAX's
+    ``ppermute``: rank i sends to i + 1), one negatives-only block a hop;
+    ``bidir`` sends both ways at once and covers the ring in half the
+    hops, one last hop to the right when the other ranks are odd in
+    number."""
 
     bidir: bool = True
+
+    @staticmethod
+    def _block(img: torch.Tensor, txt: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor], negative_only: bool
+               ) -> torch.Tensor:
+        logits = _pair_logits(img, txt, scale)
+        if bias is not None:
+            logits = logits + bias.float()
+        b = img.shape[0]
+        labels = -torch.ones_like(logits)
+        if not negative_only:
+            labels = labels + 2.0 * torch.eye(b, txt.shape[0],
+                                              device=logits.device)
+        return -F.logsigmoid(labels * logits).sum() / b
 
     def __call__(self, image_features: torch.Tensor,
                  text_features: torch.Tensor, logit_scale: torch.Tensor,
                  logit_bias: Optional[torch.Tensor] = None,
                  output_dict: bool = False):
-        _single_process()
         img = _as_views(image_features)[0]
         txt = _as_views(text_features)[0]
-        logits = _pair_logits(img, txt, logit_scale)
-        if logit_bias is not None:
-            logits = logits + logit_bias.float()
-        b = img.shape[0]
-        labels = 2.0 * torch.eye(b, txt.shape[0], device=logits.device) - 1.0
-        loss = -F.logsigmoid(labels * logits).sum() / b
+        loss = self._block(img, txt, logit_scale, logit_bias, False)
+        n = world_size()
+        if n > 1:
+            r = dist.get_rank()
+            right, left = (r + 1) % n, (r - 1) % n
+
+            def negatives(t: torch.Tensor) -> torch.Tensor:
+                return self._block(img, t, logit_scale, logit_bias, True)
+
+            if self.bidir:
+                num_bidir, remainder = divmod(n - 1, 2)
+                to_right = to_left = txt
+                for _ in range(num_bidir):
+                    recv_r, recv_l = _NeighbourExchange.apply(
+                        (right, left), (left, right), to_right, to_left)
+                    for t in (recv_r, recv_l):
+                        loss = loss + negatives(t)
+                    to_right, to_left = recv_r, recv_l
+                if remainder:
+                    (recv,) = _NeighbourExchange.apply((right,), (left,),
+                                                       to_right)
+                    loss = loss + negatives(recv)
+            else:
+                frm = txt
+                for _ in range(n - 1):
+                    (frm,) = _NeighbourExchange.apply((right,), (left,), frm)
+                    loss = loss + negatives(frm)
         return {"contrastive_loss": loss} if output_dict else loss

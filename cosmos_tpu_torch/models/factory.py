@@ -12,6 +12,7 @@ from typing import Any, Optional, Union
 
 import torch
 
+from ..parallel import distributed
 from .clip import CLIP
 from .config import build_clip_cfg
 
@@ -27,12 +28,16 @@ def resolve_dtype(precision: str) -> torch.dtype:
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``None`` means the card.  Without CUDA that raises: nothing falls back
-    to the CPU unless the caller asks for it."""
+    """``None`` means the card: this rank's (``cuda:LOCAL_RANK``, set by
+    ``parallel.distributed.init_distributed``) under a process group.
+    Without CUDA that raises: nothing falls back to the CPU unless the
+    caller asks for it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU")
+        if distributed.is_initialized():
+            return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cuda")
     return torch.device(device)
 

@@ -5,14 +5,18 @@ from __future__ import annotations
 import logging
 
 
-def setup_logging(log_file=None, level=logging.INFO, include_host=False):
+def setup_logging(log_file=None, level=logging.INFO, include_host=False,
+                  rank=None):
+    """Lines on stderr and in ``log_file``; with the host name and, when
+    ``rank`` is given, the rank of a data-parallel run."""
+    where = ""
     if include_host:
         import socket
 
-        hostname = socket.gethostname()
-        fmt = f"%(asctime)s | {hostname} | %(levelname)s | %(message)s"
-    else:
-        fmt = "%(asctime)s | %(levelname)s | %(message)s"
+        where += f"{socket.gethostname()} | "
+    if rank is not None:
+        where += f"rank {rank} | "
+    fmt = f"%(asctime)s | {where}%(levelname)s | %(message)s"
     formatter = logging.Formatter(fmt, datefmt="%Y-%m-%d,%H:%M:%S")
 
     root = logging.getLogger()

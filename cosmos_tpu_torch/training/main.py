@@ -6,8 +6,8 @@
         --use-imagecrop-aug --caption-sampling-mode textcrop \\
         --cosmos --output-all --attentional-pool --fix-momentum ...
 
-The JAX trainer's flags (``training/params.py``), on one card in one
-process: the model and its EMA teacher, AdamW with the weight-decay mask and
+The JAX trainer's flags (``training/params.py``), one process a card: the
+model and its EMA teacher, AdamW with the weight-decay mask and
 the LR schedule, the teacher-momentum schedule, resume (a path or
 ``latest``), the step's modes (COSMOS, plain CLIP, ``--siglip``,
 ``--distill-model`` with a local ``.pt``) and options (``--accum-freq``,
@@ -25,12 +25,26 @@ retrieval/classification``, it only evaluates (``--pretrained`` a local
 ``.pt``); ``--eval-mode segmentation`` exits naming its own entry point,
 ``python -m cosmos_tpu_torch.training.seg_eval``.
 
+Data parallelism, the JAX trainer's data mesh with one process a card::
+
+    torchrun --nproc-per-node N -m cosmos_tpu_torch.training.main <flags>
+
+or JAX's ``--coordinator-address/--num-processes/--process-id`` in each
+process.  Each rank reads its share of the shards and takes ``--batch-size``
+rows a step, so the global batch is N times it; the losses gather the
+features of every rank and the step averages the gradients
+(``parallel/distributed.py``, ``train.py``).  Rank 0 starts every rank
+from its weights, picks the checkpoint ``--resume latest`` names, runs the
+evals, writes the checkpoints, ``out.log`` and the reports, while the other
+ranks wait at a barrier.
+
 ``main(argv, device=None)`` runs on the card and raises without CUDA;
-``device="cpu"`` runs on the CPU.  The module imports no torch at its top:
-the loader's worker processes re-import the ``__main__`` module, and must
-stay free of torch and CUDA.  A flag whose feature is not ported yet
-raises ``NotImplementedError`` at start-up, naming its ROADMAP item
-(``UNPORTED``): nothing runs in another mode than the one asked for.
+``device="cpu"`` runs on the CPU (gloo under a world).  The module imports
+no torch at its top: the loader's worker processes re-import the
+``__main__`` module, and must stay free of torch and CUDA.  A flag whose
+feature is not ported yet raises ``NotImplementedError`` at start-up,
+naming its ROADMAP item (``UNPORTED``): nothing runs in another mode than
+the one asked for.
 """
 
 from __future__ import annotations
@@ -63,11 +77,9 @@ UNPORTED = (
                                    or a.huggingface_repo_name
                                    != "sankim2/cosmos"),
      "queue 1, item 5"),
-    ("--coordinator-address/--num-processes/--process-id",
-     lambda a: (a.coordinator_address, a.num_processes, a.process_id)
-     != (None, None, None), "queue 1, item 6"),
-    ("--mesh-shape other than one device",
-     lambda a: a.mesh_shape not in (None, "1", "1,1"), "queue 1, items 6 and 10"),
+    ("--mesh-shape dp,tp with tp > 1",
+     lambda a: a.mesh_shape is not None and "," in a.mesh_shape
+     and int(a.mesh_shape.split(",")[1]) > 1, "queue 1, item 10"),
     ("--fsdp", lambda a: a.fsdp, "queue 1, item 10"),
     ("--num-slices", lambda a: a.num_slices != 1 or a.gather_scope != "global",
      "queue 1, item 10"),
@@ -124,40 +136,90 @@ def _pretrained_path(pretrained: str, flag: str = "--pretrained") -> str:
     return pretrained
 
 
+def check_mesh_shape(args, world: int) -> None:
+    """``--mesh-shape N`` (or ``N,1``) names the data axis: N must be the
+    number of ranks, one a card."""
+    if args.mesh_shape is None:
+        return
+    dp = int(args.mesh_shape.split(",")[0])
+    if dp != world:
+        raise ValueError(
+            f"--mesh-shape {args.mesh_shape}: the data axis is one rank a "
+            f"card, and this world has {world} rank(s)")
+
+
 def main(argv=None, *, device: Union[str, "torch.device", None] = None
          ) -> Dict[str, Any]:
+    from ..parallel import distributed
+    from .params import parse_args
+
+    args = parse_args(argv)
+    check_ported(args)
+    # a process group the caller made is the caller's to destroy
+    owned = not distributed.is_initialized()
+    rank, world = distributed.init_distributed(
+        device, args.coordinator_address, args.num_processes,
+        args.process_id)
+    try:
+        check_mesh_shape(args, world)
+        return _main(args, device, rank, world)
+    finally:
+        if owned:
+            distributed.destroy()
+
+
+def _broadcast_state(state) -> None:
+    """Rank 0's student, teacher, optimizer state and step counts on
+    every rank (the identity without a process group)."""
+    import torch
+
+    from ..parallel import distributed
+
+    opt_state = [v for s in state.optimizer.state.values()
+                 for v in s.values() if torch.is_tensor(v)]
+    distributed.broadcast_([*state.student.state_dict().values(),
+                            *state.teacher.state_dict().values(),
+                            *opt_state])
+    state.step, state.optimizer.num_updates = distributed.broadcast_object(
+        (state.step, state.optimizer.num_updates))
+
+
+def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
     from ..models.convert import load_checkpoint
     from ..models.factory import (create_model, get_tokenizer, resolve_device,
                                   resolve_dtype)
+    from ..parallel import distributed
     from .checkpoint import (get_latest_checkpoint, restore_checkpoint,
                              save_checkpoint)
     from .data_pipeline import get_data
     from .evaluate import evaluate
     from .logger import setup_logging
-    from .params import parse_args
     from .scheduler import cosine_scheduler, get_lr_scheduler
     from .train import (TrainStepConfig, create_optimizer, create_train_state,
                         freeze, frozen_mask, make_train_step)
 
-    args = parse_args(argv)
     dev = resolve_device(device)
-    check_ported(args)
     random_seed(args.seed)
+    is_main = rank == 0
 
-    args.name = experiment_name(args)
+    # rank 0's name: the date in the default one differs between ranks
+    args.name = distributed.broadcast_object(experiment_name(args))
     log_dir = os.path.join(args.logs_dir, args.name)
-    os.makedirs(log_dir, exist_ok=True)
-    setup_logging(os.path.join(log_dir, "out.log"),
-                  level=logging.DEBUG if args.debug else logging.INFO)
+    if is_main:
+        os.makedirs(log_dir, exist_ok=True)
+    setup_logging(os.path.join(log_dir, "out.log") if is_main else None,
+                  level=logging.DEBUG if args.debug else logging.INFO,
+                  include_host=world > 1, rank=rank if world > 1 else None)
     if args.checkpoint_path is None:
         args.checkpoint_path = os.path.join(log_dir, "checkpoints")
-    logger.info(f"device {dev}")
+    logger.info(f"device {dev}, rank {rank} of {world}")
 
-    with open(os.path.join(log_dir, "params.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k}: {getattr(args, k)}\n")
+    if is_main:
+        with open(os.path.join(log_dir, "params.txt"), "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k}: {getattr(args, k)}\n")
 
-    if args.copy_codebase:
+    if is_main and args.copy_codebase:
         # reproducibility snapshot: the package next to the run's logs
         import shutil
 
@@ -229,6 +291,8 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     data = get_data(
         args,
         tokenizer,
+        process_index=rank,
+        process_count=world,
         image_size=model.cfg.vision_cfg.image_size,
         context_length=model.cfg.text_cfg.context_length,
     )
@@ -241,6 +305,10 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
             "scripts/inference_segmentation.sh)"
         )
     if "train" not in data or args.eval_mode:
+        # rank 0 evaluates while the others wait
+        if not is_main:
+            distributed.barrier()
+            return {}
         teacher = None
         if pretrained:
             # the reference loads student AND teacher from the checkpoint;
@@ -252,6 +320,7 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
                                     strict=True)
         metrics = evaluate(model, teacher, data, 0, args, tokenizer)
         print(json.dumps(metrics, default=float))
+        distributed.barrier()
         return metrics
 
     # --- optimizer / schedules -------------------------------------------
@@ -307,6 +376,7 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
         frozen=frozen,
         seed=args.seed,
         local_loss=args.local_loss,
+        gather_with_grad=args.gather_with_grad,
         momentum_teacher=args.momentum_teacher,
         fix_momentum=args.fix_momentum,
         momentum_schedule=momentum_schedule,
@@ -336,25 +406,30 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     start_epoch = 0
     resume = args.resume
     if resume == "latest":
-        resume = get_latest_checkpoint(args.checkpoint_path)
+        # rank 0 picks and tells the others: each rank looking for itself
+        # could race a save and restore another epoch
+        resume = distributed.broadcast_object(
+            get_latest_checkpoint(args.checkpoint_path) if is_main else None)
         logger.info(f"resume latest -> {resume}")
     if resume:
         # the saved epoch is the COMPLETED-epoch count: training continues
         # from that index
         start_epoch = restore_checkpoint(state, resume)
         logger.info(f"resumed from {resume} at epoch {start_epoch}")
+    # every rank starts from rank 0's state
+    _broadcast_state(state)
 
     # --- reporting (only reports: a missing package is a warning) -----------
     writer = None
     wandb_run = None
-    if "tensorboard" in args.report_to:
+    if is_main and "tensorboard" in args.report_to:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
             writer = SummaryWriter(os.path.join(log_dir, "tensorboard"))
         except Exception as e:
             logger.warning(f"tensorboard unavailable: {e}")
-    if "wandb" in args.report_to:
+    if is_main and "wandb" in args.report_to:
         try:
             import wandb
 
@@ -379,7 +454,7 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
             epoch_metrics, stats = train_one_epoch(
                 step_fn, state, loader_iter, steps_per_epoch,
                 epoch=epoch, args=args, device=dev, writer=writer,
-                wandb_run=wandb_run, global_batch=args.batch_size,
+                wandb_run=wandb_run, global_batch=args.batch_size * world,
             )
             all_metrics.update(epoch_metrics)
             all_metrics["train_epoch_stats"].append(stats)
@@ -389,28 +464,34 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
                 completed % args.val_frequency == 0 or completed == args.epochs
             )
             if eval_now:
+                # rank 0 evaluates while the others wait
                 t0 = time.perf_counter()
-                eval_metrics = evaluate(state.student, state.teacher, data,
-                                        completed, args, tokenizer)
+                if is_main:
+                    eval_metrics = evaluate(state.student, state.teacher,
+                                            data, completed, args, tokenizer)
+                    all_metrics.update(eval_metrics)
+                    if writer is not None:
+                        for k, v in eval_metrics.items():
+                            if isinstance(v, (int, float)):
+                                writer.add_scalar(f"eval/{k}", v, completed)
+                distributed.barrier()
                 stats["eval_s"] = time.perf_counter() - t0
-                all_metrics.update(eval_metrics)
-                if writer is not None:
-                    for k, v in eval_metrics.items():
-                        if isinstance(v, (int, float)):
-                            writer.add_scalar(f"eval/{k}", v, completed)
             # the final epoch always saves, whatever the cadence
             save_now = completed == args.epochs or (
                 args.save_frequency and completed % args.save_frequency == 0
             )
             if save_now:
-                save_checkpoint(
-                    state,
-                    args.checkpoint_path,
-                    completed,
-                    name=args.name,
-                    save_latest=args.save_most_recent,
-                    delete_previous=args.delete_previous_checkpoint,
-                )
+                # every rank holds the same state: rank 0 writes it
+                if is_main:
+                    save_checkpoint(
+                        state,
+                        args.checkpoint_path,
+                        completed,
+                        name=args.name,
+                        save_latest=args.save_most_recent,
+                        delete_previous=args.delete_previous_checkpoint,
+                    )
+                distributed.barrier()
     finally:
         shutdown = getattr(train_info.dataloader, "shutdown", None)
         if shutdown is not None:

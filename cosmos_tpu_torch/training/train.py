@@ -1,5 +1,5 @@
 """The training step (counterpart of ``cosmos_tpu/training/train.py``
-``_build_step`` on one process, all but CoCa).
+``_build_step``, all but CoCa).
 
 One call of the step function does, in the reference's order:
 
@@ -12,6 +12,9 @@ One call of the step function does, in the reference's order:
   - the backward, once, or over ``accum_freq`` micro-batches: the plain
     CLIP step accumulates OpenCLIP's exact way (``_accum_exact``), COSMOS
     and SigLIP average the micro-batches' gradients;
+  - under a ``torch.distributed`` process group, the mean of the trainable
+    gradients, the loss and every metric across ranks (JAX's ``pmean``
+    over the data axis of its ``shard_map``), in one collective;
   - the EMA update ``k + (1 - m)(q - k)`` from the PRE-update student;
   - AdamW over the trainable parameters with the gain/bias/LN/logit-scale
     weight-decay exemption, its LR taken from the schedule at the number of
@@ -22,14 +25,18 @@ One call of the step function does, in the reference's order:
 The batch is views-leading, as in the JAX package: ``global_images``
 ``[2, B, H, W, 3]``, ``local_images`` ``[n, B, h, w, 3]`` (optional),
 ``texts`` ``[k, B, L]``, with a leading ``[A, ...]`` micro-batch axis when
-``accum_freq`` is A > 1; uint8 images are normalised on the device.
+``accum_freq`` is A > 1; uint8 images are normalised on the device.  Under
+a process group B is this rank's block of the global batch: the losses
+gather the features of every rank (``losses/contrastive.py``), and every
+rank ends the step with the same student, teacher and optimizer state.
 
 LiT locking (``frozen_mask``, ``freeze``) is the reference's: frozen
 parameters take no gradient (``requires_grad=False``) and are not in the
-optimizer, so clipping, the grad-norm metric and the optimizer's state
-see the trainable parameters only.  Patch dropout draws from a CPU
-``torch.Generator`` seeded from (``seed``, 17, step[, micro-batch]), JAX's
-keying of its stream, but not its bits.
+optimizer, so clipping, the grad-norm metric, the optimizer's state and the
+cross-rank mean see the trainable parameters only.  Patch dropout draws
+from a CPU ``torch.Generator`` seeded from (``seed``, 17, step[, rank][,
+micro-batch]), JAX's keying of its stream, but not its bits; the rank
+enters only in a world of more than one.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from torch import nn
 from ..losses.contrastive import (ClipLoss, COSMOSLoss, DistillClipLoss,
                                   SigLipLoss)
 from ..models.convert import build_name_map
+from ..parallel import distributed
 
 LN100 = 4.605170185988092  # ln(100)
 _NO_DECAY = ("ln", "bias", "logit_scale", "bn")
@@ -190,6 +198,8 @@ class TrainStepConfig:
     siglip: bool = False
     distill: bool = False
     local_loss: bool = False
+    # through the features' all-gather across ranks (see ClipLoss)
+    gather_with_grad: bool = True
     momentum_teacher: float = 0.999
     fix_momentum: bool = True
     momentum_schedule: Optional[Callable[[int], float]] = None
@@ -237,13 +247,16 @@ def _views(x: torch.Tensor, v: int) -> torch.Tensor:
     return x.reshape(v, x.shape[0] // v, *x.shape[1:])
 
 
-def patch_drop_generator(seed: int, step: int,
-                         micro: Optional[int] = None) -> torch.Generator:
-    """The CPU generator of the student's patch dropout at ``step`` (and
-    micro-batch ``micro`` of the exact accumulation): seeded from (seed,
-    17, step[, micro]), where 17 tags the stream apart from the other uses
-    of the seed, as JAX folds its key."""
-    key = (seed % 2 ** 63, 17, step, 0 if micro is None else micro + 1)
+def patch_drop_generator(seed: int, step: int, micro: Optional[int] = None,
+                         rank: Optional[int] = None) -> torch.Generator:
+    """The CPU generator of the student's patch dropout at ``step`` on
+    ``rank`` (and micro-batch ``micro`` of the exact accumulation): seeded
+    from (seed, 17, step[, rank], micro), where 17 tags the stream apart
+    from the other uses of the seed, as JAX folds its key (and the device's
+    index on the data axis).  ``rank`` None is a one-process run."""
+    key = (seed % 2 ** 63, 17, step,
+           *(() if rank is None else (rank,)),
+           0 if micro is None else micro + 1)
     state = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state))
 
@@ -289,14 +302,16 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                              "it after freeze(model, mask)")
     if dist_model is not None:
         dist_model.requires_grad_(False).eval()
+    gather = dict(local_loss=cfg.local_loss,
+                  gather_with_grad=cfg.gather_with_grad)
     if cfg.cosmos:
-        loss_fn_obj = COSMOSLoss(local_loss=cfg.local_loss)
+        loss_fn_obj = COSMOSLoss(**gather)
     elif cfg.siglip:
         loss_fn_obj = SigLipLoss()
     elif cfg.distill:
-        loss_fn_obj = DistillClipLoss(local_loss=cfg.local_loss)
+        loss_fn_obj = DistillClipLoss(**gather)
     else:
-        loss_fn_obj = ClipLoss(local_loss=cfg.local_loss)
+        loss_fn_obj = ClipLoss(**gather)
     device = next(model.parameters()).device
     mean = torch.tensor(cfg.image_mean, dtype=torch.float32,
                         device=device) * 255.0
@@ -304,6 +319,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                                   device=device) * 255.0)
     patch_drop = model.visual.patch_dropout > 0.0
     accum = cfg.accum_freq
+    # each rank draws its own patch-dropout stream in a world of several
+    rank = distributed.rank() if distributed.world_size() > 1 else None
 
     def prep_images(x) -> torch.Tensor:
         """uint8 [..., H, W, 3] -> normalised ``input_dtype``."""
@@ -329,7 +346,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return g_flat, l_flat, t.reshape(k * b, t.shape[2]), vg + vl, k, b
 
     def generator(step: int, micro: Optional[int] = None):
-        return patch_drop_generator(cfg.seed, step, micro) \
+        return patch_drop_generator(cfg.seed, step, micro, rank) \
             if patch_drop else None
 
     def loss_fn(mb, teacher, step: int):
@@ -457,6 +474,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         metrics: Dict[str, Any] = {
             "loss": total.detach(),
             **{k: v.detach() for k, v in aux.items()}}
+        # JAX's pmean of the gradients and metrics over the data axis; the
+        # identity without a process group
+        distributed.all_reduce_mean_(_trainable_grads(student)
+                                     + list(metrics.values()))
         if cfg.log_grad_norm:
             metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g.float())

@@ -118,11 +118,3 @@ def test_cosmos_loss_terms_and_teacher_detach():
     with pytest.raises(ValueError, match="2 global"):
         COSMOSLoss()(logit_scale=scale, **{
             **f, "t_image_features": f["s_image_features"]})
-
-
-def test_losses_refuse_a_process_group(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    x = torch.from_numpy(_features((4, 8), 0))
-    with pytest.raises(NotImplementedError, match="single-process"):
-        ClipLoss()(x, x, torch.tensor(1.0))

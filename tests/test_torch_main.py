@@ -84,7 +84,6 @@ UNPORTED_ARGV = {
     "csv-keys": ["--csv-img-key", "path"],
     "remote-sync": ["--remote-sync", "s3://bucket/x"],
     "huggingface": ["--huggingface-model-name", "m"],
-    "multi-host": ["--num-processes", "2"],
     "mesh": ["--mesh-shape", "4,2"],
     "fsdp": ["--fsdp"],
     "num-slices": ["--num-slices", "2"],
