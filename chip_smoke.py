@@ -140,7 +140,25 @@ from the sources in the checkout and then:
      all 64 rows in this process (loss, every gradient, the updated
      student and teacher) and the ranks to the same bits after the third;
      SigLIP's ring at world 2 runs under NCCL, and under gloo a send/recv
-     of a CUDA tensor is tried and its refusal reported.
+     of a CUDA tensor is tried and its refusal reported;
+ 17. the trainer's last flags: main([...]) at full width (phase 12's
+     flags, batch 64, 2 epochs of 4 steps, no evals) on a CSV of 256
+     seeded JPEG rows under --dataset-type auto, with --profile-steps 2,
+     --trace, --remote-sync <tmp>/remote --remote-sync-protocol fsspec
+     (every 2 s) and --save-most-recent; checks finite losses, the exact
+     K1/K2 launches of every step and none in the export, each
+     epoch_N.pt on the remote byte for byte and nothing else there (no
+     epoch_latest, no checkpoint in writing),
+     K1 and K2 kernel events in the Chrome trace (re-captured once where
+     CUPTI gave none); loads the exported encoders (amp at batch 64 from
+     the initial weights, and a float32 export at batch 8) in a fresh
+     process, checks 12 K1 launches a tower call there and the live
+     model's features (1e-5 float32, 2**-7 amp); runs the FLOPs/params
+     profiler on plain and COSMOS ViT-B-16 with K1 counting (plain:
+     149.62 M parameters, 41.09 GFLOPs); prints the host us per call of
+     K1, K3 and K4 through their operators beside the call without the
+     dispatcher and the bare ctypes call, the ms per step beside phase
+     7's and the CSV loader's samples/s.
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
 and nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
@@ -153,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import filecmp
 import json
 import subprocess
 import sys
@@ -2595,15 +2614,16 @@ REMAT_FAMILIES = ("", "dots_saveable", "dots_with_no_batch_dims_saveable",
 REMAT_RTOL = 1e-5
 LOCK = dict(lock_image=True, lock_text=True, unlocked_groups=2,
             text_unlocked_layers=1)
-# (name, the run's flags, micro-batches a step, remat, the blocks of each
-# tower call of a micro-batch that get a gradient): the student's calls are
+# (name, the run's flags, micro-batches a step, the remat policy (None: no
+# remat), the blocks of each tower call of a micro-batch that get a
+# gradient): the student's calls are
 # the globals, the locals and one call of the 8 caption views (the trainer
 # runs no text bucket); the teacher's (COSMOS) the globals and the first 2
 # caption views, the distillation model's the student's three, none with
 # a gradient
 OPTION_RUNS = [
     ("clip", ["--accum-freq", "2", "--force-patch-dropout", "0.5",
-              "--grad-checkpointing"], 2, True,
+              "--grad-checkpointing"], 2, "",
      # the exact accumulation's cache pass, then its gradient pass
      (0, 0, 0, 12, 12, 12)),
     ("cosmos-locked", ["--cosmos", "--lock-image",
@@ -2611,26 +2631,35 @@ OPTION_RUNS = [
                        "--lock-text-unlocked-layers", "1",
                        "--init-last-layer", "--grad-checkpointing",
                        "--remat-policy", "dots_with_no_batch_dims_saveable",
-                       "--val-frequency", "1"], 1, True,
+                       "--val-frequency", "1"], 1,
+     "dots_with_no_batch_dims_saveable",
      # the last block of each student tower is trainable
      (1, 1, 1, 0, 0)),
-    ("siglip", ["--siglip", "--accum-freq", "2"], 2, False, (12, 12, 12)),
-    ("distill", ["--distill-model", "ViT-B-16"], 1, False,
+    ("siglip", ["--siglip", "--accum-freq", "2"], 2, None, (12, 12, 12)),
+    ("distill", ["--distill-model", "ViT-B-16"], 1, None,
      (12, 12, 12, 0, 0, 0)),
-    ("cosmos-flash-off", ["--cosmos", "--flash-attention", "off"], 1, False,
+    ("cosmos-flash-off", ["--cosmos", "--flash-attention", "off"], 1, None,
      None),
 ]
 
 
-def option_launches(accum: int, remat: bool, calls, layers: int = 12
-                    ) -> dict:
+def remat_recomputes(policy) -> bool:
+    """Whether a remat policy (None: no remat) runs K1 again in the
+    backward: the kernel is a registered operator whose output no policy
+    but ``everything_saveable`` keeps, as JAX's policies treat the Pallas
+    call (``models/transformer.py``)."""
+    return policy is not None and policy != "everything_saveable"
+
+
+def option_launches(accum: int, policy, calls, layers: int = 12) -> dict:
     """K1/K2 per step of a trainer run from its tower calls: every call
     launches K1 once a block; a block that gets a gradient launches K2 in
-    the backward and, under remat, K1 again.  ``calls`` None: the plain
-    attention path, no launch."""
+    the backward and, under a remat ``policy`` that recomputes it, K1
+    again.  ``calls`` None: the plain attention path, no launch."""
     out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    again = remat_recomputes(policy)
     for grad_blocks in calls or ():
-        out["K1"] += accum * (layers + (grad_blocks if remat else 0))
+        out["K1"] += accum * (layers + (grad_blocks if again else 0))
         out["K2"] += accum * grad_blocks
     return out
 
@@ -2664,8 +2693,10 @@ def _options_kernel_rows(fa):
 
 def _step_run(model, cfg_kw, batch, lr, frozen=None, dist=None):
     """One training step of ``model`` on its device: (loss, every
-    gradient, the updated student and teacher), all on the CPU."""
+    gradient, the updated student and teacher, all on the CPU; the step's
+    K1 and K2 launches)."""
     from cosmos_tpu_torch import create_optimizer, create_train_state
+    from cosmos_tpu_torch.ops import fused_attention as fa
     from cosmos_tpu_torch.training.scheduler import const_lr
     from cosmos_tpu_torch.training.train import (TrainStepConfig, freeze,
                                                  make_train_step)
@@ -2679,8 +2710,10 @@ def _step_run(model, cfg_kw, batch, lr, frozen=None, dist=None):
                           frozen=frozen, seed=3, **cfg_kw)
     step = make_train_step(model, opt, cfg, dist_model=dist)
     state = create_train_state(model, opt)
+    before = (fa.launches, fa.launches_bwd)
     m = step(state, {k: v.to(dev) for k, v in batch.items()})
     return dict(
+        K1=fa.launches - before[0], K2=fa.launches_bwd - before[1],
         loss=m["loss"].item(),
         grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()
                if p.grad is not None},
@@ -2773,6 +2806,14 @@ def _options_card_vs_cpu(lr: float = 1e-4):
                   <= REMAT_RTOL * abs(no_remat["loss"]),
                   f"{name}: loss {gpu['loss']} vs {no_remat['loss']} "
                   "without remat")
+            # K1 again for each block that gets a gradient (one K2 each),
+            # but under everything_saveable
+            again = remat_recomputes(name.removeprefix("cosmos remat "))
+            check(gpu["K2"] == no_remat["K2"] and gpu["K1"] - no_remat["K1"]
+                  == (gpu["K2"] if again else 0),
+                  f"{name}: K1/K2 {gpu['K1']}/{gpu['K2']} against "
+                  f"{no_remat['K1']}/{no_remat['K2']} without remat")
+            e["K1"], e["K2"] = gpu["K1"], gpu["K2"]
         errs[name] = e
         print(f"[options-card-vs-cpu] {name}: loss {gpu['loss']:.6f}, max "
               "abs err " + " ".join(f"{k}={v:.3g}" for k, v in e.items()))
@@ -2808,7 +2849,7 @@ def phase_trainer_options(K, card: str, trainer_record, tmp: str):
              "--val-frequency", "0"]
     runs = {}
     zero_launches(K)
-    for name, flags, accum, remat, calls in OPTION_RUNS:
+    for name, flags, accum, policy, calls in OPTION_RUNS:
         if name == "distill":
             flags = flags + ["--distill-pretrained", dist_pt]
         record = {"steps": [], "evals": [], "profiles": {}}
@@ -2837,7 +2878,7 @@ def phase_trainer_options(K, card: str, trainer_record, tmp: str):
             metrics = trainer.main(base + ["--name", name] + flags)
         wall_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = option_launches(accum, remat, calls)
+        want = option_launches(accum, policy, calls)
         stats = metrics["train_epoch_stats"][0]
         logged = stats["logged"]
         losses = [line["loss"] for line in logged]
@@ -2908,6 +2949,364 @@ def phase_trainer_options(K, card: str, trainer_record, tmp: str):
                 eval_k1=evals_k1, phase_s=time.perf_counter() - t_phase)
 
 
+# phase 17: the trainer's last flags (a CSV of image rows, --remote-sync,
+# --profile-steps, --trace) and the FLOPs/params profiler
+CSV_ROWS = 256                  # one pass an epoch: TRAINER_STEPS x 64
+CSV_SIZES = (256, 400)          # the seeded JPEGs' width and height
+LAST_FLAGS_EPOCHS = 2
+LAST_PROFILE_STEPS = 2
+SYNC_EVERY_S = 2
+TRACE_F32_BATCH = 8
+# the loaded programs against the live model on the same inputs, the same
+# kernels on both sides, so rounding at most: float32 unit-norm features
+# 1e-5; amp (bfloat16 compute, features rounded to bfloat16) two bfloat16
+# ulps of a unit-norm component, 2**-7, since a matmul algorithm that
+# another process picks may move one rounding inside a tower
+TRACE_TOL = {"fp32": 1e-5, "amp": 2.0 ** -7}
+# plain ViT-B-16 at batch 1, worked out from its shapes (tests/
+# test_torch_profiler.py works them out again)
+PROFILER_ROW = {"mparams": 149.62, "image_mparams": 86.19,
+                "text_mparams": 63.43, "gflops": 41.09, "image_gflops": 35.13,
+                "text_gflops": 5.96}
+# host us per call of the K3 and K4 wrappers before they were registered
+# operators (PERF.md, kernel table: PR 6's final run, phase 9, the vision
+# globals in bfloat16)
+HOST_US_BEFORE = {"K3": 37.3, "K4": 48.6}
+
+_TRACED_CHILD = r"""
+import json, sys, torch
+# float32 as the parent computes it: no TF32 in matmuls or convolutions
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.path.insert(0, sys.argv[1])
+from cosmos_tpu_torch.models.trace import load_traced
+from cosmos_tpu_torch.ops import fused_attention as fa
+out = {}
+for case, path in json.loads(sys.argv[2]).items():
+    encoders = load_traced(path)
+    inputs = torch.load(path + "/inputs.pt")
+    feats, launches = {}, {}
+    for name, x in inputs.items():
+        before = fa.launches
+        feats[name] = encoders[name](x.cuda()).cpu()
+        torch.cuda.synchronize()
+        launches[name] = fa.launches - before
+    torch.save(feats, path + "/features.pt")
+    out[case] = launches
+print(json.dumps(out))
+"""
+
+
+def _trace_kernels(path: str) -> dict:
+    """Kernel events of a Chrome trace by kernel (K1, K2's two passes)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    count = lambda frag: sum(frag in n for n in names)
+    return {"kernels": len(names), "K1": count("fused_attention_fwd_kernel"),
+            "K2 rows": count("attention_bwd_rows_kernel"),
+            "K2 cols": count("attention_bwd_cols_kernel")}
+
+
+def _last_flags_run(K, argv, record, seen):
+    """One main([...]) run with the step counted and, before the first
+    step, a copy of the student (the weights --trace exported)."""
+    from cosmos_tpu_torch.training import main as trainer
+
+    def inspect(state, batch):
+        if "initial" not in seen:
+            seen["initial"] = copy.deepcopy(state.student).eval()
+
+    zero_launches(K)
+    t0 = time.perf_counter()
+    with _instrumented_trainer(K, record, profiled=(), inspect=inspect):
+        metrics = trainer.main(argv)
+    return metrics, read_launches(K), time.perf_counter() - t0
+
+
+def _traced_live(model, batch, seed):
+    """Seeded images and tokens of ``batch`` rows (on the CPU) and the live
+    model's normalised features on them (no gradient)."""
+    gen = torch.Generator().manual_seed(seed)
+    size = model.cfg.vision_cfg.image_size
+    inputs = {"encode_image": torch.rand(batch, size, size, 3, generator=gen),
+              "encode_text": torch.from_numpy(_captions(batch, 77, seed))}
+    with torch.no_grad():
+        live = {"encode_image": model.encode_image(
+                    inputs["encode_image"].cuda(), True)["image_features"],
+                "encode_text": model.encode_text(
+                    inputs["encode_text"].cuda(), True)["text_features"]}
+    return inputs, {k: v.float().cpu() for k, v in live.items()}
+
+
+def _registration_host_us(K, rounds: int = 3) -> dict:
+    """Host us per call (200 enqueued) of K1, K3 and K4 through their
+    operators (the wrapper, and the autograd Function under grad), beside
+    the CUDA implementation called without the dispatcher and the ctypes
+    call alone, at K1's serving geometry and K3/K4's vision globals in
+    bfloat16: ``rounds`` rounds of every route in turn, the median of each
+    route and every round's figure."""
+    fa, ln = K.fa, K.ln
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    _, b, l, d3, heads, causal = GEOMETRIES[0]
+    qkv = torch.randn(b, l, d3, device="cuda", generator=gen).bfloat16()
+    qkv_grad = qkv.clone().requires_grad_(True)
+    out = torch.empty(b, l, d3 // 3, device="cuda", dtype=torch.bfloat16)
+    index = torch.cuda.current_device()
+    k1_call = lambda: fa._function()(
+        qkv.data_ptr(), out.data_ptr(), b, l, heads, d3 // 3 // heads, 1,
+        int(causal), torch._C._cuda_getCurrentRawStream(index))
+    _, rb, rl, d = LN_GEOMETRIES[0]
+    x = torch.randn(rb, rl, d, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(rb, rl, d, device="cuda", generator=gen).bfloat16()
+    s, sh = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+    x_grad = x.clone().requires_grad_(True)
+    y, mean, rstd = ln.layer_norm_fwd(x, s, sh)
+    r = rb * rl
+    stats = torch.empty(2, r, device="cuda")
+    fwd_geo = ln.launch_geometry(r, d, x.dtype)
+    bwd_geo = ln.launch_geometry(r, d, x.dtype, True)
+    dx = torch.empty_like(x)
+    work = torch.empty(2 * d * (1 + bwd_geo.blocks), device="cuda")
+    dev = x.device
+    routes = {
+        "K1": {"operator": lambda: fa.fused_attention_qkv(qkv, heads,
+                                                           causal),
+               "without the dispatcher": lambda: fa._fwd_cuda(qkv, heads,
+                                                              causal),
+               "ctypes call alone": k1_call,
+               "autograd Function under grad": lambda:
+                   fa.fused_attention_qkv(qkv_grad, heads, causal)},
+        "K3": {"operator": lambda: ln.layer_norm_fwd(x, s, sh),
+               "without the dispatcher": lambda: ln._fwd_cuda(x, s, sh,
+                                                              1e-5),
+               "ctypes call alone": lambda: ln.call_on(
+                   dev, ln._function(), ln._FWD_ARGS.pack, x.data_ptr(),
+                   s.data_ptr(), sh.data_ptr(), y.data_ptr(),
+                   stats.data_ptr(), stats.data_ptr() + 4 * r, r, d, 1e-5,
+                   1, fwd_geo.rows_per_block, fwd_geo.blocks),
+               "autograd Function under grad": lambda:
+                   ln.fused_layer_norm(x_grad, s, sh)},
+        "K4": {"operator": lambda: ln.layer_norm_bwd(x, s, mean, rstd, g),
+               "without the dispatcher": lambda: ln._bwd_cuda(
+                   x, s, mean, rstd, g),
+               "ctypes call alone": lambda: ln.call_on(
+                   dev, ln._function_bwd(), ln._BWD_ARGS.pack, x.data_ptr(),
+                   g.data_ptr(), s.data_ptr(), mean.data_ptr(),
+                   rstd.data_ptr(), dx.data_ptr(), work.data_ptr() + 8 * d,
+                   work.data_ptr(), r, d, 1, *bwd_geo)}}
+    taken = {k: {name: [] for name in row} for k, row in routes.items()}
+    for _ in range(rounds):
+        for k, row in routes.items():
+            for name, fn in row.items():
+                if name.startswith("autograd"):
+                    taken[k][name].append(host_us(fn))
+                else:
+                    with torch.no_grad():
+                        taken[k][name].append(host_us(fn))
+    rows = {k: {name: float(np.median(v)) for name, v in row.items()}
+            for k, row in taken.items()}
+    for k, before in HOST_US_BEFORE.items():
+        rows[k]["before registration (PERF.md, PR 6)"] = before
+    for k, row in rows.items():
+        print(f"[last-flags] {k} host us per call (median of {rounds} "
+              "rounds): " + "; ".join(f"{name} {v:.2f}"
+                                      for name, v in row.items()))
+    return dict(median=rows, rounds=taken)
+
+
+def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
+    """Phase 17: python -m cosmos_tpu_torch.training.main at full width
+    (ViT-B-16 COSMOS, train_cc3m.sh's flags, batch 64) on a CSV of seeded
+    JPEG rows under --dataset-type auto, with --profile-steps 2, --trace,
+    --remote-sync <tmp>/remote --remote-sync-protocol fsspec and
+    --save-most-recent, 2 epochs of 4 steps; the exported encoders loaded
+    and run in a fresh process against the live model; the profiler's
+    rows of plain and COSMOS ViT-B-16 with K1 running; the host cost of a
+    call through the registered operators."""
+    import os
+
+    from cosmos_tpu_torch.data.synthetic import write_csv
+    from cosmos_tpu_torch.models.factory import create_model, get_tokenizer
+    from cosmos_tpu_torch.models.trace import save_traced, trace_model
+    from cosmos_tpu_torch.training import profiler
+    from cosmos_tpu_torch.training.data_pipeline import get_data
+    from cosmos_tpu_torch.training.params import parse_args
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    csv_path = write_csv(f"{tmp}/csv", CSV_ROWS, seed=17, fmt="jpg",
+                         sep=",", size_range=CSV_SIZES)
+    data_s = time.perf_counter() - t0
+    logs, remote = f"{tmp}/logs", f"{tmp}/remote"
+    base = _drop_flags(
+        _trainer_argv(tmp, logs, 1),
+        values=("--val-data", "--val-num-samples", "--steps-per-epoch",
+                "--dataset-type", "--train-data", "--train-num-samples",
+                "--data-root-dir", "--workers", "--name"))
+    argv = base + [
+        "--dataset-type", "auto", "--train-data", csv_path,
+        "--csv-separator", ",", "--workers", "0",
+        "--steps-per-epoch", str(TRAINER_STEPS), "--val-frequency", "0"]
+    run_argv = argv + [
+        "--name", "last-flags", "--epochs", str(LAST_FLAGS_EPOCHS),
+        "--profile-steps", str(LAST_PROFILE_STEPS), "--trace",
+        "--remote-sync", remote, "--remote-sync-protocol", "fsspec",
+        "--remote-sync-frequency", str(SYNC_EVERY_S), "--save-most-recent"]
+    record = {"steps": [], "evals": [], "profiles": {}}
+    seen = {}
+    metrics, launches, wall_s = _last_flags_run(K, run_argv, record, seen)
+    run_dir = Path(logs) / "last-flags"
+
+    # the steps and their launches; the export, on fake tensors, none
+    stats = metrics["train_epoch_stats"]
+    losses = [line["loss"] for s in stats for line in s["logged"]]
+    steps = LAST_FLAGS_EPOCHS * TRAINER_STEPS
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"a finite loss at every step: {losses}")
+    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+    want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
+    check(len(record["steps"]) == steps, "steps counted")
+    for i, got in enumerate(record["steps"]):
+        check(got == want, f"step {i}: launches {got}, expected {want}")
+    check(launches == {k: steps * v for k, v in want.items()},
+          f"launches of the run {launches}: the steps' only (the export "
+          "launches none)")
+
+    # the remote holds each epoch's checkpoint, byte for byte, and no
+    # epoch_latest
+    ckpts = run_dir / "checkpoints"
+    local = sorted(p.name for p in ckpts.iterdir())
+    synced = sorted(p.name for p in Path(remote).iterdir())
+    check("epoch_latest.pt" in local, f"--save-most-recent: {local}")
+    for e in range(1, LAST_FLAGS_EPOCHS + 1):
+        name = f"epoch_{e}.pt"
+        check(name in synced and filecmp.cmp(ckpts / name,
+                                             Path(remote) / name,
+                                             shallow=False),
+              f"{name} synced byte for byte: remote holds {synced}")
+    check(synced == [f"epoch_{e}.pt"
+                     for e in range(1, LAST_FLAGS_EPOCHS + 1)],
+          f"the remote holds {synced}: no epoch_latest and no checkpoint "
+          "in writing (*.tmp)")
+
+    # the profile: the first steps' K1 and K2 kernels, re-captured once
+    # where CUPTI gave a trace without them
+    trace_path = run_dir / "profile" / "rank0.trace.json"
+    trace = _trace_kernels(str(trace_path))
+    recaptured = False
+    if not (trace["K1"] and trace["K2 rows"]):
+        print(f"[last-flags] the profile holds {trace}: re-captured once")
+        recaptured = True
+        again = argv + ["--name", "last-flags-profile", "--epochs", "1",
+                        "--profile-steps", str(LAST_PROFILE_STEPS)]
+        _last_flags_run(K, again, {"steps": [], "evals": [],
+                                   "profiles": {}}, {})
+        trace = _trace_kernels(
+            f"{logs}/last-flags-profile/profile/rank0.trace.json")
+    check(trace["K1"] > 0 and trace["K2 rows"] > 0 and trace["K2 cols"] > 0,
+          f"K1 and K2 kernel events in the profile: {trace}")
+    trace["derived"] = {"K1": LAST_PROFILE_STEPS * want["K1"],
+                        "K2": LAST_PROFILE_STEPS * want["K2"]}
+
+    # the exported encoders (amp, batch 64, the initial weights) and a
+    # float32 export, in a fresh process
+    t0 = time.perf_counter()
+    f32 = create_model("ViT-B-16", "fp32", device="cuda", seed=17,
+                       **COSMOS)
+    save_traced(trace_model(f32, batch_size=TRACE_F32_BATCH),
+                f"{tmp}/traced_fp32")
+    export_f32_s = time.perf_counter() - t0
+    cases = {"amp": (seen["initial"], TRAINER_BATCH,
+                     str(run_dir / "traced")),
+             "fp32": (f32, TRACE_F32_BATCH, f"{tmp}/traced_fp32")}
+    live = {}
+    for case, (model, batch, path) in cases.items():
+        inputs, live[case] = _traced_live(model, batch, seed=5)
+        torch.save(inputs, f"{path}/inputs.pt")
+    del f32, seen["initial"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRACED_CHILD, str(ROOT),
+         json.dumps({c: p for c, (_, _, p) in cases.items()})],
+        capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the .pt2 process failed:\n{proc.stderr}")
+    child_launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    traced = {}
+    for case, (_, _, path) in cases.items():
+        feats = torch.load(f"{path}/features.pt")
+        for name in ("encode_image", "encode_text"):
+            err = (feats[name].float() - live[case][name]).abs().max().item()
+            check(child_launches[case][name] == 12,
+                  f"{case} {name}: {child_launches[case][name]} K1 "
+                  "launches in the loaded program, expected 12")
+            check(err <= TRACE_TOL[case],
+                  f"{case} {name}: loaded against live max err {err}")
+            traced[f"{case} {name}"] = dict(
+                max_abs_err=err, tol=TRACE_TOL[case],
+                k1_launches=child_launches[case][name])
+    print("[last-flags] exported encoders in a fresh process, against the "
+          "live model (bound: 1e-5 float32, 2**-7 amp): "
+          + "; ".join(f"{k} max err {v['max_abs_err']:.3g}, K1 "
+                      f"{v['k1_launches']}" for k, v in traced.items())
+          + f"; process {child_s:.1f} s")
+
+    # the profiler on the card: K1 runs during the count
+    rows, profiler_k1 = {}, {}
+    for label, extra_flags in (("plain", []), ("cosmos", [
+            "--cosmos", "--output-all", "--attentional-pool"])):
+        before = K.fa.launches
+        (row,) = profiler.main(["--model", "ViT-B-16", *extra_flags])
+        profiler_k1[label] = K.fa.launches - before
+        rows[label] = row
+        check(profiler_k1[label] == 24,
+              f"profiler {label}: {profiler_k1[label]} K1 launches, "
+              "expected 12 a tower call")
+    for k, v in PROFILER_ROW.items():
+        check(rows["plain"][k] == v,
+              f"profiler plain ViT-B-16 {k} {rows['plain'][k]}, expected {v}")
+
+    host = _registration_host_us(K)
+
+    # the CSV loader alone (inline decode) and the step
+    args = parse_args(argv + ["--epochs", "1"])
+    loader = get_data(args, get_tokenizer("ViT-B-16"))["train"].dataloader
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        next(it)
+    loader_sps = 2 * TRAINER_BATCH / (time.perf_counter() - t0)
+    step_ms = [ms for e, s in enumerate(stats)
+               for i, ms in enumerate(s["step_ms"])
+               if i > 0 and e * TRAINER_STEPS + i >= LAST_PROFILE_STEPS]
+    out = dict(
+        csv_rows=CSV_ROWS, data_write_s=data_s, wall_s=wall_s,
+        losses=losses, launches=launches, launches_per_step=want,
+        remote=synced, profile_trace=trace,
+        profile_recaptured=recaptured, traced=traced,
+        traced_k1_launches=child_launches, export_f32_s=export_f32_s,
+        profiler_rows=rows, profiler_k1=profiler_k1, host_us=host,
+        step_ms=step_ms, step_ms_mean=float(np.mean(step_ms)),
+        default_step_ms=default_step_ms,
+        csv_loader_samples_per_s=loader_sps,
+        phase_s=time.perf_counter() - t_phase)
+    print(f"[last-flags] {card}: ms per step {out['step_ms_mean']:.3f} "
+          f"(CUDA events, the unprofiled steps 2+ of each epoch; phase 7's "
+          f"default step {default_step_ms:.3f}); CSV loader alone "
+          f"{loader_sps:.1f} samples/s (inline decode); losses "
+          + " ".join(f"{x:.5f}" for x in losses))
+    print(f"[last-flags] remote {synced}; profile "
+          f"{trace}{' (re-captured)' if recaptured else ''}; profiler "
+          f"plain {rows['plain']}; cosmos {rows['cosmos']}; K1 during the "
+          f"counts {profiler_k1}; launches {launches}; phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -2944,9 +3343,18 @@ def main() -> int:
             segmentation = phase_segmentation(K, ckpt)
         options = phase_trainer_options(K, card, trainer, work)
         data_parallel = phase_data_parallel(K, trainer["data_dir"], work)
+    with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
+        last = phase_last_flags(K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
     dp_k1 = (data_parallel["world1"]["launches"]["K1"]
              + data_parallel["world1"]["eval_k1"])
+    # phase 17: the CSV trainer's steps, the exported encoders (in their
+    # own process) and the profiler's counts
+    last_k1 = {"last flags trainer": last["launches"]["K1"],
+               "exported encoders": sum(
+                   n for case in last["traced_k1_launches"].values()
+                   for n in case.values()),
+               "profiler": sum(last["profiler_k1"].values())}
 
     def pick(table, geometry, **match):
         label, dtype = geometry
@@ -2967,11 +3375,13 @@ def main() -> int:
         # the trainer (phase 12: its steps and evals), the classification
         # and segmentation evals (phases 13, 14), the trainer's options and
         # modes (phase 15: its steps and eval), the trainer in one process
-        # and at world 1 under torchrun (phase 16(a): steps and evals)
+        # and at world 1 under torchrun (phase 16(a): steps and evals), the
+        # CSV trainer, the exported encoders and the profiler (phase 17)
         "launches": serving["launches"] + train["k1_launches"] + sum(
             r["launches"]["K1"] for r in train_ln.values())
         + trainer["launches"]["K1"] + classification["launches"]["K1"]
-        + seg_k1 + options["launches"]["K1"] + dp_k1,
+        + seg_k1 + options["launches"]["K1"] + dp_k1
+        + sum(last_k1.values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -2981,7 +3391,7 @@ def main() -> int:
                                  classification["launches"]["K1"],
                              "segmentation": seg_k1,
                              "trainer options": options["launches"]["K1"],
-                             "data parallel": dp_k1},
+                             "data parallel": dp_k1, **last_k1},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
@@ -2991,14 +3401,16 @@ def main() -> int:
         "launches": train["k2_launches"] + sum(
             r["launches"]["K2"] for r in train_ln.values())
         + trainer["launches"]["K2"] + options["launches"]["K2"]
-        + data_parallel["world1"]["launches"]["K2"],
+        + data_parallel["world1"]["launches"]["K2"]
+        + last["launches"]["K2"],
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
                              "trainer": trainer["launches"]["K2"],
                              "trainer options": options["launches"]["K2"],
                              "data parallel":
-                                 data_parallel["world1"]["launches"]["K2"]},
+                                 data_parallel["world1"]["launches"]["K2"],
+                             "last flags trainer": last["launches"]["K2"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -3037,7 +3449,7 @@ def main() -> int:
                   train_ln_card_vs_cpu=train_ln_card_vs_cpu,
                   trainer=trainer, classification=classification,
                   segmentation=segmentation, trainer_options=options,
-                  data_parallel=data_parallel,
+                  data_parallel=data_parallel, last_flags=last,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

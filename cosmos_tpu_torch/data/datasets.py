@@ -9,10 +9,9 @@ folders and the synthetic train source (counterpart of
   - map_img_cap: the image <-> caption id maps R@k needs;
   - ImageFolderDataset: torchvision ImageFolder's order (ImageNet val, and
     ImageNetV2's numeric class dirs);
+  - CsvDataset: a CSV of (image path, caption) rows;
   - SyntheticDataset: an in-memory random image/caption source shaped like
     the recaptioned webdataset stream.
-
-The CSV reader is not ported yet.
 """
 
 from __future__ import annotations
@@ -161,6 +160,42 @@ class ImageFolderDataset:
         if self.transform is not None:
             img = self.transform(img)
         return img, label
+
+
+class CsvDataset:
+    """A CSV of (image path, caption) rows, read with ``csv.DictReader``
+    under ``sep``; ``__getitem__`` gives (transformed image, tokens)."""
+
+    def __init__(
+        self,
+        input_filename: str,
+        transform,
+        img_key: str = "filepath",
+        caption_key: str = "title",
+        sep: str = "\t",
+        tokenizer=None,
+    ):
+        import csv
+
+        self.images: List[str] = []
+        self.captions: List[str] = []
+        with open(input_filename, newline="") as f:
+            for row in csv.DictReader(f, delimiter=sep):
+                self.images.append(row[img_key])
+                self.captions.append(row[caption_key])
+        self.transform = transform
+        self.tokenizer = tokenizer
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx):
+        from PIL import Image
+
+        img = Image.open(self.images[idx]).convert("RGB")
+        img = self.transform(img)
+        tokens = self.tokenizer([self.captions[idx]])[0]
+        return img, tokens
 
 
 class SyntheticDataset:

@@ -1,11 +1,13 @@
 """Synthetic data on disk, made from a seed with numpy, in the layouts the
 trainer and the evals read: webdataset tar shards whose samples carry an
 image and a JSON with the seven DreamLIP caption fields, a COCO retrieval
-directory, ImageNet-style class folders, a CIFAR-10 test batch, and the
-mmseg layouts of the segmentation benchmarks.  For smoke runs and for
-tests; no counterpart in the JAX package.
+directory, a CSV of (image path, caption) rows, ImageNet-style class
+folders, a CIFAR-10 test batch, and the mmseg layouts of the segmentation
+benchmarks.  For smoke runs and for tests; no counterpart in the JAX
+package.
 
     write_shards("data/train-{i:04d}.tar", n_shards=8, samples_per_shard=96)
+    write_csv("data/csv", n_rows=512)       # data/csv/train.csv, images/
     write_coco("data/coco", n_images=64)
     write_image_folder("data/imagenet/val", n_classes=1000, per_class=1)
     write_cifar10("data/classification/cifar10", n_images=2000)
@@ -55,6 +57,37 @@ def _image_bytes(rng: np.random.Generator, size: Tuple[int, int],
     Image.fromarray(arr).save(buf, format="PNG" if fmt == "png" else "JPEG",
                               **({} if fmt == "png" else {"quality": 90}))
     return buf.getvalue()
+
+
+def write_csv(root: str, n_rows: int, *, seed: int = 0, fmt: str = "png",
+              sep: str = "\t", size_range: Tuple[int, int] = (64, 160)) -> str:
+    """``<root>/train.csv`` (``.tsv`` for a tab ``sep``) with the trainer's
+    default header, ``filepath`` and ``title``, and ``n_rows`` rows: the
+    absolute path of an image under ``<root>/images`` (width and height
+    drawn from ``size_range``, ``fmt`` 'png' or 'jpg') and a caption of 1-3
+    sentences; row i draws from the seed (seed, i).  Returns the CSV's
+    path."""
+    import csv
+
+    images = os.path.join(root, "images")
+    os.makedirs(images, exist_ok=True)
+
+    def write(i: int) -> Tuple[str, str]:
+        rng = np.random.default_rng([seed, i])
+        size = tuple(int(v) for v in rng.integers(*size_range, 2))
+        path = os.path.abspath(os.path.join(images, f"{i:06d}.{fmt}"))
+        with open(path, "wb") as f:
+            f.write(_image_bytes(rng, size, fmt))
+        return path, _caption(rng)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        rows = list(pool.map(write, range(n_rows)))
+    path = os.path.join(root, "train.tsv" if sep == "\t" else "train.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, delimiter=sep)
+        w.writerow(["filepath", "title"])
+        w.writerows(rows)
+    return path
 
 
 def _add(tf: tarfile.TarFile, name: str, data: bytes) -> None:

@@ -109,5 +109,5 @@ def get_tokenizer(model_name: str = ""):
     if text_cfg.get("hf_tokenizer_name"):
         raise NotImplementedError(
             f"{model_name}: HF tokenizers are not ported (ROADMAP queue 1, "
-            "item 4)")
+            '"Not queued": it needs a download)')
     return SimpleTokenizer(context_length=text_cfg.get("context_length", 77))

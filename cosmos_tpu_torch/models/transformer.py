@@ -12,8 +12,11 @@ are the same with and without it.
 (``torch.utils.checkpoint``, non-reentrant), JAX's ``nn.remat`` per block.
 ``remat_policy`` takes JAX's ``jax.checkpoint_policies`` names and keeps
 the aten ops they name (``REMAT_POLICIES``, selective checkpointing).  The
-kernels' launches inside the autograd Functions are not aten ops: every
-policy runs K1 (and K3, K5, K6 where they are on) again in the backward."""
+kernels are operators of the ``cosmos_tpu_torch`` namespace, which the
+policies see as JAX's see the Pallas calls: a kernel's output is no
+``dot_general``, so every policy but ``everything_saveable`` runs K1 (and
+K3, K5, K6 where they are on) again in the backward, and
+``everything_saveable`` keeps their outputs."""
 
 from __future__ import annotations
 

@@ -29,6 +29,16 @@ def check_cuda(op: str, name: str, t: torch.Tensor,
         raise ValueError(f"{op}: {name} must be {align}-byte aligned")
 
 
+def check_device(op: str, *tensors: torch.Tensor) -> None:
+    """Raise unless each tensor is on the CPU (the plain version) or on a
+    card (the kernel): checked before the operator dispatches, since a
+    tensor elsewhere (``meta``) would reach the fake implementation."""
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{op}: a tensor is on {t.device}; no kernel "
+                             "there")
+
+
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """True when autograd will record a call on these inputs: only then
     does a wrapper go through its autograd Function and save anything."""

@@ -23,7 +23,10 @@ the statistics and one for K4's workspace and parameter gradients.  On a
 CPU tensor they
 compute the same functions with ``layer_norm_fwd_reference`` and
 ``layer_norm_bwd_reference``, the plain versions that the tests and
-``chip_smoke.py`` hold the kernels to.
+``chip_smoke.py`` hold the kernels to.  Both are operators of the
+``cosmos_tpu_torch`` namespace (``torch.ops.cosmos_tpu_torch.layer_norm_fwd``,
+``layer_norm_bwd``), with those two implementations, a fake one and a FLOP
+formula; ``layer_norm_fwd``/``layer_norm_bwd`` here call them.
 
 ``supported(x)`` is a copy of the JAX package's predicate, so that the same
 LayerNorms take the fused path in both packages.  Its 12 MiB working-set
@@ -40,10 +43,11 @@ from typing import NamedTuple, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from ..build import build_all, load_kernel_library
-from ._cuda import (DTYPE_CODES, call_on, check_cuda, needs_grad,
-                    raise_on_error)
+from ._cuda import (DTYPE_CODES, call_on, check_cuda, check_device,
+                    needs_grad, raise_on_error)
 
 SOURCE = "layer_norm_fwd.cu"       # K3
 SOURCE_BWD = "layer_norm_bwd.cu"   # K4
@@ -204,15 +208,12 @@ def _fwd_errors(op, x, scale, bias):
                          "checks passed")
 
 
-def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   eps: float = 1e-5
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(y, mean, rstd)``: K3 on a CUDA tensor, the plain version on a CPU
-    tensor.  ``mean`` and ``rstd`` are two views of one allocation."""
+def _fwd_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: K3.  ``(y, stats)``, the float32
+    ``[2, ..., 1]`` mean and rstd in one allocation."""
     global launches
     dev = x.device
-    if dev.type == "cpu":
-        return layer_norm_fwd_reference(x, scale, bias, eps)
     op = "fused_layer_norm"
     if not x.is_contiguous():
         x = x.contiguous()
@@ -235,8 +236,7 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         if rc:
             raise_on_error(op, rc, f"R={r} D={d} dtype={x.dtype}")
         launches += 1
-    mean, rstd = stats.unbind(0)
-    return y, mean, rstd
+    return y, stats
 
 
 def _bwd_errors(op, x, scale, mean, rstd, g):
@@ -259,15 +259,13 @@ def _bwd_errors(op, x, scale, mean, rstd, g):
                          "checks passed")
 
 
-def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
-                   rstd: torch.Tensor, g: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dx, dscale, dbias)``: K4 on a CUDA tensor, the plain version on a
-    CPU tensor.  ``dscale`` and ``dbias`` are views of K4's workspace."""
+def _bwd_cuda(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+              rstd: torch.Tensor, g: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: K4.  ``(dx, dparams)``, the
+    float32 ``[2, D]`` dscale and dbias at the head of K4's workspace."""
     global launches_bwd
     dev = x.device
-    if dev.type == "cpu" and g.device.type == "cpu":
-        return layer_norm_bwd_reference(x, scale, mean, rstd, g)
     op = "fused_layer_norm backward"
     # autograd may hand over a strided gradient; K4 reads rows densely
     if not x.is_contiguous():
@@ -290,19 +288,88 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     geo = launch_geometry(r, d, x.dtype, True)
     # dscale, dbias and the blocks' partial rows [2][blocks][D]: one
     # allocation, every element written by K4
-    ds, db, partial = torch.empty(2 * d * (1 + geo.blocks), dtype=_F32,
-                                  device=dev).split([d, d, 2 * d * geo.blocks])
+    work = torch.empty(2 * d * (1 + geo.blocks), dtype=_F32, device=dev)
+    dparams, partial = work.split([2 * d, 2 * d * geo.blocks])
     if r:
         rc = call_on(dev, _function_bwd(), _BWD_ARGS.pack, x.data_ptr(),
                      g.data_ptr(), scale.data_ptr(), mean.data_ptr(),
                      rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                     ds.data_ptr(), r, d, code, *geo)
+                     dparams.data_ptr(), r, d, code, *geo)
         if rc:
             raise_on_error(op, rc, f"R={r} D={d} dtype={x.dtype}")
         launches_bwd += 1
     else:
-        ds.zero_()
-        db.zero_()
+        dparams.zero_()
+    return dx, dparams.view(2, d)
+
+
+def _fwd_cpu(x, scale, bias, eps):
+    y, mean, rstd = layer_norm_fwd_reference(x, scale, bias, eps)
+    return y.contiguous(), torch.stack([mean, rstd])
+
+
+def _bwd_cpu(x, scale, mean, rstd, g):
+    dx, ds, db = layer_norm_bwd_reference(x, scale, mean, rstd, g)
+    return dx.contiguous(), torch.stack([ds, db])
+
+
+# K3 and K4 as operators of the cosmos_tpu_torch namespace: the plain
+# versions on the CPU, the kernels on CUDA, fake implementations for
+# torch.export and fake tensors, and FLOP formulas (a LayerNorm has no
+# matmul: 0, as FlopCounterMode counts aten's).  Each returns its float32
+# pair (mean and rstd, dscale and dbias) as one tensor, which the wrappers
+# split into views: one allocation, and no outputs that alias.
+_LIB = torch.library.Library("cosmos_tpu_torch", "FRAGMENT")
+_LIB.define("layer_norm_fwd(Tensor x, Tensor scale, Tensor bias, float eps)"
+            " -> (Tensor, Tensor)")
+_LIB.define("layer_norm_bwd(Tensor x, Tensor scale, Tensor mean, "
+            "Tensor rstd, Tensor g) -> (Tensor, Tensor)")
+_LIB.impl("layer_norm_fwd", _fwd_cpu, "CPU")
+_LIB.impl("layer_norm_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("layer_norm_bwd", _bwd_cpu, "CPU")
+_LIB.impl("layer_norm_bwd", _bwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("cosmos_tpu_torch::layer_norm_fwd", lib=_LIB)
+def _fwd_fake(x, scale, bias, eps):
+    return (x.new_empty(x.shape),
+            x.new_empty((2,) + x.shape[:-1] + (1,), dtype=_F32))
+
+
+@torch.library.register_fake("cosmos_tpu_torch::layer_norm_bwd", lib=_LIB)
+def _bwd_fake(x, scale, mean, rstd, g):
+    return x.new_empty(x.shape), x.new_empty((2, x.shape[-1]), dtype=_F32)
+
+
+@register_flop_formula([torch.ops.cosmos_tpu_torch.layer_norm_fwd,
+                        torch.ops.cosmos_tpu_torch.layer_norm_bwd])
+def _no_matmul_flops(*args, **kwargs) -> int:
+    return 0
+
+
+_FWD = torch.ops.cosmos_tpu_torch.layer_norm_fwd.default
+_BWD = torch.ops.cosmos_tpu_torch.layer_norm_bwd.default
+
+
+def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(y, mean, rstd)``: K3 on a CUDA tensor, the plain version on a CPU
+    tensor.  ``mean`` and ``rstd`` are two views of one allocation."""
+    check_device("fused_layer_norm", x)
+    y, stats = _FWD(x, scale, bias, eps)
+    mean, rstd = stats.unbind(0)
+    return y, mean, rstd
+
+
+def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor, g: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dscale, dbias)``: K4 on a CUDA tensor, the plain version on a
+    CPU tensor.  ``dscale`` and ``dbias`` are views of one allocation."""
+    check_device("fused_layer_norm backward", x, g)
+    dx, dparams = _BWD(x, scale, mean, rstd, g)
+    ds, db = dparams.unbind(0)
     return dx, ds, db
 
 

@@ -22,6 +22,8 @@ passes; ``dbias``, ``dg`` and ``db`` stay float32.
 On a CUDA tensor the forward launches K5 (``csrc/ln_matmul.cu``), built at
 first use, or raises; on a CPU tensor it computes ``ln_matmul_reference``,
 the plain version the tests and ``chip_smoke.py`` hold the kernel to.  The
+forward is the operator ``torch.ops.cosmos_tpu_torch.ln_matmul_fwd`` (those
+two implementations, a fake one and a FLOP formula).  The
 TPU kernel's VMEM budget (``_pick_row_block`` refuses float32 ViT-B widths)
 has no counterpart: K5 takes any number of rows, with ``D`` a multiple of
 64 up to 1024 and ``O`` a multiple of 256 (``check_shapes``).
@@ -35,10 +37,11 @@ from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from ..build import build_all, load_kernel_library
-from ._cuda import (DTYPE_CODES, check_cuda, needs_grad, raise_on_error,
-                    stream)
+from ._cuda import (DTYPE_CODES, check_cuda, check_device, needs_grad,
+                    raise_on_error, stream)
 
 SOURCE = "ln_matmul.cu"    # K5
 # the kernel's tiles (csrc/ln_matmul.cu): bfloat16 BM rows x BN columns per
@@ -131,22 +134,11 @@ def build() -> None:
     _function()
 
 
-def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                  w: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
-                  return_stats: bool = False):
-    """``[R, O]``: K5 on a CUDA tensor, the plain version on a CPU tensor
-    (arguments as ``ln_matmul_reference``).  With ``return_stats``,
-    ``(out, stats)``: the float32 ``[R, 2]`` per-row (mean, rstd) that the
-    bf16 kernel's first pass writes (K3 holds its statistics to them bit
-    for bit); the float32 kernel leaves them unwritten."""
+def _fwd_cuda(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+              w: torch.Tensor, bias: torch.Tensor, eps: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: K5.  ``(out, stats)``."""
     global launches
-    if x2.device.type == "cpu":
-        out = ln_matmul_reference(x2, g, b, w, bias, eps)
-        if not return_stats:
-            return out
-        xf = x2.float()
-        _, rstd = ln_stats(x2, eps)
-        return out, torch.cat([xf.mean(-1, keepdim=True), rstd], 1)
     op = "ln_matmul"
     check_cuda(op, "x", x2)
     check_shapes(x2, w)
@@ -169,6 +161,51 @@ def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                 eps, DTYPE_CODES[x2.dtype], stream(x2))
         raise_on_error(op, rc, f"R={r} D={d} O={o} dtype={x2.dtype}")
         launches += 1
+    return out, stats
+
+
+def _fwd_cpu(x2, g, b, w, bias, eps):
+    out = ln_matmul_reference(x2, g, b, w, bias, eps)
+    _, rstd = ln_stats(x2, eps)
+    return out, torch.cat([x2.float().mean(-1, keepdim=True), rstd], 1)
+
+
+# K5 as an operator of the cosmos_tpu_torch namespace: the plain version
+# on the CPU, the kernel on CUDA, a fake implementation for torch.export
+# and fake tensors, and a FLOP formula (the product's 2·R·D·O)
+_LIB = torch.library.Library("cosmos_tpu_torch", "FRAGMENT")
+_LIB.define("ln_matmul_fwd(Tensor x2, Tensor g, Tensor b, Tensor w, "
+            "Tensor bias, float eps) -> (Tensor, Tensor)")
+_LIB.impl("ln_matmul_fwd", _fwd_cpu, "CPU")
+_LIB.impl("ln_matmul_fwd", _fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("cosmos_tpu_torch::ln_matmul_fwd", lib=_LIB)
+def _fwd_fake(x2, g, b, w, bias, eps):
+    r = x2.shape[0]
+    return (x2.new_empty(r, w.shape[0]),
+            x2.new_empty(r, 2, dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.cosmos_tpu_torch.ln_matmul_fwd)
+def _fwd_flops(x2_shape, g_shape, b_shape, w_shape, bias_shape, eps,
+               out_shape=None, **kwargs) -> int:
+    return 2 * x2_shape[0] * x2_shape[1] * w_shape[0]
+
+
+_FWD = torch.ops.cosmos_tpu_torch.ln_matmul_fwd.default
+
+
+def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                  w: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+                  return_stats: bool = False):
+    """``[R, O]``: K5 on a CUDA tensor, the plain version on a CPU tensor
+    (arguments as ``ln_matmul_reference``).  With ``return_stats``,
+    ``(out, stats)``: the float32 ``[R, 2]`` per-row (mean, rstd) that the
+    bf16 kernel's first pass writes (K3 holds its statistics to them bit
+    for bit); the float32 kernel leaves them unwritten."""
+    check_device("ln_matmul", x2)
+    out, stats = _FWD(x2, g, b, w, bias, eps)
     return (out, stats) if return_stats else out
 
 

@@ -24,6 +24,8 @@ float32, as JAX's are for the float32 parameters it passes.
 On a CUDA tensor the forward launches K6 (``csrc/mlp_block.cu``), built at
 first use, or raises; on a CPU tensor it computes ``mlp_block_reference``,
 the plain version the tests and ``chip_smoke.py`` hold the kernel to.  The
+forward is the operator ``torch.ops.cosmos_tpu_torch.mlp_block_fwd`` (those
+two implementations, a fake one and a FLOP formula).  The
 ``[R, HD]`` hidden never exists in device memory in the forward.  The TPU
 kernel's VMEM budget (``_pick_row_block`` raises for ViT-B widths in
 float32) has no counterpart: K6 takes any number of rows, at ``D`` 512 or
@@ -38,10 +40,11 @@ import functools
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from ..build import build_all, load_kernel_library
-from ._cuda import (DTYPE_CODES, check_cuda, needs_grad, raise_on_error,
-                    stream)
+from ._cuda import (DTYPE_CODES, check_cuda, check_device, needs_grad,
+                    raise_on_error, stream)
 from .ln_matmul import ln_backward, ln_stats, mm_f32
 
 SOURCE = "mlp_block.cu"    # K6
@@ -124,18 +127,14 @@ def build() -> None:
     _function()
 
 
-def mlp_block_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                  b2: torch.Tensor, eps: float = 1e-5,
-                  act: str = "gelu") -> torch.Tensor:
-    """``[R, D]``: K6 on a CUDA tensor, the plain version on a CPU tensor
-    (arguments as ``mlp_block_reference``)."""
+def _fwd_cuda(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor, eps: float, act: str) -> torch.Tensor:
+    """The operator's CUDA implementation: K6."""
     global launches
-    if act not in _ACT_CODES:
-        raise ValueError(f"mlp_block: unknown activation {act!r}")
-    if x2.device.type == "cpu":
-        return mlp_block_reference(x2, g, b, w1, b1, w2, b2, eps, act)
     op = "mlp_block"
+    if act not in _ACT_CODES:
+        raise ValueError(f"{op}: unknown activation {act!r}")
     check_cuda(op, "x", x2)
     check_shapes(x2, w1, w2)
     r, d = x2.shape
@@ -160,6 +159,44 @@ def mlp_block_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                                f"act={act}")
         launches += 1
     return out
+
+
+# K6 as an operator of the cosmos_tpu_torch namespace: the plain version
+# on the CPU, the kernel on CUDA, a fake implementation for torch.export
+# and fake tensors, and a FLOP formula (its two products, 4·R·D·HD)
+_LIB = torch.library.Library("cosmos_tpu_torch", "FRAGMENT")
+_LIB.define("mlp_block_fwd(Tensor x2, Tensor g, Tensor b, Tensor w1, "
+            "Tensor b1, Tensor w2, Tensor b2, float eps, str act) -> Tensor")
+_LIB.impl("mlp_block_fwd",
+          lambda x2, g, b, w1, b1, w2, b2, eps, act: mlp_block_reference(
+              x2, g, b, w1, b1, w2, b2, eps, act), "CPU")
+_LIB.impl("mlp_block_fwd", _fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("cosmos_tpu_torch::mlp_block_fwd", lib=_LIB)
+def _fwd_fake(x2, g, b, w1, b1, w2, b2, eps, act):
+    return x2.new_empty(x2.shape)
+
+
+@register_flop_formula(torch.ops.cosmos_tpu_torch.mlp_block_fwd)
+def _fwd_flops(x2_shape, g_shape, b_shape, w1_shape, *args, out_shape=None,
+               **kwargs) -> int:
+    return 4 * x2_shape[0] * x2_shape[1] * w1_shape[0]
+
+
+_FWD = torch.ops.cosmos_tpu_torch.mlp_block_fwd.default
+
+
+def mlp_block_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, eps: float = 1e-5,
+                  act: str = "gelu") -> torch.Tensor:
+    """``[R, D]``: K6 on a CUDA tensor, the plain version on a CPU tensor
+    (arguments as ``mlp_block_reference``)."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"mlp_block: unknown activation {act!r}")
+    check_device("mlp_block", x2)
+    return _FWD(x2, g, b, w1, b1, w2, b2, eps, act)
 
 
 def _forward(x, g, b, w1, b1, w2, b2, eps, act):

@@ -18,6 +18,16 @@ On a CUDA tensor the forward launches the hand-written Hopper kernel K1
 compute the same functions with ``fused_attention_qkv_reference`` and
 ``fused_attention_qkv_backward_reference``, the plain PyTorch versions that
 the tests and ``chip_smoke.py`` hold the kernels to.
+
+Both are operators of the ``cosmos_tpu_torch`` namespace
+(``torch.ops.cosmos_tpu_torch.fused_attention_fwd`` and
+``fused_attention_bwd``): a CPU implementation (the plain version), a CUDA
+one (the kernel), a fake one (shapes only, for ``torch.export`` and fake
+tensors) and a FLOP formula (SDPA's, for ``FlopCounterMode``).  The
+autograd Function calls them, and the forward operator is called directly
+where no gradient is needed.  Selective checkpointing therefore sees K1:
+``everything_saveable`` keeps its output, every other remat policy
+recomputes it, as JAX's policies treat the Pallas call.
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import (register_flop_formula,
+                                      sdpa_backward_flop_count,
+                                      sdpa_flop_count)
 
 from .build import build_all, load_kernel_library
 
@@ -210,12 +223,10 @@ def _check_cuda(name: str, t: torch.Tensor, b: int, l: int) -> None:
             f"got B={b} L={l}")
 
 
-def _forward(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
+def _fwd_cuda(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
+    """The operator's CUDA implementation: K1."""
     global launches
     b, l, d, dh = _geometry(qkv, num_heads)
-    if qkv.device.type == "cpu":
-        return fused_attention_qkv_reference(qkv, num_heads, causal)
     _check_cuda("qkv", qkv, b, l)
     out = torch.empty(b, l, d, dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -231,16 +242,11 @@ def _forward(qkv: torch.Tensor, num_heads: int, causal: bool) -> torch.Tensor:
     return out
 
 
-def fused_attention_qkv_backward(qkv: torch.Tensor, dout: torch.Tensor,
-                                 num_heads: int,
-                                 causal: bool = False) -> torch.Tensor:
-    """Packed d(qkv) ``[B, L, 3D]`` from (qkv, dout): K2 on a CUDA tensor,
-    ``fused_attention_qkv_backward_reference`` on a CPU tensor."""
+def _bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+              causal: bool) -> torch.Tensor:
+    """The operator's CUDA implementation: K2."""
     global launches_bwd
     b, l, d, dh = _geometry(qkv, num_heads)
-    if qkv.device.type == "cpu" and dout.device.type == "cpu":
-        return fused_attention_qkv_backward_reference(qkv, dout, num_heads,
-                                                      causal)
     if dout.shape != (b, l, d) or dout.dtype != qkv.dtype:
         raise ValueError(
             f"fused_attention_qkv backward: dout {tuple(dout.shape)} "
@@ -272,6 +278,80 @@ def fused_attention_qkv_backward(qkv: torch.Tensor, dout: torch.Tensor,
     return dqkv
 
 
+# K1 and K2 as operators of the cosmos_tpu_torch namespace, so that
+# torch.export, FlopCounterMode and selective checkpointing see them: the
+# CPU implementation is the plain version (looked up at call time), the
+# CUDA one the kernel, the fake one the output's shape
+_LIB = torch.library.Library("cosmos_tpu_torch", "FRAGMENT")
+_LIB.define("fused_attention_fwd(Tensor qkv, int num_heads, bool causal) "
+            "-> Tensor")
+_LIB.define("fused_attention_bwd(Tensor qkv, Tensor dout, int num_heads, "
+            "bool causal) -> Tensor")
+_LIB.impl("fused_attention_fwd",
+          lambda qkv, num_heads, causal: fused_attention_qkv_reference(
+              qkv, num_heads, causal), "CPU")
+_LIB.impl("fused_attention_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("fused_attention_bwd",
+          lambda qkv, dout, num_heads, causal:
+          fused_attention_qkv_backward_reference(qkv, dout, num_heads,
+                                                 causal), "CPU")
+_LIB.impl("fused_attention_bwd", _bwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("cosmos_tpu_torch::fused_attention_fwd",
+                             lib=_LIB)
+def _fwd_fake(qkv, num_heads, causal):
+    b, l, d, _ = _geometry(qkv, num_heads)
+    return qkv.new_empty(b, l, d)
+
+
+@torch.library.register_fake("cosmos_tpu_torch::fused_attention_bwd",
+                             lib=_LIB)
+def _bwd_fake(qkv, dout, num_heads, causal):
+    _geometry(qkv, num_heads)
+    return qkv.new_empty(qkv.shape)
+
+
+def _sdpa_shape(qkv_shape, num_heads):
+    b, l, d3 = qkv_shape
+    return (b, num_heads, l, d3 // 3 // num_heads)
+
+
+@register_flop_formula(torch.ops.cosmos_tpu_torch.fused_attention_fwd)
+def _fwd_flops(qkv_shape, num_heads, causal, out_shape=None, **kwargs):
+    """SDPA's count, 4·B·L²·D, the full L² when causal too."""
+    s = _sdpa_shape(qkv_shape, num_heads)
+    return sdpa_flop_count(s, s, s)
+
+
+@register_flop_formula(torch.ops.cosmos_tpu_torch.fused_attention_bwd)
+def _bwd_flops(qkv_shape, dout_shape, num_heads, causal, out_shape=None,
+               **kwargs):
+    """SDPA backward's count: five L²-sized products, 10·B·L²·D."""
+    s = _sdpa_shape(qkv_shape, num_heads)
+    return sdpa_backward_flop_count(s, s, s, s)
+
+
+_FWD = torch.ops.cosmos_tpu_torch.fused_attention_fwd.default
+_BWD = torch.ops.cosmos_tpu_torch.fused_attention_bwd.default
+
+
+def _check_device(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(
+                f"fused_attention_qkv: no kernel for device {t.device}")
+
+
+def fused_attention_qkv_backward(qkv: torch.Tensor, dout: torch.Tensor,
+                                 num_heads: int,
+                                 causal: bool = False) -> torch.Tensor:
+    """Packed d(qkv) ``[B, L, 3D]`` from (qkv, dout): K2 on a CUDA tensor,
+    ``fused_attention_qkv_backward_reference`` on a CPU tensor."""
+    _check_device(qkv, dout)
+    return _BWD(qkv, dout, num_heads, causal)
+
+
 class _FusedAttentionQKV(torch.autograd.Function):
     """K1 forward, K2 backward; saves only ``qkv``."""
 
@@ -279,7 +359,7 @@ class _FusedAttentionQKV(torch.autograd.Function):
     def forward(ctx, qkv, num_heads, causal):
         ctx.num_heads, ctx.causal = num_heads, causal
         ctx.save_for_backward(qkv)
-        return _forward(qkv, num_heads, causal)
+        return _FWD(qkv, num_heads, causal)
 
     @staticmethod
     @once_differentiable
@@ -298,9 +378,7 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int,
     on the CPU); otherwise (``no_grad``, ``inference_mode``, a constant
     input) nothing is saved and only the forward runs."""
     _geometry(qkv, num_heads)
-    if qkv.device.type not in ("cpu", "cuda"):
-        raise ValueError(
-            f"fused_attention_qkv: no kernel for device {qkv.device}")
+    _check_device(qkv)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedAttentionQKV.apply(qkv, num_heads, causal)
-    return _forward(qkv, num_heads, causal)
+    return _FWD(qkv, num_heads, causal)

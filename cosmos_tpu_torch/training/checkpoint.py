@@ -63,7 +63,7 @@ def save_checkpoint(
     if "://" in str(checkpoint_path):
         raise ValueError(
             f"--checkpoint-path {checkpoint_path!r}: only local paths are "
-            "ported (remote sync is ROADMAP queue 1, item 5)")
+            "ported; --remote-sync copies them to a remote")
     base = Path(checkpoint_path)
     base.mkdir(parents=True, exist_ok=True)
     ckpt = {

@@ -5,8 +5,10 @@ Returns ``{'train': DataInfo, 'val': WdsValLoader, 'train_eval': ...,
 'coco-retrieval': RetrievalData, 'flickr-retrieval': RetrievalData,
 'imagenet-val' / 'imagenet-v2' / a classification set's name:
 MapDatasetLoader}`` for the keys the flags ask for.  Batches are numpy; the
-trainer moves them to the device (``data/prefetch.py``).  The CSV loader is
-not ported yet; the trainer refuses its flags.
+trainer moves them to the device (``data/prefetch.py``).  The train data is
+webdataset shards, a CSV of (image path, caption) rows (``--dataset-type
+csv``, or ``auto`` on a ``.csv``/``.tsv`` path; decoded in the stepping
+process, as in the JAX package) or the synthetic source.
 """
 
 from __future__ import annotations
@@ -73,6 +75,102 @@ class SyntheticTrainLoader:
                 yield collate_views(buf, g, n)
 
 
+class CsvTrainLoader:
+    """Train batches from a CSV of (image path, caption) rows, shaped like
+    the webdataset stream and decoded inline.
+
+    Each pass over the rows is keyed on (the current epoch, the pass within
+    it): every process runs the same global shuffle and takes the strided
+    slice ``order[process_index::process_count]``, so the processes read
+    disjoint rows; a pass breaks off when the epoch changes, so a resume at
+    epoch k gives epoch k's batches.  An unreadable image is skipped with a
+    warning; a pass that yields nothing raises.  Captions are sampled
+    ``raw`` or ``random`` (a CSV row has one caption)."""
+
+    def __init__(self, cfg: WdsTrainConfig, csv_path: str, img_key: str,
+                 caption_key: str, sep: str):
+        from ..data.datasets import CsvDataset
+        from ..data.tokenizer import SimpleTokenizer
+
+        self.cfg = cfg
+        ds = CsvDataset(csv_path, transform=None, img_key=img_key,
+                        caption_key=caption_key, sep=sep)
+        self.rows = list(zip(ds.images, ds.captions))
+        if not self.rows:
+            raise ValueError(f"no rows in {csv_path}")
+        # a pass drops its partial batch: with fewer rows a process than one
+        # batch, a pass yields nothing, and the error below would blame the
+        # images; name the real constraint up front
+        per_host = len(self.rows) // max(1, cfg.process_count)
+        if per_host < cfg.batch_size:
+            raise ValueError(
+                f"CSV loader: {len(self.rows)} rows across "
+                f"{cfg.process_count} process(es) leaves {per_host} rows "
+                f"per host — fewer than one batch (batch_size="
+                f"{cfg.batch_size}); shrink --batch-size or provide more "
+                "rows"
+            )
+        self.tokenizer = SimpleTokenizer(context_length=cfg.context_length)
+        self.transform = train_transform(cfg)
+        self._epoch = 0
+
+    def __len__(self):
+        return len(self.rows)
+
+    def set_epoch(self, epoch: int):
+        self._epoch = epoch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        from PIL import Image
+
+        pass_no, prev_epoch = 0, None
+        while True:
+            epoch = self._epoch
+            pass_no = pass_no + 1 if epoch == prev_epoch else 0
+            prev_epoch = epoch
+            rng = random.Random((self.cfg.seed + epoch) * 100003 + pass_no)
+            order = list(range(len(self.rows)))
+            rng.shuffle(order)
+            order = order[self.cfg.process_index::self.cfg.process_count]
+            g = self.cfg.global_crops_number if self.cfg.use_multicrop else 1
+            n = self.cfg.local_crops_number if self.cfg.use_multicrop else 0
+            mode = (self.cfg.caption_sampling_mode
+                    if self.cfg.caption_sampling_mode in ("raw", "random")
+                    else "random")
+            buf = []
+            yielded = 0
+            for idx in order:
+                if self._epoch != epoch:
+                    break  # the epoch advanced mid-pass: re-key now
+                path, caption = self.rows[idx]
+                try:
+                    img = Image.open(path).convert("RGB")
+                except Exception as e:
+                    logger.warning(f"csv row {idx}: unreadable image "
+                                   f"{path!r} ({e!r})")
+                    continue
+                crops = self.transform(img, rng)
+                if not isinstance(crops, list):
+                    crops = [crops]
+                caps = sample_captions({"raw_caption": [caption]},
+                                       self.cfg.num_sampled_captions, mode,
+                                       rng)
+                buf.append((crops, self.tokenizer(caps)))
+                if len(buf) == self.cfg.batch_size:
+                    yield collate_views(buf, g, n)
+                    yielded += 1
+                    buf = []
+            if yielded == 0 and self._epoch == epoch:
+                # a whole pass gave nothing: every image unreadable (a
+                # wrong working directory, corrupt files); fail rather than
+                # reshuffle forever at step 0
+                raise RuntimeError(
+                    f"CSV loader: no readable images in any of "
+                    f"{len(self.rows)} rows (see warnings above; are the "
+                    "image paths relative to a different directory?)"
+                )
+
+
 def _detect_dataset_type(args) -> str:
     if args.dataset_type != "auto":
         return args.dataset_type
@@ -133,9 +231,6 @@ def get_data(
     args.image_size = image_size
     args.context_length = context_length
     dtype = _detect_dataset_type(args)
-    if dtype == "csv":
-        raise NotImplementedError(
-            "--dataset-type csv is not ported (ROADMAP queue 1, item 4)")
     global_batch = args.batch_size * process_count
     # one optimizer step consumes accum_freq micro-batches
     samples_per_step = global_batch * max(1, getattr(args, "accum_freq", 1))
@@ -153,6 +248,15 @@ def get_data(
                     "--train-num-samples is required for webdataset training"
                 )
             num_samples = args.train_num_samples
+        num_batches = args.steps_per_epoch or max(1, num_samples // samples_per_step)
+        data["train"] = DataInfo(loader, num_samples, num_batches)
+    elif dtype == "csv":
+        cfg = make_train_config(args, process_index, process_count)
+        loader = CsvTrainLoader(
+            cfg, args.train_data, args.csv_img_key, args.csv_caption_key,
+            args.csv_separator,
+        )
+        num_samples = args.train_num_samples or len(loader)
         num_batches = args.steps_per_epoch or max(1, num_samples // samples_per_step)
         data["train"] = DataInfo(loader, num_samples, num_batches)
 

@@ -13,11 +13,14 @@ the LR schedule, the teacher-momentum schedule, resume (a path or
 ``--distill-model`` with a local ``.pt``) and options (``--accum-freq``,
 ``--force-patch-dropout``, ``--grad-checkpointing``/``--remat-policy``,
 ``--lock-image*``/``--lock-text*``, ``--init-last-layer``,
-``--flash-attention``), the epoch loop over the webdataset loader with a
-CUDA-stream prefetcher, the per-epoch val and retrieval evals of student and
-teacher,
-and ``.pt`` checkpoints in the reference's layout (``training/
-checkpoint.py``).  The evals: val loss, COCO/Flickr retrieval, and zero-shot
+``--flash-attention``), the epoch loop over webdataset shards or a CSV of
+(image path, caption) rows with a CUDA-stream prefetcher, the per-epoch val
+and retrieval evals of student and teacher, and ``.pt`` checkpoints in the
+reference's layout (``training/checkpoint.py``), synced to a remote with
+``--remote-sync`` (``training/file_utils.py``).  ``--trace`` exports the
+encoders (``models/trace.py``); ``--profile-steps N`` writes a
+``torch.profiler`` Chrome trace of the first N steps of the first epoch to
+``<logs>/<name>/profile/rank<r>.trace.json``.  The evals: val loss, COCO/Flickr retrieval, and zero-shot
 classification on ImageNet (``--imagenet-val``, ``--imagenet-v2``) and the
 classification sets (``--zeroshot-eval-datasets`` under
 ``--classification-data-dir``).  Without train data, or with ``--eval-mode
@@ -43,8 +46,8 @@ ranks wait at a barrier.
 no torch at its top: the loader's worker processes re-import the
 ``__main__`` module, and must stay free of torch and CUDA.  A flag whose
 feature is not ported yet raises ``NotImplementedError`` at start-up,
-naming its ROADMAP item (``UNPORTED``): nothing runs in another mode than
-the one asked for.
+naming its ROADMAP item by title (``UNPORTED``): nothing runs in another
+mode than the one asked for.
 """
 
 from __future__ import annotations
@@ -60,36 +63,27 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
+# ROADMAP's items, by title, for what the port refuses
+NEEDS_DOWNLOAD = 'queue 1, "Not queued": it needs a download'
+BEYOND_DP = 'queue 1, "Beyond DP"'
+OTHER_TOWERS = 'queue 1, "Other towers, configs and tools"'
+
 # (flag as given, whether the args set it, ROADMAP item): features the port
 # does not have yet.  Each is refused at start-up when set.
 UNPORTED = (
-    ("--dataset-type csv", lambda a: a.dataset_type == "csv"
-     or (a.dataset_type == "auto" and a.train_data is not None
-         and a.train_data.split(".")[-1] in ("csv", "tsv")),
-     "queue 1, item 4"),
-    ("--csv-*", lambda a: (a.csv_separator, a.csv_img_key, a.csv_caption_key)
-     != ("\t", "filepath", "title"), "queue 1, item 4"),
-    ("--remote-sync", lambda a: (a.remote_sync is not None
-                                 or a.remote_sync_frequency != 300
-                                 or a.remote_sync_protocol != "s3"),
-     "queue 1, item 5"),
     ("--huggingface-*", lambda a: (bool(a.huggingface_model_name)
                                    or a.huggingface_repo_name
-                                   != "sankim2/cosmos"),
-     "queue 1, item 5"),
+                                   != "sankim2/cosmos"), NEEDS_DOWNLOAD),
     ("--mesh-shape dp,tp with tp > 1",
      lambda a: a.mesh_shape is not None and "," in a.mesh_shape
-     and int(a.mesh_shape.split(",")[1]) > 1, "queue 1, item 10"),
-    ("--fsdp", lambda a: a.fsdp, "queue 1, item 10"),
+     and int(a.mesh_shape.split(",")[1]) > 1, BEYOND_DP),
+    ("--fsdp", lambda a: a.fsdp, BEYOND_DP),
     ("--num-slices", lambda a: a.num_slices != 1 or a.gather_scope != "global",
-     "queue 1, item 10"),
+     BEYOND_DP),
     ("CoCa models and --coca-*", lambda a: ("coca" in a.model.lower()
                                              or a.coca_caption_loss_weight != 2.0
                                              or a.coca_contrastive_loss_weight
-                                             != 1.0), "queue 1, items 8-9"),
-    ("--trace", lambda a: a.trace or a.trace_path is not None,
-     "queue 1, item 9"),
-    ("--profile-steps", lambda a: a.profile_steps > 0, "queue 1, item 9"),
+                                             != 1.0), OTHER_TOWERS),
 )
 
 
@@ -132,7 +126,7 @@ def _pretrained_path(pretrained: str, flag: str = "--pretrained") -> str:
     if not os.path.isfile(pretrained):
         raise NotImplementedError(
             f"{flag} {pretrained!r}: only a local .pt file is ported; "
-            "a pretrained tag needs a download (ROADMAP queue 1, item 9)")
+            f"a pretrained tag needs a download (ROADMAP {NEEDS_DOWNLOAD})")
     return pretrained
 
 
@@ -287,6 +281,17 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         logger.info(f"distilling from {args.distill_model} "
                     f"({args.distill_pretrained})")
 
+    if args.trace:
+        # the serving encoders from the initial weights, at --batch-size;
+        # training goes on after
+        trace_dir = args.trace_path or os.path.join(log_dir, "traced")
+        if is_main:
+            from ..models.trace import save_traced, trace_model
+
+            save_traced(trace_model(model, batch_size=args.batch_size),
+                        trace_dir)
+            logger.info(f"traced encoders -> {trace_dir}")
+
     # --- data ------------------------------------------------------------
     data = get_data(
         args,
@@ -419,6 +424,23 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
     # every rank starts from rank 0's state
     _broadcast_state(state)
 
+    # --- remote sync daemon (rank 0) -------------------------------------
+    sync_proc = None
+    if args.remote_sync and is_main:
+        from .file_utils import remote_sync, start_sync_process
+
+        if not remote_sync(args.checkpoint_path, args.remote_sync,
+                           args.remote_sync_protocol):
+            logger.error("initial remote sync failed — continuing without")
+        else:
+            sync_proc = start_sync_process(
+                args.remote_sync_frequency,
+                args.checkpoint_path,
+                args.remote_sync,
+                args.remote_sync_protocol,
+            )
+            sync_proc.start()
+
     # --- reporting (only reports: a missing package is a warning) -----------
     writer = None
     wandb_run = None
@@ -445,6 +467,14 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
             logger.warning(f"wandb unavailable: {e}")
 
     # --- epoch loop ----------------------------------------------------------
+    profiler = None
+    if args.profile_steps > 0:
+        # every rank traces, into a file of its own
+        profile_dir = os.path.join(log_dir, "profile")
+        logger.info(f"profiling first {args.profile_steps} steps -> "
+                    f"{profile_dir}")
+        profiler = StepProfiler(
+            os.path.join(profile_dir, f"rank{rank}.trace.json"), dev)
     loader_iter = iter(train_info.dataloader)
     all_metrics: Dict[str, Any] = {"train_epoch_stats": []}
     try:
@@ -455,9 +485,14 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
                 step_fn, state, loader_iter, steps_per_epoch,
                 epoch=epoch, args=args, device=dev, writer=writer,
                 wandb_run=wandb_run, global_batch=args.batch_size * world,
+                profiler=profiler,
             )
             all_metrics.update(epoch_metrics)
             all_metrics["train_epoch_stats"].append(stats)
+            if profiler is not None:
+                # a first epoch shorter than --profile-steps ends the trace
+                profiler.stop()
+                args.profile_steps = 0
 
             completed = epoch + 1
             eval_now = args.val_frequency and (
@@ -496,7 +531,50 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         shutdown = getattr(train_info.dataloader, "shutdown", None)
         if shutdown is not None:
             shutdown()
+        if profiler is not None:
+            profiler.stop()
+        if sync_proc is not None:
+            sync_proc.terminate()
+            sync_proc.join()
+    if sync_proc is not None:
+        # one final sync after the daemon stops: checkpoints written in the
+        # last period would otherwise never reach the remote
+        from .file_utils import remote_sync
+
+        if not remote_sync(args.checkpoint_path, args.remote_sync,
+                           args.remote_sync_protocol):
+            logger.error("final remote sync failed")
     return all_metrics
+
+
+class StepProfiler:
+    """``torch.profiler`` over the host and, on the card, the device,
+    started at construction; ``stop`` ends it once (later calls do
+    nothing) and writes the Chrome trace to ``path``."""
+
+    def __init__(self, path: str, device: "torch.device"):
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.path = path
+        self.device = device
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> None:
+        if self._prof is None:
+            return
+        import torch
+
+        if self.device.type == "cuda":
+            # the traced steps' kernels end before the trace does
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
 
 
 def train_one_epoch(
@@ -511,14 +589,16 @@ def train_one_epoch(
     writer=None,
     wandb_run=None,
     global_batch: int,
+    profiler: "StepProfiler | None" = None,
 ):
     """The hot loop: fetch a batch (prefetched onto the device), step, and
     every --log-every-n-steps (and at the last step) read the metrics and
     log them with the samples/s of the window since the last log and the
-    time spent waiting for data.  Returns (the last logged metrics as
-    ``train_*``, the epoch's stats: wall and data-wait seconds, the ms per
-    step from CUDA events around the step calls on the card, and every
-    logged line)."""
+    time spent waiting for data.  The ``profiler`` stops before step
+    ``args.profile_steps``, which then becomes 0.  Returns (the last logged
+    metrics as ``train_*``, the epoch's stats: wall and data-wait seconds,
+    the ms per step from CUDA events around the step calls on the card,
+    and every logged line)."""
     import torch
 
     from ..data.prefetch import DevicePrefetcher, to_device
@@ -550,6 +630,9 @@ def train_one_epoch(
     t_window, steps_in_window = t_end, 0
     try:
         for i in range(steps_per_epoch):
+            if profiler is not None and i == args.profile_steps:
+                profiler.stop()
+                args.profile_steps = 0
             batch = next(batch_iter)
             t_data = time.perf_counter()
             data_time += t_data - t_end

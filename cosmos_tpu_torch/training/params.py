@@ -103,39 +103,39 @@ def parse_args(args=None):
     add("--precision", type=str, default="amp",
         choices=["amp", "amp_bf16", "bf16", "pure_bf16", "fp32", "fp16"])
     add("--grad-checkpointing", action="store_true", default=False)
-    # named jax.checkpoint policy for --grad-checkpointing ("" = full
-    # recompute); e.g. dots_with_no_batch_dims_saveable keeps matmul
-    # outputs and recomputes only the elementwise ops between them
+    # the JAX package's policy name for --grad-checkpointing ("" = full
+    # recompute), mapped to selective checkpointing (models/transformer.py
+    # REMAT_POLICIES); e.g. dots_with_no_batch_dims_saveable keeps the
+    # matmul outputs and recomputes the rest, the kernels (K1) among it
     add("--remat-policy", type=str, default="")
     add("--local-loss", action="store_true", default=False,
-        help="compute [B_local, B_global] logit rows per device")
-    # default True DIVERGES from the reference's False (params.py:310-314)
-    # deliberately: reverse-mode all_gather lowers to reduce_scatter on
-    # ICI, so grad-through-gather is the natural XLA pattern — and the
-    # two forms produce EQUIVALENT total gradients anyway (the
-    # reference's no-grad gather + local-block splice + DDP all-reduce
-    # recovers every negative's gradient on its home rank).  PARITY.md.
+        help="compute [B_local, B_global] logit rows per rank")
+    # default True, as in the JAX package (the reference's is False): the
+    # gather's backward sums the features' gradients across ranks, which
+    # gives the same total gradient as a no-grad gather with the local
+    # block spliced in (losses/contrastive.py)
     add("--gather-with-grad", action=argparse.BooleanOptionalAction,
         default=True)
     add("--force-quick-gelu", action="store_true", default=False)
     add("--force-patch-dropout", type=float, default=None)
     add("--force-image-size", type=int, default=None)
-    # tri-state routing for the packed-QKV Pallas kernel: 'auto' (default)
-    # enables it on TPU backends only; 'off' forces the exact-softmax XLA
-    # path (e.g. when debugging a diverging run — the kernel's max-free
-    # softmax differs only in logit-collapse regimes); 'on' forces the
-    # kernel even on CPU (interpret mode)
+    # routing of self-attention to the packed-QKV kernel (K1 forward, K2
+    # backward): 'auto' (default) and 'on' take it wherever its gate
+    # admits the geometry (on a CPU tensor through the kernels' plain
+    # versions); 'off' sends every self-attention to the plain torch path
     add("--flash-attention", type=str, default="auto",
         choices=["auto", "on", "off"])
     add("--use-flash-attention", action="store_true", default=False,
         help="deprecated alias for --flash-attention on")
     add("--trace", action="store_true", default=False,
-        help="AOT-export the jitted encoders to StableHLO for serving "
-             "(reference --trace / torch.jit.trace, params.py:350-353)")
-    add("--trace-path", type=str, default=None)
+        help="export the normalised encoders at --batch-size with "
+             "torch.export (<trace-path>/encode_{image,text}.pt2, weights "
+             "inside; models/trace.py) before training")
+    add("--trace-path", type=str, default=None,
+        help="where --trace writes (default <logs>/<name>/traced)")
     add("--gelu-approx", action="store_true", default=False,
-        help="tanh-approximated GELU (~23%% faster step on v5e; "
-             "negligible numeric deviation — for from-scratch training)")
+        help="tanh-approximated GELU (a small numeric deviation from "
+             "the exact GELU; for from-scratch training)")
     add("--text-bucket", type=int, default=0,
         help="length-bucketed text tower for COSMOS training (>0 = short "
              "bucket length, e.g. 32): EOT-sorts the caption views past "
@@ -278,44 +278,33 @@ def parse_args(args=None):
              "for reproducibility (reference main.py:604-619)")
     add("--debug", action="store_true", default=False)
     add("--profile-steps", type=int, default=0,
-        help="capture a jax.profiler trace of the first N train steps "
-             "into <logs>/<name>/profile (SURVEY §5: the TPU-native "
-             "replacement for the reference's missing kineto traces)")
+        help="trace the first N train steps of the first epoch with "
+             "torch.profiler (host and card) into "
+             "<logs>/<name>/profile/rank<r>.trace.json, a Chrome trace")
 
     add("--prefetch-depth", type=int, default=2,
         help="device-input prefetch depth (data/prefetch.py): a producer "
-             "thread assembles + device_puts the next N batches so H2D "
-             "overlaps the step (torch pin_memory/non_blocking analog); "
-             "0 disables")
+             "thread copies the next N batches to the card from pinned "
+             "memory on a stream of its own, so the copy overlaps the "
+             "step; 0 disables")
 
     add("--fsdp", action="store_true", default=False,
-        help="FSDP/ZeRO placement (parallel/fsdp.py): shard params, "
-             "grads, Adam moments and the EMA teacher over the data axis "
-             "via the GSPMD step — per-chip stateful memory drops ~Nx. "
-             "Composes with a 'dp,tp' --mesh-shape (fsdp_tp_spec: "
-             "ZeRO-3 over 'data' on the dims Megatron leaves unsharded)")
+        help="shard parameters, gradients, optimizer state and the EMA "
+             "teacher over the ranks (not ported yet: refused)")
 
     add("--num-slices", type=int, default=1,
-        help="multislice: factor the data mesh into ('slice','data') "
-             "with this many DCN-connected slices "
-             "(parallel/mesh.create_multislice_mesh); the contrastive "
-             "gather then runs hierarchically (ICI within each slice, "
-             "one block exchange over DCN) — see --gather-scope")
+        help="groups of ranks with a hierarchical contrastive gather, "
+             "within each group first (not ported yet: refused)")
     add("--gather-scope", type=str, default="global",
         choices=["global", "slice"],
-        help="multislice contrastive-gather scope: 'global' = "
-             "hierarchical ICI-then-DCN gather (loss identical to flat "
-             "single-axis DP); 'slice' = negatives stay within each "
-             "slice — zero DCN traffic in the loss (grad reduction "
-             "still spans slices)")
+        help="with --num-slices: 'global' gathers negatives from every "
+             "rank, 'slice' within each group (not ported yet: refused)")
 
-    # TPU / mesh
+    # ranks
     add("--mesh-shape", type=str, default=None,
-        help="'N' = 1-D data mesh over N devices (default: all devices); "
-             "'dp,tp' = 2-D (data, model) mesh — GSPMD tensor-parallel "
-             "training with Megatron-style weight placement; the fused "
-             "attention kernel stays on (custom_partitioning, see "
-             "parallel/tp.py)")
+        help="'N': the data axis, N ranks of one card each (the world "
+             "size); 'dp,tp' with tp > 1, tensor parallelism, is not "
+             "ported yet (refused)")
     add("--coordinator-address", type=str, default=None)
     add("--num-processes", type=int, default=None)
     add("--process-id", type=int, default=None)
@@ -372,8 +361,8 @@ def parse_args(args=None):
         # the CoCa step trains on single-view batches (crop 0 / caption 0,
         # train.py coca branch; reference coca recipe uses plain
         # transforms, coca_model.py:157-191) — multicrop would decode and
-        # H2D-transfer 6 local crops per sample that XLA then DCEs: pure
-        # wasted host work.  Fail loudly instead.
+        # copy 6 local crops per sample to the card that the step never
+        # reads: pure wasted host work.  Fail loudly instead.
         parser.error(
             "--use-imagecrop-aug with a CoCa model: the CoCa caption loss "
             "trains on single-view batches and would silently discard the "

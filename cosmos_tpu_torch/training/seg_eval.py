@@ -65,16 +65,17 @@ def load_model_for_seg(args, device):
 
     from ..models.convert import load_checkpoint
     from ..models.factory import create_model, get_tokenizer
+    from .main import NEEDS_DOWNLOAD
 
     if args.huggingface_model_name:
         raise NotImplementedError(
             "--huggingface-model-name needs a download, which is not ported "
-            "(ROADMAP queue 1, item 5); pass a local .pt as --pretrained")
+            f"(ROADMAP {NEEDS_DOWNLOAD}); pass a local .pt as --pretrained")
     if args.pretrained and not os.path.isfile(args.pretrained):
         raise NotImplementedError(
             f"--pretrained {args.pretrained!r}: only a local .pt file is "
-            "ported; a pretrained tag needs a download (ROADMAP queue 1, "
-            "item 9)")
+            f"ported; a pretrained tag needs a download (ROADMAP "
+            f"{NEEDS_DOWNLOAD})")
     model = create_model(
         args.model,
         precision=args.precision,

@@ -387,7 +387,7 @@ def test_seg_eval_main_loads_the_teacher(voc_root, tmp_path, capsys):
 
 
 def test_seg_eval_refuses_downloads_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match='"Not queued"'):
         seg_eval.main(["--huggingface-model-name", "cosmos_vitb16_cc3m.pt",
                        "--model", "ViT-Tiny-Test"], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -198,7 +198,9 @@ def test_remat_step_equals_no_remat(policy, monkeypatch):
     """JAX's test_remat_policy_step_matches_no_remat: one COSMOS step with
     each policy gives the loss, gradients and updated weights of the step
     without remat, to the bit on the CPU; and every block that gets a
-    gradient runs K1's plain version again in the backward."""
+    gradient runs K1's plain version again in the backward, but under
+    ``everything_saveable``, which keeps the operator's output (JAX's
+    policies treat the Pallas call so)."""
     calls = []
     orig = pfa.fused_attention_qkv_reference
     monkeypatch.setattr(pfa, "fused_attention_qkv_reference",
@@ -221,7 +223,7 @@ def test_remat_step_equals_no_remat(policy, monkeypatch):
         assert torch.equal(s0[n], s1[n]), n
     # the student's 3 tower calls with a gradient (globals, locals, the
     # captions) x 2 blocks
-    assert n1 - n0 == 3 * 2
+    assert n1 - n0 == (0 if policy == "everything_saveable" else 3 * 2)
 
 
 def test_unknown_remat_policy_raises():
