@@ -114,7 +114,7 @@ from the sources in the checkout and then:
      compares the loss, every gradient and the updated student and
      teacher (each remat policy also against no remat on the card); (c)
      drives main([...]) at full width (ViT-B-16, amp, batch 64, phase 12's
-     shards and flags, 1 epoch of 4 steps) for plain CLIP (--accum-freq 2
+     shards and flags, 1 epoch of 2 steps) for plain CLIP (--accum-freq 2
      --force-patch-dropout 0.5 --grad-checkpointing), LiT-locked COSMOS
      with --init-last-layer and remat, --siglip --accum-freq 2,
      --distill-model ViT-B-16 from a random .pt, and COSMOS with
@@ -127,7 +127,7 @@ from the sources in the checkout and then:
      torchrun (python -m torch.distributed.run --standalone
      --nproc-per-node 1 chip_smoke.py --dp-rank OUT <flags>, this script as
      the rank, which drives main([...]) as phase 12 does) with phase 12's
-     flags and shards, one loader thread, 1 epoch of 4 steps and then
+     flags and shards, one loader thread, 1 epoch of 2 steps and then
      --resume latest into a second, beside the same two runs in this
      process without a process group; checks that the logged metrics of
      every step and epoch_2.pt (student, teacher, optimizer state) are the
@@ -158,7 +158,25 @@ from the sources in the checkout and then:
      149.62 M parameters, 41.09 GFLOPs); prints the host us per call of
      K1, K3 and K4 through their operators beside the call without the
      dispatcher and the bare ctypes call, the ms per step beside phase
-     7's and the CSV loader's samples/s.
+     7's and the CSV loader's samples/s;
+ 18. the timm-family towers and ModifiedResNet, random weights from seeds
+     at full width and depth: K1 and K2 held to their plain versions at
+     the text geometries the towers add (D 640 with 10 heads, a head group
+     of 2; D 768 with 12); (a) serving for EVA02-B-16, EVA02-L-14,
+     convnext_base_w, convnext_large_d and MobileCLIP-S1/S2/B in bfloat16,
+     encode_image at batch 64 and the config's image size, encode_text at
+     batch 256 and length 77: images/s, captions/s, peak memory and the
+     exact K1 launches of each call (12 a text call, 16 for
+     convnext_large_d; 12 a MobileCLIP-B image call, 0 for the other image
+     towers); (b) the same float32 weights on the card and on the CPU at
+     batch 2, the normalised features within 1e-4, for the seven configs
+     and OpenAI's RN50 geometry (registered at run time); (c) main([...])
+     with phase 12's shards and flags in plain CLIP mode, no local crops,
+     on EVA02-B-16 and MobileCLIP-B: an epoch of 4 steps with val and COCO
+     retrieval evals and a checkpoint, then --resume latest for a second,
+     the exact K1/K2 launches of every step (12/12 and 24/24), ms per step
+     and peak memory; and one convnext_base_w step through
+     make_train_step at batch 64 (K1/K2 12/12).
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
 and nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
@@ -173,6 +191,7 @@ import contextlib
 import copy
 import filecmp
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1164,7 +1183,7 @@ def _profile_steps(step, state, batch, n: int = 2):
 # the data-parallel phase (16): (a) the trainer at world 1 on NCCL under
 # torchrun against the same trainer in this process; (b) the step at world 2
 DP_RANK_FLAG = "--dp-rank"
-DP_STEPS = 4            # steps an epoch in 16(a)
+DP_STEPS = 2            # steps an epoch in 16(a)
 DP_WORLD = 2
 DP_BATCH = 32           # rows a rank in 16(b)
 DP_STEPS_B = 3
@@ -2605,7 +2624,7 @@ DROP_GEOMETRIES = [
     ("vision globals, patch dropout 0.5", 128, 99, 3 * 768, 12, False),
     ("vision 96px locals, patch dropout 0.5", 384, 19, 3 * 768, 12, False),
 ]
-OPTIONS_STEPS = 4
+OPTIONS_STEPS = 2
 # JAX's remat policies, one name of each family the port maps
 REMAT_FAMILIES = ("", "dots_saveable", "dots_with_no_batch_dims_saveable",
                   "everything_saveable")
@@ -3307,6 +3326,328 @@ def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
     return out
 
 
+# phase 18: the timm-family towers and ModifiedResNet at full width
+TOWER_CONFIGS = ("EVA02-B-16", "EVA02-L-14", "convnext_base_w",
+                 "convnext_large_d", "MobileCLIP-S1", "MobileCLIP-S2",
+                 "MobileCLIP-B")
+TOWER_IMAGE_BATCH, TOWER_TEXT_BATCH = 64, 256
+TOWER_TIMED_CALLS = 5
+TOWER_SEED = 18
+# OpenAI's RN50 geometry (OpenCLIP's RN50.json), registered at run time
+RN50_NAME = "RN50"
+RN50_CONFIG = {"embed_dim": 1024,
+               "vision_cfg": {"image_size": 224, "layers": [3, 4, 6, 3],
+                              "width": 64},
+               "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                            "width": 512, "heads": 8, "layers": 12}}
+# float32 on both sides, TF32 off: the normalised features (|x| < 1)
+TOWER_CPU_TOL = 1e-4
+# the trainer runs of 18(c): phase 12's shards and flags, plain CLIP, no
+# local crops, TRAINER_STEPS steps an epoch, then --resume latest for one
+TOWER_TRAINER_MODELS = ("EVA02-B-16", "MobileCLIP-B")
+# K1 at the text geometries the towers add (serving, batch 256, and the
+# trainer's 2 caption views of 64) and K2 at their training geometry
+TOWER_K1_GEOMETRIES = [
+    ("text D640 H10 (convnext_base_w)", 256, 77, 3 * 640, 10, True),
+    ("text D768 H12 (EVA02-L-14)", 256, 77, 3 * 768, 12, True),
+]
+TOWER_K2_GEOMETRIES = [
+    ("text D640 H10 (convnext_base_w)", 128, 77, 3 * 640, 10, True),
+]
+
+
+def tower_call_launches(name: str) -> dict:
+    """K1 launches per encode_text and per encode_image call of a tower
+    config: one per self-attention block that takes the kernel route (the
+    text blocks; a timm ViT trunk's blocks; no other tower's attention)."""
+    from cosmos_tpu_torch.models.config import build_clip_cfg
+    from cosmos_tpu_torch.models.timm_model import TIMM_VIT_CONFIGS
+
+    cfg = build_clip_cfg(name)
+    trunk = TIMM_VIT_CONFIGS.get(cfg.vision_cfg.timm_model_name or "", {})
+    return {"text": cfg.text_cfg.layers, "image": trunk.get("layers", 0)}
+
+
+def _counted(fn, calls):
+    def run(*a):
+        calls.append(1)
+        return fn(*a)
+    return run
+
+
+def _tower_serving(K, name: str) -> dict:
+    """18(a) and (b) for one config: float32 weights from the seed, the
+    card against the CPU at batch 2, then the same weights in bfloat16 on
+    the card: images/s at batch 64, captions/s at batch 256 and length 77,
+    peak memory and the K1 launches of each call."""
+    from cosmos_tpu_torch.models.factory import create_model
+
+    t0 = time.perf_counter()
+    cpu = create_model(name, "fp32", device="cpu", seed=TOWER_SEED)
+    size = cpu.cfg.vision_cfg.image_size
+    rng = np.random.default_rng(TOWER_SEED)
+    x = torch.from_numpy(rng.standard_normal((2, size, size, 3))
+                         .astype(np.float32))
+    toks = torch.from_numpy(_captions(2, 77, seed=TOWER_SEED))
+
+    def features(model, device):
+        with torch.inference_mode():
+            return (model.encode_image(x.to(device), True)["image_features"],
+                    model.encode_text(toks.to(device), True)["text_features"])
+
+    want = features(cpu, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    got = features(card, "cuda")
+    errs = {}
+    for what, g, w in zip(("image", "text"), got, want):
+        g = g.cpu()
+        check(g.shape == w.shape and torch.isfinite(g).all().item(),
+              f"{name} {what} features shape/finite")
+        errs[what] = (g - w).abs().max().item()
+        check(errs[what] <= TOWER_CPU_TOL,
+              f"{name} card vs CPU {what}: max err {errs[what]}")
+    del card
+    out = dict(card_vs_cpu=errs, tol=TOWER_CPU_TOL)
+    if name == RN50_NAME:
+        del cpu
+        out["phase_s"] = time.perf_counter() - t0
+        return out
+
+    model = create_model(name, "bf16", device="meta")
+    model.load_state_dict(cpu.state_dict(), assign=True)
+    model = model.to("cuda").eval()
+    del cpu
+    per_call = tower_call_launches(name)
+    gen = torch.Generator(device="cuda").manual_seed(TOWER_SEED)
+    images = torch.randn(TOWER_IMAGE_BATCH, size, size, 3, device="cuda",
+                         generator=gen)
+    captions = torch.as_tensor(_captions(TOWER_TEXT_BATCH, 77,
+                                         seed=TOWER_SEED), device="cuda")
+    img_calls, txt_calls = [], []
+
+    @torch.inference_mode()
+    def enc_img():
+        return model.encode_image(images, True)["image_features"]
+
+    @torch.inference_mode()
+    def enc_txt():
+        return model.encode_text(captions, True)["text_features"]
+
+    enc_img, enc_txt = _counted(enc_img, img_calls), _counted(enc_txt,
+                                                              txt_calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    for what, fn in (("image", enc_img), ("text", enc_txt)):
+        zero_launches(K)
+        feats = fn()
+        torch.cuda.synchronize()
+        got = read_launches(K)
+        check(got == {**dict.fromkeys(got, 0), "K1": per_call[what]},
+              f"{name} encode_{what}: launches {got}, expected K1 "
+              f"{per_call[what]} only")
+        check(torch.isfinite(feats).all().item(), f"{name} {what} finite")
+        launches[what] = got["K1"]
+    zero_launches(K)
+    img_ms = time_ms(enc_img, iters=TOWER_TIMED_CALLS)
+    txt_ms = time_ms(enc_txt, iters=TOWER_TIMED_CALLS)
+    timed = read_launches(K)
+    check(timed["K1"] == per_call["image"] * (len(img_calls) - 1)
+          + per_call["text"] * (len(txt_calls) - 1),
+          f"{name}: K1 launches of the timed calls {timed}")
+    out.update(
+        k1_per_call=launches,
+        k1_launches=per_call["image"] * len(img_calls)
+        + per_call["text"] * len(txt_calls),
+        image_size=size, image_call_ms=img_ms, text_call_ms=txt_ms,
+        images_per_s=TOWER_IMAGE_BATCH / img_ms * 1e3,
+        captions_per_s=TOWER_TEXT_BATCH / txt_ms * 1e3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase_s=time.perf_counter() - t0)
+    del model, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tower_trainer(K, name: str, data: str, workers: int, logs: str
+                   ) -> dict:
+    """18(c): the trainer at full width on a tower config, plain CLIP in
+    bfloat16 (amp) on phase 12's shards: an epoch of TRAINER_STEPS steps
+    with val and COCO retrieval evals and a checkpoint, then --resume
+    latest for a second; the exact K1/K2 launches of every step."""
+    from cosmos_tpu_torch.training import main as trainer
+
+    per_call = tower_call_launches(name)
+    # the student's image and caption calls with a gradient, once a step
+    want = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0),
+            "K1": per_call["image"] + per_call["text"],
+            "K2": per_call["image"] + per_call["text"]}
+    argv = _drop_flags(_trainer_argv(data, logs, workers),
+                       values=("--model", "--local-crops-number", "--name"),
+                       switches=("--cosmos", "--output-all",
+                                 "--attentional-pool"))
+    argv += ["--model", name, "--local-crops-number", "0", "--name", name]
+    record = {"steps": [], "evals": [], "profiles": {}}
+    zero_launches(K)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _instrumented_trainer(K, record, profiled=()):
+        run1 = trainer.main(argv + ["--epochs", "1"])
+        run2 = trainer.main(argv + ["--epochs", "2", "--resume", "latest"])
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(K)
+    epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
+    check([s["epoch"] for s in epochs] == [0, 1],
+          f"{name}: epochs run {[s['epoch'] for s in epochs]}")
+    losses = [line["loss"] for s in epochs for line in s["logged"]]
+    check(len(losses) == 2 * TRAINER_STEPS and all(np.isfinite(losses)),
+          f"{name}: a finite loss at every step: {losses}")
+    check(len(record["steps"]) == 2 * TRAINER_STEPS, f"{name}: steps")
+    for i, got in enumerate(record["steps"]):
+        check(got == want, f"{name} step {i}: launches {got}, expected "
+              f"{want}")
+    check(len(record["evals"]) == 2, f"{name}: one eval an epoch")
+    for got in record["evals"]:
+        check(got["K1"] > 0 and all(got[k] == 0 for k in got if k != "K1"),
+              f"{name}: an eval launches K1 only: {got}")
+    for prefix in ("", "ema_"):
+        for key in ("clip_val_loss", "coco_image_to_text_R@1",
+                    "coco_text_to_image_R@10"):
+            v = run2.get(prefix + key)
+            check(v is not None and np.isfinite(v), f"{prefix}{key}: {v}")
+    step_ms = [ms for s in epochs for ms in s["step_ms"][1:]]
+    out = dict(launches=launches, launches_per_step=want,
+               eval_launches=record["evals"], losses=losses,
+               step_ms=step_ms, step_ms_mean=float(np.mean(step_ms)),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               eval_s=[s["eval_s"] for s in epochs], wall_s=wall_s,
+               metrics={k: v for k, v in run2.items()
+                        if isinstance(v, (int, float))})
+    print(f"[towers] trainer {name}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; ms per step (CUDA "
+          f"events, steps 2+ of each epoch) {out['step_ms_mean']:.3f}; "
+          f"peak memory {out['peak_mem_gb']:.2f} GB; K1/K2 per step "
+          f"{want['K1']}/{want['K2']}; evals "
+          + ", ".join(f"{s:.2f} s" for s in out["eval_s"])
+          + f"; wall {wall_s:.1f} s")
+    shutil.rmtree(f"{logs}/{name}")
+    return out
+
+
+def _convnext_step(K) -> dict:
+    """18(c): one plain-CLIP step of convnext_base_w through
+    make_train_step at full width, batch 64, bfloat16: its text tower is
+    D 640 with 10 heads, K1 and K2 at a head group of 2."""
+    from cosmos_tpu_torch import (create_model, create_optimizer,
+                                  create_train_state, make_train_step)
+    from cosmos_tpu_torch.ops import fused_attention as fa
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import TrainStepConfig
+
+    check(fa.supported(10, 640, 77, 2), "K1's gate refuses D 640 / H 10")
+    b = TRAINER_BATCH
+    model = create_model("convnext_base_w", "amp", device="cuda",
+                         seed=TOWER_SEED).train()
+    lr = const_lr(1e-4, 0, 10)
+    opt = create_optimizer(model, lr)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, TrainStepConfig(
+        cosmos=False, lr_schedule=lr, input_dtype=torch.bfloat16))
+    rng = np.random.default_rng(TOWER_SEED)
+    batch = {"global_images": torch.from_numpy(rng.integers(
+        0, 256, (2, b, 256, 256, 3), np.uint8)).cuda(),
+        "texts": torch.from_numpy(_captions(2 * b, 77, seed=TOWER_SEED)
+                                  .reshape(2, b, 77)).cuda()}
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(K)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = step(state, batch)
+    end.record()
+    end.synchronize()
+    launches = read_launches(K)
+    want = {**dict.fromkeys(launches, 0), "K1": 12, "K2": 12}
+    check(launches == want, f"convnext_base_w step: launches {launches}, "
+          f"expected {want}")
+    loss = float(metrics["loss"])
+    check(np.isfinite(loss), f"convnext_base_w step loss {loss}")
+    out = dict(launches=launches, loss=loss,
+               step_ms=start.elapsed_time(end),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[towers] convnext_base_w make_train_step: loss {loss:.5f}, "
+          f"first step {out['step_ms']:.1f} ms, peak memory "
+          f"{out['peak_mem_gb']:.2f} GB, launches {launches}")
+    del model, state, opt, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_towers(K, data: str, workers: int, tmp: str) -> dict:
+    """Phase 18: the timm-family towers and ModifiedResNet at full width,
+    random weights from seeds: (a) serving and (b) card against CPU for the
+    seven shipped tower configs (and RN50 for (b)), K1/K2 held to their
+    plain versions at the new text geometries, (c) the trainer on
+    EVA02-B-16 and MobileCLIP-B and one convnext_base_w step."""
+    from cosmos_tpu_torch.models import config as pconfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    path = Path(tmp) / f"{RN50_NAME}.json"
+    path.write_text(json.dumps(RN50_CONFIG))
+    pconfig.add_model_config(path)
+    for name, want in (("EVA02-B-16", (0, 12)), ("EVA02-L-14", (0, 12)),
+                       ("convnext_base_w", (0, 12)),
+                       ("convnext_large_d", (0, 16)),
+                       ("MobileCLIP-S1", (0, 12)), ("MobileCLIP-S2", (0, 12)),
+                       ("MobileCLIP-B", (12, 12))):
+        got = tower_call_launches(name)
+        check((got["image"], got["text"]) == want,
+              f"{name}: K1 per call {got}, expected {want}")
+    gen = torch.Generator(device="cuda").manual_seed(TOWER_SEED)
+    k1_rows = [kernel_row(K.fa, label, b, l, d3, heads, causal,
+                          torch.bfloat16, gen)
+               for label, b, l, d3, heads, causal in TOWER_K1_GEOMETRIES]
+    k2_rows = [kernel_bwd_row(K.fa, label, b, l, d3, heads, causal,
+                              torch.bfloat16, gen)
+               for label, b, l, d3, heads, causal in TOWER_K2_GEOMETRIES]
+    serving = {name: _tower_serving(K, name)
+               for name in TOWER_CONFIGS + (RN50_NAME,)}
+    for name, r in serving.items():
+        line = (f"[towers] {name}: card vs CPU max abs err image "
+                f"{r['card_vs_cpu']['image']:.3g} text "
+                f"{r['card_vs_cpu']['text']:.3g} (tolerance {r['tol']})")
+        if "images_per_s" in r:
+            line += (f"; {r['images_per_s']:.1f} images/s (batch "
+                     f"{TOWER_IMAGE_BATCH}, {r['image_size']} px), "
+                     f"{r['captions_per_s']:.1f} captions/s (batch "
+                     f"{TOWER_TEXT_BATCH}, L 77), peak "
+                     f"{r['peak_mem_gb']:.2f} GB, K1 per call image "
+                     f"{r['k1_per_call']['image']} text "
+                     f"{r['k1_per_call']['text']}")
+        print(line + f"; {r['phase_s']:.1f} s")
+    trainer = {name: _tower_trainer(K, name, data, workers, f"{tmp}/logs")
+               for name in TOWER_TRAINER_MODELS}
+    step = _convnext_step(K)
+    out = dict(
+        k1_rows=k1_rows, k2_rows=k2_rows, serving=serving, trainer=trainer,
+        convnext_step=step,
+        k1_launches={
+            "towers serving": sum(r.get("k1_launches", 0)
+                                  for r in serving.values()),
+            "towers trainer": sum(t["launches"]["K1"]
+                                  for t in trainer.values()),
+            "towers convnext step": step["launches"]["K1"]},
+        k2_launches={
+            "towers trainer": sum(t["launches"]["K2"]
+                                  for t in trainer.values()),
+            "towers convnext step": step["launches"]["K2"]},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"[towers] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -3343,6 +3684,8 @@ def main() -> int:
             segmentation = phase_segmentation(K, ckpt)
         options = phase_trainer_options(K, card, trainer, work)
         data_parallel = phase_data_parallel(K, trainer["data_dir"], work)
+        towers = phase_towers(K, trainer["data_dir"], trainer["workers"],
+                              work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = phase_last_flags(K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -3381,7 +3724,7 @@ def main() -> int:
             r["launches"]["K1"] for r in train_ln.values())
         + trainer["launches"]["K1"] + classification["launches"]["K1"]
         + seg_k1 + options["launches"]["K1"] + dp_k1
-        + sum(last_k1.values()),
+        + sum(last_k1.values()) + sum(towers["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -3391,7 +3734,8 @@ def main() -> int:
                                  classification["launches"]["K1"],
                              "segmentation": seg_k1,
                              "trainer options": options["launches"]["K1"],
-                             "data parallel": dp_k1, **last_k1},
+                             "data parallel": dp_k1, **last_k1,
+                             **towers["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
@@ -3402,7 +3746,7 @@ def main() -> int:
             r["launches"]["K2"] for r in train_ln.values())
         + trainer["launches"]["K2"] + options["launches"]["K2"]
         + data_parallel["world1"]["launches"]["K2"]
-        + last["launches"]["K2"],
+        + last["launches"]["K2"] + sum(towers["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -3410,7 +3754,8 @@ def main() -> int:
                              "trainer options": options["launches"]["K2"],
                              "data parallel":
                                  data_parallel["world1"]["launches"]["K2"],
-                             "last flags trainer": last["launches"]["K2"]},
+                             "last flags trainer": last["launches"]["K2"],
+                             **towers["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -3450,6 +3795,7 @@ def main() -> int:
                   trainer=trainer, classification=classification,
                   segmentation=segmentation, trainer_options=options,
                   data_parallel=data_parallel, last_flags=last,
+                  towers=towers,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -9,8 +9,9 @@ run on the card unless the caller passes ``device="cpu"``.  Ported: the
 serving path (``create_model``, the encoders), the training step in the
 COSMOS, plain CLIP, SigLIP and distillation modes with accumulation, remat
 and LiT locking (``create_optimizer``, ``create_train_state``,
-``make_train_step``, ``COSMOSLoss``), the host data pipeline (``data/``) and the trainer
-(``python -m cosmos_tpu_torch.training.main``).
+``make_train_step``, ``COSMOSLoss``), the host data pipeline (``data/``), the trainer
+(``python -m cosmos_tpu_torch.training.main``) and the timm-family and
+ModifiedResNet vision towers with their configs.
 
 The names below are imported on first use, so that the data loader's worker
 processes, which import ``cosmos_tpu_torch.data``, never import torch.

@@ -77,6 +77,30 @@ def correlative_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(weights.to(v.dtype), v)
 
 
+def causal_mask(length: int, device) -> torch.Tensor:
+    """Additive [L, L] mask: -1e30 above the diagonal."""
+    above = torch.ones(length, length, dtype=torch.bool,
+                       device=device).triu(1)
+    return torch.zeros(length, length, device=device).masked_fill(above,
+                                                                  -1e30)
+
+
+def packed_self_attention(qkv: torch.Tensor, num_heads: int,
+                          causal: bool = False,
+                          use_flash: Optional[bool] = None) -> torch.Tensor:
+    """Self-attention of a packed ``[B, L, 3D]`` projection (thirds q|k|v)
+    -> ``[B, L, D]``, routed as ``MultiheadAttention`` routes it: K1 where
+    ``use_flash`` is not False and the gate admits the geometry, else the
+    plain path."""
+    d = qkv.shape[-1] // 3
+    if use_flash is not False and supported(num_heads, d, qkv.shape[1],
+                                            qkv.dtype.itemsize):
+        return fused_attention_qkv(qkv, num_heads, causal)
+    mask = causal_mask(qkv.shape[1], qkv.device) if causal else None
+    q, k, v = (_split_heads(t, num_heads) for t in qkv.split(d, dim=-1))
+    return _merge_heads(dot_product_attention(q, k, v, mask=mask))
+
+
 class MultiheadAttention(nn.Module):
     """Packed-QKV multi-head attention (self or cross)."""
 
@@ -124,21 +148,14 @@ class MultiheadAttention(nn.Module):
         elif kv is None:
             qkv = F.linear(xc, self.in_proj_weight.to(self.dtype),
                            self.in_proj_bias.to(self.dtype))
-        if (self.use_flash is not False and kv is None and mask is None
-                and not csa and not self.add_zero_attn
-                and supported(self.num_heads, d, x.shape[1],
-                              xc.dtype.itemsize)):
+        if kv is None and mask is None and not csa and not self.add_zero_attn:
             # packed path: the kernel reads every head by stride from the
             # row-major [B, L, 3D] projection output
-            return self.out_proj(fused_attention_qkv(qkv, self.num_heads,
-                                                     causal))
+            return self.out_proj(packed_self_attention(
+                qkv, self.num_heads, causal, self.use_flash))
 
         if causal and mask is None:
-            l_ = x.shape[1]
-            above = torch.ones(l_, l_, dtype=torch.bool,
-                               device=x.device).triu(1)
-            mask = torch.zeros(l_, l_, device=x.device).masked_fill(
-                above, -1e30)
+            mask = causal_mask(x.shape[1], x.device)
         if kv is None:
             q, k, v = qkv.split(d, dim=-1)
         else:

@@ -13,6 +13,12 @@ and the MLP (K6); ``remat`` recomputes each block in the backward
 ``init_logit_bias`` (SigLIP) has ``logit_bias``; one with
 ``vision_cfg.patch_dropout > 0`` drops patch tokens in the forwards that
 pass a ``patch_drop`` generator (the student's training forwards).
+
+The vision tower is the native ViT, a timm-family tower (``timm_model_name``:
+the timm ViT, EVA02, ConvNeXt or FastViT/MCi, ``models/timm_model.py``) or
+ModifiedResNet (list-valued ``layers``), dispatched as the JAX package
+dispatches them.  The last two take plain CLIP/SigLIP only: the COSMOS
+heads need the native ViT's cross-attention pooler.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from torch import nn
 from .attention import AttentionalCrossPooler
 from .config import CLIPCfg
 from .layers import Linear, get_act_fn, l2_normalize
+from .modified_resnet import ModifiedResNet
 from .text import add_text_tower, encode_tokens, init_text_tower
+from .timm_model import TimmModel
 from .vit import VisionTransformer
 
 
@@ -43,17 +51,8 @@ class CLIP(nn.Module):
                  use_flash: Optional[bool] = None):
         super().__init__()
         v, t = cfg.vision_cfg, cfg.text_cfg
-        if (v.timm_model_name or isinstance(v.layers, (tuple, list))
-                or cfg.multimodal_cfg is not None):
-            raise ValueError(
-                "the port builds native-ViT CLIP configs only (no timm, "
-                "ModifiedResNet or CoCa towers)")
-        if (v.pool_type != "tok" or not v.class_token or v.no_proj
-                or v.patch_bias or v.final_ln_after_pool
-                or v.pos_embed_type != "learnable"):
-            raise ValueError(
-                "the vision tower takes the CLS-token, 'tok'-pooled, "
-                "learned-position OpenCLIP ViT only")
+        if cfg.multimodal_cfg is not None:
+            raise ValueError("the port builds CLIP configs only (no CoCa)")
         self.cfg = cfg
         self.cosmos = cosmos
         self.dtype = dtype
@@ -66,14 +65,47 @@ class CLIP(nn.Module):
             act = get_act_fn("quick_gelu")
         else:
             act = get_act_fn("gelu_tanh" if act_approx else "gelu")
-        self.visual = VisionTransformer(
-            image_size=v.image_size, patch_size=v.patch_size, width=v.width,
-            layers=v.layers, num_heads=v.heads, mlp_ratio=v.mlp_ratio,
-            output_dim=cfg.embed_dim, ls_init_value=v.ls_init_value,
-            no_ln_pre=v.no_ln_pre, cross_pool=cross_pool,
-            attn_pooler_heads=v.attn_pooler_heads,
-            add_zero_attn=v.add_zero_attn, act_fn=act,
-            patch_dropout=v.patch_dropout, **blocks)
+        token_width = v.width
+        if v.timm_model_name:
+            # the tower dispatch of cosmos_tpu/models/clip.py:78-125
+            if cosmos or v.attentional_pool or v.output_all:
+                raise ValueError(
+                    "timm vision towers support plain CLIP/SigLIP training "
+                    "and inference only; --cosmos/--output-all/"
+                    "--attentional-pool need the native ViT tower")
+            self.visual = TimmModel(
+                v.timm_model_name, cfg.embed_dim, image_size=v.image_size,
+                pool=v.timm_pool, proj=v.timm_proj,
+                proj_bias=v.timm_proj_bias, drop=v.timm_drop,
+                drop_path=v.timm_drop_path, dtype=dtype, use_flash=use_flash,
+                remat=remat, remat_policy=remat_policy)
+        elif isinstance(v.layers, (tuple, list)):
+            if cross_pool:
+                # the JAX package's COSMOS forward asserts the tower's
+                # cross-attention pooler, which ModifiedResNet has not
+                raise ValueError(
+                    "the COSMOS cross-modal heads need the native ViT "
+                    "tower's cross-attention pooler; ModifiedResNet has none")
+            self.visual = ModifiedResNet(
+                tuple(v.layers), cfg.embed_dim, heads=v.width * 32 // 64,
+                image_size=v.image_size, width=v.width, dtype=dtype)
+            token_width = self.visual.num_features
+        else:
+            if (v.pool_type not in ("tok", "avg") or not v.class_token
+                    or v.no_proj or v.patch_bias or v.final_ln_after_pool
+                    or v.pos_embed_type != "learnable"):
+                raise ValueError(
+                    "the native vision tower takes the CLS-token, 'tok'- or "
+                    "'avg'-pooled, learned-position OpenCLIP ViT only")
+            self.visual = VisionTransformer(
+                image_size=v.image_size, patch_size=v.patch_size,
+                width=v.width, layers=v.layers, num_heads=v.heads,
+                mlp_ratio=v.mlp_ratio, output_dim=cfg.embed_dim,
+                ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
+                pool_type=v.pool_type, cross_pool=cross_pool,
+                attn_pooler_heads=v.attn_pooler_heads,
+                add_zero_attn=v.add_zero_attn, act_fn=act,
+                patch_dropout=v.patch_dropout, **blocks)
         add_text_tower(self, t, cfg.embed_dim, act, **blocks)
         self.text_attn_cross_pool = (
             AttentionalCrossPooler(cfg.embed_dim, t.attn_pooler_heads,
@@ -85,7 +117,7 @@ class CLIP(nn.Module):
         self.logit_bias = (nn.Parameter(torch.empty(()))
                            if cfg.init_logit_bias is not None else None)
         if self.output_all:
-            self.image_token_mapping = Linear(v.width, cfg.embed_dim,
+            self.image_token_mapping = Linear(token_width, cfg.embed_dim,
                                               dtype=dtype)
             self.text_token_mapping = Linear(t.width, cfg.embed_dim,
                                              dtype=dtype)

@@ -21,6 +21,7 @@ class VisionCfg:
     image_size: int = 224
     patch_size: int = 16
     width: int = 768
+    # an int: the ViT's depth; a list of 4: ModifiedResNet's stage depths
     layers: Any = 12
     head_width: int = 64
     mlp_ratio: float = 4.0
@@ -38,7 +39,14 @@ class VisionCfg:
     class_token: bool = True
     patch_bias: bool = False
     no_proj: bool = False
+    # a timm-family trunk with a pool and projection head (models/
+    # timm_model.py); the other vision fields then do not apply
     timm_model_name: Optional[str] = None
+    timm_pool: str = "avg"            # 'avg' | 'token'
+    timm_proj: str = "linear"         # 'linear' | 'mlp' | 'none'
+    timm_proj_bias: bool = False
+    timm_drop: float = 0.0
+    timm_drop_path: float = 0.0       # stochastic depth (ConvNeXt trunks)
 
     @property
     def heads(self) -> int:
@@ -96,12 +104,31 @@ def _filter_fields(cls, d: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in d.items() if k in names}
 
 
+# configs registered at run time (``add_model_config``)
+_EXTRA_CONFIGS: Dict[str, Dict[str, Any]] = {}
+
+
 def list_models() -> list:
-    return sorted(p.stem for p in _CONFIG_DIR.glob("*.json"))
+    names = {p.stem for p in _CONFIG_DIR.glob("*.json")}
+    names.update(_EXTRA_CONFIGS)
+    return sorted(names)
+
+
+def add_model_config(path) -> None:
+    """Register model config JSON file(s) at run time: a ``<name>.json``
+    file or a directory of them."""
+    p = Path(path)
+    files = sorted(p.glob("*.json")) if p.is_dir() else [p]
+    for f in files:
+        with open(f) as fh:
+            _EXTRA_CONFIGS[f.stem] = json.load(fh)
 
 
 def get_model_config(name: str) -> Optional[Dict[str, Any]]:
-    path = _CONFIG_DIR / f"{name.replace('/', '-')}.json"
+    key = name.replace("/", "-")
+    if key in _EXTRA_CONFIGS:
+        return dict(_EXTRA_CONFIGS[key])
+    path = _CONFIG_DIR / f"{key}.json"
     if not path.exists():
         return None
     with open(path) as f:

@@ -69,10 +69,13 @@ def create_model(
     seed: int = 0,
     **overrides: Any,
 ) -> CLIP:
-    """Build a native-ViT CLIP config (e.g. ViT-B-16, ViT-B-32) with random
-    weights from ``seed``.  ``act_approx`` picks the tanh GELU,
-    ``text_bucket > 0`` the length-bucketed text tower of the COSMOS
-    training forward, ``fuse_ln`` the blocks' fused LayerNorm kernels (K5
+    """Build a CLIP config (the native ViT-B-16 and ViT-B-32, the timm-family
+    towers of EVA02-B-16, EVA02-L-14, convnext_base_w, convnext_large_d and
+    MobileCLIP-S1/S2/B, a ModifiedResNet config registered with
+    ``config.add_model_config``) with random weights from ``seed``; on
+    the ``meta`` device, shapes only, with no weights drawn.
+    ``act_approx`` picks the tanh GELU, ``text_bucket > 0`` the
+    length-bucketed text tower of the COSMOS training forward, ``fuse_ln`` the blocks' fused LayerNorm kernels (K5
     before the QKV projection, K6 for the MLP; the state dict is the same).
     ``grad_checkpointing`` recomputes every block in the backward, keeping
     what ``remat_policy`` names; ``use_flash`` is the attention tri-state
@@ -89,18 +92,21 @@ def create_model(
     if add_zero_attn:
         overrides["add_zero_attn"] = True
     cfg = build_clip_cfg(model_name, overrides)
-    model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
-                 act_approx=act_approx, text_bucket=text_bucket,
-                 fuse_ln=fuse_ln, remat=grad_checkpointing,
-                 remat_policy=remat_policy, use_flash=use_flash)
+    with torch.device("meta" if dev.type == "meta" else "cpu"):
+        model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
+                     act_approx=act_approx, text_bucket=text_bucket,
+                     fuse_ln=fuse_ln, remat=grad_checkpointing,
+                     remat_policy=remat_policy, use_flash=use_flash)
+    if dev.type == "meta":
+        return model.eval()
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 
 
 def get_tokenizer(model_name: str = ""):
     """The byte-BPE tokenizer at the config's context length (77 without a
-    config).  The native-ViT configs the port builds all use it; a config
-    that names an HF tokenizer is refused."""
+    config).  The configs the port builds all use it; a config that names
+    an HF tokenizer is refused."""
     from ..data.tokenizer import SimpleTokenizer
     from .config import get_model_config
 

@@ -22,6 +22,10 @@ def reinit_last_transformer_layer(model: nn.Module,
     (``visual.transformer``) and of the text tower (``transformer``), in
     that order, from ``generator`` (a CPU generator: the same draw on every
     device)."""
+    if not hasattr(model.visual, "transformer"):
+        # the JAX package's fails on these trees too (no visual/transformer)
+        raise ValueError("--init-last-layer needs the native ViT image "
+                         "tower; this tower has no transformer blocks")
     for tower in (model.visual.transformer, model.transformer):
         blocks = tower.resblocks
         block = blocks[-1]

@@ -93,6 +93,35 @@ class Linear(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
+class Conv2d(nn.Module):
+    """flax ``nn.Conv(dtype=...)`` over NHWC ``[B, H, W, C]`` activations:
+    weight and bias cast to the compute dtype, symmetric ``padding``.  The
+    weight keeps torch's ``[out, in / groups, kh, kw]`` layout; the input
+    is viewed as NCHW by a permute (channels-last strides, no copy)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                     self.weight.to(self.dtype), bias, self.stride,
+                     self.padding, 1, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x), the OpenAI CLIP activation."""
     return x * torch.sigmoid(1.702 * x)

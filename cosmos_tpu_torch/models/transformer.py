@@ -69,6 +69,17 @@ def remat_context_fn(policy: str):
                              functools.partial(_keep, saved))
 
 
+def run_block(block: nn.Module, remat: bool, context_fn, *args):
+    """``block(*args)``; under ``remat``, recomputed in the backward
+    (``checkpoint``, non-reentrant, with ``context_fn`` from
+    ``remat_context_fn``).  Without a gradient (the teacher, the evals)
+    nothing is recomputed."""
+    if remat and torch.is_grad_enabled():
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return block(*args)
+
+
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN attention and pre-LN MLP, each with an optional LayerScale."""
 
@@ -126,16 +137,8 @@ class Transformer(nn.Module):
         """``csa_last_block``: the last block runs SCLIP's correlative
         self-attention with no causal structure (the segmentor's path)."""
         last = len(self.resblocks) - 1
-        # without a gradient (the teacher, the evals) nothing is recomputed
-        remat = self.remat and torch.is_grad_enabled()
-        kw = {} if self._context_fn is None else {
-            "context_fn": self._context_fn}
         for i, block in enumerate(self.resblocks):
             csa = csa_last_block and i == last
-            blk_causal = causal and not csa
-            if remat:
-                x = checkpoint(block, x, blk_causal, csa, use_reentrant=False,
-                               **kw)
-            else:
-                x = block(x, causal=blk_causal, csa=csa)
+            x = run_block(block, self.remat, self._context_fn, x,
+                          causal and not csa, csa)
         return x

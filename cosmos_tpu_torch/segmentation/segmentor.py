@@ -91,7 +91,15 @@ class CLIPSegmentor:
         from ..training.zero_shot import (build_zero_shot_classifier,
                                           load_imagenet_metadata,
                                           supports_eot_truncation)
+        from ..models.vit import VisionTransformer
 
+        if not isinstance(model.visual, VisionTransformer):
+            # the JAX segmentor fails on these towers too: CSA raises in
+            # them, and they have no visual.proj
+            raise NotImplementedError(
+                "segmentation needs the CLIP ViT tower (CSA and the "
+                "token projection); this model's vision tower is "
+                f"{type(model.visual).__name__}")
         self.model = model
         self.device = next(model.parameters()).device
         self.query_words, query_idx = get_cls_idx(name_lines)

@@ -62,9 +62,10 @@ def wd_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True where weight decay applies: not for tensors
     of fewer than 2 dims, nor for names holding ``ln``, ``bias``,
     ``logit_scale`` or ``bn`` (the JAX package's rule, applied to the
-    port's OpenCLIP names)."""
-    return {name: p.ndim >= 2 and not any(t in name.lower()
-                                          for t in _NO_DECAY)
+    port's names).  A timm tower's ``cls_token`` ``[1, 1, W]`` counts as
+    the 1-D ``class_embedding`` it is in the JAX tree."""
+    return {name: p.ndim >= 2 and not name.endswith("cls_token")
+            and not any(t in name.lower() for t in _NO_DECAY)
             for name, p in model.named_parameters()}
 
 
@@ -89,13 +90,25 @@ def frozen_mask(model: nn.Module, lock_image: bool = False,
     text blocks, ``ln_final`` and ``text_projection`` trainable.
     ``text_freeze_layer_norm``: None (the default) freezes the locked text
     tower's LayerNorms, as the reference's native tower does; False leaves
-    every text LayerNorm (``ln_*``) trainable."""
-    v_layers = len(model.visual.transformer.resblocks)
+    every text LayerNorm (``ln_*``) trainable.
+
+    A timm-family or ModifiedResNet tower has no groups: ``lock_image``
+    freezes all of it, and ``unlocked_groups`` > 0 raises, as in JAX."""
+    vit = hasattr(model.visual, "transformer")
+    v_layers = len(model.visual.transformer.resblocks) if vit else 0
     t_layers = len(model.transformer.resblocks)
     paths = {key: path for key, path, _ in build_name_map(v_layers, t_layers)}
+    if not vit:
+        # every parameter of the tower sits under the tree's "visual"
+        paths.update({name: ("visual",) for name, _ in
+                      model.visual.named_parameters(prefix="visual")})
     unlocked_layers, text_unlocked = set(), set()
     proj_unlocked = lnpost_unlocked = stem_unlocked = False
     if lock_image and unlocked_groups > 0:
+        if not vit:
+            raise ValueError(
+                "--lock-image-unlocked-groups needs a ViT image tower "
+                "(per-group unlocking is undefined for this tower)")
         if unlocked_groups > v_layers + 2:
             raise ValueError(
                 f"--lock-image-unlocked-groups {unlocked_groups} exceeds the "
