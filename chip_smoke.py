@@ -178,6 +178,23 @@ from the sources in the checkout and then:
      and peak memory; and one convnext_base_w step through
      make_train_step at batch 64 (K1/K2 12/12).
 
+ 19. beyond data parallelism: (a) the COSMOS step under FSDP at world 1 on
+     NCCL (a process group of this one rank) against the plain step from
+     the same weights and batch, 3 steps at 2 layers in float32 (losses
+     within 1e-6 relative) and 7 at full width in bfloat16 at batch 64
+     (within phase 7's 1e-3), the exact K1/K2 launches of every step,
+     median ms a step and peak memory of both; then main([...]) with phase
+     16(a)'s flags and --fsdp, an epoch with the val eval and a gathered
+     checkpoint, and --resume latest into a second; (b)-(c) two ranks on
+     this card under gloo over CUDA tensors, after a probe of the
+     collectives gloo takes on them (a part whose collectives it refuses
+     is left out and printed with gloo's error): (b) on a (1, 2) mesh the
+     tensor-parallel encoders of ViT-B-16 COSMOS in float32 against the
+     unsharded ones (1e-4), K1 on every block, and one TP step against the
+     plain step (16(b)'s tolerances); (c) 2 steps on a 2-slice mesh
+     (--num-slices 2 --gather-scope global) against the flat world-2
+     step.
+
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
 and nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
@@ -1215,11 +1232,11 @@ def _timed_means(record):
 
     mean = distributed.all_reduce_mean_
 
-    def timed(tensors):
+    def timed(tensors, group=None):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        mean(tensors)
+        mean(tensors, group=group)
         end.record()
         record.append((start, end,
                        sum(t.numel() * t.element_size() for t in tensors)))
@@ -3648,6 +3665,625 @@ def phase_towers(K, data: str, workers: int, tmp: str) -> dict:
     return out
 
 
+# phase 19: beyond data parallelism.  (a) FSDP at world 1 on NCCL against
+# the plain step and the trainer under --fsdp; (b) tensor parallelism on a
+# (1, 2) mesh and (c) the multislice gather at world 2, both ranks on this
+# card under gloo over CUDA tensors
+BEYOND_SMALL_STEPS = 3       # 19(a)'s 2-layer float32 steps
+BEYOND_STEPS = (2, 5)        # 19(a)'s full-width warm-up and timed steps
+BEYOND_LOSS_RTOL = 1e-6      # 19(a) in float32
+BEYOND_BF16_ATOL = 1e-3      # 19(a) in bfloat16: phase 7's tolerance
+BEYOND_WORLD = 2
+BEYOND_TP_BATCH = 16         # rows of 19(b)'s step, whole on both ranks
+BEYOND_ENC = (16, 64)        # 19(b)'s images and captions
+BEYOND_ENC_TOL = 1e-4        # 19(b)'s features against the unsharded
+# gloo's collectives on CUDA tensors, probed and printed before 19(b)-(c):
+# DTensor's redistributions (tensor parallelism, through
+# _sync_functional_collectives) need the middle three, the losses' list
+# gather (multislice) all_gather, all_reduce and broadcast; SigLIP's ring
+# would need send/recv.  19(b)-(c) run whatever the probe prints, and fail
+# where a collective they call is refused.
+GLOO_PROBES = ("all_gather", "all_gather_into_tensor", "all_reduce",
+               "reduce_scatter_tensor", "broadcast", "send_recv")
+
+
+def _gspmd_setup(model, lr, dtype, mesh=None, fsdp=False, eps=1e-8):
+    """The recipe's step (phase 7's, without --local-loss, which the GSPMD
+    step refuses): make_train_step without ``mesh``, else
+    make_train_step_gspmd over FSDP (``fsdp``) or tensor parallelism."""
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
+    from cosmos_tpu_torch.training import train as tr
+
+    def make_opt(m):
+        return create_optimizer(m, lr, beta1=0.9, beta2=0.98, eps=eps,
+                                weight_decay=0.5)
+
+    cfg = tr.TrainStepConfig(cosmos=True, momentum_teacher=0.999,
+                             fix_momentum=True, lr_schedule=lr,
+                             input_dtype=dtype, log_grad_norm=True)
+    if mesh is None:
+        opt = make_opt(model)
+        return make_train_step(model, opt, cfg), create_train_state(model,
+                                                                    opt)
+    create = tr.create_train_state_fsdp if fsdp else \
+        tr.create_train_state_gspmd
+    state = create(model, make_opt, mesh)
+    return tr.make_train_step_gspmd(model, state.optimizer, mesh, cfg), state
+
+
+def _fsdp_run(K, fsdp: bool, layers: int, dtype, b: int, warmup: int,
+              timed: int) -> dict:
+    """``warmup`` + ``timed`` steps of the recipe from seed 0's weights on
+    one batch: plain, or under FSDP at world 1 on NCCL (a process group of
+    this one rank); the losses, K1/K2 launches a step, step ms (CUDA
+    events) and peak memory; under FSDP, the count of parameters FSDP
+    shards, after a check that it leaves out exactly the leaves JAX's rule
+    keeps replicated (``fsdp_placements``)."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.parallel import distributed
+    from cosmos_tpu_torch.parallel.fsdp import (fsdp_placements,
+                                                is_fsdp_managed)
+    from cosmos_tpu_torch.parallel.mesh import create_mesh
+    from cosmos_tpu_torch.training.scheduler import cosine_lr
+
+    if fsdp:
+        distributed.init_distributed(None, alone=True)
+    try:
+        model = create_model(
+            "ViT-B-16", "fp32" if dtype == torch.float32 else "bf16",
+            device="cuda", seed=0, vision_layers=layers, text_layers=layers,
+            **TRAIN_RECIPE)
+        lr = cosine_lr(5e-4, 2000, 100000)
+        replicated = {n for n, d in fsdp_placements(model, 1).items()
+                      if d is None}
+        step, state = _gspmd_setup(
+            model, lr, dtype, create_mesh(device_type="cuda") if fsdp
+            else None, fsdp)
+        managed = 0
+        if fsdp:
+            for which in (state.student, state.teacher):
+                named = dict(which.named_parameters())
+                kept = {n for n, p in named.items() if not is_fsdp_managed(p)}
+                check(kept == replicated and len(named) > len(kept),
+                      f"19(a): FSDP leaves {sorted(kept)} whole, JAX's rule "
+                      f"{sorted(replicated)}")
+                managed = len(named) - len(kept)
+        batch = _train_batch(b, seed=20, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, launches, ms = [], [], []
+        for i in range(warmup + timed):
+            zero_launches(K)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(state, batch)
+            end.record()
+            losses.append(m["loss"].item())
+            launches.append(read_launches(K))
+            if i >= warmup:
+                ms.append(start.elapsed_time(end))
+        out = dict(losses=losses, launches=launches, step_ms=ms,
+                   fsdp_managed=managed, step_ms_median=float(np.median(ms)),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, step, state, batch
+    finally:
+        if fsdp:
+            distributed.destroy()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _beyond_fsdp(K, data: str, tmp: str) -> dict:
+    """19(a): the FSDP step against the plain step at 2 layers in float32
+    and at full width in bfloat16, then main([...]) under --fsdp: an epoch
+    with the val eval and a checkpoint, and --resume latest into a
+    second."""
+    from cosmos_tpu_torch import create_model
+
+    res = {}
+    for tag, layers, dtype, b, warmup, timed, tol in (
+            ("2-layer float32", 2, torch.float32, 2, 0, BEYOND_SMALL_STEPS,
+             None),
+            ("full width bfloat16", 12, torch.bfloat16, 64, *BEYOND_STEPS,
+             BEYOND_BF16_ATOL)):
+        plain = _fsdp_run(K, False, layers, dtype, b, warmup, timed)
+        fsdp = _fsdp_run(K, True, layers, dtype, b, warmup, timed)
+        want = step_launches(None, layers, b)
+        want = {k: (v if k in ("K1", "K2") else 0) for k, v in want.items()}
+        for name, run in (("plain", plain), ("fsdp", fsdp)):
+            check(all(np.isfinite(run["losses"])), f"19(a) {tag} {name}: "
+                  f"losses {run['losses']}")
+            check(all(got == want for got in run["launches"]),
+                  f"19(a) {tag} {name}: launches {run['launches']}, "
+                  f"expected {want} a step")
+        errs = [abs(f - p) for f, p in zip(fsdp["losses"], plain["losses"])]
+        if tol is None:
+            worst = max(e / abs(p) for e, p in zip(errs, plain["losses"]))
+            check(worst <= BEYOND_LOSS_RTOL, f"19(a) {tag}: FSDP losses "
+                  f"{fsdp['losses']} vs plain {plain['losses']}")
+        else:
+            worst = max(errs)
+            check(worst <= tol, f"19(a) {tag}: FSDP losses "
+                  f"{fsdp['losses']} vs plain {plain['losses']}")
+        res[tag] = dict(plain=plain, fsdp=fsdp, loss_err=worst,
+                        launches_per_step=want)
+        print(f"[beyond] (a) {tag}, batch {b}: FSDP at world 1 (NCCL) "
+              f"losses {' '.join(f'{x:.7g}' for x in fsdp['losses'])}, "
+              f"plain {' '.join(f'{x:.7g}' for x in plain['losses'])} "
+              f"(max {'rel ' if tol is None else ''}err {worst:.3g}); "
+              f"{fsdp['fsdp_managed']} parameters sharded by FSDP; "
+              f"K1/K2 a step {want['K1']}/{want['K2']} both; median ms a "
+              f"step FSDP {fsdp['step_ms_median']:.3f}, plain "
+              f"{plain['step_ms_median']:.3f}; peak memory FSDP "
+              f"{fsdp['peak_mem_gb']:.2f} GB, plain "
+              f"{plain['peak_mem_gb']:.2f} GB")
+    logs = f"{tmp}/beyond_fsdp"
+    t0 = time.perf_counter()
+    rec = _dp_trainer_runs(K, _dp_trainer_argv(data, logs) + ["--fsdp"])
+    trainer_s = time.perf_counter() - t0
+    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+    want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
+    check(rec["epochs"] == [0, 1], f"19(a) trainer: epochs {rec['epochs']}")
+    check(len(rec["steps"]) == 2 * DP_STEPS and all(
+        got == want for got in rec["steps"]),
+        f"19(a) trainer: launches {rec['steps']}, expected {want} a step")
+    check(len(rec["evals"]) == 2 and all(e["K1"] > 0 for e in rec["evals"]),
+          f"19(a) trainer: evals {rec['evals']}")
+    check(all(np.isfinite(line["loss"]) for line in rec["logged"]),
+          "19(a) trainer: losses")
+    # the gathered checkpoint has the one-process layout, whole tensors
+    ckpt = torch.load(f"{logs}/trainer/checkpoints/epoch_2.pt",
+                      map_location="cpu", weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in create_model(
+        "ViT-B-16", device="meta", **TRAIN_RECIPE).state_dict().items()}
+    for which in ("student", "teacher"):
+        check({k: tuple(v.shape) for k, v in ckpt[which].items()} == shapes,
+              f"19(a) trainer: the checkpoint's {which} is not whole")
+    check(len(ckpt["optimizer"]["state"]) == len(shapes)
+          and ckpt["num_updates"] == 2 * DP_STEPS,
+          "19(a) trainer: the checkpoint's optimizer state")
+    shutil.rmtree(logs)
+    res["trainer"] = dict(
+        launches_per_step=want,
+        launches={k: v * len(rec["steps"]) for k, v in want.items()},
+        eval_k1=sum(e["K1"] for e in rec["evals"]),
+        losses=[line["loss"] for line in rec["logged"]],
+        step_ms=rec["step_ms"], wall_s=trainer_s)
+    print(f"[beyond] (a) main([...]) --fsdp at world 1: epochs 0-1 "
+          f"(resumed), losses {res['trainer']['losses']}, K1/K2 a step "
+          f"{want['K1']}/{want['K2']}, ms a step {rec['step_ms']}, the "
+          f"gathered epoch_2.pt whole; {trainer_s:.1f} s")
+    return res
+
+
+def _beyond_env(rank: int, port: int) -> None:
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(BEYOND_WORLD),
+                      LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _gloo_probe_rank(rank: int, spec: dict) -> None:
+    """One collective of GLOO_PROBES on a CUDA tensor: 'accepted' or
+    gloo's error.  A probe may abort its process (gloo raises some errors
+    from a transport thread), so each runs in processes of its own, with
+    their standard error kept in a file."""
+    import os
+
+    import torch.distributed as dist
+
+    from cosmos_tpu_torch.parallel import distributed
+
+    import faulthandler
+
+    err = os.open(f"{spec['out']}.{rank}.stderr",
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(err, 2)
+    faulthandler.enable()
+    _beyond_env(rank, spec["port"])
+    distributed.init_distributed(None, backend="gloo")
+    name, result = spec["probe"], "accepted"
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    try:
+        if name == "all_gather":
+            dist.all_gather([torch.empty_like(x)
+                             for _ in range(BEYOND_WORLD)], x)
+        elif name == "all_gather_into_tensor":
+            dist.all_gather_into_tensor(x.new_empty(4 * BEYOND_WORLD), x)
+        elif name == "all_reduce":
+            dist.all_reduce(x)
+        elif name == "reduce_scatter_tensor":
+            dist.reduce_scatter_tensor(x.new_empty(4 // BEYOND_WORLD), x)
+        elif name == "broadcast":
+            dist.broadcast(x, 0)
+        else:
+            ops = [dist.P2POp(dist.isend, x, 1 - rank),
+                   dist.P2POp(dist.irecv, torch.empty_like(x), 1 - rank)]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError) as e:
+        result = f"refused: {str(e).splitlines()[0][:200]}"
+    torch.save(result, f"{spec['out']}.{rank}")
+    distributed.destroy()
+
+
+def _gloo_probes(tmp: str) -> dict:
+    """Every probe of GLOO_PROBES at once, each in BEYOND_WORLD processes of
+    its own: name -> 'accepted', 'refused: <gloo's error>', 'aborted:
+    <the first line gloo wrote before the process died>' or 'timed out'."""
+    import os
+    import socket
+
+    import torch.multiprocessing as mp
+
+    running = {}
+    for name in GLOO_PROBES:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        spec = dict(probe=name, port=port, out=f"{tmp}/probe_{name}")
+        running[name] = (spec, mp.start_processes(
+            _gloo_probe_rank, args=(spec,), nprocs=BEYOND_WORLD, join=False,
+            start_method="spawn"))
+    deadline = time.monotonic() + 120
+    out = {}
+    for name, (spec, ctx) in running.items():
+        timed_out = True
+        try:
+            while time.monotonic() < deadline:
+                try:
+                    if ctx.join(timeout=1.0):
+                        timed_out = False
+                        break
+                except Exception:
+                    timed_out = False
+                    break
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(10)
+        results = [f"{spec['out']}.{r}" for r in range(BEYOND_WORLD)]
+        if all(os.path.exists(f) for f in results):
+            # a refusal on either rank is the probe's (the peer of a
+            # refusing rank sees its connection close)
+            got = [torch.load(f, weights_only=False) for f in results]
+            out[name] = next((g for g in got if g != "accepted"),
+                             "accepted")
+            continue
+        if timed_out:
+            out[name] = "timed out"
+            continue
+        lines = [line.strip() for r in range(BEYOND_WORLD)
+                 for line in Path(f"{spec['out']}.{r}.stderr").read_text(
+                     errors="replace").splitlines()
+                 if "gloo" in line.lower() or "what()" in line
+                 or "Fatal Python error" in line or " in wait" in line]
+        lines.sort(key=lambda line: ("what()" not in line,
+                                     "Fatal" not in line))
+        out[name] = "aborted: " + (lines[0][:240] if lines else
+                                   "no message (exit code "
+                                   f"{ctx.processes[0].exitcode})")
+    return out
+
+
+@contextlib.contextmanager
+def _sync_functional_collectives():
+    """DTensor's three functional collectives (all-gather, all-reduce,
+    reduce-scatter) as the synchronous c10d calls on the same group and
+    layout: gloo's functional collectives on CUDA tensors crash their
+    process in ``wait_tensor``, its synchronous calls take them."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT,
+           "avg": dist.ReduceOp.SUM}
+
+    def group_of(group, tag=""):
+        return dist.distributed_c10d._resolve_process_group(
+            funcol._resolve_group_name(group, tag))
+
+    def all_gather_tensor(self, gather_dim, group, tag=""):
+        g = group_of(group, tag)
+        n = dist.get_world_size(g)
+        x = self.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=g)
+        if gather_dim != 0:
+            out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+        return out
+
+    def all_reduce(self, reduceOp, group, tag=""):
+        g = group_of(group, tag)
+        out = self.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=ops[reduceOp.lower()], group=g)
+        return out / dist.get_world_size(g) if reduceOp.lower() == "avg" \
+            else out
+
+    def reduce_scatter_tensor(self, reduceOp, scatter_dim, group, tag=""):
+        g = group_of(group, tag)
+        n = dist.get_world_size(g)
+        x = self
+        if scatter_dim != 0:
+            x = torch.cat(torch.chunk(x, n, dim=scatter_dim))
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=ops[reduceOp.lower()], group=g)
+        return out / n if reduceOp.lower() == "avg" else out
+
+    saved = {name: getattr(funcol, name) for name in (
+        "all_gather_tensor", "all_reduce", "reduce_scatter_tensor")}
+    funcol.all_gather_tensor = all_gather_tensor
+    funcol.all_reduce = all_reduce
+    funcol.reduce_scatter_tensor = reduce_scatter_tensor
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(funcol, name, fn)
+
+
+def _beyond_rank(rank: int, spec: dict) -> None:
+    """19(b)-(c)'s rank: the TP encoders and one TP step on a (1, 2) mesh,
+    then the step on a 2-slice mesh and the flat world-2 step, each from
+    the same weights and batch."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.parallel import distributed
+    from cosmos_tpu_torch.parallel.mesh import (create_multislice_mesh,
+                                                create_tp_mesh)
+    from cosmos_tpu_torch.parallel.tp import make_tp_encoders
+    from cosmos_tpu_torch.training.scheduler import const_lr
+
+    import faulthandler
+
+    faulthandler.enable()
+    _beyond_env(rank, spec["port"])
+    K = _kernel_modules()
+    distributed.init_distributed(None, backend="gloo")
+    ref = torch.load(spec["ref"], map_location="cpu", weights_only=True)
+    out = {}
+    try:
+        with _sync_functional_collectives():
+            mesh = create_tp_mesh(1, BEYOND_WORLD, "cuda")
+            model = create_model("ViT-B-16", "fp32", device="cuda", seed=7,
+                                 **COSMOS).eval()
+            _, enc_image, enc_text = make_tp_encoders(model, mesh)
+            feats, k1 = {}, {}
+            for name, enc, x in (("image", enc_image, ref["images"]),
+                                 ("text", enc_text, ref["texts"])):
+                zero_launches(K)
+                feats[name] = enc(x.cuda()).cpu()
+                k1[name] = read_launches(K)["K1"]
+            out["encoders"] = dict(
+                k1=k1, errs={n: (feats[n] - ref[f"{n}_features"]).abs()
+                             .max().item() for n in feats},
+                sharded=sum(p.__class__.__name__ == "DTensor"
+                            for p in model.parameters()))
+            del model, enc_image, enc_text
+            model = _dp_model(False, "cuda")
+            step, state = _gspmd_setup(model, const_lr(DP_LR, 0, 100),
+                                       torch.float32, mesh, eps=DP_EPS)
+            batch = {k: v.cuda() for k, v in ref["batch"].items()}
+            zero_launches(K)
+            m = step(state, batch)
+            launches = read_launches(K)
+            whole = _gathered(state)     # rank 0's
+            out["tp_step"] = dict(
+                loss=m["loss"].item(), launches=launches,
+                errs={w: max((whole[w][k] - ref[w][k]).abs().max().item()
+                             for k in ref[w]) for w in ("student",
+                                                        "teacher")}
+                if rank == 0 else {})
+            del model, step, state, batch, whole
+            torch.cuda.empty_cache()
+        runs = {}
+        for name in ("flat", "multislice"):
+            model = _dp_model(False, "cuda")
+            mesh = (create_multislice_mesh(BEYOND_WORLD,
+                                           device_type="cuda")
+                    if name == "multislice" else None)
+            step, state = _dp_ms_setup(model, mesh)
+            batch = {k: v.cuda() for k, v in _dp_batch(rank).items()}
+            zero_launches(K)
+            metrics = [{k: float(v) for k, v in
+                        step(state, batch).items()} for _ in range(2)]
+            runs[name] = dict(metrics=metrics,
+                              launches=read_launches(K),
+                              digest=_state_digest(state),
+                              student={k: v.cpu() for k, v in
+                                       state.student.state_dict()
+                                       .items()})
+            del model, step, state, batch
+            torch.cuda.empty_cache()
+        out["multislice"] = dict(
+            flat=runs["flat"]["metrics"],
+            multislice=runs["multislice"]["metrics"],
+            launches=runs["multislice"]["launches"],
+            digests=[runs[n]["digest"] for n in ("flat", "multislice")],
+            student_err=max(
+                (runs["multislice"]["student"][k] - v).abs().max().item()
+                for k, v in runs["flat"]["student"].items()))
+    finally:
+        torch.save(out, f"{spec['out']}.{rank}")
+        distributed.destroy()
+
+
+def _gathered(state) -> dict:
+    from cosmos_tpu_torch.training.checkpoint import host_state
+
+    return host_state(state, optimizer=False)
+
+
+def _dp_ms_setup(model, mesh):
+    """16(b)'s COSMOS step (local loss), over ``mesh``."""
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import TrainStepConfig
+
+    lr = const_lr(DP_LR, 0, 100)
+    opt = create_optimizer(model, lr, beta1=0.9, beta2=0.98, eps=DP_EPS,
+                           weight_decay=0.5)
+    cfg = TrainStepConfig(momentum_teacher=0.999, fix_momentum=True,
+                          lr_schedule=lr, log_grad_norm=True, cosmos=True,
+                          local_loss=True, gather_scope="global")
+    return (make_train_step(model, opt, cfg, mesh=mesh),
+            create_train_state(model, opt))
+
+
+def _beyond_reference(path: str) -> float:
+    """19(b)'s references in this process: the unsharded encoders' features
+    on seeded inputs, and one step of the recipe (no local loss) from
+    16(b)'s weights on BEYOND_TP_BATCH rows; saved to ``path``."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.training.scheduler import const_lr
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(43)
+    images = torch.from_numpy(rng.standard_normal(
+        (BEYOND_ENC[0], 224, 224, 3)).astype(np.float32))
+    texts = torch.from_numpy(_train_texts(rng, (1, BEYOND_ENC[1], 77))[0])
+    model = create_model("ViT-B-16", "fp32", device="cuda", seed=7,
+                         **COSMOS).eval()
+    with torch.no_grad():
+        img = model.encode_image(images.cuda(), normalize=True)
+        txt = model.encode_text(texts.cuda(), normalize=True)
+    del model
+    model = _dp_model(False, "cuda")
+    step, state = _gspmd_setup(model, const_lr(DP_LR, 0, 100), torch.float32,
+                               eps=DP_EPS)
+    batch = {k: v[:, :BEYOND_TP_BATCH] for k, v in _dp_batch().items()}
+    m = step(state, {k: v.cuda() for k, v in batch.items()})
+    torch.save(dict(
+        images=images, texts=texts,
+        image_features=img["image_features"].cpu(),
+        text_features=txt["text_features"].cpu(), batch=batch,
+        loss=m["loss"].item(),
+        student={k: v.cpu() for k, v in state.student.state_dict().items()},
+        teacher={k: v.cpu() for k, v in state.teacher.state_dict().items()}),
+        path)
+    del model, step, state
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def _spawn_ranks(fn, spec: dict, timeout: float) -> list:
+    """``fn(rank, spec)`` in BEYOND_WORLD processes on this card; their
+    saved results in rank order."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        spec = dict(spec, port=sock.getsockname()[1])
+    ctx = mp.start_processes(fn, args=(spec,), nprocs=BEYOND_WORLD,
+                             join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"{fn.__name__}: the ranks outlasted {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    return [torch.load(f"{spec['out']}.{r}", weights_only=False)
+            for r in range(BEYOND_WORLD)]
+
+
+def _beyond_gloo(tmp: str) -> dict:
+    """19(b)-(c): print what gloo takes on CUDA tensors, then run both
+    parts on two gloo ranks."""
+    probe = _gloo_probes(tmp)
+    print("[beyond] gloo on CUDA tensors: " + "; ".join(
+        f"{k} {v}" for k, v in probe.items()))
+    ref = f"{tmp}/beyond_ref.pt"
+    ref_s = _beyond_reference(ref)
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_beyond_rank, dict(out=f"{tmp}/beyond", ref=ref),
+                         600)
+    for r, got in enumerate(ranks):
+        check({"encoders", "tp_step", "multislice"} <= got.keys(),
+              f"19(b)-(c) rank {r}: stopped after {sorted(got)}")
+    res = dict(probe=probe, ref_s=ref_s, ranks_s=time.perf_counter() - t0,
+               k1_launches=0, k2_launches=0)
+    enc = [r["encoders"] for r in ranks]
+    step = [r["tp_step"] for r in ranks]
+    want_step = step_launches(None, 12, BEYOND_TP_BATCH)
+    for r, (e, s) in enumerate(zip(enc, step)):
+        check(e["k1"] == {"image": 12, "text": 12}, f"19(b) rank {r}: "
+              f"K1 per TP encoder call {e['k1']}, expected 12 (every "
+              "block)")
+        check(max(e["errs"].values()) <= BEYOND_ENC_TOL, f"19(b) rank "
+              f"{r}: TP features off the unsharded {e['errs']}")
+        check(e["sharded"] > 0, f"19(b) rank {r}: no sharded weight")
+        check(all(s["launches"][k] == want_step[k] for k in ("K1", "K2")),
+              f"19(b) rank {r}: TP step launches {s['launches']}, "
+              f"expected {want_step}")
+        check(abs(s["loss"] - torch.load(ref)["loss"])
+              <= DP_LOSS_RTOL * abs(s["loss"]),
+              f"19(b) rank {r}: TP loss {s['loss']}")
+        for which, err in s["errs"].items():
+            check(err <= DP_WEIGHT_ATOL, f"19(b) rank {r}: updated "
+                  f"{which} max err {err} against the DP step")
+    res["tp"] = dict(encoders=enc, step=step)
+    res["k1_launches"] += sum(sum(e["k1"].values()) + s["launches"]["K1"]
+                              for e, s in zip(enc, step))
+    res["k2_launches"] += sum(s["launches"]["K2"] for s in step)
+    print(f"[beyond] (b) TP on a (1, 2) mesh, ViT-B-16 COSMOS float32: "
+          f"encoders ({BEYOND_ENC[0]} images, {BEYOND_ENC[1]} captions) "
+          f"max abs err {[e['errs'] for e in enc]}, K1 per call "
+          f"{enc[0]['k1']} on each rank; one step on {BEYOND_TP_BATCH} "
+          f"rows: loss {step[0]['loss']:.7f}, updated student/teacher "
+          f"err {[s['errs'] for s in step]}, K1/K2 "
+          f"{step[0]['launches']['K1']}/{step[0]['launches']['K2']}")
+    ms = [r["multislice"] for r in ranks]
+    for r, m in enumerate(ms):
+        for a, b in zip(m["multislice"], m["flat"]):
+            check(abs(a["loss"] - b["loss"]) <= DP_LOSS_RTOL
+                  * abs(b["loss"]), f"19(c) rank {r}: 2-slice loss "
+                  f"{a['loss']}, flat {b['loss']}")
+        check(m["student_err"] <= DP_WEIGHT_ATOL, f"19(c) rank {r}: "
+              f"student after 2 steps off the flat step's by "
+              f"{m['student_err']}")
+    check(ms[0]["digests"][1] == ms[1]["digests"][1],
+          "19(c): the ranks hold other bits after the 2-slice steps")
+    res["multislice"] = ms
+    res["k1_launches"] += sum(m["launches"]["K1"] for m in ms)
+    res["k2_launches"] += sum(m["launches"]["K2"] for m in ms)
+    print(f"[beyond] (c) --num-slices {BEYOND_WORLD} --gather-scope "
+          f"global at world {BEYOND_WORLD} ({DP_BATCH} rows a rank): "
+          f"losses {[x['loss'] for x in ms[0]['multislice']]}, flat "
+          f"{[x['loss'] for x in ms[0]['flat']]}, student max err "
+          f"{max(m['student_err'] for m in ms):.3g}; same bits on both "
+          f"ranks; the bits of the flat step: "
+          f"{ms[0]['digests'][0] == ms[0]['digests'][1]}")
+    return res
+
+
+def phase_beyond_dp(K, data: str, tmp: str) -> dict:
+    """Phase 19: FSDP, tensor parallelism and the multislice gather."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fsdp = _beyond_fsdp(K, data, tmp)
+    gloo = _beyond_gloo(tmp)
+    out = dict(fsdp=fsdp, gloo=gloo, phase_s=time.perf_counter() - t_phase)
+    print(f"[beyond] phase {out['phase_s']:.1f} s")
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -3686,6 +4322,7 @@ def main() -> int:
         data_parallel = phase_data_parallel(K, trainer["data_dir"], work)
         towers = phase_towers(K, trainer["data_dir"], trainer["workers"],
                               work)
+        beyond = phase_beyond_dp(K, trainer["data_dir"], work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = phase_last_flags(K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -3698,6 +4335,16 @@ def main() -> int:
                    n for case in last["traced_k1_launches"].values()
                    for n in case.values()),
                "profiler": sum(last["profiler_k1"].values())}
+
+    # phase 19: the FSDP steps and trainer (its steps and evals) in this
+    # process, the TP and multislice ranks' own counts
+    fsdp_runs = [r["fsdp"] for k, r in beyond["fsdp"].items()
+                 if k != "trainer"]
+    beyond_k = {k: sum(n[k] for r in fsdp_runs for n in r["launches"])
+                + beyond["fsdp"]["trainer"]["launches"][k]
+                + beyond["gloo"][f"{k.lower()}_launches"]
+                for k in ("K1", "K2")}
+    beyond_k["K1"] += beyond["fsdp"]["trainer"]["eval_k1"]
 
     def pick(table, geometry, **match):
         label, dtype = geometry
@@ -3724,7 +4371,8 @@ def main() -> int:
             r["launches"]["K1"] for r in train_ln.values())
         + trainer["launches"]["K1"] + classification["launches"]["K1"]
         + seg_k1 + options["launches"]["K1"] + dp_k1
-        + sum(last_k1.values()) + sum(towers["k1_launches"].values()),
+        + sum(last_k1.values()) + sum(towers["k1_launches"].values())
+        + beyond_k["K1"],
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -3735,7 +4383,8 @@ def main() -> int:
                              "segmentation": seg_k1,
                              "trainer options": options["launches"]["K1"],
                              "data parallel": dp_k1, **last_k1,
-                             **towers["k1_launches"]},
+                             **towers["k1_launches"],
+                             "beyond DP": beyond_k["K1"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
@@ -3746,7 +4395,8 @@ def main() -> int:
             r["launches"]["K2"] for r in train_ln.values())
         + trainer["launches"]["K2"] + options["launches"]["K2"]
         + data_parallel["world1"]["launches"]["K2"]
-        + last["launches"]["K2"] + sum(towers["k2_launches"].values()),
+        + last["launches"]["K2"] + sum(towers["k2_launches"].values())
+        + beyond_k["K2"],
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -3755,7 +4405,8 @@ def main() -> int:
                              "data parallel":
                                  data_parallel["world1"]["launches"]["K2"],
                              "last flags trainer": last["launches"]["K2"],
-                             **towers["k2_launches"]},
+                             **towers["k2_launches"],
+                             "beyond DP": beyond_k["K2"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -3795,7 +4446,7 @@ def main() -> int:
                   trainer=trainer, classification=classification,
                   segmentation=segmentation, trainer_options=options,
                   data_parallel=data_parallel, last_flags=last,
-                  towers=towers,
+                  towers=towers, beyond_dp=beyond,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -19,12 +19,21 @@ SigLIP passes the text features round the ring of ranks, each hop adding a
 block of negatives.  The loss of each rank is the one JAX's device
 computes; the step averages the gradients across ranks.  Without a process
 group nothing is gathered.
+
+``group`` names the process group of the data axis (the default group
+when None), as JAX's ``axis_name`` names the mesh axis.  On a multislice
+mesh ``slice_group`` is the group across slices, and ``group`` the ranks
+within this rank's slice: ``gather_scope='global'`` gathers within the
+slice, then the slice-major concatenation of the slices' blocks across
+them (the flat gather's order and loss); ``'slice'`` stops within the
+slice, so the negatives stay slice-local (the step's gradient mean still
+spans every rank).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -46,33 +55,36 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels[..., None])[..., 0].mean()
 
 
-def _all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``[V, B, D]`` block, concatenated in rank order along
-    the batch axis: ``[V, N*B, D]``."""
+def _all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``[V, B, D]`` block of ``group``, concatenated in rank
+    order along the batch axis: ``[V, N*B, D]``."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x)
+    parts = [torch.empty_like(x)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=1)
 
 
 class _GatherWithGrad(torch.autograd.Function):
     """``_all_gather`` whose backward is JAX's transpose of ``all_gather``:
-    the cotangents summed across ranks, this rank's block kept."""
+    the cotangents summed across the group's ranks, this rank's block
+    kept."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        ctx.block = (dist.get_rank() * x.shape[1], x.shape[1])
-        return _all_gather(x)
+    def forward(ctx, x: torch.Tensor, group=None) -> torch.Tensor:
+        ctx.group = group
+        ctx.block = (dist.get_rank(group) * x.shape[1], x.shape[1])
+        return _all_gather(x, group)
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         summed = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(summed)
+        dist.all_reduce(summed, group=ctx.group)
         # in the cotangent's own layout, so that the backward below takes
         # the kernels it takes without a process group
         summed = torch.empty_like(grad).copy_(summed)
         start, b = ctx.block
-        return summed[:, start:start + b]
+        return summed[:, start:start + b], None
 
 
 def _exchange(tensors: Sequence[torch.Tensor], send_to: Sequence[int],
@@ -114,26 +126,53 @@ class ClipLoss:
     # the exact gradient through the gather; False is the reference's
     # default, the no-grad gather with this rank's block spliced back
     gather_with_grad: bool = True
+    # the data axis's process group (None: the default group) and, on a
+    # multislice mesh, the group across slices (see the module's text)
+    group: Any = None
+    slice_group: Any = None
+    gather_scope: str = "global"
+
+    def __post_init__(self):
+        # JAX's checks, with its messages
+        if self.gather_scope not in ("global", "slice"):
+            raise ValueError(
+                f"gather_scope must be 'global' or 'slice', "
+                f"got {self.gather_scope!r}")
+        if self.slice_group is not None and not self.gather_with_grad:
+            raise ValueError(
+                "multislice (slice_axis) requires gather_with_grad=True")
+
+    @property
+    def _across_slices(self) -> bool:
+        return self.slice_group is not None and self.gather_scope == "global"
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[V, B, D] -> [V, N*B, D] across ranks."""
+        """[V, B, D] -> [V, N*B, D] across the group's ranks (and, in the
+        global scope of a multislice mesh, across slices)."""
         if self.gather_with_grad:
-            return _GatherWithGrad.apply(x)
+            gathered = _GatherWithGrad.apply(x, self.group)
+            if self._across_slices:
+                gathered = _GatherWithGrad.apply(gathered, self.slice_group)
+            return gathered
         with torch.no_grad():
-            gathered = _all_gather(x)
+            gathered = _all_gather(x, self.group)
         if not self.local_loss:
             # this rank's block keeps its gradient
-            start, b = dist.get_rank() * x.shape[1], x.shape[1]
+            start, b = dist.get_rank(self.group) * x.shape[1], x.shape[1]
             gathered = torch.cat([gathered[:, :start], x,
                                   gathered[:, start + b:]], dim=1)
         return gathered
 
     def _labels(self, n: int, device) -> torch.Tensor:
         """The positives of ``n`` query rows: offset by this rank's block
-        when the queries are local."""
+        (slice-major across slices) when the queries are local."""
         labels = torch.arange(n, device=device)
         if self.local_loss and _distributed():
-            labels = labels + n * dist.get_rank()
+            r = dist.get_rank(self.group)
+            if self._across_slices:
+                r += dist.get_world_size(self.group) * dist.get_rank(
+                    self.slice_group)
+            labels = labels + n * r
         return labels
 
     def __call__(self, image_features: torch.Tensor,
@@ -173,10 +212,16 @@ class ClipLoss:
 class COSMOSLoss:
     local_loss: bool = False
     gather_with_grad: bool = True
+    group: Any = None
+    slice_group: Any = None
+    gather_scope: str = "global"
 
     def __post_init__(self):
         self.clip_loss = ClipLoss(local_loss=self.local_loss,
-                                  gather_with_grad=self.gather_with_grad)
+                                  gather_with_grad=self.gather_with_grad,
+                                  group=self.group,
+                                  slice_group=self.slice_group,
+                                  gather_scope=self.gather_scope)
 
     def __call__(
         self,

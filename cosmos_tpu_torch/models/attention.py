@@ -16,6 +16,12 @@ logits in the compute dtype, softmax reduced in float32.  ``csa=True`` is
 SCLIP's correlative self-attention, ``softmax(q qᵀ s) + softmax(k kᵀ s)``
 applied to v (the weights of a row sum to 2), on the plain path only.
 
+Under tensor parallelism (``parallel/tp.py``) the packed projection's
+weight and bias are DTensors sharded on the model axis: the projection
+then yields a feature-sharded ``qkv`` DTensor, which K1 takes through its
+sharding rule (the columns all-gathered in front of the kernel); every
+other path works on the whole local tensors (``_whole``).
+
 ``use_flash`` is JAX's tri-state (``resolve_fused``): ``False`` sends every
 self-attention to the plain path (JAX's XLA path), so K1 and K2 never run;
 ``True`` and ``None`` (auto) take the kernel path wherever the gate admits
@@ -34,6 +40,27 @@ from torch import nn
 from ..ops.experimental.ln_matmul import ln_matmul
 from ..ops.fused_attention import fused_attention_qkv, supported
 from .layers import LayerNorm, Linear
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor-parallel DTensor as the whole local tensor (a
+    differentiable all-gather); any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _in_proj(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``x W^T + b`` in ``dtype``; with tensor-parallel (DTensor) weights
+    the replicated input enters as a DTensor and the output is sharded on
+    its features."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(weight, DTensor):
+        x = DTensor.from_local(x, weight.device_mesh, [Replicate()],
+                               run_check=False)
+    return F.linear(x, weight.to(dtype), bias.to(dtype))
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -96,6 +123,7 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int,
     if use_flash is not False and supported(num_heads, d, qkv.shape[1],
                                             qkv.dtype.itemsize):
         return fused_attention_qkv(qkv, num_heads, causal)
+    qkv = _whole(qkv)
     mask = causal_mask(qkv.shape[1], qkv.device) if causal else None
     q, k, v = (_split_heads(t, num_heads) for t in qkv.split(d, dim=-1))
     return _merge_heads(dot_product_attention(q, k, v, mask=mask))
@@ -146,8 +174,8 @@ class MultiheadAttention(nn.Module):
             qkv = ln_matmul(xc, ln[0], ln[1], self.in_proj_weight,
                             self.in_proj_bias)
         elif kv is None:
-            qkv = F.linear(xc, self.in_proj_weight.to(self.dtype),
-                           self.in_proj_bias.to(self.dtype))
+            qkv = _in_proj(xc, self.in_proj_weight, self.in_proj_bias,
+                           self.dtype)
         if kv is None and mask is None and not csa and not self.add_zero_attn:
             # packed path: the kernel reads every head by stride from the
             # row-major [B, L, 3D] projection output
@@ -157,10 +185,10 @@ class MultiheadAttention(nn.Module):
         if causal and mask is None:
             mask = causal_mask(x.shape[1], x.device)
         if kv is None:
-            q, k, v = qkv.split(d, dim=-1)
+            q, k, v = _whole(qkv).split(d, dim=-1)
         else:
-            w = self.in_proj_weight.to(self.dtype)
-            bias = self.in_proj_bias.to(self.dtype)
+            w = _whole(self.in_proj_weight).to(self.dtype)
+            bias = _whole(self.in_proj_bias).to(self.dtype)
             kvc = kv.to(self.dtype)
             q = F.linear(xc, w[:d], bias[:d])
             k = F.linear(kvc, w[d:2 * d], bias[d:2 * d])

@@ -28,6 +28,12 @@ autograd Function calls them, and the forward operator is called directly
 where no gradient is needed.  Selective checkpointing therefore sees K1:
 ``everything_saveable`` keeps its output, every other remat policy
 recomputes it, as JAX's policies treat the Pallas call.
+
+On DTensor inputs (tensor parallelism, ``parallel/tp.py``) both operators
+follow the JAX kernel's ``custom_partitioning`` contract
+(``_batch_only_sharding``): the batch may be sharded, the sequence and
+features are replicated, so a feature-sharded ``qkv`` is all-gathered in
+front of the kernel, which runs on the local tensor.
 """
 
 from __future__ import annotations
@@ -334,6 +340,33 @@ def _bwd_flops(qkv_shape, dout_shape, num_heads, causal, out_shape=None,
 
 _FWD = torch.ops.cosmos_tpu_torch.fused_attention_fwd.default
 _BWD = torch.ops.cosmos_tpu_torch.fused_attention_bwd.default
+
+
+def _batch_only_sharding(*tensors) -> list:
+    """The kernels' SPMD contract (the JAX package's
+    ``_batch_only_sharding`` and its two ``custom_partitioning`` wrappers),
+    as DTensor strategies of one mesh dim: the batch dim keeps a
+    ``Shard(0)`` the inputs have, the sequence and feature dims are
+    replicated, and the output (``out`` or ``dqkv``) takes the same
+    placement.  A ``qkv`` sharded on its features (a column-parallel
+    in-projection) is therefore all-gathered in front of the kernel, which
+    runs on the local tensor of whole heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    nones = [None, None]   # num_heads, causal
+    rules = [([Replicate()], [Replicate()] * len(tensors) + nones)]
+    if any(p.is_shard(0) for t in tensors for p in t.placements):
+        rules.append(([Shard(0)], [Shard(0)] * len(tensors) + nones))
+    return rules
+
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(_FWD)(
+        lambda qkv, num_heads, causal: _batch_only_sharding(qkv))
+    register_sharding(_BWD)(
+        lambda qkv, dout, num_heads, causal: _batch_only_sharding(qkv, dout))
 
 
 def _check_device(*tensors: torch.Tensor) -> None:

@@ -1,2 +1,3 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of
-``cosmos_tpu/parallel``; only the data axis is ported)."""
+"""Scaling over ``torch.distributed`` (counterpart of ``cosmos_tpu/parallel``):
+the process group (``distributed``), the meshes (``mesh``), tensor
+parallelism (``tp``) and FSDP (``fsdp``)."""

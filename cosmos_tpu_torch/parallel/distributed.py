@@ -65,20 +65,23 @@ def _world(coordinator_address: Optional[str], num_processes: Optional[int],
 def init_distributed(device=None, coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     backend: Optional[str] = None) -> Tuple[int, int]:
+                     backend: Optional[str] = None,
+                     alone: bool = False) -> Tuple[int, int]:
     """Join the world this process was started in; returns (rank, world
     size), (0, 1) without a world.  ``device`` is the trainer's: None (the
     card) or ``"cpu"``.  On the card the rank takes ``cuda:LOCAL_RANK`` (or
     its rank modulo the cards of the host) and NCCL, whose failure to
     start raises; on the CPU, gloo.  ``backend`` overrides the choice (gloo
     over CUDA tensors where NCCL cannot run, as for two ranks on one
-    card).  An existing process group is kept."""
+    card).  ``alone``: without a world, start a process group of this one
+    rank (on an in-memory store), for the meshes that need one.  An
+    existing process group is kept."""
     if is_initialized():
         return dist.get_rank(), dist.get_world_size()
     spec = _world(coordinator_address, num_processes, process_id)
-    if spec is None:
+    if spec is None and not alone:
         return 0, 1
-    init_method, rank_, world, local = spec
+    init_method, rank_, world, local = spec or (None, 0, 1, None)
     kind = "cuda" if device is None else torch.device(device).type
     backend = backend or ("nccl" if kind == "cuda" else "gloo")
     kwargs: Dict[str, Any] = {}
@@ -92,8 +95,11 @@ def init_distributed(device=None, coordinator_address: Optional[str] = None,
         if backend == "nccl":
             # binding the device starts NCCL now, so a failure raises here
             kwargs["device_id"] = torch.device("cuda", local)
-    dist.init_process_group(backend, init_method=init_method, rank=rank_,
-                            world_size=world, **kwargs)
+    if init_method is None:
+        kwargs["store"] = dist.HashStore()
+    else:
+        kwargs["init_method"] = init_method
+    dist.init_process_group(backend, rank=rank_, world_size=world, **kwargs)
     return rank_, world
 
 
@@ -110,14 +116,15 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
 
 @torch.no_grad()
 def _flat_collective(tensors: Sequence[torch.Tensor],
-                     collective: Callable[[torch.Tensor], None]) -> None:
+                     collective: Callable[[torch.Tensor], None],
+                     group=None) -> None:
     """``collective`` over one flat buffer per dtype, copied back into
     ``tensors`` in place.  Under NCCL the buffer lives on this rank's card
     whatever the tensors' devices."""
     groups: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         groups.setdefault(t.dtype, []).append(t)
-    nccl = dist.get_backend() == "nccl"
+    nccl = dist.get_backend(group) == "nccl"
     for group in groups.values():
         dev = group[0].device
         if nccl and dev.type != "cuda":
@@ -128,19 +135,19 @@ def _flat_collective(tensors: Sequence[torch.Tensor],
             t.copy_(part.view_as(t))
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average floating-point ``tensors`` across ranks in place (JAX's
-    ``pmean``: the sum, then divided by the world size), one collective per
-    dtype."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Average floating-point ``tensors`` across the ranks of ``group``
+    (the default group when None) in place (JAX's ``pmean``: the sum, then
+    divided by the group's size), one collective per dtype."""
     if not is_initialized() or not tensors:
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
 
     def mean(flat: torch.Tensor) -> None:
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(world)
 
-    _flat_collective(tensors, mean)
+    _flat_collective(tensors, mean, group)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:

@@ -41,6 +41,26 @@ from its weights, picks the checkpoint ``--resume latest`` names, runs the
 evals, writes the checkpoints, ``out.log`` and the reports, while the other
 ranks wait at a barrier.
 
+Beyond data parallelism, as in the JAX trainer (``parallel/mesh.py``):
+
+    torchrun --nproc-per-node 4 -m cosmos_tpu_torch.training.main \
+        --mesh-shape 2,2 [--fsdp] <flags>        # tensor parallel (+ FSDP)
+    torchrun --nproc-per-node 2 -m cosmos_tpu_torch.training.main \
+        --fsdp <flags>                            # ZeRO-3 over the ranks
+    torchrun --nproc-per-node 4 -m cosmos_tpu_torch.training.main \
+        --num-slices 2 --gather-scope global <flags>   # hierarchical gather
+
+``--mesh-shape dp,tp`` makes dp model groups of tp consecutive ranks; the
+ranks of a group read the same rows (the loader shards by the data index),
+so the global batch is dp times ``--batch-size``.  ``--fsdp`` and tensor
+parallelism run JAX's GSPMD step (``train.make_train_step_gspmd``);
+``--num-slices`` the data-parallel step with the losses' gather within the
+slice, then across slices.  Without a world, these flags run in a process
+group of one rank.  A sharded state is gathered whole for the evals and
+the checkpoints, with every rank taking part; rank 0 evaluates and writes
+while the others wait at the barrier, under the process group's timeout
+(NCCL's default, 10 minutes).
+
 ``main(argv, device=None)`` runs on the card and raises without CUDA;
 ``device="cpu"`` runs on the CPU (gloo under a world).  The module imports
 no torch at its top: the loader's worker processes re-import the
@@ -52,6 +72,7 @@ mode than the one asked for.
 
 from __future__ import annotations
 
+import copy
 import datetime
 import json
 import logging
@@ -65,7 +86,6 @@ logger = logging.getLogger(__name__)
 
 # ROADMAP's items, by title, for what the port refuses
 NEEDS_DOWNLOAD = 'queue 1, "Not queued": it needs a download'
-BEYOND_DP = 'queue 1, "Beyond DP"'
 OTHER_TOWERS = 'queue 1, "Other towers, configs and tools"'
 
 # (flag as given, whether the args set it, ROADMAP item): features the port
@@ -74,12 +94,6 @@ UNPORTED = (
     ("--huggingface-*", lambda a: (bool(a.huggingface_model_name)
                                    or a.huggingface_repo_name
                                    != "sankim2/cosmos"), NEEDS_DOWNLOAD),
-    ("--mesh-shape dp,tp with tp > 1",
-     lambda a: a.mesh_shape is not None and "," in a.mesh_shape
-     and int(a.mesh_shape.split(",")[1]) > 1, BEYOND_DP),
-    ("--fsdp", lambda a: a.fsdp, BEYOND_DP),
-    ("--num-slices", lambda a: a.num_slices != 1 or a.gather_scope != "global",
-     BEYOND_DP),
     ("CoCa models and --coca-*", lambda a: ("coca" in a.model.lower()
                                              or a.coca_caption_loss_weight != 2.0
                                              or a.coca_contrastive_loss_weight
@@ -130,16 +144,49 @@ def _pretrained_path(pretrained: str, flag: str = "--pretrained") -> str:
     return pretrained
 
 
-def check_mesh_shape(args, world: int) -> None:
-    """``--mesh-shape N`` (or ``N,1``) names the data axis: N must be the
-    number of ranks, one a card."""
-    if args.mesh_shape is None:
-        return
-    dp = int(args.mesh_shape.split(",")[0])
-    if dp != world:
+def check_mesh_shape(args, world: int) -> int:
+    """The mesh of ``--mesh-shape``, ``--num-slices`` and ``--fsdp`` against
+    the world (the JAX trainer's checks, with its messages, and the port's
+    one rank a card): returns the model axis's size, tp."""
+    tp, num_slices = 1, args.num_slices or 1
+    if args.mesh_shape and "," in args.mesh_shape:
+        dp_s, tp_s = args.mesh_shape.split(",")
+        tp = int(tp_s)
+        if num_slices > 1:
+            raise ValueError(
+                "--num-slices composes with the 1-D data mesh only; "
+                "drop the ',tp' --mesh-shape")
+        ranks = int(dp_s) * tp
+    else:
+        ranks = int(args.mesh_shape) if args.mesh_shape else world
+    if args.fsdp and num_slices > 1:
         raise ValueError(
-            f"--mesh-shape {args.mesh_shape}: the data axis is one rank a "
+            "--fsdp (GSPMD global-batch step) does not compose with "
+            "--num-slices (shard_map hierarchical-gather step) yet; "
+            "pick one")
+    if ranks != world:
+        raise ValueError(
+            f"--mesh-shape {args.mesh_shape}: the mesh is one rank a "
             f"card, and this world has {world} rank(s)")
+    if world % num_slices:
+        raise ValueError(
+            f"{world} devices do not factor into {num_slices} slices")
+    return tp
+
+
+def build_mesh(args, world: int, tp: int, device_type: str):
+    """The trainer's mesh (JAX's ``main.py`` mesh set-up), or None for the
+    data-parallel run over the default process group."""
+    from ..parallel import mesh as M
+
+    if tp > 1:
+        return M.create_tp_mesh(world // tp, tp, device_type)
+    if (args.num_slices or 1) > 1:
+        return M.create_multislice_mesh(args.num_slices,
+                                        device_type=device_type)
+    if args.fsdp:
+        return M.create_mesh(device_type=device_type)
+    return None
 
 
 def main(argv=None, *, device: Union[str, "torch.device", None] = None
@@ -151,12 +198,15 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     check_ported(args)
     # a process group the caller made is the caller's to destroy
     owned = not distributed.is_initialized()
+    beyond_dp = args.fsdp or (args.num_slices or 1) > 1 or (
+        args.mesh_shape is not None and "," in args.mesh_shape
+        and int(args.mesh_shape.split(",")[1]) > 1)
     rank, world = distributed.init_distributed(
         device, args.coordinator_address, args.num_processes,
-        args.process_id)
+        args.process_id, alone=beyond_dp)
     try:
-        check_mesh_shape(args, world)
-        return _main(args, device, rank, world)
+        tp = check_mesh_shape(args, world)
+        return _main(args, device, rank, world, tp)
     finally:
         if owned:
             distributed.destroy()
@@ -178,7 +228,8 @@ def _broadcast_state(state) -> None:
         (state.step, state.optimizer.num_updates))
 
 
-def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
+def _main(args, device, rank: int, world: int, tp: int = 1
+          ) -> Dict[str, Any]:
     from ..models.convert import load_checkpoint
     from ..models.factory import (create_model, get_tokenizer, resolve_device,
                                   resolve_dtype)
@@ -189,12 +240,22 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
     from .evaluate import evaluate
     from .logger import setup_logging
     from .scheduler import cosine_scheduler, get_lr_scheduler
+    from ..parallel.mesh import batch_sharding
     from .train import (TrainStepConfig, create_optimizer, create_train_state,
-                        freeze, frozen_mask, make_train_step)
+                        create_train_state_fsdp, create_train_state_gspmd,
+                        freeze, frozen_mask, make_train_step,
+                        make_train_step_gspmd)
 
     dev = resolve_device(device)
     random_seed(args.seed)
     is_main = rank == 0
+    mesh = build_mesh(args, world, tp, dev.type)
+    # the GSPMD step's sharded state: tensor parallelism, FSDP or both
+    sharded = tp > 1 or args.fsdp
+    # this rank's block of the global batch: the ranks of a model group
+    # read the same rows
+    data_index, data_count = (batch_sharding(mesh) if mesh is not None
+                              else (rank, world))
 
     # rank 0's name: the date in the default one differs between ranks
     args.name = distributed.broadcast_object(experiment_name(args))
@@ -242,8 +303,7 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         overrides["vision_image_size"] = args.force_image_size
     if args.force_quick_gelu:
         overrides["quick_gelu"] = True
-    model = create_model(
-        args.model,
+    model_kw = dict(
         precision=args.precision,
         cosmos=args.cosmos,
         output_all=args.output_all,
@@ -262,6 +322,7 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         device=dev,
         **overrides,
     )
+    model = create_model(args.model, **model_kw)
     pretrained = _pretrained_path(args.pretrained) if args.pretrained else None
     if pretrained:
         model.load_state_dict(load_checkpoint(pretrained), strict=True)
@@ -296,8 +357,8 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
     data = get_data(
         args,
         tokenizer,
-        process_index=rank,
-        process_count=world,
+        process_index=data_index,
+        process_count=data_count,
         image_size=model.cfg.vision_cfg.image_size,
         context_length=model.cfg.text_cfg.context_length,
     )
@@ -318,8 +379,6 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         if pretrained:
             # the reference loads student AND teacher from the checkpoint;
             # a bare state dict gives the same weights for both
-            import copy
-
             teacher = copy.deepcopy(model).requires_grad_(False)
             teacher.load_state_dict(load_checkpoint(pretrained, "teacher"),
                                     strict=True)
@@ -361,15 +420,18 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         freeze(model, frozen)
         logger.info(f"locked {sum(frozen.values())} of {len(frozen)} "
                     "parameter tensors")
-    optimizer = create_optimizer(
-        model,
-        lr_schedule,
-        beta1=args.beta1,
-        beta2=args.beta2,
-        eps=args.eps,
-        weight_decay=args.wd,
-        grad_clip_norm=args.grad_clip_norm,
-    )
+
+    def make_optimizer(m):
+        return create_optimizer(
+            m,
+            lr_schedule,
+            beta1=args.beta1,
+            beta2=args.beta2,
+            eps=args.eps,
+            weight_decay=args.wd,
+            grad_clip_norm=args.grad_clip_norm,
+        )
+
     momentum_schedule = cosine_scheduler(
         args.momentum_teacher, 1.0, 0, total_steps
     )
@@ -382,6 +444,7 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         seed=args.seed,
         local_loss=args.local_loss,
         gather_with_grad=args.gather_with_grad,
+        gather_scope=args.gather_scope,
         momentum_teacher=args.momentum_teacher,
         fix_momentum=args.fix_momentum,
         momentum_schedule=momentum_schedule,
@@ -393,7 +456,7 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
     )
     model.train()
     # the teacher starts as a copy of the (possibly pretrained) student
-    state = create_train_state(model, optimizer)
+    teacher = copy.deepcopy(model).requires_grad_(False)
     if args.init_last_layer:
         import torch
 
@@ -401,11 +464,23 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
 
         # after the teacher's copy, an independent draw for each
         reinit_last_transformer_layer(
-            state.student, torch.Generator().manual_seed(args.seed + 1))
+            model, torch.Generator().manual_seed(args.seed + 1))
         reinit_last_transformer_layer(
-            state.teacher, torch.Generator().manual_seed(args.seed + 2))
-    step_fn = make_train_step(model, optimizer, step_cfg,
-                              dist_model=dist_model)
+            teacher, torch.Generator().manual_seed(args.seed + 2))
+    if sharded:
+        # every rank cuts its shards from rank 0's whole weights
+        distributed.broadcast_([*model.state_dict().values(),
+                                *teacher.state_dict().values()])
+        create_state = (create_train_state_fsdp if args.fsdp
+                        else create_train_state_gspmd)
+        state = create_state(model, make_optimizer, mesh, teacher=teacher)
+        step_fn = make_train_step_gspmd(model, state.optimizer, mesh,
+                                        step_cfg, dist_model=dist_model)
+    else:
+        state = create_train_state(model, make_optimizer(model),
+                                   teacher=teacher)
+        step_fn = make_train_step(model, state.optimizer, step_cfg,
+                                  dist_model=dist_model, mesh=mesh)
 
     # --- resume ------------------------------------------------------------
     start_epoch = 0
@@ -421,8 +496,10 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
         # from that index
         start_epoch = restore_checkpoint(state, resume)
         logger.info(f"resumed from {resume} at epoch {start_epoch}")
-    # every rank starts from rank 0's state
-    _broadcast_state(state)
+    if not sharded:
+        # every rank starts from rank 0's state (a sharded state was cut
+        # from rank 0's weights, and each rank restores the same file)
+        _broadcast_state(state)
 
     # --- remote sync daemon (rank 0) -------------------------------------
     sync_proc = None
@@ -484,7 +561,8 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
             epoch_metrics, stats = train_one_epoch(
                 step_fn, state, loader_iter, steps_per_epoch,
                 epoch=epoch, args=args, device=dev, writer=writer,
-                wandb_run=wandb_run, global_batch=args.batch_size * world,
+                wandb_run=wandb_run,
+                global_batch=args.batch_size * data_count,
                 profiler=profiler,
             )
             all_metrics.update(epoch_metrics)
@@ -501,9 +579,17 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
             if eval_now:
                 # rank 0 evaluates while the others wait
                 t0 = time.perf_counter()
+                # a sharded state is gathered whole first, every rank
+                # taking part
+                student, teacher = (
+                    _unsharded(state, lambda: create_model(args.model,
+                                                           **model_kw),
+                               is_main)
+                    if sharded else (state.student, state.teacher))
                 if is_main:
-                    eval_metrics = evaluate(state.student, state.teacher,
+                    eval_metrics = evaluate(student, teacher,
                                             data, completed, args, tokenizer)
+                    del student, teacher
                     all_metrics.update(eval_metrics)
                     if writer is not None:
                         for k, v in eval_metrics.items():
@@ -516,8 +602,9 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
                 args.save_frequency and completed % args.save_frequency == 0
             )
             if save_now:
-                # every rank holds the same state: rank 0 writes it
-                if is_main:
+                # rank 0 writes; every rank joins the gather of a sharded
+                # state, while a replicated one is rank 0's already
+                if is_main or sharded:
                     save_checkpoint(
                         state,
                         args.checkpoint_path,
@@ -525,6 +612,7 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
                         name=args.name,
                         save_latest=args.save_most_recent,
                         delete_previous=args.delete_previous_checkpoint,
+                        write=is_main,
                     )
                 distributed.barrier()
     finally:
@@ -545,6 +633,23 @@ def _main(args, device, rank: int, world: int) -> Dict[str, Any]:
                            args.remote_sync_protocol):
             logger.error("final remote sync failed")
     return all_metrics
+
+
+def _unsharded(state, build: Callable, is_main: bool):
+    """(student, teacher) of a sharded ``state`` as whole models on rank 0,
+    (None, None) elsewhere; every rank takes part in the gather."""
+    from .checkpoint import host_state
+
+    whole = host_state(state, optimizer=False)
+    if not is_main:
+        return None, None
+    models = []
+    for which, live in (("student", state.student),
+                        ("teacher", state.teacher)):
+        m = build().train(live.training)
+        m.load_state_dict(whole[which], strict=True)
+        models.append(m.requires_grad_(which == "student"))
+    return tuple(models)
 
 
 class StepProfiler:

@@ -289,22 +289,24 @@ def parse_args(args=None):
              "step; 0 disables")
 
     add("--fsdp", action="store_true", default=False,
-        help="shard parameters, gradients, optimizer state and the EMA "
-             "teacher over the ranks (not ported yet: refused)")
+        help="FSDP/ZeRO-3 (parallel/fsdp.py): shard parameters, "
+             "gradients, Adam moments and the EMA teacher over the data "
+             "axis with FSDP2; composes with a 'dp,tp' --mesh-shape")
 
     add("--num-slices", type=int, default=1,
-        help="groups of ranks with a hierarchical contrastive gather, "
-             "within each group first (not ported yet: refused)")
+        help="multislice: factor the ranks into ('slice','data') with "
+             "this many slices (parallel/mesh.py); the contrastive gather "
+             "runs within each slice first, then across slices")
     add("--gather-scope", type=str, default="global",
         choices=["global", "slice"],
         help="with --num-slices: 'global' gathers negatives from every "
-             "rank, 'slice' within each group (not ported yet: refused)")
+             "rank, 'slice' keeps them within each slice")
 
     # ranks
     add("--mesh-shape", type=str, default=None,
         help="'N': the data axis, N ranks of one card each (the world "
-             "size); 'dp,tp' with tp > 1, tensor parallelism, is not "
-             "ported yet (refused)")
+             "size); 'dp,tp': dp groups of tp ranks, tensor parallelism "
+             "over each group (parallel/tp.py), dp * tp the world size")
     add("--coordinator-address", type=str, default=None)
     add("--num-processes", type=int, default=None)
     add("--process-id", type=int, default=None)

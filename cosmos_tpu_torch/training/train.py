@@ -30,6 +30,20 @@ a process group B is this rank's block of the global batch: the losses
 gather the features of every rank (``losses/contrastive.py``), and every
 rank ends the step with the same student, teacher and optimizer state.
 
+Beyond data parallelism (``make_train_step_gspmd``, JAX's GSPMD step, with
+``create_train_state_gspmd`` or ``create_train_state_fsdp``): the student
+and the teacher sharded over a mesh (``parallel/mesh.py``), tensor-parallel
+over its model axis (``parallel/tp.py``) or ZeRO-3 over its data axis
+(``parallel/fsdp.py``), or both.  Each model group holds one block of the
+global batch; the loss gathers the features over the data axis's group, so
+it is the global batch's, as JAX's GSPMD step computes it; FSDP's
+reduce-scatter averages the gradients it shards, and the step averages the
+others over the data axis; the EMA update runs on the local shards; the
+clipping norm and the grad-norm metric are the whole gradient's.  On a
+multislice mesh (``make_train_step`` with ``mesh``) the loss gathers within
+the slice and then across slices (``gather_scope``), and every mean spans
+all ranks.
+
 LiT locking (``frozen_mask``, ``freeze``) is the reference's: frozen
 parameters take no gradient (``requires_grad=False``) and are not in the
 optimizer, so clipping, the grad-norm metric, the optimizer's state and the
@@ -43,7 +57,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +67,9 @@ from ..losses.contrastive import (ClipLoss, COSMOSLoss, DistillClipLoss,
                                   SigLipLoss)
 from ..models.convert import build_name_map
 from ..parallel import distributed
+from ..parallel.fsdp import is_fsdp_managed
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SLICE_AXIS, axis_group,
+                             batch_sharding)
 
 LN100 = 4.605170185988092  # ln(100)
 _NO_DECAY = ("ln", "bias", "logit_scale", "bn")
@@ -154,14 +171,87 @@ def freeze(model: nn.Module, mask: Dict[str, bool]) -> None:
         p.requires_grad_(not mask[name])
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor, the tensor itself otherwise."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """The 2-norm of the whole of ``tensors``, sharded or not (optax's
+    ``global_norm`` of sharded leaves): a DTensor's local squares are summed
+    over the groups of the mesh dims it is sharded on, a replicated tensor
+    counts once."""
+    import torch.distributed as dist
+
+    plain, sharded = [], {}
+    for t in tensors:
+        sq = _local(t).float().pow(2).sum()
+        if not _is_dtensor(t):
+            plain.append(sq)
+            continue
+        dims = tuple(i for i, p in enumerate(t.placements) if p.is_shard())
+        key = (id(t.device_mesh), dims)
+        sharded.setdefault(key, (t.device_mesh, dims, []))[2].append(sq)
+    parts = plain
+    for mesh, dims, sqs in sharded.values():
+        s = torch.stack(sqs).sum()
+        for d in dims:
+            dist.all_reduce(s, group=mesh.get_group(d))
+        parts.append(s)
+    device = parts[0].device
+    return torch.stack([p.to(device) for p in parts]).sum().sqrt()
+
+
+def _clip_sharded_(params, max_norm: float) -> None:
+    """``clip_grad_norm_`` over the whole gradient of sharded ``params``:
+    the same coefficient, ``max_norm / (norm + 1e-6)`` capped at 1."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    coef = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
+    for g in grads:
+        local = _local(g)
+        local.mul_(coef.to(local.device))
+
+
+# the key of a sharded optimizer's param group that names the group it was
+# cut from (``_split_sharded``; ``checkpoint.host_state`` merges them back)
+WHOLE_GROUP = "whole_group"
+
+
+def _split_sharded(groups) -> list:
+    """Param groups of sharded parameters cut in two, their DTensors and
+    their tensors (AdamW's foreach kernels take one kind or the other), each
+    part keyed by ``WHOLE_GROUP``; a group with neither stays, empty."""
+    out = []
+    for i, g in enumerate(groups):
+        kinds = ([p for p in g["params"] if _is_dtensor(p) == kind]
+                 for kind in (True, False))
+        parts = [q for q in kinds if q] or [[]]
+        out += [dict(g, params=q, **{WHOLE_GROUP: i}) for q in parts]
+    return out
+
+
 class ScheduledAdamW(torch.optim.AdamW):
     """AdamW whose LR is ``lr_schedule(updates so far)`` at every step (0
     on the first update, the count optax's schedule sees), with optional
-    global-norm gradient clipping before the update."""
+    global-norm gradient clipping before the update.  Over sharded
+    parameters each group is cut into its DTensors and its tensors
+    (``_split_sharded``)."""
 
-    def __init__(self, params, lr_schedule: Callable[[int], float],
+    def __init__(self, params: Sequence[Dict[str, Any]],
+                 lr_schedule: Callable[[int], float],
                  grad_clip_norm: Optional[float] = None, **kwargs: Any):
-        super().__init__(params, lr=float(lr_schedule(0)), **kwargs)
+        groups = [dict(g, params=list(g["params"])) for g in params]
+        if any(_is_dtensor(p) for g in groups for p in g["params"]):
+            groups = _split_sharded(groups)
+        super().__init__(groups, lr=float(lr_schedule(0)), **kwargs)
         self.lr_schedule = lr_schedule
         self.grad_clip_norm = grad_clip_norm
         self.num_updates = 0
@@ -171,10 +261,13 @@ class ScheduledAdamW(torch.optim.AdamW):
         lr = float(self.lr_schedule(self.num_updates))
         for group in self.param_groups:
             group["lr"] = lr
+        params = [p for g in self.param_groups for p in g["params"]]
+        sharded = any(_is_dtensor(p) for p in params)
         if self.grad_clip_norm is not None:
-            torch.nn.utils.clip_grad_norm_(
-                [p for g in self.param_groups for p in g["params"]],
-                self.grad_clip_norm)
+            if sharded:
+                _clip_sharded_(params, self.grad_clip_norm)
+            else:
+                torch.nn.utils.clip_grad_norm_(params, self.grad_clip_norm)
         loss = super().step(closure)
         self.num_updates += 1
         return loss
@@ -213,6 +306,8 @@ class TrainStepConfig:
     local_loss: bool = False
     # through the features' all-gather across ranks (see ClipLoss)
     gather_with_grad: bool = True
+    # multislice: 'global' negatives across slices, or 'slice'-local
+    gather_scope: str = "global"
     momentum_teacher: float = 0.999
     fix_momentum: bool = True
     momentum_schedule: Optional[Callable[[int], float]] = None
@@ -239,13 +334,17 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
-def create_train_state(model: nn.Module,
-                       optimizer: torch.optim.Optimizer) -> TrainState:
-    """Student, its EMA teacher (a copy that takes no gradient) and the
-    optimizer."""
-    teacher = copy.deepcopy(model).requires_grad_(False)
-    return TrainState(step=0, student=model, teacher=teacher,
-                      optimizer=optimizer)
+def _teacher(model: nn.Module, teacher: Optional[nn.Module]) -> nn.Module:
+    return (copy.deepcopy(model) if teacher is None
+            else teacher).requires_grad_(False)
+
+
+def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       teacher: Optional[nn.Module] = None) -> TrainState:
+    """Student, its EMA teacher (``teacher``, or a copy of the student;
+    it takes no gradient) and the optimizer."""
+    return TrainState(step=0, student=model,
+                      teacher=_teacher(model, teacher), optimizer=optimizer)
 
 
 def _clamp_logit_scales(model: nn.Module) -> None:
@@ -261,32 +360,46 @@ def _views(x: torch.Tensor, v: int) -> torch.Tensor:
 
 
 def patch_drop_generator(seed: int, step: int, micro: Optional[int] = None,
-                         rank: Optional[int] = None) -> torch.Generator:
+                         rank=None) -> torch.Generator:
     """The CPU generator of the student's patch dropout at ``step`` on
     ``rank`` (and micro-batch ``micro`` of the exact accumulation): seeded
     from (seed, 17, step[, rank], micro), where 17 tags the stream apart
     from the other uses of the seed, as JAX folds its key (and the device's
-    index on the data axis).  ``rank`` None is a one-process run."""
-    key = (seed % 2 ** 63, 17, step,
-           *(() if rank is None else (rank,)),
+    index on the data axis).  ``rank`` None is a one-process run; a tuple
+    folds several indices (on a multislice mesh: the data index, then the
+    slice index, JAX's order)."""
+    ranks = () if rank is None else (
+        tuple(rank) if isinstance(rank, tuple) else (rank,))
+    key = (seed % 2 ** 63, 17, step, *ranks,
            0 if micro is None else micro + 1)
     state = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state))
 
 
+def _trainable(model: nn.Module):
+    return [p for p in model.parameters() if p.grad is not None]
+
+
 def _trainable_grads(model: nn.Module):
-    return [p.grad for p in model.parameters() if p.grad is not None]
+    return [p.grad for p in _trainable(model)]
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     cfg: TrainStepConfig,
-                    dist_model: Optional[nn.Module] = None
+                    dist_model: Optional[nn.Module] = None,
+                    mesh=None
                     ) -> Callable[[TrainState, Dict[str, Any]],
                                   Dict[str, Any]]:
     """Returns ``step(state, batch) -> metrics``, which updates the state's
     student, teacher and optimizer in place and advances ``state.step``.
     ``dist_model``: the frozen model of ``cfg.distill``, kept out of the
-    state (never updated, averaged or saved).
+    state (never updated, averaged or saved).  ``mesh`` (None: the default
+    process group as the data axis): a ('data',), ('slice', 'data') or
+    ('data', 'model') mesh of ``parallel/mesh.py``; the losses gather over
+    its data axis (and across slices), the step averages over the ranks
+    that hold other blocks of the batch, and the patch-dropout stream folds
+    in the data index, so the ranks of one model group drop the same
+    patches.
 
     Metrics: ``loss``, the mode's losses (COSMOS: ``clip_loss``,
     ``distill_loss``; CLIP and SigLIP: ``contrastive_loss``; distillation:
@@ -306,6 +419,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     if cfg.cosmos and getattr(model, "distill_logit_scale", None) is None:
         raise ValueError("the COSMOS step needs a model built with "
                          "cosmos=True, output_all=True, attentional_pool=True")
+    slice_group = axis_group(mesh, SLICE_AXIS)
+    if mesh is not None and SLICE_AXIS in mesh.mesh_dim_names and cfg.siglip:
+        raise ValueError("siglip is unsupported on a multislice "
+                         "('slice','data') mesh")
     if cfg.frozen is not None:
         freeze(model, cfg.frozen)
         held = {id(p) for g in optimizer.param_groups for p in g["params"]}
@@ -316,7 +433,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     if dist_model is not None:
         dist_model.requires_grad_(False).eval()
     gather = dict(local_loss=cfg.local_loss,
-                  gather_with_grad=cfg.gather_with_grad)
+                  gather_with_grad=cfg.gather_with_grad,
+                  group=axis_group(mesh, DATA_AXIS), slice_group=slice_group,
+                  gather_scope=cfg.gather_scope)
     if cfg.cosmos:
         loss_fn_obj = COSMOSLoss(**gather)
     elif cfg.siglip:
@@ -332,8 +451,20 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                                   device=device) * 255.0)
     patch_drop = model.visual.patch_dropout > 0.0
     accum = cfg.accum_freq
-    # each rank draws its own patch-dropout stream in a world of several
-    rank = distributed.rank() if distributed.world_size() > 1 else None
+    # each block of the batch draws its own patch-dropout stream in a world
+    # of several; the mean of the gradients and metrics spans the ranks of
+    # the other blocks: the data axis (every rank on a multislice mesh)
+    mean_group = None
+    if mesh is None:
+        rank = distributed.rank() if distributed.world_size() > 1 else None
+    else:
+        names = mesh.mesh_dim_names
+        index, count = batch_sharding(mesh)
+        rank = None if count == 1 else (
+            (mesh.get_local_rank(DATA_AXIS), mesh.get_local_rank(SLICE_AXIS))
+            if SLICE_AXIS in names else index)
+        if MODEL_AXIS in names:
+            mean_group = axis_group(mesh, DATA_AXIS)
 
     def prep_images(x) -> torch.Tensor:
         """uint8 [..., H, W, 3] -> normalised ``input_dtype``."""
@@ -375,6 +506,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                           patch_drop=gen)
             with torch.no_grad():
                 t_out = teacher(g_flat, t_flat[:2 * b])
+                if hasattr(teacher, "reshard"):
+                    # FSDP keeps the root's weights gathered after a
+                    # forward, for the backward the teacher never runs
+                    teacher.reshard()
             losses = loss_fn_obj(
                 s_image_features=_views(s_out["image_features"], vi),
                 s_text_features=_views(s_out["text_features"], k),
@@ -487,23 +622,30 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         metrics: Dict[str, Any] = {
             "loss": total.detach(),
             **{k: v.detach() for k, v in aux.items()}}
+        grads = _trainable_grads(student)
         # JAX's pmean of the gradients and metrics over the data axis; the
-        # identity without a process group
-        distributed.all_reduce_mean_(_trainable_grads(student)
-                                     + list(metrics.values()))
+        # identity without a process group.  FSDP's reduce-scatter has
+        # averaged the gradients it shards already
+        distributed.all_reduce_mean_(
+            [_local(g) for p, g in zip(_trainable(student), grads)
+             if not is_fsdp_managed(p)] + list(metrics.values()),
+            group=mean_group)
         if cfg.log_grad_norm:
-            metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g.float())
-                 for g in _trainable_grads(student)]))
+            if any(_is_dtensor(g) for g in grads):
+                metrics["grad_norm"] = global_norm(grads)
+            else:
+                metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(g.float()) for g in grads]))
 
         if cfg.fix_momentum or cfg.momentum_schedule is None:
             momentum = float(cfg.momentum_teacher)
         else:
             momentum = float(cfg.momentum_schedule(state.step))
         with torch.no_grad():
-            # EMA from the pre-update student: k + (1 - m)(q - k)
-            torch._foreach_lerp_(list(teacher.parameters()), params,
-                                 1.0 - momentum)
+            # EMA from the pre-update student: k + (1 - m)(q - k), on the
+            # local shards where the two are sharded alike
+            torch._foreach_lerp_([_local(p) for p in teacher.parameters()],
+                                 [_local(p) for p in params], 1.0 - momentum)
         opt.step()
         with torch.no_grad():
             _clamp_logit_scales(student)
@@ -516,3 +658,70 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return metrics
 
     return step
+
+
+def make_train_step_gspmd(model: nn.Module, optimizer: torch.optim.Optimizer,
+                          mesh, cfg: TrainStepConfig,
+                          dist_model: Optional[nn.Module] = None
+                          ) -> Callable[[TrainState, Dict[str, Any]],
+                                        Dict[str, Any]]:
+    """The step of a model sharded over ``mesh`` (JAX's
+    ``make_train_step_gspmd``): tensor-parallel over a model axis, FSDP over
+    the data axis, or both (``create_train_state_gspmd``,
+    ``create_train_state_fsdp``).  The loss is the global batch's, through
+    the data axis's gather; JAX's three refusals hold, with its
+    messages."""
+    if cfg.siglip:
+        raise ValueError(
+            "siglip's ppermute ring needs the 1-D shard_map step")
+    if cfg.local_loss:
+        raise ValueError(
+            "local_loss is a per-device concept; the GSPMD step computes "
+            "global logits — leave it False")
+    if cfg.accum_freq > 1:
+        raise ValueError("accum_freq > 1 unsupported in the GSPMD step")
+    if MODEL_AXIS in mesh.mesh_dim_names and any(
+            getattr(m, "fuse_ln", False) for m in model.modules()):
+        raise NotImplementedError(
+            "fuse_ln under tensor parallelism is not ported (ROADMAP "
+            "queue 1, \"Beyond DP\"): its kernels take whole weights")
+    return make_train_step(model, optimizer, cfg, dist_model, mesh=mesh)
+
+
+def _sharded_state(model: nn.Module, make_optimizer, shard,
+                   teacher: Optional[nn.Module]) -> TrainState:
+    teacher = _teacher(model, teacher)
+    shard(model)
+    shard(teacher)
+    return TrainState(step=0, student=model, teacher=teacher,
+                      optimizer=make_optimizer(model))
+
+
+def create_train_state_gspmd(model: nn.Module, make_optimizer, mesh,
+                             teacher: Optional[nn.Module] = None
+                             ) -> TrainState:
+    """Student and EMA teacher (``teacher``, or a copy of the student)
+    tensor-parallel over ``mesh``'s model axis (``parallel/tp.py``), in
+    place, and ``make_optimizer(student)`` over the sharded parameters,
+    whose Adam moments take their placement (JAX's
+    ``create_train_state_gspmd``)."""
+    from ..parallel.tp import shard_params_tp
+
+    return _sharded_state(model, make_optimizer,
+                          lambda m: shard_params_tp(m, mesh), teacher)
+
+
+def create_train_state_fsdp(model: nn.Module, make_optimizer, mesh,
+                            min_size: Optional[int] = None,
+                            teacher: Optional[nn.Module] = None
+                            ) -> TrainState:
+    """Student and EMA teacher ZeRO-3 over ``mesh``'s data axis
+    (``parallel/fsdp.py``; over a ('data', 'model') mesh tensor-parallel
+    too), in place, and ``make_optimizer(student)`` (JAX's
+    ``create_train_state_fsdp``)."""
+    from ..parallel.fsdp import FSDP_MIN_SIZE, shard_params_fsdp
+
+    size = FSDP_MIN_SIZE if min_size is None else min_size
+    return _sharded_state(model, make_optimizer,
+                          lambda m: shard_params_fsdp(m, mesh, size),
+                          teacher)

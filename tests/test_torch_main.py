@@ -81,9 +81,6 @@ def test_flag_surface_equals_jax():
 
 UNPORTED_ARGV = {
     "huggingface": ["--huggingface-model-name", "m"],
-    "mesh": ["--mesh-shape", "4,2"],
-    "fsdp": ["--fsdp"],
-    "num-slices": ["--num-slices", "2"],
     # a pretrained tag for the distillation model needs a download
     "distill-tag": ["--distill-model", "ViT-B-32", "--distill-pretrained",
                     "x"],
@@ -95,7 +92,7 @@ UNPORTED_ARGV = {
 def test_unported_flag_raises(name, tmp_path):
     argv = UNPORTED_ARGV[name] + ["--logs-dir", str(tmp_path)]
     # each refusal names its ROADMAP item by title
-    titles = (pmain.NEEDS_DOWNLOAD, pmain.BEYOND_DP, pmain.OTHER_TOWERS)
+    titles = (pmain.NEEDS_DOWNLOAD, pmain.OTHER_TOWERS)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, ") as e:
         pmain.main(argv, device="cpu")
     assert any(t in str(e.value) for t in titles), e.value

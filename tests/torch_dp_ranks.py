@@ -14,6 +14,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
+import shutil
 import tempfile
 import time
 import traceback
@@ -58,25 +59,31 @@ def _entry(rank: int, world: int, store: str, fn: Callable, payload_path: str,
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world: int, payload: Any,
-          timeout: float = SPAWN_TIMEOUT) -> List[Any]:
-    """``fn(rank, world, payload)`` on ``world`` gloo ranks; the results in
-    rank order.  Raises with the ranks' tracebacks if one fails, and kills
-    them all if they outlast ``timeout`` seconds."""
-    with tempfile.TemporaryDirectory(prefix="torch_dp_") as tmp:
-        payload_path, out = f"{tmp}/payload.pkl", f"{tmp}/result"
-        with open(payload_path, "wb") as f:
-            pickle.dump(payload, f)
-        ctx = mp.start_processes(
-            _entry, args=(world, f"{tmp}/store", fn, payload_path, out),
-            nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout
+def start(fn: Callable, world: int, payload: Any,
+          timeout: float = SPAWN_TIMEOUT) -> Callable[[], List[Any]]:
+    """Start ``fn(rank, world, payload)`` on ``world`` gloo ranks and return
+    the call that waits for them: it gives the results in rank order,
+    raises with the ranks' tracebacks if one fails, and kills them all if
+    they outlast ``timeout`` seconds from the start.  The caller may work
+    (JAX's side of a comparison) while the ranks run."""
+    tmp = tempfile.mkdtemp(prefix="torch_dp_")
+    payload_path, out = f"{tmp}/payload.pkl", f"{tmp}/result"
+    with open(payload_path, "wb") as f:
+        pickle.dump(payload, f)
+    ctx = mp.start_processes(
+        _entry, args=(world, f"{tmp}/store", fn, payload_path, out),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+
+    def join() -> List[Any]:
         try:
             while not ctx.join(timeout=0.5):
                 if time.monotonic() > deadline:
                     raise TimeoutError(
                         f"{fn.__name__} on {world} ranks outlasted "
                         f"{timeout} s")
+            return [torch.load(f"{out}.{r}.pt", weights_only=False)
+                    for r in range(world)]
         except Exception as e:
             errs = [open(f"{out}.{r}.err").read() for r in range(world)
                     if os.path.exists(f"{out}.{r}.err")]
@@ -86,8 +93,16 @@ def spawn(fn: Callable, world: int, payload: Any,
                 if p.is_alive():
                     p.kill()
                 p.join(5)
-        return [torch.load(f"{out}.{r}.pt", weights_only=False)
-                for r in range(world)]
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    return join
+
+
+def spawn(fn: Callable, world: int, payload: Any,
+          timeout: float = SPAWN_TIMEOUT) -> List[Any]:
+    """``fn(rank, world, payload)`` on ``world`` gloo ranks; the results in
+    rank order (``start``, then its wait)."""
+    return start(fn, world, payload, timeout)()
 
 
 def block(x: np.ndarray, rank: int, world: int, axis: int = 1) -> np.ndarray:
@@ -297,3 +312,226 @@ def trainer_rank(rank: int, world: int, payload) -> Dict[str, Any]:
             "val_loss": [r.get("clip_val_loss") for r in runs],
             "student": state.student.state_dict(),
             "teacher": state.teacher.state_dict()}
+
+
+# --- beyond data parallelism: FSDP, tensor parallelism, multislice --------
+
+def trainer_argv(d: str, name: str, *extra: str) -> List[str]:
+    """The trainer's flags for a tiny COSMOS run on the shards of
+    ``write_trainer_data(d)``: 2 steps an epoch of 4 rows a data rank."""
+    return ["--model", "ViT-Tiny-Test", "--dataset-type", "webdataset",
+            "--train-data", f"{d}/train-{{0000..0003}}.tar",
+            "--train-num-samples", "16", "--batch-size", "2",
+            "--use-imagecrop-aug", "--local-crops-number", "2",
+            "--caption-sampling-mode", "textcrop",
+            "--num-sampled-captions", "3", "--cosmos", "--output-all",
+            "--attentional-pool", "--add-zero-attn", "--fix-momentum",
+            "--precision", "fp32", "--log-every-n-steps", "1",
+            "--workers", "0", "--lr", "1e-3", "--warmup", "1", "--seed", "3",
+            "--save-most-recent", "--val-data", f"{d}/val-0000.tar",
+            "--val-num-samples", "4", "--logs-dir", f"{d}/logs",
+            "--name", name, *extra]
+
+
+def write_trainer_data(d: str) -> None:
+    from cosmos_tpu_torch.data.synthetic import write_shards
+
+    write_shards(f"{d}/train-{{i:04d}}.tar", 4, 8, seed=0, fmt="png",
+                 size_range=(36, 72))
+    write_shards(f"{d}/val-{{i:04d}}.tar", 1, 4, seed=1, fmt="png",
+                 size_range=(36, 72))
+
+
+def _mesh(kind: str, shape):
+    """The mesh of ``kind`` over every rank (None: the default group)."""
+    from cosmos_tpu_torch.parallel import mesh as M
+
+    if kind in ("tp", "fsdp_tp"):
+        return M.create_tp_mesh(*shape, "cpu")
+    if kind == "multislice":
+        return M.create_multislice_mesh(shape[0], device_type="cpu")
+    if kind == "fsdp":
+        return M.create_mesh(device_type="cpu")
+    return None
+
+
+def _local_bytes(tensors) -> int:
+    from torch.distributed.tensor import DTensor
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel()
+               * t.element_size() for t in tensors)
+
+
+def stateful_bytes(state) -> int:
+    """This rank's bytes of student, teacher and Adam moments."""
+    moments = [v for s in state.optimizer.state.values()
+               for k, v in s.items() if k in ("exp_avg", "exp_avg_sq")]
+    return _local_bytes([*state.student.parameters(),
+                         *state.teacher.parameters(), *moments])
+
+
+class kernel_calls:
+    """Counts the calls of K1's and K2's CPU implementations (their plain
+    versions, looked up at call time) inside the block."""
+
+    def __enter__(self):
+        from cosmos_tpu_torch.ops import fused_attention as fa
+
+        self.fa, self.counts = fa, {"K1": 0, "K2": 0}
+        self.saved = (fa.fused_attention_qkv_reference,
+                      fa.fused_attention_qkv_backward_reference)
+
+        def counted(key, fn):
+            def call(*a, **kw):
+                self.counts[key] += 1
+                return fn(*a, **kw)
+            return call
+
+        fa.fused_attention_qkv_reference = counted("K1", self.saved[0])
+        fa.fused_attention_qkv_backward_reference = counted("K2",
+                                                            self.saved[1])
+        return self.counts
+
+    def __exit__(self, *exc):
+        (self.fa.fused_attention_qkv_reference,
+         self.fa.fused_attention_qkv_backward_reference) = self.saved
+
+
+def sharded_step(kind: str, init, batch, shape=(), cfg_kw=None,
+                 model_kw=None, min_size: int = 256, save: str = None,
+                 fused_ln: bool = False) -> Dict[str, Any]:
+    """One COSMOS step of the port from ``init`` on this rank's block of
+    the global ``batch``: 'dp' (the default group), 'fsdp' (a data mesh),
+    'tp'/'fsdp_tp' (a ('data', 'model') mesh of ``shape``) or
+    'multislice' (``shape[0]`` slices), with ``layers.FUSED_LN`` set by
+    ``fused_ln``.  Returns the metrics, the whole student and teacher (on
+    rank 0 for a sharded state), this rank's stateful bytes and K1/K2
+    calls and, with ``save``, writes the checkpoint there (every rank joins
+    the gather)."""
+    from cosmos_tpu_torch import create_model, create_optimizer
+    from cosmos_tpu_torch.models import layers
+    from cosmos_tpu_torch.parallel.mesh import batch_sharding
+    from cosmos_tpu_torch.training import checkpoint, scheduler
+    from cosmos_tpu_torch.training import train as T
+
+    model = create_model("ViT-B-16", device="cpu",
+                         **dict(TINY, **(model_kw or {})), **COSMOS)
+    model.load_state_dict(init, strict=True)
+    lr = scheduler.const_lr(LR, 0, 10)
+
+    def make_opt(m):
+        return create_optimizer(m, lr, beta1=BETA1, beta2=0.98, eps=EPS,
+                                weight_decay=0.5)
+
+    cfg = T.TrainStepConfig(momentum_teacher=0.9, fix_momentum=True,
+                            lr_schedule=lr, log_grad_norm=True, cosmos=True,
+                            **(cfg_kw or {}))
+    mesh = _mesh(kind, shape)
+    if kind in ("fsdp", "fsdp_tp"):
+        state = T.create_train_state_fsdp(model, make_opt, mesh, min_size)
+        step = T.make_train_step_gspmd(model, state.optimizer, mesh, cfg)
+    elif kind == "tp":
+        state = T.create_train_state_gspmd(model, make_opt, mesh)
+        step = T.make_train_step_gspmd(model, state.optimizer, mesh, cfg)
+    else:
+        opt = make_opt(model)
+        state = T.create_train_state(model, opt)
+        step = T.make_train_step(model, opt, cfg, mesh=mesh)
+    index, count = (batch_sharding(mesh) if mesh is not None
+                    else (dist.get_rank(), dist.get_world_size()))
+    layers.FUSED_LN = fused_ln
+    try:
+        with kernel_calls() as calls:
+            metrics = step(state, {k: torch.from_numpy(block(v, index, count))
+                                   for k, v in batch.items()})
+    finally:
+        layers.FUSED_LN = False
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "bytes": stateful_bytes(state), "calls": calls}
+    if checkpoint.is_sharded(state):
+        whole = checkpoint.host_state(state, optimizer=False)
+    else:
+        whole = {w: getattr(state, w).state_dict()
+                 for w in ("student", "teacher")}
+    out.update(student=whole["student"], teacher=whole["teacher"])
+    if save:
+        checkpoint.save_checkpoint(state, save, 1, write=dist.get_rank() == 0)
+        dist.barrier()
+    return out
+
+
+def resumed(kind: str, path: str, shape=(), min_size: int = 256,
+            model_kw=None) -> Dict[str, Any]:
+    """A fresh state of ``kind`` restored from ``path``: the whole student,
+    teacher and optimizer state it holds, and its counts."""
+    from cosmos_tpu_torch import create_model, create_optimizer
+    from cosmos_tpu_torch.training import checkpoint, scheduler
+    from cosmos_tpu_torch.training import train as T
+
+    model = create_model("ViT-B-16", device="cpu",
+                         **dict(TINY, **(model_kw or {})), **COSMOS)
+    lr = scheduler.const_lr(LR, 0, 10)
+
+    def make_opt(m):
+        return create_optimizer(m, lr, beta1=BETA1, beta2=0.98, eps=EPS,
+                                weight_decay=0.5)
+
+    mesh = _mesh(kind, shape)
+    if kind in ("fsdp", "fsdp_tp"):
+        state = T.create_train_state_fsdp(model, make_opt, mesh, min_size)
+    elif kind == "tp":
+        state = T.create_train_state_gspmd(model, make_opt, mesh)
+    else:
+        state = T.create_train_state(model, make_opt(model))
+    epoch = checkpoint.restore_checkpoint(state, path)
+    if checkpoint.is_sharded(state):
+        whole = checkpoint.host_state(state)
+    else:
+        whole = {"student": state.student.state_dict(),
+                 "teacher": state.teacher.state_dict(),
+                 "optimizer": state.optimizer.state_dict()}
+    return dict(whole, epoch=epoch, step=state.step,
+                num_updates=state.optimizer.num_updates)
+
+
+def tp_encoders(init, images, texts, shape, name, model_kw, eva=None
+                ) -> Dict[str, Any]:
+    """The port's TP encoders' features over a ``shape`` mesh, and the K1
+    operator's calls per encoder call (``eva``: an EVA02 geometry to
+    register first)."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.models import eva as peva
+    from cosmos_tpu_torch.parallel.tp import make_tp_encoders
+
+    if eva is not None:
+        peva.register_eva(**eva)
+    model = create_model(name, device="cpu", **model_kw).eval()
+    model.load_state_dict(init, strict=True)
+    _, enc_image, enc_text = make_tp_encoders(model, _mesh("tp", shape))
+    with kernel_calls() as image_calls:
+        img = enc_image(torch.from_numpy(images))
+    with kernel_calls() as text_calls:
+        txt = enc_text(torch.from_numpy(texts))
+    return {"image": img, "text": txt, "k1_image": image_calls["K1"],
+            "k1_text": text_calls["K1"]}
+
+
+def trainer_runs(argvs) -> Dict[str, Any]:
+    """``main(argv, device="cpu")`` for each of ``argvs`` in turn: the
+    logged losses, the val loss and the epochs each run trained."""
+    from cosmos_tpu_torch.training import main as trainer
+
+    runs = [trainer.main(argv, device="cpu") for argv in argvs]
+    return {"losses": [[line["loss"] for s in r["train_epoch_stats"]
+                        for line in s["logged"]] for r in runs],
+            "epochs": [[s["epoch"] for s in r["train_epoch_stats"]]
+                       for r in runs],
+            "val_loss": [r.get("clip_val_loss") for r in runs]}
+
+
+def beyond_rank(rank: int, world: int, payload) -> Dict[str, Any]:
+    """Every case of ``payload`` on this rank: {name: (function name,
+    kwargs)} over the functions above."""
+    fns = {"sharded_step": sharded_step, "resumed": resumed,
+           "tp_encoders": tp_encoders, "trainer_runs": trainer_runs}
+    return {name: fns[fn](**kw) for name, (fn, kw) in payload.items()}
