@@ -194,6 +194,24 @@ from the sources in the checkout and then:
      plain step (16(b)'s tolerances); (c) 2 steps on a 2-slice mesh
      (--num-slices 2 --gather-scope global) against the flat world-2
      step.
+ 20. weights in: K1 held to its plain version and timed at ViT-L-14's
+     geometry [64, 257, 3072] (16 heads) in both dtypes; (a) ViT-L-14 from
+     an OpenAI-layout TorchScript archive of float16 weights from a seed,
+     through load_openai_model (QuickGELU, the file's weights in float32),
+     served in bfloat16 (64 images at 224 px, 256 captions at 77: 24 K1
+     launches an image call, 12 a text call) and 2 images / 4 captions
+     card against CPU in float32 (1e-4); (b) the trainer's eval-only
+     retrieval of ViT-B-16 COSMOS from the cosmos_cc3m tag, its file phase
+     12's last checkpoint in a COSMOS_TPU_CACHE directory, at
+     --force-image-size 336 (K1 at L 442), with the position table's
+     difference from a float64 numpy bicubic resize (1e-6); (c)
+     MobileCLIP-S2 from random weights under Apple's train-form names
+     (written here), through the datacompdr tag and the fusing converter,
+     with the registry's identity mean/std and bilinear resize, served and
+     compared as in (a); (d) int8_matmul at [64*197, 768] x [768, 3072]
+     bit for bit against the CPU's exact product, and ViT-B-16 COSMOS
+     served from int8-quantized, dequantized weights (relative error
+     against the float weights, card against CPU).
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
 and nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
@@ -2099,7 +2117,7 @@ def phase_trainer(K, tmp: str):
     import shutil
 
     from cosmos_tpu_torch.data.synthetic import write_coco, write_shards
-    from cosmos_tpu_torch.models.convert import load_checkpoint
+    from cosmos_tpu_torch.models.checkpoint import read_checkpoint
     from cosmos_tpu_torch.models.factory import create_model
     from cosmos_tpu_torch.training import main as trainer
     from cosmos_tpu_torch.training.scheduler import get_lr_scheduler
@@ -2134,7 +2152,7 @@ def phase_trainer(K, tmp: str):
                          output_all=True, attentional_pool=True)
     for epoch in (1, 2, 3):
         for which in ("student", "teacher"):
-            sd = load_checkpoint(f"{ckpt_dir}/epoch_{epoch}.pt", which)
+            sd = read_checkpoint(f"{ckpt_dir}/epoch_{epoch}.pt", which)
             model.load_state_dict(sd, strict=True)
             for name in ("logit_scale", "distill_logit_scale"):
                 v = float(sd[name])
@@ -2142,7 +2160,12 @@ def phase_trainer(K, tmp: str):
                       f"epoch {epoch} {which} {name} = {v}")
     del model
     torch.cuda.empty_cache()
-    shutil.rmtree(logs)   # 7 GB of checkpoints; the shards stay for phase 15
+    # the last epoch's checkpoint stays as phase 20's cached cosmos_cc3m
+    # file; the other 5 GB of checkpoints go, the shards stay for phase 15
+    cache = f"{tmp}/weights_cache"
+    Path(cache).mkdir(exist_ok=True)
+    shutil.move(f"{ckpt_dir}/epoch_3.pt", f"{cache}/cosmos_vitb16_cc3m.pt")
+    shutil.rmtree(logs)
 
     epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
     check([s["epoch"] for s in epochs] == [0, 1, 2],
@@ -4284,6 +4307,518 @@ def phase_beyond_dp(K, data: str, tmp: str) -> dict:
 
 
 
+# phase 20: weights in.  ViT-L-14 from an OpenAI-layout TorchScript archive
+# (64 images, 256 captions in bfloat16; 2 images, 4 captions card against
+# CPU in float32), the trainer's eval from a cached tag at 336 px, MobileCLIP-S2
+# from Apple's train-form layout through its registry tag, and the int8 ops
+WEIGHTS_SEED = 20
+WEIGHTS_IMAGES, WEIGHTS_CAPTIONS = 64, 256
+WEIGHTS_CPU = (2, 4)
+WEIGHTS_CPU_TOL = 1e-4
+L14_GEOMETRY = ("vision ViT-L-14 224px", 64, 257, 3 * 1024, 16, False)
+L14_CALL_K1 = {"image": 24, "text": 12}
+MC_CALL_K1 = {"image": 0, "text": 12}
+B16_CALL_K1 = {"image": 12, "text": 12}
+TAG_IMAGE_SIZE = 336
+INT8_SHAPE = (64 * 197, 768, 3072)          # rows, K, N: ViT-B-16's c_fc
+POS_RESIZE_TOL = 1e-6
+
+
+class _Tree(torch.nn.Module):
+    pass
+
+
+class _Archive(torch.nn.Module):
+    """Named tensors in a scripted module, as OpenAI's release archives
+    hold them: its ``state_dict()`` has the file's keys."""
+
+    def __init__(self, sd):
+        super().__init__()
+        for key, value in sd.items():
+            *mods, leaf = key.split(".")
+            m = self
+            for name in mods:
+                if not hasattr(m, name):
+                    m.add_module(name, _Tree())
+                m = getattr(m, name)
+            m.register_buffer(leaf, value)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def apple_mobileclip_state_dict(layers, dims, text, embed_dim, seed,
+                                ratio=3) -> dict:
+    """Random weights from ``seed`` under Apple's MobileCLIP train-form
+    names and shapes (ml-mobileclip's image_encoder.model.* MCi trunk of
+    MobileOne branches and text_encoder.* base transformer): conv weights
+    with std fan_in ** -0.5, BatchNorm statistics with positive variances,
+    small layer scales.  ``text`` holds width, layers, context_length and
+    vocab_size."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(key, *shape, std=None, value=None):
+        if value is not None:
+            sd[key] = torch.tensor(value)
+            return
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        scale = std if std is not None else fan_in ** -0.5
+        sd[key] = torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+
+    def bn(p, c):
+        put(f"{p}.weight", c, std=0.1)
+        sd[f"{p}.weight"] += 1.0
+        put(f"{p}.bias", c, std=0.1)
+        put(f"{p}.running_mean", c, std=0.1)
+        sd[f"{p}.running_var"] = torch.from_numpy(
+            (rng.random(c) + 0.5).astype(np.float32))
+        put(f"{p}.num_batches_tracked", value=0)
+
+    def conv_bn(p, cin, cout, k, groups):
+        put(f"{p}.conv.weight", cout, cin // groups, k, k)
+        bn(f"{p}.bn", cout)
+
+    def mobileone(p, cin, cout, k, stride=1, groups=1, branches=1,
+                  scale=True):
+        for j in range(branches):
+            conv_bn(f"{p}.rbr_conv.{j}", cin, cout, k, groups)
+        if k > 1 and scale:
+            conv_bn(f"{p}.rbr_scale", cin, cout, 1, groups)
+        if cin == cout and stride == 1:
+            bn(f"{p}.rbr_skip", cin)
+
+    img = "image_encoder.model."
+    d0 = dims[0]
+    mobileone(f"{img}patch_embed.0", 3, d0, 3, stride=2)
+    mobileone(f"{img}patch_embed.1", d0, d0, 3, stride=2, groups=d0)
+    mobileone(f"{img}patch_embed.2", d0, d0, 1)
+    idx = 0
+    for s, (depth, dim) in enumerate(zip(layers, dims)):
+        hidden = dim * ratio
+        if s == 3:
+            put(f"{img}network.{idx}.pe.weight", dim, 1, 7, 7)
+            put(f"{img}network.{idx}.pe.bias", dim, std=0.02)
+            idx += 1
+        for b in range(depth):
+            p = f"{img}network.{idx}.{b}"
+            if s < 3:
+                mobileone(f"{p}.token_mixer.norm", dim, dim, 3, groups=dim,
+                          branches=0, scale=False)
+                mobileone(f"{p}.token_mixer.mixer", dim, dim, 3, groups=dim)
+                put(f"{p}.token_mixer.layer_scale", dim, 1, 1, std=0.02)
+                put(f"{p}.layer_scale", dim, 1, 1, std=0.02)
+            else:
+                bn(f"{p}.norm", dim)
+                put(f"{p}.token_mixer.qkv.weight", 3 * dim, dim)
+                put(f"{p}.token_mixer.proj.weight", dim, dim)
+                put(f"{p}.token_mixer.proj.bias", dim, std=0.02)
+                put(f"{p}.layer_scale_1", dim, 1, 1, std=0.02)
+                put(f"{p}.layer_scale_2", dim, 1, 1, std=0.02)
+            conv_bn(f"{p}.convffn.conv", dim, dim, 7, dim)
+            put(f"{p}.convffn.fc1.weight", hidden, dim, 1, 1)
+            put(f"{p}.convffn.fc1.bias", hidden, std=0.02)
+            put(f"{p}.convffn.fc2.weight", dim, hidden, 1, 1)
+            put(f"{p}.convffn.fc2.bias", dim, std=0.02)
+        idx += 1
+        if s < 3:
+            p = f"{img}network.{idx}.proj"
+            conv_bn(f"{p}.0.lkb_origin", dim, dims[s + 1], 7, dim)
+            conv_bn(f"{p}.0.small_conv", dim, dims[s + 1], 3, dim)
+            mobileone(f"{p}.1", dims[s + 1], dims[s + 1], 1)
+            idx += 1
+    final = 2 * dims[-1]
+    rd = max(1, int(final / 16))
+    mobileone(f"{img}conv_exp", dims[-1], final, 3, groups=dims[-1])
+    put(f"{img}conv_exp.se.reduce.weight", rd, final, 1, 1)
+    put(f"{img}conv_exp.se.reduce.bias", rd, std=0.02)
+    put(f"{img}conv_exp.se.expand.weight", final, rd, 1, 1)
+    put(f"{img}conv_exp.se.expand.bias", final, std=0.02)
+    put(f"{img}head.proj", final, embed_dim, std=final ** -0.5)
+
+    txt, w = "text_encoder.", text["width"]
+    put(f"{txt}embedding_layer.weight", text["vocab_size"], w, std=0.02)
+    put(f"{txt}positional_embedding.pos_embed.pos_embed", 1,
+        text["context_length"], w, std=0.01)
+    for i in range(text["layers"]):
+        p = f"{txt}transformer.{i}"
+        for ln in ("pre_norm_mha.0", "pre_norm_ffn.0"):
+            put(f"{p}.{ln}.weight", w, std=0.02)
+            sd[f"{p}.{ln}.weight"] += 1.0
+            put(f"{p}.{ln}.bias", w, std=0.02)
+        put(f"{p}.pre_norm_mha.1.qkv_proj.weight", 3 * w, w)
+        put(f"{p}.pre_norm_mha.1.qkv_proj.bias", 3 * w, std=0.02)
+        put(f"{p}.pre_norm_mha.1.out_proj.weight", w, w)
+        put(f"{p}.pre_norm_mha.1.out_proj.bias", w, std=0.02)
+        put(f"{p}.pre_norm_ffn.1.weight", 4 * w, w)
+        put(f"{p}.pre_norm_ffn.1.bias", 4 * w, std=0.02)
+        put(f"{p}.pre_norm_ffn.4.weight", w, 4 * w)
+        put(f"{p}.pre_norm_ffn.4.bias", w, std=0.02)
+    put(f"{txt}final_layer_norm.weight", w, std=0.02)
+    sd[f"{txt}final_layer_norm.weight"] += 1.0
+    put(f"{txt}final_layer_norm.bias", w, std=0.02)
+    put(f"{txt}projection_layer", w, embed_dim, std=w ** -0.5)
+    put("logit_scale", value=float(np.log(1 / 0.07)))
+    return sd
+
+
+def bicubic_resize_np(pe: np.ndarray, src: int, dst: int) -> np.ndarray:
+    """The [1 + src**2, D] position table at dst x dst in float64 numpy:
+    F.interpolate's bicubic (a = -0.75, align_corners=False, border taps
+    replicated) as one matrix per axis, the JAX package's construction."""
+    def matrix(n_in, n_out):
+        a, m = -0.75, np.zeros((n_out, n_in))
+        for i in range(n_out):
+            x = (i + 0.5) * (n_in / n_out) - 0.5
+            f = np.floor(x)
+            for k in range(-1, 3):
+                t = abs(x - (f + k))
+                w = ((a + 2) * t ** 3 - (a + 3) * t ** 2 + 1 if t <= 1 else
+                     a * t ** 3 - 5 * a * t ** 2 + 8 * a * t - 4 * a
+                     if t < 2 else 0.0)
+                m[i, int(np.clip(f + k, 0, n_in - 1))] += w
+        return m
+
+    grid = pe[1:].astype(np.float64).reshape(src, src, -1)
+    mh = matrix(src, dst)
+    out = np.einsum("ah,hwd,bw->abd", mh, grid, mh).reshape(dst * dst, -1)
+    return np.concatenate([pe[:1].astype(np.float64), out])
+
+
+def _weights_serve(K, model, size, per_call, label, seed):
+    """bfloat16 serving of ``model``: the exact K1 launches of an image
+    call of WEIGHTS_IMAGES and a text call of WEIGHTS_CAPTIONS at length
+    77, then timed calls; returns the record and the K1 launches of every
+    call made."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn(WEIGHTS_IMAGES, size, size, 3, device="cuda",
+                         generator=gen)
+    captions = torch.as_tensor(_captions(WEIGHTS_CAPTIONS, 77, seed=seed),
+                               device="cuda")
+    calls = {"image": [], "text": []}
+
+    @torch.inference_mode()
+    def enc_img():
+        return model.encode_image(images, True)["image_features"]
+
+    @torch.inference_mode()
+    def enc_txt():
+        return model.encode_text(captions, True)["text_features"]
+
+    fns = {"image": _counted(enc_img, calls["image"]),
+           "text": _counted(enc_txt, calls["text"])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for what, fn in fns.items():
+        zero_launches(K)
+        feats = fn()
+        torch.cuda.synchronize()
+        got = read_launches(K)
+        check(got == {**dict.fromkeys(got, 0), "K1": per_call[what]},
+              f"{label} encode_{what}: launches {got}, expected K1 "
+              f"{per_call[what]} only")
+        check(torch.isfinite(feats).all().item(), f"{label} {what} finite")
+    zero_launches(K)
+    img_ms = time_ms(fns["image"], iters=TOWER_TIMED_CALLS)
+    txt_ms = time_ms(fns["text"], iters=TOWER_TIMED_CALLS)
+    timed = read_launches(K)["K1"]
+    check(timed == sum(per_call[w] * (len(calls[w]) - 1) for w in calls),
+          f"{label}: K1 launches of the timed calls {timed}")
+    k1 = {w: per_call[w] * len(calls[w]) for w in calls}
+    out = dict(image_call_ms=img_ms, text_call_ms=txt_ms,
+               images_per_s=WEIGHTS_IMAGES / img_ms * 1e3,
+               captions_per_s=WEIGHTS_CAPTIONS / txt_ms * 1e3,
+               k1_per_call=per_call, k1_launches=k1,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[weights] {label}: {out['images_per_s']:.1f} images/s "
+          f"({WEIGHTS_IMAGES} at {size} px, bf16), "
+          f"{out['captions_per_s']:.1f} captions/s ({WEIGHTS_CAPTIONS} at "
+          f"77), K1 {per_call['image']} an image call and "
+          f"{per_call['text']} a text call, peak {out['peak_mem_gb']:.2f} GB")
+    return out, sum(k1.values())
+
+
+def _weights_card_vs_cpu(cpu, label, seed, gpu=None):
+    """The same float32 weights on the card and on the CPU: normalised
+    features of WEIGHTS_CPU images and captions within WEIGHTS_CPU_TOL."""
+    n_img, n_txt = WEIGHTS_CPU
+    size = cpu.cfg.vision_cfg.image_size
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n_img, size, size, 3))
+                         .astype(np.float32))
+    toks = torch.from_numpy(_captions(n_txt, 77, seed=seed))
+    gpu = gpu if gpu is not None else copy.deepcopy(cpu).to("cuda")
+
+    def features(model, device):
+        with torch.inference_mode():
+            return (model.encode_image(x.to(device), True)["image_features"],
+                    model.encode_text(toks.to(device), True)["text_features"])
+
+    errs = {}
+    for what, g, w in zip(("image", "text"), features(gpu, "cuda"),
+                          features(cpu, "cpu")):
+        g = g.cpu()
+        check(g.shape == w.shape and torch.isfinite(g).all().item(),
+              f"{label} {what} features shape/finite")
+        errs[what] = (g - w).abs().max().item()
+        check(errs[what] <= WEIGHTS_CPU_TOL,
+              f"{label} card vs CPU {what}: max err {errs[what]}")
+    print(f"[weights] {label} card vs CPU (float32, {n_img} images, "
+          f"{n_txt} captions): max abs err image {errs['image']:.3g} "
+          f"text {errs['text']:.3g}")
+    return errs
+
+
+def _weights_openai_l14(K, fa, tmp):
+    """20(a): ViT-L-14 from an OpenAI-layout TorchScript archive of float16
+    weights through load_openai_model."""
+    from cosmos_tpu_torch.models.factory import create_model
+    from cosmos_tpu_torch.models.openai import load_openai_model
+
+    t0 = time.perf_counter()
+    src = create_model("ViT-L-14", "fp32", device="cpu", seed=WEIGHTS_SEED)
+    sd = {k: v.half() for k, v in src.state_dict().items()}
+    del src
+    sd.update(input_resolution=torch.tensor(224),
+              context_length=torch.tensor(77),
+              vocab_size=torch.tensor(49408))
+    path = f"{tmp}/ViT-L-14.pt"
+    torch.jit.save(torch.jit.script(_Archive(sd)), path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_openai_model(path, "bf16")
+    load_s = time.perf_counter() - t0
+    check(model.cfg.quick_gelu, "load_openai_model: QuickGELU")
+    for k, v in model.state_dict().items():
+        check(v.dtype == torch.float32 and torch.equal(
+            v, sd[k].to(v.device).float()), f"ViT-L-14 {k} as in the file")
+    check(fa.supported(16, 1024, 257, 2), "K1's gate admits ViT-L-14")
+    serve, k1 = _weights_serve(K, model, 224, L14_CALL_K1, "ViT-L-14",
+                               WEIGHTS_SEED)
+    del model
+    torch.cuda.empty_cache()
+    cpu = load_openai_model(path, "fp32", device="cpu")
+    errs = _weights_card_vs_cpu(cpu, "ViT-L-14", WEIGHTS_SEED)
+    del cpu
+    torch.cuda.empty_cache()
+    print(f"[weights] ViT-L-14 archive: written in {write_s:.1f} s, "
+          f"load_openai_model (bf16, card) {load_s:.1f} s")
+    return dict(serve=serve, card_vs_cpu=errs, tol=WEIGHTS_CPU_TOL,
+                write_s=write_s, load_s=load_s), k1
+
+
+def _weights_trainer_tag(K, data, cache, tmp):
+    """20(b): the trainer's retrieval eval from the cosmos_cc3m tag, its
+    file phase 12's epoch checkpoint in the cache, at 336 px."""
+    import os
+
+    from cosmos_tpu_torch.models.checkpoint import (load_checkpoint,
+                                                    read_checkpoint)
+    from cosmos_tpu_torch.models.factory import create_model
+    from cosmos_tpu_torch.models.pretrained import resolve_pretrained
+    from cosmos_tpu_torch.training import main as trainer
+
+    argv = ["--logs-dir", f"{tmp}/logs", "--name", "weights_in",
+            "--model", "ViT-B-16", "--precision", "amp", "--cosmos",
+            "--output-all", "--attentional-pool",
+            "--eval-mode", "retrieval", "--pretrained", "cosmos_cc3m",
+            "--force-image-size", str(TAG_IMAGE_SIZE),
+            "--data-root-dir", f"{data}/eval", "--batch-size", "64",
+            "--workers", "1"]
+    old = os.environ.get("COSMOS_TPU_CACHE")
+    os.environ["COSMOS_TPU_CACHE"] = cache
+    try:
+        path = resolve_pretrained("ViT-B-16", "cosmos_cc3m")
+        check(path == f"{cache}/cosmos_vitb16_cc3m.pt", f"tag -> {path}")
+        zero_launches(K)
+        t0 = time.perf_counter()
+        metrics = trainer.main(argv)
+        wall_s = time.perf_counter() - t0
+        launches = read_launches(K)
+    finally:
+        if old is None:
+            del os.environ["COSMOS_TPU_CACHE"]
+        else:
+            os.environ["COSMOS_TPU_CACHE"] = old
+    check(launches == {**dict.fromkeys(launches, 0), "K1": launches["K1"]}
+          and launches["K1"] > 0 and launches["K1"] % 12 == 0,
+          f"the tag's eval launches {launches}")
+    retrieval = {k: v for k, v in metrics.items() if "R@" in k}
+    check(len(retrieval) >= 12 and all(0.0 <= v <= 1.0
+                                        for v in retrieval.values()),
+          f"retrieval metrics {retrieval}")
+    print(f"[weights] trainer --pretrained cosmos_cc3m --force-image-size "
+          f"{TAG_IMAGE_SIZE} (L {(TAG_IMAGE_SIZE // 16) ** 2 + 1}, amp): "
+          f"{wall_s:.1f} s, K1 {launches['K1']}; " + " ".join(
+              f"{k}={v:.4f}" for k, v in sorted(retrieval.items())))
+    model = create_model("ViT-B-16", "fp32", device="cpu", seed=1,
+                         force_image_size=TAG_IMAGE_SIZE, **COSMOS)
+    load_checkpoint(model, path)
+    src = read_checkpoint(path)["visual.positional_embedding"].numpy()
+    grid = TAG_IMAGE_SIZE // 16
+    want = bicubic_resize_np(src, 14, grid)
+    got = model.visual.positional_embedding.detach().double().numpy()
+    pos_err = float(np.abs(got - want).max())
+    print(f"[weights] position table [197, 768] -> [{grid * grid + 1}, "
+          f"768]: max abs diff from the float64 numpy resize {pos_err:.3g}")
+    check(pos_err <= POS_RESIZE_TOL, f"position table resize: {pos_err}")
+    del model
+    return dict(metrics=retrieval, wall_s=wall_s, launches=launches,
+                pos_resize_err=pos_err, tol=POS_RESIZE_TOL), launches["K1"]
+
+
+def _weights_mobileclip(K, cache):
+    """20(c): MobileCLIP-S2 from Apple's train-form layout through the
+    datacompdr tag (identity mean/std, bilinear resize)."""
+    import os
+
+    from cosmos_tpu_torch.models.config import get_model_config
+    from cosmos_tpu_torch.models.factory import (
+        create_model, create_model_from_pretrained, get_model_preprocess_cfg)
+    from cosmos_tpu_torch.models.fastvit import FASTVIT_CONFIGS
+
+    cfg = get_model_config("MobileCLIP-S2")
+    g = FASTVIT_CONFIGS[cfg["vision_cfg"]["timm_model_name"]]
+    t0 = time.perf_counter()
+    sd = apple_mobileclip_state_dict(g["layers"], g["dims"], cfg["text_cfg"],
+                                     cfg["embed_dim"], WEIGHTS_SEED)
+    torch.save(sd, f"{cache}/mobileclip_s2.pt")
+    old = os.environ.get("COSMOS_TPU_CACHE")
+    os.environ["COSMOS_TPU_CACHE"] = cache
+    try:
+        model, preprocess = create_model_from_pretrained(
+            "MobileCLIP-S2", "datacompdr", "bf16")
+        load_s = time.perf_counter() - t0
+        cpu = create_model("MobileCLIP-S2", "fp32", device="cpu",
+                           pretrained="datacompdr")
+    finally:
+        if old is None:
+            del os.environ["COSMOS_TPU_CACHE"]
+        else:
+            os.environ["COSMOS_TPU_CACHE"] = old
+    pp = get_model_preprocess_cfg(model)
+    check((tuple(preprocess.mean), tuple(preprocess.std),
+           preprocess.interpolation) == ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+                                         "bilinear")
+          and pp["interpolation"] == "bilinear",
+          f"MobileCLIP preprocessing {preprocess} {pp}")
+    size = model.cfg.vision_cfg.image_size
+    serve, k1 = _weights_serve(K, model, size, MC_CALL_K1, "MobileCLIP-S2",
+                               WEIGHTS_SEED + 1)
+    del model
+    torch.cuda.empty_cache()
+    errs = _weights_card_vs_cpu(cpu, "MobileCLIP-S2", WEIGHTS_SEED + 1)
+    del cpu
+    print(f"[weights] MobileCLIP-S2 train form: {len(sd)} Apple keys "
+          f"written, fused and loaded (bf16, card) in {load_s:.1f} s")
+    return dict(serve=serve, card_vs_cpu=errs, tol=WEIGHTS_CPU_TOL,
+                apple_keys=len(sd), load_s=load_s), k1
+
+
+def _weights_int8(K):
+    """20(d): int8_matmul on the card against the CPU's exact product, and
+    ViT-B-16 COSMOS served from int8-quantized, dequantized weights."""
+    from cosmos_tpu_torch.models.factory import create_model
+    from cosmos_tpu_torch.ops import int8
+
+    rows, k, n = INT8_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(WEIGHTS_SEED)
+    x = torch.randn(rows, k, device="cuda", generator=gen)
+    w = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
+    wq, ws = int8.quantize_weight(w)
+    xq, _ = int8.quantize_activations(x)
+    for what, card_q, cpu_q in (("weights", (wq, ws),
+                                 int8.quantize_weight(w.cpu())),
+                                ("activations", (xq, _),
+                                 int8.quantize_activations(x.cpu()))):
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(card_q, cpu_q)),
+              f"int8 {what}: card vs CPU bits")
+    acc = int8._int_product(xq, wq)
+    acc_cpu = int8._int_product(xq.cpu(), wq.cpu())
+    check(torch.equal(acc.cpu(), acc_cpu), "int8 product: card vs CPU bits")
+    got = int8.int8_matmul(x, wq, ws)
+    want = int8.int8_matmul(x.cpu(), wq.cpu(), ws.cpu())
+    check(torch.equal(got.cpu(), want), "int8_matmul: card vs CPU bits")
+    xb, wb = x.bfloat16(), w.bfloat16()
+    ms = time_ms(lambda: int8.int8_matmul(x, wq, ws))
+    int_mm_ms = time_ms(lambda: torch._int_mm(xq, wq.t()))
+    bf16_ms = time_ms(lambda: F.linear(xb, wb))
+    rel = ((got - F.linear(x, w)).norm() / F.linear(x, w).norm()).item()
+    print(f"[weights] int8_matmul [{rows}, {k}] x [{k}, {n}]: card == CPU "
+          f"bit for bit; {ms:.4f} ms (torch._int_mm alone {int_mm_ms:.4f} "
+          f"ms) against F.linear in bf16 {bf16_ms:.4f} ms; relative error "
+          f"against the float32 product {rel:.3g}")
+
+    cpu = create_model("ViT-B-16", "fp32", device="cpu", seed=WEIGHTS_SEED,
+                       **COSMOS)
+    sd = cpu.state_dict()
+    after, before = int8.quantized_bytes(sd)
+    deq = int8.dequantize_dense_params(int8.quantize_dense_params(sd))
+    ref = create_model("ViT-B-16", "bf16", device="cuda", seed=WEIGHTS_SEED,
+                       **COSMOS)
+    quant = create_model("ViT-B-16", "bf16", device="cuda",
+                         seed=WEIGHTS_SEED, **COSMOS)
+    quant.load_state_dict(deq)
+    serve, k1 = _weights_serve(K, quant, 224, B16_CALL_K1,
+                               "ViT-B-16 int8-dequantized", WEIGHTS_SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(WEIGHTS_SEED + 3)
+    images = torch.randn(WEIGHTS_IMAGES, 224, 224, 3, device="cuda",
+                         generator=gen)
+    captions = torch.as_tensor(_captions(WEIGHTS_CAPTIONS, 77,
+                                         seed=WEIGHTS_SEED + 3),
+                               device="cuda")
+    zero_launches(K)
+    with torch.inference_mode():
+        rels = {}
+        for what, fn, arg in (("image", "encode_image", images),
+                              ("text", "encode_text", captions)):
+            f_ref = getattr(ref, fn)(arg)[f"{what}_features"].float()
+            f_q = getattr(quant, fn)(arg)[f"{what}_features"].float()
+            rels[what] = ((f_q - f_ref).norm(dim=-1)
+                          / f_ref.norm(dim=-1)).max().item()
+    k1 += read_launches(K)["K1"]
+    del ref, quant
+    torch.cuda.empty_cache()
+    cpu.load_state_dict(deq)
+    errs = _weights_card_vs_cpu(cpu, "ViT-B-16 int8-dequantized",
+                                WEIGHTS_SEED + 4)
+    del cpu
+    print(f"[weights] ViT-B-16 COSMOS int8 state dict {after / 1e6:.1f} MB "
+          f"against {before / 1e6:.1f} MB float32; features of the "
+          f"dequantized weights against the float weights (bf16, card): "
+          f"largest relative error image {rels['image']:.4f} text "
+          f"{rels['text']:.4f}")
+    return dict(int8_ms=ms, int_mm_ms=int_mm_ms, bf16_linear_ms=bf16_ms,
+                product_rel_err=rel, state_bytes=[after, before],
+                feature_rel_err=rels, serve=serve, card_vs_cpu=errs), k1
+
+
+def phase_weights_in(K, data: str, cache: str, tmp: str) -> dict:
+    """Phase 20: (a) ViT-L-14 from an OpenAI archive, (b) the trainer from
+    a cached tag at 336 px, (c) MobileCLIP-S2 from Apple's train form,
+    (d) the int8 ops; K1 held to its plain version at ViT-L-14's geometry
+    first."""
+    t0 = time.perf_counter()
+    fa = K.fa
+    gen = torch.Generator(device="cuda").manual_seed(WEIGHTS_SEED)
+    label, b, l, d3, heads, causal = L14_GEOMETRY
+    rows = [kernel_row(fa, label, b, l, d3, heads, causal, dtype, gen)
+            for dtype in (torch.float32, torch.bfloat16)]
+    l14, k1_l14 = _weights_openai_l14(K, fa, tmp)
+    tag, k1_tag = _weights_trainer_tag(K, data, cache, tmp)
+    mc, k1_mc = _weights_mobileclip(K, cache)
+    q, k1_q = _weights_int8(K)
+    k1 = {"ViT-L-14": k1_l14, "trainer tag": k1_tag, "MobileCLIP-S2": k1_mc,
+          "int8": k1_q}
+    out = dict(kernel_rows=rows, openai_l14=l14, trainer_tag=tag,
+               mobileclip=mc, int8=q, k1_launches=k1,
+               phase_s=time.perf_counter() - t0)
+    print(f"[weights] phase 20 in {out['phase_s']:.1f} s; K1 launches "
+          + " ".join(f"{k}={v}" for k, v in k1.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -4323,6 +4858,9 @@ def main() -> int:
         towers = phase_towers(K, trainer["data_dir"], trainer["workers"],
                               work)
         beyond = phase_beyond_dp(K, trainer["data_dir"], work)
+        # phase 12 left its last checkpoint in work/weights_cache
+        weights = phase_weights_in(K, trainer["data_dir"],
+                                   f"{work}/weights_cache", work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = phase_last_flags(K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -4352,6 +4890,8 @@ def main() -> int:
             label, str(dtype).replace("torch.", ""))
             and all(r.get(k) == v for k, v in match.items()))
 
+    l14_image_k1 = weights["openai_l14"]["serve"]["k1_launches"]["image"]
+    check(l14_image_k1 > 0, "K1 never launched at ViT-L-14's geometry")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype")
     attention_keys = keys + ("x_bound", "x_library")
@@ -4372,7 +4912,7 @@ def main() -> int:
         + trainer["launches"]["K1"] + classification["launches"]["K1"]
         + seg_k1 + options["launches"]["K1"] + dp_k1
         + sum(last_k1.values()) + sum(towers["k1_launches"].values())
-        + beyond_k["K1"],
+        + beyond_k["K1"] + sum(weights["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -4384,8 +4924,23 @@ def main() -> int:
                              "trainer options": options["launches"]["K1"],
                              "data parallel": dp_k1, **last_k1,
                              **towers["k1_launches"],
-                             "beyond DP": beyond_k["K1"]},
+                             "beyond DP": beyond_k["K1"],
+                             **{f"weights in {k}": v for k, v in
+                                weights["k1_launches"].items()}},
         **{k: k1_row[k] for k in attention_keys},
+    }, {
+        # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
+        # image calls are its main path
+        "name": "fused_attention_qkv_fwd_vit_l14",
+        "route": "cuda",
+        "source": "cosmos_tpu_torch/ops/csrc/fused_attention_fwd.cu",
+        "replaces": "cosmos_tpu/ops/fused_attention.py:101",
+        "launches": l14_image_k1,
+        "launches_by_path": {"weights in ViT-L-14 image calls":
+                             l14_image_k1},
+        **{k: pick(weights["kernel_rows"], (L14_GEOMETRY[0],
+                                            torch.bfloat16))[k]
+           for k in attention_keys},
     }, {
         "name": "fused_attention_qkv_bwd",
         "route": "cuda",
@@ -4446,7 +5001,7 @@ def main() -> int:
                   trainer=trainer, classification=classification,
                   segmentation=segmentation, trainer_options=options,
                   data_parallel=data_parallel, last_flags=last,
-                  towers=towers, beyond_dp=beyond,
+                  towers=towers, beyond_dp=beyond, weights_in=weights,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

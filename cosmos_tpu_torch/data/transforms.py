@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 import random as _random
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass, is_dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -333,3 +333,58 @@ def image_transform_train(image_size: int, mean=None, std=None, aug_cfg=None,
         ),
         as_uint8=as_uint8,
     )
+
+
+def image_transform_eval(image_size: int, mean=None, std=None,
+                         interpolation: str = "bicubic",
+                         resize_mode: str = "shortest") -> EvalTransform:
+    return EvalTransform(
+        image_size=image_size,
+        mean=mean or OPENAI_DATASET_MEAN,
+        std=std or OPENAI_DATASET_STD,
+        interpolation=interpolation,
+        resize_mode=resize_mode,
+    )
+
+
+@dataclass
+class AugmentationCfg:
+    """OpenCLIP's augmentation config.  ``re_prob``/``re_count`` (timm's
+    RandomErasing) and ``use_timm`` need timm and are refused at use;
+    the rest maps onto ``TrainTransform``."""
+
+    scale: tuple = (0.9, 1.0)
+    ratio: tuple = None
+    color_jitter: object = None
+    re_prob: float = None
+    re_count: int = None
+    use_timm: bool = False
+    color_jitter_prob: float = None
+    gray_scale_prob: float = None
+
+
+def aug_cfg_to_dict(aug_cfg) -> dict:
+    """An ``AugmentationCfg`` or a dict as a plain dict without its unset
+    (None/False) fields."""
+    if is_dataclass(aug_cfg):
+        return {k: v for k, v in asdict(aug_cfg).items()
+                if v is not None and v is not False}
+    return dict(aug_cfg or {})
+
+
+def image_transform(image_size: int, is_train: bool, mean=None, std=None,
+                    aug_cfg=None, **_ignored):
+    """OpenCLIP's dispatcher: the train transform with an augmentation
+    config, or the eval resize and center crop."""
+    if not is_train:
+        return image_transform_eval(image_size, mean=mean, std=std)
+    aug_cfg = aug_cfg_to_dict(aug_cfg)
+    if aug_cfg.get("use_timm") or aug_cfg.get("re_prob") or aug_cfg.get(
+            "re_count"):
+        raise NotImplementedError(
+            "timm-specific augmentations (use_timm, re_prob, re_count) "
+            "are unsupported: no timm dependency in this framework"
+        )
+    aug_cfg.pop("use_timm", None)
+    return image_transform_train(image_size, mean=mean, std=std,
+                                 aug_cfg=aug_cfg)

@@ -16,15 +16,22 @@ the JAX package's ``convert_timm_vit``/``convert_timm_eva``/
 ``visual.head.mlp.fc1/fc2``; the FastViT trunk and the MCi stem take the
 JAX tree's paths with dots (a ``kernel`` as ``weight``); ModifiedResNet
 takes OpenAI's names, ``build_resnet_vision_map``'s.
+
+The third-party layouts (``detect_format``, ``convert_state_dict``: bare
+timm trunks, Apple's MobileCLIP) follow at the end; ``models/checkpoint.py``
+reads the files.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 Entry = Tuple[str, Tuple[str, ...], Optional[str]]
 
@@ -82,6 +89,10 @@ def build_name_map(vision_layers: int, text_layers: int) -> List[Entry]:
         ("ln_final.weight", ("text", "ln_final", "scale"), None),
         ("ln_final.bias", ("text", "ln_final", "bias"), None),
         ("text_projection", ("text", "text_projection_kernel"), None),
+        # a text tower with proj_bias: an nn.Linear
+        ("text_projection.weight", ("text", "text_projection", "kernel"),
+         "t"),
+        ("text_projection.bias", ("text", "text_projection", "bias"), None),
         ("visual.conv1.weight", ("visual", "conv1_kernel"), "conv"),
         ("visual.class_embedding", ("visual", "class_embedding"), None),
         ("visual.positional_embedding",
@@ -221,18 +232,26 @@ def vision_entries(visual: Dict[str, Any]) -> List[Entry]:
     return entries
 
 
-def _from_flax(value: np.ndarray, tf: Optional[str]) -> np.ndarray:
+def _from_flax(value: torch.Tensor, tf: Optional[str]) -> torch.Tensor:
     if tf is None:
         return value
     if tf == "t":
-        return value.T
+        return value.t()
     if tf == "conv":  # HWIO -> OIHW
-        return value.transpose(3, 2, 0, 1)
+        return value.permute(3, 2, 0, 1)
     if tf == "cls":
         return value.reshape(1, 1, -1)
     if tf == "pos":
         return value[None]
     raise ValueError(tf)
+
+
+def _tensor(value: Any) -> torch.Tensor:
+    """A leaf as a CPU tensor of its own dtype (a tensor stays as it is, so
+    that a bfloat16 leaf, which numpy lacks, passes)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.array(np.asarray(value), order="C"))
 
 
 def _count_blocks(tower: Dict[str, Any]) -> int:
@@ -242,8 +261,8 @@ def _count_blocks(tower: Dict[str, Any]) -> int:
 
 def state_dict_from_jax_params(params: Dict[str, Any]
                                ) -> Dict[str, torch.Tensor]:
-    """The JAX package's CLIP param tree (leaves as numpy arrays, or
-    anything ``np.asarray`` takes) as this package's state dict."""
+    """The JAX package's CLIP param tree (leaves as tensors, numpy arrays
+    or anything ``np.asarray`` takes) as this package's state dict."""
     name_map = build_name_map(_count_blocks(params["visual"]),
                               _count_blocks(params["text"]))
     name_map += vision_entries(params["visual"])
@@ -255,26 +274,304 @@ def state_dict_from_jax_params(params: Dict[str, Any]
                 node = node[p]
         except KeyError:
             continue
-        value = np.array(_from_flax(np.asarray(node), tf), order="C")
-        out[tkey] = torch.from_numpy(value)
+        out[tkey] = _from_flax(_tensor(node), tf).contiguous()
     return out
 
 
-def load_checkpoint(path: str, which: str = "student"
-                    ) -> Dict[str, torch.Tensor]:
-    """A reference ``.pt`` checkpoint as a state dict for ``CLIP``.
+# --- third-party checkpoint formats ---------------------------------------
+#
+# Counterpart of ``cosmos_tpu/models/convert.py`` and ``convert_util.py``.
+# Every converter returns tensors under this package's names, which are
+# the source's own for the timm trunks (OpenCLIP's ``TimmModel`` keeps
+# them under ``visual.trunk.``), so converting is mostly renaming and
+# checking.  ``convert_state_dict`` returns the model's full state dict.
 
-    Takes a bare state dict or a training checkpoint
-    ``{"student": ..., "teacher": ..., ...}`` (``which`` picks one) or
-    ``{"state_dict": ...}``; strips DistributedDataParallel's ``module.``
-    prefix and drops the non-parameter ``attn_mask`` buffer.  The file is
-    read with ``weights_only=True``: tensors and plain containers only."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(ckpt, dict) and which in ckpt:
-        sd = ckpt[which]
-    elif isinstance(ckpt, dict) and "state_dict" in ckpt:
-        sd = ckpt["state_dict"]
+_MC_IMG = "image_encoder.model."
+_MC_TXT = "text_encoder."
+
+
+def np_(v: Any) -> np.ndarray:
+    """A checkpoint value as a numpy array."""
+    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+
+
+def tensor_(v: Any) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.array(np.asarray(v), order="C"))
+
+
+def rename_(sd: Dict[str, Any], pairs) -> Dict[str, torch.Tensor]:
+    """``{dst: sd[src]}`` for each ``(dst, src)``."""
+    return {dst: tensor_(sd[src]) for dst, src in pairs}
+
+
+def cvnets_block(sd: Dict[str, Any], b: str, dst: str
+                 ) -> Dict[str, torch.Tensor]:
+    """One CVNets/Apple TransformerEncoder block (``<b>.pre_norm_mha.{0,1}``,
+    ``<b>.pre_norm_ffn.{0,1,4}``) under OpenCLIP's resblock names at
+    ``dst``: shared by the MobileCLIP text tower and MobileCLIP-B's trunk
+    (``timm_model.convert_mobileclip_vit``, whose ``dst`` names are timm's)."""
+    timm = dst.startswith("blocks.")
+    names = (("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
+              "mlp.fc2") if timm else
+             ("ln_1", "attn.in_proj_", "attn.out_proj", "ln_2", "mlp.c_fc",
+              "mlp.c_proj"))
+    ln1, qkv, out, ln2, fc1, fc2 = names
+    sep = "." if timm else ""
+    pairs = [
+        (f"{dst}.{ln1}.weight", f"{b}.pre_norm_mha.0.weight"),
+        (f"{dst}.{ln1}.bias", f"{b}.pre_norm_mha.0.bias"),
+        (f"{dst}.{qkv}{sep}weight", f"{b}.pre_norm_mha.1.qkv_proj.weight"),
+        (f"{dst}.{qkv}{sep}bias", f"{b}.pre_norm_mha.1.qkv_proj.bias"),
+        (f"{dst}.{out}.weight", f"{b}.pre_norm_mha.1.out_proj.weight"),
+        (f"{dst}.{out}.bias", f"{b}.pre_norm_mha.1.out_proj.bias"),
+        (f"{dst}.{ln2}.weight", f"{b}.pre_norm_ffn.0.weight"),
+        (f"{dst}.{ln2}.bias", f"{b}.pre_norm_ffn.0.bias"),
+        (f"{dst}.{fc1}.weight", f"{b}.pre_norm_ffn.1.weight"),
+        (f"{dst}.{fc1}.bias", f"{b}.pre_norm_ffn.1.bias"),
+        (f"{dst}.{fc2}.weight", f"{b}.pre_norm_ffn.4.weight"),
+        (f"{dst}.{fc2}.bias", f"{b}.pre_norm_ffn.4.bias"),
+    ]
+    return rename_(sd, pairs)
+
+
+def detect_format(sd: Dict[str, Any]) -> str:
+    """The layout of a state dict, by the JAX package's fingerprints."""
+    keys = set(sd)
+    if any(k.startswith("params/img") or k.startswith("img/") for k in keys):
+        return "big_vision_siglip"
+    if any(k.startswith("image_encoder.model") for k in keys):
+        return "mobileclip"
+    if "visual.conv1.weight" in keys or "module.visual.conv1.weight" in keys:
+        return "open_clip"
+    if "cls_token" in keys and "blocks.0.attn.q_proj.weight" in keys:
+        return "timm_eva"
+    if "cls_token" in keys and "blocks.0.attn.qkv.weight" in keys:
+        return "timm_vit"
+    if "stem.0.weight" in keys and "stages.0.blocks.0.conv_dw.weight" in keys:
+        return "timm_convnext"
+    return "unknown"
+
+
+def _maybe_load_timm_head(sd: Dict[str, Any], out: Dict[str, torch.Tensor],
+                          head_key: str = "head") -> None:
+    """Load a timm checkpoint's classifier head into the linear projection
+    head ``visual.head.proj`` when the shapes match (timm's ``*_clip_*``
+    towers carry the CLIP projection there; an in1k head of 1000 classes
+    and an MLP head are left alone).  Mutates ``out``."""
+    w = sd.get(f"{head_key}.weight")
+    if "visual.head.proj.weight" not in out or w is None:
+        return
+    w = tensor_(w)
+    if tuple(w.shape) != tuple(out["visual.head.proj.weight"].shape):
+        return
+    out["visual.head.proj.weight"] = w
+    b = sd.get(f"{head_key}.bias")
+    if "visual.head.proj.bias" in out and b is not None:
+        b = tensor_(b)
+        if tuple(b.shape) == tuple(out["visual.head.proj.bias"].shape):
+            out["visual.head.proj.bias"] = b
+    logger.info("loaded timm classifier head as the CLIP projection "
+                "(shape-matched %s)", tuple(w.shape))
+
+
+def _replace_strict(target: Dict[str, torch.Tensor],
+                    new: Dict[str, torch.Tensor], what: str,
+                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``target`` with its keys under ``prefix`` replaced by ``new``: every
+    such key must be filled, every converted tensor must have a slot of its
+    shape."""
+    unused = sorted(set(new) - set(target))
+    if unused:
+        raise ValueError(
+            f"converted {what} tensors have no slot in the model: "
+            f"{unused[:8]} — build the model from the matching config")
+    out = dict(target)
+    for key, ref in target.items():
+        if not key.startswith(prefix):
+            continue
+        if key not in new:
+            raise KeyError(f"converted checkpoint missing {key}")
+        val = new[key]
+        if tuple(val.shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch at {key}: "
+                             f"{tuple(val.shape)} vs {tuple(ref.shape)}")
+        out[key] = val
+    return out
+
+
+_TRUNK_NEEDED = {
+    "timm_vit": ("timm ViT", "vit_base_patch16_224"),
+    "timm_eva": ("timm EVA02", "eva02_base_patch14_224"),
+}
+
+
+def convert_state_dict(model: torch.nn.Module, sd: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """Format dispatch: ``sd`` in any layout ``detect_format`` knows as the
+    full state dict of ``model`` (the JAX package's ``convert_state_dict``)."""
+    from .checkpoint import torch_state_dict_to_model
+
+    fmt = detect_format(sd)
+    if fmt == "open_clip":
+        return torch_state_dict_to_model(model, sd)
+    if fmt == "big_vision_siglip":
+        raise NotImplementedError(
+            "big_vision SigLIP .npz checkpoints are not ported: the port's "
+            "ViT has no 'map' pool (ROADMAP queue 1, \"Not queued\": "
+            "the ViT-B-16-SigLIP towers)")
+    if fmt in ("timm_vit", "timm_eva", "timm_convnext"):
+        if not hasattr(getattr(model, "visual", None), "trunk"):
+            if fmt == "timm_convnext":
+                raise ValueError(
+                    "bare timm ConvNeXt checkpoint needs a timm vision "
+                    "tower: build the model with vision_cfg timm_model_name "
+                    "(e.g. create_model('convnext_base_w'))")
+            what, example = _TRUNK_NEEDED[fmt]
+            raise ValueError(
+                f"bare {what} checkpoint needs a timm vision tower: "
+                "build the model with vision_cfg timm_model_name "
+                f"(e.g. create_model(..., vision_timm_model_name="
+                f"'{example}'))")
+        if fmt == "timm_vit":
+            from .timm_model import convert_timm_vit, infer_timm_vit_name
+            trunk = convert_timm_vit(sd, infer_timm_vit_name(sd))
+        elif fmt == "timm_eva":
+            from .eva import convert_timm_eva, infer_timm_eva_name
+            trunk = convert_timm_eva(sd, infer_timm_eva_name(sd))
+        else:
+            from .convnext import (convert_timm_convnext,
+                                   infer_timm_convnext_name)
+            trunk = convert_timm_convnext(sd, infer_timm_convnext_name(sd))
+        out = _replace_strict(
+            model.state_dict(),
+            {f"visual.trunk.{k}": v for k, v in trunk.items()},
+            fmt.replace("_", " "), prefix="visual.trunk.")
+        _maybe_load_timm_head(sd, out, "head.fc" if fmt == "timm_convnext"
+                              else "head")
+        return out
+    if fmt == "mobileclip":
+        return convert_mobileclip(model, sd)
+    raise ValueError(f"unrecognized checkpoint format (keys: {list(sd)[:5]})")
+
+
+# --- MobileCLIP (Apple ml-mobileclip checkpoints) -------------------------
+#
+# The image trunk goes through the fusing converter (``fastvit.py``: the
+# train-form branches folded into the deploy convs) or, for B, the hybrid
+# ViT's (``timm_model.convert_mobileclip_vit``); the text tower maps key
+# for key onto the CLIP text tower.  MobileCLIP-S0's convolutional text
+# tower is refused, as the JAX package refuses it.
+
+
+def _convert_mobileclip_text(sd: Dict[str, Any], n_layers: int
+                             ) -> Dict[str, torch.Tensor]:
+    p = _MC_TXT
+    pe_key = f"{p}positional_embedding.pos_embed.pos_embed"
+    if pe_key not in sd:
+        raise NotImplementedError(
+            "MobileCLIP text tower is not the base transformer layout "
+            "(MobileCLIP-S0's MCt convolutional text tower?) — "
+            "unsupported, matching the reference (convert.py:184)"
+        )
+    emb = tensor_(sd[f"{p}embedding_layer.weight"])
+    out = {
+        "token_embedding.weight": emb,
+        "positional_embedding": tensor_(sd[pe_key]).reshape(-1, emb.shape[1]),
+        **rename_(sd, [("ln_final.weight", f"{p}final_layer_norm.weight"),
+                       ("ln_final.bias", f"{p}final_layer_norm.bias")]),
+    }
+    for i in range(n_layers):
+        out.update(cvnets_block(sd, f"{p}transformer.{i}",
+                                f"transformer.resblocks.{i}"))
+    # a bare [width, embed] matrix, or an nn.Linear with or without bias
+    if f"{p}projection_layer" in sd:
+        out["text_projection"] = tensor_(sd[f"{p}projection_layer"])
+    elif f"{p}projection_layer.weight" in sd:
+        w = tensor_(sd[f"{p}projection_layer.weight"])
+        if f"{p}projection_layer.bias" in sd:
+            out["text_projection.weight"] = w
+            out["text_projection.bias"] = tensor_(
+                sd[f"{p}projection_layer.bias"])
+        else:
+            out["text_projection"] = w.t().contiguous()
     else:
-        sd = ckpt
-    return {re.sub(r"^module\.", "", k): v for k, v in sd.items()
-            if not k.endswith("attn_mask")}
+        raise KeyError("MobileCLIP text projection not found "
+                       "(text_encoder.projection_layer)")
+    return out
+
+
+def _mc_image_head(sd: Dict[str, Any], target: Tuple[int, ...]
+                   ) -> Dict[str, torch.Tensor]:
+    """Apple's image projection as ``visual.head.proj``: S1/S2 keep a bare
+    ``[in, out]`` matrix at ``head.proj``, B a Linear-oriented
+    ``classifier.proj``/``classifier.weight``.  A bare matrix is oriented
+    by the head's shape; a square one by the key's convention.  ``target``
+    is the head's ``[in, out]``."""
+    for base, transpose_default in (("head.proj", False),
+                                    ("classifier.proj", True),
+                                    ("head.weight", True),
+                                    ("classifier.weight", True)):
+        key = f"{_MC_IMG}{base}"
+        if key not in sd:
+            continue
+        kern = tensor_(sd[key])                      # [in, out] form
+        if tuple(kern.shape) != target and tuple(kern.shape[::-1]) == target:
+            kern = kern.t()
+        elif (tuple(kern.shape) == target == target[::-1]
+              and transpose_default):
+            kern = kern.t()
+        head = {"visual.head.proj.weight": kern.t().contiguous()}
+        bias = f"{key.rsplit('.', 1)[0]}.bias"
+        if bias in sd:
+            head["visual.head.proj.bias"] = tensor_(sd[bias])
+        return head
+    raise KeyError("MobileCLIP image projection not found "
+                   "(image_encoder.model.{head,classifier}.*)")
+
+
+def convert_mobileclip(model: torch.nn.Module, sd: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """An Apple MobileCLIP checkpoint (S1/S2 FastViT/MCi trunks, B's hybrid
+    ViT) as the full state dict of ``model``."""
+    from .fastvit import convert_mobileclip_image, infer_fastvit_name
+    from .timm_model import convert_mobileclip_vit, infer_mci_vit_name
+
+    visual = getattr(model, "visual", None)
+    if not hasattr(visual, "trunk"):
+        raise ValueError(
+            "MobileCLIP checkpoint needs a timm-adapter vision tower: "
+            "build the model from the MobileCLIP-S1/S2/B config "
+            "(create_model('MobileCLIP-B'))")
+    target = model.state_dict()
+    if f"{_MC_IMG}patch_emb.0.block.conv.weight" in sd:
+        if "visual.trunk.stem0.weight" not in target:
+            raise ValueError(
+                "MobileCLIP-B checkpoint needs the hybrid-ViT vision "
+                "tower: build the model from the MobileCLIP-B config "
+                "(create_model('MobileCLIP-B'))")
+        name = infer_mci_vit_name(sd, _MC_IMG)
+        trunk = convert_mobileclip_vit(sd, name, _MC_IMG)
+    else:
+        if f"{_MC_IMG}patch_embed.0.rbr_conv.0.conv.weight" not in sd:
+            raise ValueError(
+                "unrecognized MobileCLIP image tower layout (expected "
+                "image_encoder.model.patch_embed.0.rbr_conv.* FastViT keys "
+                "or patch_emb.0.block.conv.* hybrid-ViT keys)")
+        name = infer_fastvit_name(sd, _MC_IMG)
+        trunk = convert_mobileclip_image(sd, name, _MC_IMG)
+    new = {f"visual.trunk.{k}": v for k, v in trunk.items()}
+    if "visual.head.proj.weight" not in target:
+        raise ValueError(
+            "converted MobileCLIP tensors have no slot at visual.head — "
+            "model config must be the MobileCLIP shape (timm fastvit_mci* "
+            "trunk, 'avg' pool, bias-free 'linear' proj)")
+    new.update(_mc_image_head(
+        sd, tuple(target["visual.head.proj.weight"].shape[::-1])))
+    n_txt = len(model.transformer.resblocks)
+    new.update(_convert_mobileclip_text(sd, n_txt))
+    new["logit_scale"] = tensor_(sd["logit_scale"]).reshape(())
+    out = _replace_strict(target, new, "MobileCLIP")
+    logger.info("converted MobileCLIP checkpoint: %s trunk (fused to "
+                "deploy form) + %d text blocks", name, n_txt)
+    return out

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .convert import rename_
 from .layers import Conv2d, LayerNorm, Linear, gelu
 from .transformer import remat_context_fn, run_block
 
@@ -145,3 +146,44 @@ class ConvNeXt(nn.Module):
         b, h, w, c = x.shape
         tokens = x.reshape(b, h * w, c)
         return self.head.norm(tokens.mean(dim=1)), self.head.norm(tokens)
+
+
+# --- timm checkpoint conversion (cosmos_tpu/models/convnext.py:170-221) ---
+
+def infer_timm_convnext_name(sd: Dict[str, Any]) -> str:
+    """Match a timm ConvNeXt state dict to a registered geometry."""
+    dim0 = int(sd["stem.0.weight"].shape[0])
+    depths = []
+    for s in range(4):
+        keys = [k for k in sd if k.startswith(f"stages.{s}.blocks.")]
+        if not keys:
+            break
+        depths.append(1 + max(int(k.split(".")[3]) for k in keys))
+    depths = tuple(depths)
+    for name, g in CONVNEXT_CONFIGS.items():
+        if g["dims"][0] == dim0 and g["depths"] == depths:
+            return name
+    raise KeyError(
+        f"no registered ConvNeXt geometry matches dims[0]={dim0} "
+        f"depths={depths}; add one via register_convnext"
+    )
+
+
+def convert_timm_convnext(sd: Dict[str, Any], model_name: str
+                          ) -> Dict[str, torch.Tensor]:
+    """A timm ConvNeXt state dict as the trunk's state dict (timm's names
+    below ``visual.trunk.``); the classifier ``head.fc`` is loaded by
+    ``convert._maybe_load_timm_head``."""
+    g = CONVNEXT_CONFIGS[model_name]
+    mods = ["stem.0", "stem.1", "head.norm"]
+    for s, depth in enumerate(g["depths"]):
+        if s > 0:
+            mods += [f"stages.{s}.downsample.0", f"stages.{s}.downsample.1"]
+        for b in range(depth):
+            p = f"stages.{s}.blocks.{b}"
+            mods += [f"{p}.conv_dw", f"{p}.norm", f"{p}.mlp.fc1",
+                     f"{p}.mlp.fc2"]
+    keys = [f"{m}.{leaf}" for m in mods for leaf in ("weight", "bias")]
+    keys += [f"stages.{s}.blocks.{b}.gamma"
+             for s, depth in enumerate(g["depths"]) for b in range(depth)]
+    return rename_(sd, [(k, k) for k in keys])

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .convert import rename_
 from .layers import LayerNorm, Linear
 from .transformer import remat_context_fn, run_block
 from .vit import _PatchEmbed, interpolate_pos_embed, patchify
@@ -216,3 +217,79 @@ class Eva(nn.Module):
         x = self.norm(x)
         pooled = x[:, 0] if self.pool == "token" else x[:, 1:].mean(dim=1)
         return pooled, x
+
+
+# --- timm checkpoint conversion (cosmos_tpu/models/eva.py:264-358) --------
+
+def infer_timm_eva_name(sd: Dict[str, Any]) -> str:
+    """Match a timm EVA02 state dict to a registered geometry by shapes
+    and by the presence of the sub-LN keys."""
+    w = int(sd["cls_token"].reshape(-1).shape[0])
+    p = int(sd["patch_embed.proj.weight"].shape[-1])
+    layers = 1 + max(int(k.split(".")[1]) for k in sd
+                     if k.startswith("blocks."))
+    n_pos = int(sd["pos_embed"].shape[1])
+    img = int(round((n_pos - 1) ** 0.5)) * p
+    scale_attn = "blocks.0.attn.norm.weight" in sd
+    for name, g in EVA_CONFIGS.items():
+        if (g["width"] == w and g["patch_size"] == p
+                and g["layers"] == layers
+                and g.get("image_size", 224) == img
+                and g.get("scale_attn", False) == scale_attn):
+            return name
+    raise KeyError(
+        f"no registered EVA02 geometry matches width={w} patch={p} "
+        f"layers={layers} img={img} scale_attn={scale_attn}; add one via "
+        "register_eva"
+    )
+
+
+def _mlp_keys(sd: Dict[str, Any], blk: str) -> Dict[str, str]:
+    """timm eva.py SwiGLU names (fc1_g/fc1_x/norm/fc2) by this trunk's
+    names, from timm's keys or the original EVA-02 repo's (w1/w2/ffn_ln/w3)."""
+    if f"{blk}.mlp.fc1_g.weight" in sd:
+        return {n: f"{blk}.mlp.{n}" for n in ("fc1_g", "fc1_x", "norm", "fc2")}
+    if f"{blk}.mlp.w1.weight" in sd:
+        return {"fc1_g": f"{blk}.mlp.w1", "fc1_x": f"{blk}.mlp.w2",
+                "norm": f"{blk}.mlp.ffn_ln", "fc2": f"{blk}.mlp.w3"}
+    raise KeyError(
+        f"{blk}: plain-MLP EVA variants (mlp.fc1/fc2, swiglu_mlp=False) "
+        "are not supported — EVA02 towers are all SwiGLU"
+    )
+
+
+def convert_timm_eva(sd: Dict[str, Any], model_name: str
+                     ) -> Dict[str, torch.Tensor]:
+    """A timm EVA02 state dict as the trunk's state dict (names below
+    ``visual.trunk.``): timm's names, the original repo's MLP names renamed,
+    ``k_proj``'s bias (if any) dropped.  The rope tables carry no weights;
+    the classifier head is loaded by ``convert._maybe_load_timm_head``.
+    Fused-qkv EVA variants (eva_giant) raise."""
+    g = EVA_CONFIGS[model_name]
+    w = g["width"]
+    if "blocks.0.attn.qkv.weight" in sd:
+        raise NotImplementedError(
+            "fused-qkv EVA (eva_giant family) is not supported; EVA02 "
+            "checkpoints use separate q/k/v projections"
+        )
+    pairs = [(k, k) for k in ("patch_embed.proj.weight",
+                              "patch_embed.proj.bias", "norm.weight",
+                              "norm.bias")]
+    for i in range(g["layers"]):
+        blk = f"blocks.{i}"
+        mk = _mlp_keys(sd, blk)
+        names = ["norm1", "norm2", "attn.q_proj", "attn.v_proj", "attn.proj"]
+        if f"{blk}.attn.norm.weight" in sd:
+            names.append("attn.norm")
+        pairs += [(f"{blk}.{n}.{leaf}", f"{blk}.{n}.{leaf}")
+                  for n in names for leaf in ("weight", "bias")]
+        pairs.append((f"{blk}.attn.k_proj.weight", f"{blk}.attn.k_proj.weight"))
+        mlp = ["fc1_g", "fc1_x", "fc2"]
+        if f"{mk['norm']}.weight" in sd:
+            mlp.append("norm")
+        pairs += [(f"{blk}.mlp.{n}.{leaf}", f"{mk[n]}.{leaf}")
+                  for n in mlp for leaf in ("weight", "bias")]
+    out = rename_(sd, pairs)
+    out["cls_token"] = torch.as_tensor(sd["cls_token"]).reshape(1, 1, w)
+    out["pos_embed"] = torch.as_tensor(sd["pos_embed"]).reshape(1, -1, w)
+    return out

@@ -2,13 +2,17 @@
 
 ``create_model`` returns an ``nn.Module`` in eval mode on the requested
 device.  Weights are initialised on the CPU from one ``torch.Generator``
-seeded with ``seed``, so a seed gives the same weights on every device, and
-are then moved.
+seeded with ``seed``, so a seed gives the same weights on every device,
+then a ``pretrained`` checkpoint (a path or a cached registry tag) is loaded
+and the model moved.  ``precision`` stays the second positional argument;
+``pretrained`` is a keyword, where the JAX package takes it second.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+import dataclasses
+import weakref
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -54,6 +58,7 @@ def create_model(
     model_name: str,
     precision: str = "fp32",
     *,
+    pretrained: Optional[str] = None,
     cosmos: bool = False,
     output_all: bool = False,
     attentional_pool: bool = False,
@@ -65,6 +70,8 @@ def create_model(
     remat_policy: str = "",
     use_flash: Optional[bool] = None,
     force_patch_dropout: Optional[float] = None,
+    force_quick_gelu: bool = False,
+    force_image_size: Optional[int] = None,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
     **overrides: Any,
@@ -81,10 +88,24 @@ def create_model(
     what ``remat_policy`` names; ``use_flash`` is the attention tri-state
     (``False``: never K1/K2); ``force_patch_dropout`` sets the vision
     tower's patch dropout.  ``overrides`` follow ``build_clip_cfg``
-    (``init_logit_scale``, ``init_logit_bias`` among them)."""
+    (``init_logit_scale``, ``init_logit_bias`` among them).
+    ``pretrained`` is a checkpoint path or a registry tag whose file is
+    cached (``models/pretrained.py``), loaded by
+    ``checkpoint.load_checkpoint``; the ``openai`` tag forces QuickGELU, as
+    do ``force_quick_gelu`` and a config's ``quick_gelu``;
+    ``force_image_size`` resizes the vision tower (a checkpoint's position
+    table is resized to it)."""
     dev = resolve_device(device)
+    if pretrained and dev.type == "meta":
+        raise ValueError("a meta-device model holds no weights to load into")
+    if pretrained and str(pretrained).lower() == "openai":
+        # OpenAI's towers use QuickGELU: their weights in erf-GELU towers
+        # would change every MLP activation
+        force_quick_gelu = True
     if force_patch_dropout is not None:
         overrides["vision_patch_dropout"] = force_patch_dropout
+    if force_image_size is not None:
+        overrides["vision_image_size"] = force_image_size
     if output_all:
         overrides["output_all"] = True
     if attentional_pool:
@@ -92,6 +113,8 @@ def create_model(
     if add_zero_attn:
         overrides["add_zero_attn"] = True
     cfg = build_clip_cfg(model_name, overrides)
+    if force_quick_gelu:
+        cfg = dataclasses.replace(cfg, quick_gelu=True)
     with torch.device("meta" if dev.type == "meta" else "cpu"):
         model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
                      act_approx=act_approx, text_bucket=text_bucket,
@@ -100,6 +123,11 @@ def create_model(
     if dev.type == "meta":
         return model.eval()
     init_weights(model, torch.Generator().manual_seed(seed))
+    if pretrained:
+        from .checkpoint import load_checkpoint
+        from .pretrained import resolve_pretrained
+
+        load_checkpoint(model, resolve_pretrained(model_name, pretrained))
     return model.to(dev).eval()
 
 
@@ -117,3 +145,153 @@ def get_tokenizer(model_name: str = ""):
             f"{model_name}: HF tokenizers are not ported (ROADMAP queue 1, "
             '"Not queued": it needs a download)')
     return SimpleTokenizer(context_length=text_cfg.get("context_length", 77))
+
+
+def pretrained_preprocess_defaults(
+    model_name: str,
+    pretrained: Optional[str],
+    image_mean: Optional[Tuple[float, ...]] = None,
+    image_std: Optional[Tuple[float, ...]] = None,
+) -> Dict[str, Any]:
+    """Preprocessing from the pretrained tag's registry entry: explicit
+    arguments win, then the entry (MobileCLIP's identity mean/std and
+    bilinear resize), then OpenAI's defaults."""
+    from ..data.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+    from .pretrained import get_pretrained_cfg
+
+    pcfg = get_pretrained_cfg(model_name, pretrained) if pretrained else {}
+    return {
+        "mean": tuple(image_mean or pcfg.get("mean") or OPENAI_DATASET_MEAN),
+        "std": tuple(image_std or pcfg.get("std") or OPENAI_DATASET_STD),
+        "interpolation": pcfg.get("interpolation", "bicubic"),
+        "resize_mode": pcfg.get("resize_mode", "shortest"),
+    }
+
+
+def create_model_and_transforms(
+    model_name: str,
+    pretrained: Optional[str] = None,
+    precision: str = "fp32",
+    *,
+    image_mean: Optional[Tuple[float, ...]] = None,
+    image_std: Optional[Tuple[float, ...]] = None,
+    aug_cfg: Optional[Dict[str, Any]] = None,
+    use_imagecrop_aug: bool = False,
+    local_crops_number: int = 6,
+    global_crops_number: int = 2,
+    crop_scale: float = 0.4,
+    **kwargs: Any,
+):
+    """``(model, train transform, eval transform)``; the transforms take
+    the pretrained tag's preprocessing.  (The JAX package returns the
+    parameters too; here the module holds them.)"""
+    from ..data.transforms import (MulticropAugmentation, aug_cfg_to_dict,
+                                   image_transform_eval,
+                                   image_transform_train)
+
+    aug_cfg = aug_cfg_to_dict(aug_cfg)
+    model = create_model(model_name, precision, pretrained=pretrained,
+                         **kwargs)
+    pp = pretrained_preprocess_defaults(model_name, pretrained,
+                                        image_mean, image_std)
+    image_size = model.cfg.vision_cfg.image_size
+    set_model_preprocess_cfg(model, {"size": image_size, **pp})
+    if use_imagecrop_aug:
+        train_tf = MulticropAugmentation(
+            mean=pp["mean"], std=pp["std"], image_size=image_size,
+            local_crops_number=local_crops_number,
+            global_crops_number=global_crops_number, crop_scale=crop_scale)
+    else:
+        train_tf = image_transform_train(image_size, mean=pp["mean"],
+                                         std=pp["std"], aug_cfg=aug_cfg)
+    val_tf = image_transform_eval(image_size, mean=pp["mean"], std=pp["std"],
+                                  interpolation=pp["interpolation"],
+                                  resize_mode=pp["resize_mode"])
+    return model, train_tf, val_tf
+
+
+def create_model_from_pretrained(
+    model_name: str,
+    pretrained: Optional[str] = None,
+    precision: str = "fp32",
+    *,
+    image_mean: Optional[Tuple[float, ...]] = None,
+    image_std: Optional[Tuple[float, ...]] = None,
+    return_transform: bool = True,
+    **kwargs: Any,
+):
+    """A model with pretrained weights and its eval transform:
+    ``(model, preprocess)``, or the model alone with
+    ``return_transform=False``."""
+    from ..data.transforms import image_transform_eval
+
+    model = create_model(model_name, precision, pretrained=pretrained,
+                         **kwargs)
+    pp = pretrained_preprocess_defaults(model_name, pretrained,
+                                        image_mean, image_std)
+    size = model.cfg.vision_cfg.image_size
+    set_model_preprocess_cfg(model, {"size": size, **pp})
+    if not return_transform:
+        return model
+    return model, image_transform_eval(
+        size, mean=pp["mean"], std=pp["std"],
+        interpolation=pp["interpolation"], resize_mode=pp["resize_mode"])
+
+
+# per-model preprocessing recorded by set_model_preprocess_cfg; an entry
+# goes with its model
+_PREPROCESS_OVERRIDES: "weakref.WeakKeyDictionary[torch.nn.Module, Dict]" = (
+    weakref.WeakKeyDictionary())
+
+
+def get_model_preprocess_cfg(model: CLIP) -> Dict[str, Any]:
+    """The preprocessing a consumer of the model's checkpoint needs."""
+    from ..data.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+
+    cfg = {
+        "size": model.cfg.vision_cfg.image_size,
+        "mode": "RGB",
+        "mean": OPENAI_DATASET_MEAN,
+        "std": OPENAI_DATASET_STD,
+        "interpolation": "bicubic",
+        "resize_mode": "shortest",
+    }
+    cfg.update(_PREPROCESS_OVERRIDES.get(model, {}))
+    return cfg
+
+
+def set_model_preprocess_cfg(model: CLIP, preprocess_cfg: Dict[str, Any]
+                             ) -> CLIP:
+    """Record the checkpoint's preprocessing for ``model`` (read back by
+    ``get_model_preprocess_cfg``); returns the model."""
+    _PREPROCESS_OVERRIDES[model] = dict(preprocess_cfg)
+    return model
+
+
+def get_model_tokenize_cfg(model: CLIP) -> Dict[str, Any]:
+    """The text tower's tokenizer geometry."""
+    t = model.cfg.text_cfg
+    return {"context_length": t.context_length, "vocab_size": t.vocab_size}
+
+
+def create_loss(args):
+    """The loss the trainer's flags name (COSMOS, SigLIP, distillation or
+    plain CLIP); CoCa's is refused."""
+    from ..losses.contrastive import (ClipLoss, COSMOSLoss, DistillClipLoss,
+                                      SigLipLoss)
+
+    if getattr(args, "cosmos", False):
+        return COSMOSLoss(local_loss=args.local_loss,
+                          gather_with_grad=args.gather_with_grad)
+    if getattr(args, "siglip", False):
+        return SigLipLoss()
+    if getattr(args, "distill", False) or getattr(args, "distill_model",
+                                                   None):
+        return DistillClipLoss(local_loss=args.local_loss,
+                               gather_with_grad=args.gather_with_grad)
+    if "coca" in getattr(args, "model", "").lower():
+        raise NotImplementedError(
+            'CoCa is not ported (ROADMAP queue 1, "Other towers, configs '
+            'and tools")')
+    return ClipLoss(local_loss=getattr(args, "local_loss", False),
+                    gather_with_grad=getattr(args, "gather_with_grad", True))

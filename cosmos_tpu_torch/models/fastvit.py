@@ -17,10 +17,12 @@ from __future__ import annotations
 
 from typing import Any, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .convert import np_
 from .layers import Conv2d, Linear, gelu
 from .transformer import remat_context_fn, run_block
 
@@ -194,3 +196,207 @@ class FastVit(nn.Module):
         b, h, w, c = x.shape
         tokens = x.reshape(b, h * w, c)
         return tokens.mean(dim=1), tokens
+
+
+# --- Apple MobileCLIP checkpoint conversion -------------------------------
+#
+# Counterpart of ``cosmos_tpu/models/fastvit.py:273-430``: Apple's
+# train-form branches (conv + BatchNorm lists, 1x1 scale branches,
+# BatchNorm skips, the large-kernel reparameterisation, layer scales) fold
+# into the deploy convs above.  The folding runs in numpy in the
+# checkpoint's dtype with the JAX package's expressions in its order
+# (``t = g / sqrt(var + eps)``, ``w * t``, ``b - mean * t``), so that the
+# bits agree; kernels stay OIHW, torch's layout.
+
+def _np(sd, k) -> np.ndarray:
+    return np_(sd[k])
+
+
+def _fuse_conv_bn(sd, prefix: str, eps: float = 1e-5, norm: str = "bn"):
+    """conv(bias-free)+BN branch -> (kernel OIHW, bias).  ``norm`` names
+    the BN child ('bn' in ml-fastvit's conv_bn, 'norm' in CVNets
+    ConvLayer — the MobileCLIP-B stem)."""
+    w = _np(sd, f"{prefix}.conv.weight")
+    g_ = _np(sd, f"{prefix}.{norm}.weight")
+    b = _np(sd, f"{prefix}.{norm}.bias")
+    mean = _np(sd, f"{prefix}.{norm}.running_mean")
+    var = _np(sd, f"{prefix}.{norm}.running_var")
+    t = g_ / np.sqrt(var + eps)
+    return w * t[:, None, None, None], b - mean * t
+
+
+def _dirac(channels: int, groups: int, k: int) -> np.ndarray:
+    """Identity mapping as an OIHW conv kernel (RepVGG-style)."""
+    in_per_group = channels // groups
+    w = np.zeros((channels, in_per_group, k, k), np.float32)
+    for i in range(channels):
+        w[i, i % in_per_group, k // 2, k // 2] = 1.0
+    return w
+
+
+def _fuse_bn_identity(sd, prefix: str, channels: int, groups: int, k: int,
+                      eps: float = 1e-5):
+    """BatchNorm-only skip branch -> equivalent (kernel, bias)."""
+    g_ = _np(sd, f"{prefix}.weight")
+    b = _np(sd, f"{prefix}.bias")
+    mean = _np(sd, f"{prefix}.running_mean")
+    var = _np(sd, f"{prefix}.running_var")
+    t = g_ / np.sqrt(var + eps)
+    return _dirac(channels, groups, k) * t[:, None, None, None], b - mean * t
+
+
+def _pad_to(w: np.ndarray, k: int) -> np.ndarray:
+    """Pad a smaller (1x1 scale, 3x3 small) kernel to k x k, centered."""
+    p = (k - w.shape[-1]) // 2
+    if p == 0:
+        return w
+    return np.pad(w, ((0, 0), (0, 0), (p, p), (p, p)))
+
+
+def _fuse_mobileone(sd, prefix: str, in_ch: int, out_ch: int, groups: int,
+                    k: int, stride: int):
+    """Train-form MobileOneBlock branches -> one (kernel OIHW, bias):
+    ``rbr_conv.{j}`` kxk conv+BN list, ``rbr_scale`` 1x1 conv+BN (k > 1
+    only), ``rbr_skip`` BatchNorm identity (in == out, stride 1 only)."""
+    w = np.zeros((out_ch, in_ch // groups, k, k), np.float32)
+    b = np.zeros((out_ch,), np.float32)
+    j = 0
+    while f"{prefix}.rbr_conv.{j}.conv.weight" in sd:
+        wj, bj = _fuse_conv_bn(sd, f"{prefix}.rbr_conv.{j}")
+        w, b = w + wj, b + bj
+        j += 1
+    if f"{prefix}.rbr_scale.conv.weight" in sd:
+        ws, bs = _fuse_conv_bn(sd, f"{prefix}.rbr_scale")
+        w, b = w + _pad_to(ws, k), b + bs
+    if f"{prefix}.rbr_skip.weight" in sd:
+        wi, bi = _fuse_bn_identity(sd, f"{prefix}.rbr_skip", out_ch,
+                                   groups, k)
+        w, b = w + wi, b + bi
+    return w, b
+
+
+def _fuse_replk(sd, prefix: str, k: int):
+    """ReparamLargeKernelConv: kxk + small (3x3) conv+BN branches."""
+    w, b = _fuse_conv_bn(sd, f"{prefix}.lkb_origin")
+    if f"{prefix}.small_conv.conv.weight" in sd:
+        ws, bs = _fuse_conv_bn(sd, f"{prefix}.small_conv")
+        w, b = w + _pad_to(ws, k), b + bs
+    return w, b
+
+
+def _conv_sd(name: str, w: np.ndarray, b: np.ndarray) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": torch.from_numpy(np.ascontiguousarray(w)),
+            f"{name}.bias": torch.from_numpy(np.ascontiguousarray(b))}
+
+
+def _ls(sd, key) -> np.ndarray:
+    return _np(sd, key).reshape(-1)           # [C,1,1] -> [C]
+
+
+def infer_fastvit_name(sd: Dict[str, Any], prefix: str = "") -> str:
+    """Match an Apple MCi state dict to a registered geometry."""
+    dim0 = int(_np(sd, f"{prefix}patch_embed.0.rbr_conv.0.conv.weight"
+                   ).shape[0])
+    # stage depths: network entries that are block Sequentials hold
+    # numbered blocks with convffn params
+    depths = []
+    for idx in range(16):
+        head = f"{prefix}network.{idx}."
+        bs = {int(k[len(head):].split(".")[0]) for k in sd
+              if k.startswith(head) and ".convffn." in k}
+        if bs:
+            depths.append(1 + max(bs))
+    depths = tuple(depths)
+    for name, g in FASTVIT_CONFIGS.items():
+        if g["dims"][0] == dim0 and g["layers"] == depths:
+            return name
+    raise KeyError(
+        f"no registered FastViT/MCi geometry matches dims[0]={dim0} "
+        f"stage depths={depths}; add one via register_fastvit"
+    )
+
+
+def convert_mobileclip_image(sd: Dict[str, Any], model_name: str,
+                             prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Apple MobileCLIP's image trunk (train form, keys under ``prefix``)
+    as the deploy trunk's state dict (names below ``visual.trunk.``)."""
+    g = FASTVIT_CONFIGS[model_name]
+    layers, dims, ratios = g["layers"], g["dims"], g["mlp_ratios"]
+    d0 = dims[0]
+    out: Dict[str, torch.Tensor] = {}
+    out.update(_conv_sd("stem_0", *_fuse_mobileone(
+        sd, f"{prefix}patch_embed.0", 3, d0, 1, 3, 2)))
+    out.update(_conv_sd("stem_1", *_fuse_mobileone(
+        sd, f"{prefix}patch_embed.1", d0, d0, d0, 3, 2)))
+    out.update(_conv_sd("stem_2", *_fuse_mobileone(
+        sd, f"{prefix}patch_embed.2", d0, d0, 1, 1, 1)))
+    # ml-fastvit's network index: per stage an optional RepCPE, the block
+    # Sequential, then a PatchEmbed (not after the last stage)
+    idx = 0
+    for s, (depth, dim, ratio) in enumerate(zip(layers, dims, ratios)):
+        if _POS_EMBS[s]:
+            w = _np(sd, f"{prefix}network.{idx}.pe.weight")
+            b = _np(sd, f"{prefix}network.{idx}.pe.bias")
+            out.update(_conv_sd(f"pos_emb_{s}", w + _dirac(dim, dim, 7), b))
+            idx += 1
+        for blk in range(depth):
+            p = f"{prefix}network.{idx}.{blk}"
+            name = f"net_{s}_blocks_{blk}"
+            hidden = dim * ratio
+            if _TOKEN_MIXERS[s] == "repmixer":
+                # fused RepMixer: I + ls * (mixer - norm)
+                wm, bm = _fuse_mobileone(sd, f"{p}.token_mixer.mixer",
+                                         dim, dim, dim, 3, 1)
+                wn, bn_ = _fuse_mobileone(sd, f"{p}.token_mixer.norm",
+                                          dim, dim, dim, 3, 1)
+                ls = _ls(sd, f"{p}.token_mixer.layer_scale")
+                w = _dirac(dim, dim, 3) + ls[:, None, None, None] * (wm - wn)
+                out.update(_conv_sd(f"{name}.mixer", w, ls * (bm - bn_)))
+                ffn_ls = _ls(sd, f"{p}.layer_scale")
+            else:
+                # inference BatchNorm -> per-channel affine
+                gm = _np(sd, f"{p}.norm.weight")
+                bt = _np(sd, f"{p}.norm.bias")
+                mean = _np(sd, f"{p}.norm.running_mean")
+                var = _np(sd, f"{p}.norm.running_var")
+                t = gm / np.sqrt(var + 1e-5)
+                ls1 = _ls(sd, f"{p}.layer_scale_1")
+                pw = _np(sd, f"{p}.token_mixer.proj.weight")  # [C, C]
+                pb = _np(sd, f"{p}.token_mixer.proj.bias")
+                out[f"{name}.norm_scale"] = torch.from_numpy(t)
+                out[f"{name}.norm_bias"] = torch.from_numpy(bt - mean * t)
+                out[f"{name}.attn.qkv.weight"] = torch.from_numpy(
+                    np.ascontiguousarray(_np(sd, f"{p}.token_mixer.qkv.weight")))
+                # layer_scale_1 folds into the out projection
+                out.update(_conv_sd(f"{name}.attn.proj", pw * ls1[:, None],
+                                 pb * ls1))
+                ffn_ls = _ls(sd, f"{p}.layer_scale_2")
+            out.update(_conv_sd(f"{name}.convffn.conv",
+                             *_fuse_conv_bn(sd, f"{p}.convffn.conv")))
+            f1w = _np(sd, f"{p}.convffn.fc1.weight").reshape(hidden, dim)
+            out.update(_conv_sd(f"{name}.convffn.fc1", f1w,
+                             _np(sd, f"{p}.convffn.fc1.bias")))
+            # the ConvFFN layer scale folds into fc2
+            f2w = _np(sd, f"{p}.convffn.fc2.weight").reshape(dim, hidden)
+            f2b = _np(sd, f"{p}.convffn.fc2.bias")
+            out.update(_conv_sd(f"{name}.convffn.fc2", f2w * ffn_ls[:, None],
+                             f2b * ffn_ls))
+        idx += 1
+        if s < len(layers) - 1:
+            p = f"{prefix}network.{idx}"
+            out.update(_conv_sd(f"down_lkb_{s + 1}", *_fuse_replk(
+                sd, f"{p}.proj.0", _DOWN_KERNEL)))
+            out.update(_conv_sd(f"down_pw_{s + 1}", *_fuse_mobileone(
+                sd, f"{p}.proj.1", dims[s + 1], dims[s + 1], 1, 1, 1)))
+            idx += 1
+    final = int(dims[-1] * _CLS_RATIO)
+    out.update(_conv_sd("conv_exp", *_fuse_mobileone(
+        sd, f"{prefix}conv_exp", dims[-1], final, dims[-1], 3, 1)))
+    se = f"{prefix}conv_exp.se"
+    out.update(_conv_sd("conv_exp_se.reduce",
+                     _np(sd, f"{se}.reduce.weight").reshape(-1, final),
+                     _np(sd, f"{se}.reduce.bias")))
+    out.update(_conv_sd("conv_exp_se.expand",
+                     _np(sd, f"{se}.expand.weight").reshape(final, -1),
+                     _np(sd, f"{se}.expand.bias")))
+    return out

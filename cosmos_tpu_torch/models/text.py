@@ -4,7 +4,9 @@ OpenCLIP's CLIP keeps the text tower's parts at its own top level
 (``token_embedding``, ``positional_embedding``, ``transformer``,
 ``ln_final``, ``text_projection``), and reference checkpoints are named so.
 The tower is therefore a set of parts that ``add_text_tower`` registers on
-the owning module, and ``encode_tokens`` runs them.
+the owning module, and ``encode_tokens`` runs them.  ``text_projection`` is
+a bare ``[width, out]`` matrix, or with ``proj_bias`` an ``nn.Linear``
+(``text_projection.weight``/``.bias``), OpenCLIP's two forms.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from .config import TextCfg
-from .layers import LayerNorm
+from .layers import LayerNorm, Linear
 from .transformer import Transformer
 
 
@@ -25,11 +27,10 @@ def add_text_tower(owner: nn.Module, cfg: TextCfg, output_dim: int,
                    remat: bool = False, remat_policy: str = "",
                    use_flash: Optional[bool] = None) -> None:
     """Register the text tower's parts on ``owner``."""
-    if (cfg.embed_cls or cfg.proj_bias or cfg.hf_model_name
-            or cfg.pool_type != "argmax"):
+    if cfg.embed_cls or cfg.hf_model_name or cfg.pool_type != "argmax":
         raise ValueError(
             "the text tower takes the argmax-pooled CLIP layout only "
-            "(no embed_cls, proj_bias, other pooling or HF tower)")
+            "(no embed_cls, other pooling or HF tower)")
     owner.text_cfg = cfg
     owner.token_embedding = nn.Embedding(
         cfg.vocab_size, cfg.width,
@@ -41,15 +42,18 @@ def add_text_tower(owner: nn.Module, cfg: TextCfg, output_dim: int,
                                     dtype, fuse_ln, remat, remat_policy,
                                     use_flash)
     owner.ln_final = LayerNorm(cfg.width)
-    owner.text_projection = nn.Parameter(torch.empty(cfg.width, output_dim))
+    owner.text_projection = (
+        Linear(cfg.width, output_dim, dtype=dtype) if cfg.proj_bias
+        else nn.Parameter(torch.empty(cfg.width, output_dim)))
 
 
 def init_text_tower(owner: nn.Module, generator: torch.Generator) -> None:
     nn.init.normal_(owner.token_embedding.weight, std=0.02,
                     generator=generator)
     nn.init.normal_(owner.positional_embedding, std=0.01, generator=generator)
-    nn.init.normal_(owner.text_projection, std=owner.text_cfg.width ** -0.5,
-                    generator=generator)
+    if isinstance(owner.text_projection, nn.Parameter):
+        nn.init.normal_(owner.text_projection,
+                        std=owner.text_cfg.width ** -0.5, generator=generator)
 
 
 def encode_tokens(owner: nn.Module, text: torch.Tensor,
@@ -65,5 +69,7 @@ def encode_tokens(owner: nn.Module, text: torch.Tensor,
     x = owner.ln_final(x)
     rows = torch.arange(x.shape[0], device=x.device)
     pooled, tokens = x[rows, text.argmax(dim=-1)], x
-    pooled = torch.matmul(pooled.to(dtype), owner.text_projection.to(dtype))
-    return pooled, tokens
+    proj = owner.text_projection
+    if isinstance(proj, nn.Module):
+        return proj(pooled), tokens
+    return torch.matmul(pooled.to(dtype), proj.to(dtype)), tokens

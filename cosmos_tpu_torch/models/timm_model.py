@@ -14,9 +14,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from .convert import cvnets_block, np_, rename_
 from .convnext import CONVNEXT_CONFIGS, ConvNeXt
 from .eva import EVA_CONFIGS, Eva
 from .fastvit import FASTVIT_CONFIGS, FastVit
@@ -181,3 +183,124 @@ class TimmModel(nn.Module):
         if self.head is not None:
             pooled = self.head(pooled)
         return pooled, tokens
+
+
+# --- timm checkpoint conversion (cosmos_tpu/models/timm_model.py:253-417) --
+#
+# The trunk's names are timm's, so a bare timm state dict loads by name;
+# what is left is finding the geometry and reshaping two leaves.
+
+def infer_timm_vit_name(sd: Dict) -> str:
+    """Match a timm ViT state dict to a registered geometry by its shapes."""
+    w = int(sd["cls_token"].reshape(-1).shape[0])
+    p = int(sd["patch_embed.proj.weight"].shape[-1])
+    layers = 1 + max(int(k.split(".")[1]) for k in sd
+                     if k.startswith("blocks."))
+    for name, g in TIMM_VIT_CONFIGS.items():
+        if "stem_channels" in g:
+            continue    # MCi-stem hybrids have no patch_embed.proj
+        if g["width"] == w and g["patch_size"] == p and g["layers"] == layers:
+            return name
+    raise KeyError(
+        f"no registered timm ViT geometry matches width={w} patch={p} "
+        f"layers={layers}; add one via register_timm_vit"
+    )
+
+
+_VIT_BLOCK_KEYS = ("norm1.weight", "norm1.bias", "attn.qkv.weight",
+                   "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
+                   "norm2.weight", "norm2.bias", "mlp.fc1.weight",
+                   "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
+
+
+def convert_timm_vit(sd: Dict, model_name: str) -> Dict[str, torch.Tensor]:
+    """A timm ViT state dict as the trunk's state dict (names below
+    ``visual.trunk.``); an in1k classifier head is dropped, a CLIP
+    projection head is loaded by ``convert._maybe_load_timm_head``."""
+    g = TIMM_VIT_CONFIGS[model_name]
+    w = g["width"]
+    keys = ["patch_embed.proj.weight", "patch_embed.proj.bias",
+            "norm.weight", "norm.bias"]
+    keys += [f"blocks.{i}.{k}" for i in range(g["layers"])
+             for k in _VIT_BLOCK_KEYS]
+    out = rename_(sd, [(k, k) for k in keys])
+    out["cls_token"] = torch.as_tensor(sd["cls_token"]).reshape(1, 1, w)
+    out["pos_embed"] = torch.as_tensor(sd["pos_embed"]).reshape(1, -1, w)
+    return out
+
+
+def infer_mci_vit_name(sd: Dict, prefix: str = "") -> str:
+    """Match an Apple hybrid-ViT (CVNets) state dict to a registered
+    MCi-stem geometry by width and block count."""
+    w = int(sd[f"{prefix}cls_token"].reshape(-1).shape[0])
+    head = f"{prefix}transformer."
+    layers = 1 + max(
+        int(k[len(head):].split(".")[0]) for k in sd
+        if k.startswith(head) and ".pre_norm_mha." in k
+    )
+    for name, g in TIMM_VIT_CONFIGS.items():
+        if "stem_channels" in g and g["width"] == w and g["layers"] == layers:
+            return name
+    raise KeyError(
+        f"no registered MCi-stem ViT geometry matches width={w} "
+        f"layers={layers}; add one via register_timm_vit(stem_channels=...)"
+    )
+
+
+def convert_mobileclip_vit(sd: Dict, model_name: str, prefix: str = ""
+                           ) -> Dict[str, torch.Tensor]:
+    """Apple MobileCLIP-B's hybrid-ViT image trunk (CVNets layout, its conv
+    stem in train form with BatchNorm) as the trunk's state dict, the stem's
+    BatchNorms folded into the convs (``fastvit._fuse_conv_bn``)."""
+    from .fastvit import _fuse_conv_bn
+
+    g = TIMM_VIT_CONFIGS[model_name]
+    w = g["width"]
+    stem_ch = (3,) + tuple(g["stem_channels"])
+    out: Dict[str, torch.Tensor] = {}
+    for i, _k in enumerate(g.get("stem_kernels", (4, 2, 2))):
+        p = f"{prefix}patch_emb.{i}.block"
+        if f"{p}.norm.weight" in sd:
+            wt, bias = _fuse_conv_bn(sd, p, norm="norm")
+        else:
+            wt = np_(sd[f"{p}.conv.weight"])      # OIHW
+            bias = np_(sd[f"{p}.conv.bias"])
+        if wt.shape[0] != stem_ch[i + 1] or wt.shape[1] != stem_ch[i]:
+            raise ValueError(
+                f"MobileCLIP-B stem conv {i}: expected "
+                f"[{stem_ch[i + 1]},{stem_ch[i]},k,k], got {wt.shape} — "
+                f"geometry mismatch with {model_name}")
+        out[f"stem{i}.weight"] = torch.from_numpy(np.ascontiguousarray(wt))
+        out[f"stem{i}.bias"] = torch.from_numpy(np.ascontiguousarray(bias))
+    out["cls_token"] = torch.as_tensor(sd[f"{prefix}cls_token"]).reshape(
+        1, 1, w)
+    pe = None
+    for k in ("pos_embed.pos_embed.pos_embed", "pos_embed.pos_embed",
+              "pos_embed"):
+        if f"{prefix}{k}" in sd:
+            pe = torch.as_tensor(sd[f"{prefix}{k}"]).reshape(-1, w)
+            break
+    if pe is None:
+        raise KeyError(
+            "MobileCLIP-B positional embedding not found "
+            f"({prefix}pos_embed[.pos_embed[.pos_embed]])")
+    grid = g.get("image_size", 224) // g["patch_size"]
+    if pe.shape[0] != grid * grid:
+        raise ValueError(
+            f"MobileCLIP-B pos embed has {pe.shape[0]} rows; expected a "
+            f"patch-only table of {grid * grid} (CVNets ViT adds the pos "
+            "embed before the CLS token — a row for CLS means a different "
+            "tower variant)")
+    out["pos_embed"] = pe[None]
+    for i in range(g["layers"]):
+        b = f"{prefix}transformer.{i}"
+        if f"{b}.pre_norm_mha.0.weight" not in sd:
+            raise KeyError(
+                f"MobileCLIP-B transformer block {i} not found under "
+                f"{b}.pre_norm_mha.* — trunk has fewer blocks than "
+                f"{model_name} expects")
+        out.update(cvnets_block(sd, b, f"blocks.{i}"))
+    out.update(rename_(sd, [
+        ("norm.weight", f"{prefix}post_transformer_norm.weight"),
+        ("norm.bias", f"{prefix}post_transformer_norm.bias")]))
+    return out

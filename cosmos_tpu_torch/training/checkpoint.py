@@ -13,7 +13,7 @@ not restart its warm-up.  The state dicts carry every parameter
 trainable parameters only (LiT-locked ones are not in the optimizer); the
 frozen model of ``--distill-model`` is not in the file.  The JAX
 package's ``models/checkpoint.py`` ``load_checkpoint`` reads these files,
-and so does this package's ``models/convert.py`` ``load_checkpoint``.  Every file is written to a
+and so does this package's ``models/checkpoint.py`` ``load_checkpoint``.  Every file is written to a
 temporary name and then ``os.replace``d.  In a data-parallel run every rank
 holds the same state, and the trainer saves from rank 0 alone.
 

@@ -25,7 +25,8 @@ classification on ImageNet (``--imagenet-val``, ``--imagenet-v2``) and the
 classification sets (``--zeroshot-eval-datasets`` under
 ``--classification-data-dir``).  Without train data, or with ``--eval-mode
 retrieval/classification``, it only evaluates (``--pretrained`` a local
-``.pt``); ``--eval-mode segmentation`` exits naming its own entry point,
+checkpoint of any format ``models/checkpoint.py`` reads, or a registry tag
+whose file is cached); ``--eval-mode segmentation`` exits naming its own entry point,
 ``python -m cosmos_tpu_torch.training.seg_eval``.
 
 Data parallelism, the JAX trainer's data mesh with one process a card::
@@ -82,10 +83,11 @@ from typing import Any, Callable, Dict, Union
 
 import numpy as np
 
+from ..models.pretrained import NEEDS_DOWNLOAD
+
 logger = logging.getLogger(__name__)
 
-# ROADMAP's items, by title, for what the port refuses
-NEEDS_DOWNLOAD = 'queue 1, "Not queued": it needs a download'
+# ROADMAP's items, by title, for what the port refuses (and NEEDS_DOWNLOAD)
 OTHER_TOWERS = 'queue 1, "Other towers, configs and tools"'
 
 # (flag as given, whether the args set it, ROADMAP item): features the port
@@ -103,14 +105,19 @@ UNPORTED = (
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for the first flag whose feature is not
-    ported, or a ``--distill-pretrained`` that is not a local file, naming
-    its ROADMAP item."""
+    ported, naming its ROADMAP item, and refuse a ``--pretrained`` or
+    ``--distill-pretrained`` that is neither a file nor a cached tag,
+    before anything runs."""
+    from ..models.pretrained import resolve_pretrained
+
     for flag, is_set, item in UNPORTED:
         if is_set(args):
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
+    if args.pretrained:
+        resolve_pretrained(args.model, args.pretrained)
     if args.distill:
-        _pretrained_path(args.distill_pretrained, "--distill-pretrained")
+        resolve_pretrained(args.distill_model, args.distill_pretrained)
 
 
 def random_seed(seed: int = 42) -> None:
@@ -136,12 +143,23 @@ def experiment_name(args) -> str:
     return "-".join(parts)
 
 
-def _pretrained_path(pretrained: str, flag: str = "--pretrained") -> str:
-    if not os.path.isfile(pretrained):
-        raise NotImplementedError(
-            f"{flag} {pretrained!r}: only a local .pt file is ported; "
-            f"a pretrained tag needs a download (ROADMAP {NEEDS_DOWNLOAD})")
-    return pretrained
+def apply_pretrained_preprocess_flags(args) -> None:
+    """Fill each ``--image-*`` flag the user left unset from the pretrained
+    tag's registry entry, so that every transform the trainer builds from
+    ``args`` (the train and eval transforms, the step's normalisation, the
+    evals) takes the checkpoint's own preprocessing, such as MobileCLIP's
+    identity mean/std and bilinear resize.  Explicit flags win; a path
+    that is not a tag merges nothing."""
+    if not getattr(args, "pretrained", None):
+        return
+    from ..models.pretrained import get_pretrained_cfg
+
+    pcfg = get_pretrained_cfg(args.model, args.pretrained)
+    for flag, key in (("image_mean", "mean"), ("image_std", "std"),
+                      ("image_interpolation", "interpolation"),
+                      ("image_resize_mode", "resize_mode")):
+        if getattr(args, flag, None) is None and pcfg.get(key):
+            setattr(args, flag, pcfg[key])
 
 
 def check_mesh_shape(args, world: int) -> int:
@@ -230,9 +248,10 @@ def _broadcast_state(state) -> None:
 
 def _main(args, device, rank: int, world: int, tp: int = 1
           ) -> Dict[str, Any]:
-    from ..models.convert import load_checkpoint
+    from ..models.checkpoint import load_checkpoint
     from ..models.factory import (create_model, get_tokenizer, resolve_device,
                                   resolve_dtype)
+    from ..models.pretrained import resolve_pretrained
     from ..parallel import distributed
     from .checkpoint import (get_latest_checkpoint, restore_checkpoint,
                              save_checkpoint)
@@ -292,6 +311,10 @@ def _main(args, device, rank: int, world: int, tp: int = 1
             logger.info(f"copied codebase to {code_dir}")
 
     # --- model -----------------------------------------------------------
+    # a path, or a registry tag whose file is cached
+    pretrained = (resolve_pretrained(args.model, args.pretrained)
+                  if args.pretrained else None)
+    apply_pretrained_preprocess_flags(args)
     overrides: Dict[str, Any] = {}
     if args.siglip:
         # SigLIP's init: logit scale ln 10, bias -10
@@ -299,10 +322,6 @@ def _main(args, device, rank: int, world: int, tp: int = 1
                          init_logit_bias=-10.0)
     if args.pool_type:
         overrides["vision_pool_type"] = args.pool_type
-    if args.force_image_size is not None:
-        overrides["vision_image_size"] = args.force_image_size
-    if args.force_quick_gelu:
-        overrides["quick_gelu"] = True
     model_kw = dict(
         precision=args.precision,
         cosmos=args.cosmos,
@@ -318,14 +337,17 @@ def _main(args, device, rank: int, world: int, tp: int = 1
         use_flash={"auto": None, "on": True, "off": False}[
             args.flash_attention],
         force_patch_dropout=args.force_patch_dropout,
+        force_quick_gelu=args.force_quick_gelu,
+        force_image_size=args.force_image_size,
         seed=args.seed,
         device=dev,
         **overrides,
     )
-    model = create_model(args.model, **model_kw)
-    pretrained = _pretrained_path(args.pretrained) if args.pretrained else None
+    # the openai tag forces QuickGELU, as create_model does for the tag
+    if str(args.pretrained).lower() == "openai":
+        model_kw["force_quick_gelu"] = True
+    model = create_model(args.model, pretrained=pretrained, **model_kw)
     if pretrained:
-        model.load_state_dict(load_checkpoint(pretrained), strict=True)
         logger.info(f"loaded student weights from {pretrained}")
     tokenizer = get_tokenizer(args.model)
     n_params = sum(p.numel() for p in model.parameters())
@@ -336,9 +358,8 @@ def _main(args, device, rank: int, world: int, tp: int = 1
     dist_model = None
     if args.distill:
         dist_model = create_model(args.distill_model,
-                                  precision=args.precision, device=dev)
-        dist_model.load_state_dict(load_checkpoint(args.distill_pretrained),
-                                   strict=True)
+                                  precision=args.precision, device=dev,
+                                  pretrained=args.distill_pretrained)
         logger.info(f"distilling from {args.distill_model} "
                     f"({args.distill_pretrained})")
 
@@ -380,8 +401,7 @@ def _main(args, device, rank: int, world: int, tp: int = 1
             # the reference loads student AND teacher from the checkpoint;
             # a bare state dict gives the same weights for both
             teacher = copy.deepcopy(model).requires_grad_(False)
-            teacher.load_state_dict(load_checkpoint(pretrained, "teacher"),
-                                    strict=True)
+            load_checkpoint(teacher, pretrained, which="teacher")
         metrics = evaluate(model, teacher, data, 0, args, tokenizer)
         print(json.dumps(metrics, default=float))
         distributed.barrier()

@@ -61,21 +61,15 @@ def parse_args(argv=None):
 
 def load_model_for_seg(args, device):
     """(model, tokenizer), built and loaded once for every benchmark."""
-    import os
-
-    from ..models.convert import load_checkpoint
+    from ..models.checkpoint import load_checkpoint
     from ..models.factory import create_model, get_tokenizer
-    from .main import NEEDS_DOWNLOAD
+    from ..models.pretrained import NEEDS_DOWNLOAD, resolve_pretrained
 
     if args.huggingface_model_name:
         raise NotImplementedError(
             "--huggingface-model-name needs a download, which is not ported "
-            f"(ROADMAP {NEEDS_DOWNLOAD}); pass a local .pt as --pretrained")
-    if args.pretrained and not os.path.isfile(args.pretrained):
-        raise NotImplementedError(
-            f"--pretrained {args.pretrained!r}: only a local .pt file is "
-            f"ported; a pretrained tag needs a download (ROADMAP "
-            f"{NEEDS_DOWNLOAD})")
+            f"(ROADMAP {NEEDS_DOWNLOAD}); pass a local checkpoint or a "
+            "cached tag as --pretrained")
     model = create_model(
         args.model,
         precision=args.precision,
@@ -87,8 +81,8 @@ def load_model_for_seg(args, device):
     )
     if args.pretrained:
         which = "student" if args.student else "teacher"
-        model.load_state_dict(load_checkpoint(args.pretrained, which),
-                              strict=True)
+        load_checkpoint(model, resolve_pretrained(args.model, args.pretrained),
+                        which=which)
     return model, get_tokenizer(args.model)
 
 

@@ -199,3 +199,14 @@ def zero_shot_classification_eval(
         f"{dataset_name}-zeroshot-val-top1": top1,
         f"{dataset_name}-zeroshot-val-top5": top5,
     }
+
+
+def __getattr__(name: str):
+    """``OPENAI_IMAGENET_TEMPLATES``, ``SIMPLE_IMAGENET_TEMPLATES`` and
+    ``IMAGENET_CLASSNAMES``, read from the asset on first use."""
+    key = {"OPENAI_IMAGENET_TEMPLATES": "templates",
+           "SIMPLE_IMAGENET_TEMPLATES": "simple_templates",
+           "IMAGENET_CLASSNAMES": "classnames"}.get(name)
+    if key is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return tuple(load_imagenet_metadata()[key])

@@ -81,15 +81,17 @@ def test_flag_surface_equals_jax():
 
 UNPORTED_ARGV = {
     "huggingface": ["--huggingface-model-name", "m"],
-    # a pretrained tag for the distillation model needs a download
+    # a pretrained tag for the distillation model that is not cached needs
+    # a download
     "distill-tag": ["--distill-model", "ViT-B-32", "--distill-pretrained",
-                    "x"],
+                    "cosmos_cc3m"],
     "coca": ["--coca-caption-loss-weight", "1.0"],
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_ARGV))
-def test_unported_flag_raises(name, tmp_path):
+def test_unported_flag_raises(name, tmp_path, monkeypatch):
+    monkeypatch.setenv("COSMOS_TPU_CACHE", str(tmp_path / "no_cache"))
     argv = UNPORTED_ARGV[name] + ["--logs-dir", str(tmp_path)]
     # each refusal names its ROADMAP item by title
     titles = (pmain.NEEDS_DOWNLOAD, pmain.OTHER_TOWERS)
@@ -108,9 +110,11 @@ def test_every_unported_entry_is_exercised():
 
 
 def test_pretrained_tag_and_missing_cuda_raise(tmp_path, monkeypatch):
+    # a registry tag whose file is not in the cache needs a download
+    monkeypatch.setenv("COSMOS_TPU_CACHE", str(tmp_path / "no_cache"))
     with pytest.raises(NotImplementedError, match="download"):
-        pmain.main(["--pretrained", "laion2b_s34b_b88k", "--logs-dir",
-                    str(tmp_path), "--model", "ViT-Tiny-Test"], device="cpu")
+        pmain.main(["--pretrained", "cosmos_cc3m", "--logs-dir",
+                    str(tmp_path), "--model", "ViT-B-16"], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pmain.main(["--logs-dir", str(tmp_path)])

@@ -18,6 +18,7 @@ from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.models.vit import interpolate_pos_embed as jax_interp
 from cosmos_tpu.training.zero_shot import truncate_to_eot
 from cosmos_tpu_torch import create_model, load_checkpoint
+from cosmos_tpu_torch.models.checkpoint import read_checkpoint
 from cosmos_tpu_torch.models.convert import state_dict_from_jax_params
 from cosmos_tpu_torch.models.vit import interpolate_pos_embed
 
@@ -202,12 +203,12 @@ def test_load_checkpoint_student_teacher(tmp_path, tiny):
                 "teacher": {f"module.{k}": v for k, v in teacher.items()}},
                path)
     for which, want in (("student", sd), ("teacher", teacher)):
-        got = load_checkpoint(str(path), which=which)
+        got = read_checkpoint(str(path), which=which)
         assert list(got) == list(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
     m = create_model("ViT-Tiny-Test", device="cpu", seed=1, **COSMOS, **TINY)
-    m.load_state_dict(load_checkpoint(str(path), which="teacher"), strict=True)
+    load_checkpoint(m, str(path), which="teacher", strict=True)
     assert torch.equal(m.logit_scale, teacher["logit_scale"])
 
 
