@@ -212,6 +212,27 @@ from the sources in the checkout and then:
      bit for bit against the CPU's exact product, and ViT-B-16 COSMOS
      served from int8-quantized, dequantized weights (relative error
      against the float weights, card against CPU).
+ 21. CoCa at coca_ViT-B-32's full width (ViT-B-32 at width 768, 256 pooler
+     queries, text and decoder at 512), random weights from a seed: K1 and
+     K2 held to their plain versions and timed at its vision geometry
+     [64, 50, 2304] (12 heads) in both dtypes, and K1's gate checked there;
+     (a) encode_image at batch 64 and encode_text at 256 x 76 in bfloat16
+     (12 K1 launches an image call, none a text call: the CLS text tower
+     is masked, so plain, as in JAX) and evaluate_retrieval over 512
+     images and 2560 captions; (b) 2 images and 4 captions card against
+     CPU in float32, the features and the decoder's logits within 1e-5;
+     (c) greedy, top-k, top-p and 6-beam generation on 16 images at 30
+     tokens in bfloat16 (tokens/s, 12 K1 a call), and float32 greedy
+     tokens of 2 images on the CPU with the card's logits along them
+     (1e-5) and the share of equal tokens; (d) the CoCa step at batch 64
+     in bfloat16 on one fixed uint8 batch, 3 + 10 steps with CUDA events
+     a step (median, mean, samples/s, peak memory), exactly 12 K1 and 12
+     K2 a step and a falling loss, then a 2-layer float32 step at batch 2
+     against the CPU (1e-4 relative); (e) main([...]) with --model
+     coca_ViT-B-32 on phase 12's shards (one crop, one caption), 2 epochs
+     of 2 steps with the val and COCO retrieval evals and a checkpoint,
+     then --resume latest for a third, K1 12 a vision-tower call and K2
+     12 a step.
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
 and nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
@@ -4486,28 +4507,23 @@ def bicubic_resize_np(pe: np.ndarray, src: int, dst: int) -> np.ndarray:
     return np.concatenate([pe[:1].astype(np.float64), out])
 
 
-def _weights_serve(K, model, size, per_call, label, seed):
+def _weights_serve(K, model, size, per_call, label, seed, length=77,
+                   tag="weights"):
     """bfloat16 serving of ``model``: the exact K1 launches of an image
-    call of WEIGHTS_IMAGES and a text call of WEIGHTS_CAPTIONS at length
-    77, then timed calls; returns the record and the K1 launches of every
-    call made."""
+    call of WEIGHTS_IMAGES and a text call of WEIGHTS_CAPTIONS at
+    ``length``, then timed calls; returns the record and the K1 launches
+    of every call made."""
+    from cosmos_tpu_torch.training.evaluate import make_encoders
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
     images = torch.randn(WEIGHTS_IMAGES, size, size, 3, device="cuda",
                          generator=gen)
-    captions = torch.as_tensor(_captions(WEIGHTS_CAPTIONS, 77, seed=seed),
-                               device="cuda")
+    captions = torch.as_tensor(_captions(WEIGHTS_CAPTIONS, length,
+                                         seed=seed), device="cuda")
     calls = {"image": [], "text": []}
-
-    @torch.inference_mode()
-    def enc_img():
-        return model.encode_image(images, True)["image_features"]
-
-    @torch.inference_mode()
-    def enc_txt():
-        return model.encode_text(captions, True)["text_features"]
-
-    fns = {"image": _counted(enc_img, calls["image"]),
-           "text": _counted(enc_txt, calls["text"])}
+    enc_image, enc_text, _ = make_encoders(model)
+    fns = {"image": _counted(lambda: enc_image(images), calls["image"]),
+           "text": _counted(lambda: enc_text(captions), calls["text"])}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for what, fn in fns.items():
@@ -4531,10 +4547,10 @@ def _weights_serve(K, model, size, per_call, label, seed):
                captions_per_s=WEIGHTS_CAPTIONS / txt_ms * 1e3,
                k1_per_call=per_call, k1_launches=k1,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[weights] {label}: {out['images_per_s']:.1f} images/s "
+    print(f"[{tag}] {label}: {out['images_per_s']:.1f} images/s "
           f"({WEIGHTS_IMAGES} at {size} px, bf16), "
           f"{out['captions_per_s']:.1f} captions/s ({WEIGHTS_CAPTIONS} at "
-          f"77), K1 {per_call['image']} an image call and "
+          f"{length}), K1 {per_call['image']} an image call and "
           f"{per_call['text']} a text call, peak {out['peak_mem_gb']:.2f} GB")
     return out, sum(k1.values())
 
@@ -4819,6 +4835,412 @@ def phase_weights_in(K, data: str, cache: str, tmp: str) -> dict:
     return out
 
 
+# phase 21: CoCa at coca_ViT-B-32's full width (a ViT-B-32 of width 768
+# pooled by 256 learned queries into a 512-wide decoder), random weights
+# from a seed; K1/K2 take its vision tower only (L 50, 12 heads)
+COCA_MODEL = "coca_ViT-B-32"
+COCA_SEED = 21
+COCA_GEOMETRY = ("vision coca_ViT-B-32 224px", 64, 50, 3 * 768, 12, False)
+COCA_CALL_K1 = {"image": 12, "text": 0}
+COCA_CONTEXT = 76
+COCA_RETRIEVAL = (512, 5, 256)      # images, captions an image, batch
+COCA_CPU = (2, 4)                   # images, captions of 21(b)
+COCA_CPU_TOL = 1e-5                 # float32 on both sides, TF32 off
+COCA_GEN = dict(seq_len=30, min_seq_len=5)
+COCA_GEN_IMAGES, COCA_GEN_CPU_IMAGES, COCA_BEAMS = 16, 2, 6
+COCA_SAMPLING = {"greedy": {}, "top_k": dict(top_k=5),
+                 "top_p": dict(top_p=0.9)}
+COCA_STEPS = (3, 10)                # 21(d): warm-up and timed steps
+COCA_STEP_BATCH = 64
+COCA_SMALL = 2                      # layers a tower of 21(d)'s f32 step
+COCA_STEP_RTOL = 1e-4
+COCA_TRAINER_STEPS = 2
+
+
+def _coca_model(precision, device, layers=None):
+    """coca_ViT-B-32 with weights from COCA_SEED; ``layers`` cuts every
+    tower and the decoder to that depth."""
+    import dataclasses
+
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.models.coca import CoCa
+    from cosmos_tpu_torch.models.config import build_clip_cfg
+    from cosmos_tpu_torch.models.factory import init_weights, resolve_dtype
+
+    if layers is None:
+        return create_model(COCA_MODEL, precision, device=device,
+                            seed=COCA_SEED)
+    cfg = build_clip_cfg(COCA_MODEL, {"vision_layers": layers,
+                                      "text_layers": layers})
+    cfg = dataclasses.replace(cfg, multimodal_cfg=dataclasses.replace(
+        cfg.multimodal_cfg, layers=layers))
+    model = CoCa(cfg, dtype=resolve_dtype(precision))
+    init_weights(model, torch.Generator().manual_seed(COCA_SEED))
+    return model.to(device).eval()
+
+
+def _coca_serving(K, model):
+    """21(a): encode_image at batch 64 (224 px) and encode_text at 256 x 76
+    in bfloat16, exactly 12 K1 launches an image call and none a text
+    call; then evaluate_retrieval over 512 images and 2560 captions (no
+    EOT truncation: CoCa's text tower appends its CLS token)."""
+    from cosmos_tpu_torch.training.evaluate import make_encoders
+    from cosmos_tpu_torch.training.retrieval import evaluate_retrieval
+    from cosmos_tpu_torch.training.zero_shot import supports_eot_truncation
+
+    serve, k1 = _weights_serve(K, model, 224, COCA_CALL_K1, COCA_MODEL,
+                               COCA_SEED, length=COCA_CONTEXT, tag="coca")
+    check(not supports_eot_truncation(model), "CoCa takes no EOT truncation")
+    n_img, per_img, batch = COCA_RETRIEVAL
+    gen = torch.Generator(device="cuda").manual_seed(COCA_SEED + 1)
+    images = torch.randn(n_img, 224, 224, 3, device="cuda", generator=gen)
+    captions = _captions(n_img * per_img, COCA_CONTEXT, seed=COCA_SEED + 2)
+    data = SimpleNamespace(
+        captions=captions, caption_ids=np.arange(n_img * per_img),
+        img2txt={i: list(range(per_img * i, per_img * (i + 1)))
+                 for i in range(n_img)},
+        txt2img={c: [c // per_img] for c in range(n_img * per_img)})
+    loader = [(images[i:i + batch], np.arange(i, i + batch))
+              for i in range(0, n_img, batch)]
+    enc_img, enc_txt, _ = make_encoders(model)
+    zero_launches(K)
+    t0 = time.perf_counter()
+    metrics = evaluate_retrieval(enc_img, enc_txt, data, loader,
+                                 batch_size=batch, eot_truncate=False)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    got = read_launches(K)
+    want = {**dict.fromkeys(got, 0), "K1": 12 * len(loader)}
+    check(got == want, f"CoCa retrieval launches {got}, expected {want}")
+    for k in ("text_to_image_R@1", "image_to_text_R@10"):
+        check(0.0 <= metrics[k] <= 1.0, f"CoCa retrieval {k} = {metrics[k]}")
+    print(f"[coca] evaluate_retrieval over {n_img} images / "
+          f"{len(captions)} captions at {COCA_CONTEXT}: {eval_s:.3f} s, K1 "
+          f"{got['K1']} (12 an image call, none a text call); "
+          + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    return dict(serve=serve, retrieval=metrics, retrieval_s=eval_s,
+                retrieval_k1=got["K1"]), k1 + got["K1"]
+
+
+def _coca_inputs(n_img, n_txt, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n_img, 224, 224, 3))
+                         .astype(np.float32))
+    return x, torch.from_numpy(_captions(n_txt, COCA_CONTEXT, seed=seed))
+
+
+def _coca_card_vs_cpu(cpu, gpu):
+    """21(b): the same float32 weights on the card and on the CPU: the
+    normalised features of 2 images and 4 captions, and the decoder's
+    logits of the 2 images with the first 2 captions."""
+    n_img, n_txt = COCA_CPU
+    x, toks = _coca_inputs(n_img, n_txt, COCA_SEED + 3)
+
+    def outputs(model, device):
+        with torch.inference_mode():
+            xi, ti = x.to(device), toks.to(device)
+            return dict(image=model.encode_image(xi),
+                        text=model.encode_text(ti),
+                        logits=model(xi, ti[:n_img])["logits"])
+
+    errs = {}
+    for (what, g), w in zip(outputs(gpu, "cuda").items(),
+                            outputs(cpu, "cpu").values()):
+        g = g.cpu()
+        check(g.shape == w.shape and torch.isfinite(g).all().item(),
+              f"CoCa {what} shape/finite")
+        errs[what] = (g - w).abs().max().item()
+        check(errs[what] <= COCA_CPU_TOL,
+              f"CoCa card vs CPU {what}: max err {errs[what]}")
+    print(f"[coca] card vs CPU (float32, {n_img} images, {n_txt} captions, "
+          f"logits [{n_img}, {COCA_CONTEXT - 1}, 49408]): max abs err "
+          + " ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs
+
+
+def _coca_generation(K, model, cpu, gpu):
+    """21(c): generate (greedy, top_k, top_p) and 6-beam search on 16
+    images at seq_len 30 in bfloat16, tokens/s, 12 K1 launches a call (the
+    image call; the decoder's masked and cross attention take the plain
+    path); then float32 greedy tokens of 2 images on the CPU, the card's
+    logits along them (teacher-forced) and the share of equal tokens."""
+    from cosmos_tpu_torch.models import coca
+
+    gen = torch.Generator(device="cuda").manual_seed(COCA_SEED + 4)
+    images = torch.randn(COCA_GEN_IMAGES, 224, 224, 3, device="cuda",
+                         generator=gen)
+    runs, k1 = {}, 0
+    modes = [(m, lambda kw=kw: coca.generate(
+        model, images, generation_type=m, generator=gen, **kw,
+        **COCA_GEN)) for m, kw in COCA_SAMPLING.items()]
+    modes.append((f"beam{COCA_BEAMS}", lambda: coca.beam_search_generate(
+        model, images, num_beams=COCA_BEAMS, **COCA_GEN)))
+    for name, fn in modes:
+        zero_launches(K)
+        fn()                                   # warm-up
+        torch.cuda.synchronize()
+        warm = read_launches(K)
+        check(warm == {**dict.fromkeys(warm, 0), "K1": 12},
+              f"CoCa {name} warm-up: launches {warm}, expected 12 K1")
+        zero_launches(K)
+        t0 = time.perf_counter()
+        toks = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(K)
+        check(got == {**dict.fromkeys(got, 0), "K1": 12},
+              f"CoCa {name}: launches {got}, expected 12 K1")
+        k1 += warm["K1"] + got["K1"]
+        check(toks.shape == (COCA_GEN_IMAGES, COCA_GEN["seq_len"])
+              and bool((toks[:, 0] == 49406).all())
+              and bool(((toks >= 0) & (toks < 49408)).all()),
+              f"CoCa {name}: tokens")
+        new = COCA_GEN_IMAGES * (COCA_GEN["seq_len"] - 1)
+        runs[name] = dict(s=wall, tokens_per_s=new / wall,
+                          eot_share=float((toks == 49407).any(1)
+                                          .float().mean()))
+        print(f"[coca] {name}: {COCA_GEN_IMAGES} images x "
+              f"{COCA_GEN['seq_len']} tokens in {wall:.3f} s, "
+              f"{runs[name]['tokens_per_s']:.1f} tokens/s (bf16)")
+    x, _ = _coca_inputs(COCA_GEN_CPU_IMAGES, 0, COCA_SEED + 5)
+    cpu_toks = coca.generate(cpu, x, generation_type="greedy", **COCA_GEN)
+    gpu_toks = coca.generate(gpu, x.cuda(), generation_type="greedy",
+                             **COCA_GEN).cpu()
+    with torch.inference_mode():
+        want = cpu.decode_logits(cpu._encode_image(x)[1], cpu_toks)
+        got = gpu.decode_logits(gpu._encode_image(x.cuda())[1],
+                                cpu_toks.cuda()).cpu()
+    err = (got - want).abs().max().item()
+    same = float((gpu_toks == cpu_toks).float().mean())
+    check(err <= COCA_CPU_TOL, f"CoCa teacher-forced logits card vs CPU: "
+          f"max err {err}")
+    print(f"[coca] float32 greedy, {COCA_GEN_CPU_IMAGES} images: the card's "
+          f"logits along the CPU's tokens within {err:.3g}; equal tokens "
+          f"{same:.4f}")
+    return dict(runs=runs, teacher_forced_err=err, equal_token_share=same,
+                cpu_tokens=cpu_toks.tolist(), card_tokens=gpu_toks.tolist()), k1
+
+
+def _coca_batch(b, seed, device):
+    rng = np.random.default_rng(seed)
+    return {"global_images": torch.from_numpy(rng.integers(
+                0, 256, (1, b, 224, 224, 3), np.uint8)).to(device),
+            "texts": torch.from_numpy(_train_texts(
+                rng, (1, b, COCA_CONTEXT))).to(device)}
+
+
+def _coca_step(K):
+    """21(d): the CoCa step at full width in bfloat16, batch 64, on one
+    fixed uint8 batch: 3 + 10 steps with per-step CUDA events, exactly 12
+    K1 and 12 K2 a step, a finite and falling loss; then one 2-layer
+    float32 step at batch 2 on the card and on the CPU from the same
+    weights."""
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import TrainStepConfig
+
+    model = _coca_model("bf16", "cuda").train()
+    lr = const_lr(1e-4, 0, 100)
+    opt = create_optimizer(model, lr, beta1=0.9, beta2=0.98, eps=1e-8,
+                           weight_decay=0.1)
+    cfg = TrainStepConfig(cosmos=False, coca=True, momentum_teacher=0.999,
+                          fix_momentum=True, lr_schedule=lr,
+                          input_dtype=torch.bfloat16)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt)
+    batch = _coca_batch(COCA_STEP_BATCH, COCA_SEED + 6, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    zero_launches(K)
+    for i in range(sum(COCA_STEPS)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch)
+        end.record()
+        losses.append(m["loss"].item())
+        if i >= COCA_STEPS[0]:
+            ms.append(start.elapsed_time(end))
+    n = sum(COCA_STEPS)
+    launches = read_launches(K)
+    want = {**dict.fromkeys(launches, 0), "K1": 12 * n, "K2": 12 * n}
+    check(launches == want, f"CoCa step launches {launches}, expected "
+          f"{want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"CoCa step losses finite and falling: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(losses=losses, step_ms=ms, step_ms_median=float(np.median(ms)),
+               step_ms_mean=float(np.mean(ms)), peak_mem_gb=peak,
+               samples_per_s=COCA_STEP_BATCH / float(np.median(ms)) * 1e3,
+               launches=launches)
+    print(f"[coca] step bf16 batch {COCA_STEP_BATCH}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; ms per step median "
+          f"{out['step_ms_median']:.3f} mean {out['step_ms_mean']:.3f} "
+          f"({out['samples_per_s']:.1f} samples/s); peak memory {peak:.2f} "
+          f"GB; K1/K2 12/12 a step")
+    del step, state, opt, model, batch
+    torch.cuda.empty_cache()
+
+    lr_small = 1e-4
+    cpu_model = _coca_model("fp32", "cpu", layers=COCA_SMALL).train()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    small = _coca_batch(2, COCA_SEED + 7, "cpu")
+    cfg_kw = dict(cosmos=False, coca=True)
+    cpu = _step_run(cpu_model, cfg_kw, small, lr_small)
+    gpu = _step_run(gpu_model, cfg_kw, small, lr_small)
+    check((gpu["K1"], gpu["K2"]) == (COCA_SMALL, COCA_SMALL),
+          f"2-layer CoCa step: K1/K2 {gpu['K1']}/{gpu['K2']}")
+    errs = {"loss": abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])}
+    check(errs["loss"] <= COCA_STEP_RTOL,
+          f"CoCa loss card {gpu['loss']} vs CPU {cpu['loss']}")
+    errs["grads"] = _grad_errs(gpu["grads"], cpu["grads"], COCA_STEP_RTOL,
+                               1e-8, "CoCa 2-layer step")
+    for which in ("student", "teacher"):
+        errs[which] = max((gpu[which][k] - cpu[which][k]).abs().max().item()
+                          for k in cpu[which])
+        check(errs[which] <= 2 * lr_small,
+              f"updated {which} card vs CPU: max err {errs[which]}")
+    print(f"[coca] 2-layer float32 step card vs CPU: loss rel err "
+          f"{errs['loss']:.3g}, max grad err {errs['grads']:.3g}, updated "
+          f"student {errs['student']:.3g} teacher {errs['teacher']:.3g}")
+    out["card_vs_cpu"] = errs
+    return out, (launches["K1"] + gpu["K1"], launches["K2"] + gpu["K2"])
+
+
+def _coca_trainer(K, data, workers, logs):
+    """21(e): main([...]) with --model coca_ViT-B-32 on phase 12's shards
+    (amp, batch 64, no multi-crop), 2 epochs of 2 steps with the val and
+    COCO retrieval evals at the second and a checkpoint, then --resume
+    latest for a third; K1 12 a vision-tower call (the steps' and the
+    evals'), K2 12 a step."""
+    from cosmos_tpu_torch.models.coca import CoCa
+    from cosmos_tpu_torch.training import main as trainer
+
+    argv = _drop_flags(
+        _trainer_argv(data, logs, workers),
+        values=("--model", "--name", "--global-crops-number",
+                "--local-crops-number", "--crop-scale",
+                "--caption-sampling-mode", "--num-sampled-captions",
+                "--steps-per-epoch"),
+        switches=("--cosmos", "--output-all", "--attentional-pool",
+                  "--use-imagecrop-aug"))
+    # one view: the CoCa step reads the first crop and caption only
+    argv += ["--model", COCA_MODEL, "--name", "coca",
+             "--caption-sampling-mode", "random",
+             "--num-sampled-captions", "1", "--steps-per-epoch",
+             str(COCA_TRAINER_STEPS), "--save-frequency", "0",
+             "--val-frequency", "2"]
+    calls = []
+    encode = CoCa._encode_image
+
+    def counted(self, *a, **kw):
+        calls.append(1)
+        return encode(self, *a, **kw)
+
+    record = {"steps": [], "evals": [], "profiles": {}}
+    zero_launches(K)
+    t0 = time.perf_counter()
+    CoCa._encode_image = counted
+    try:
+        with _instrumented_trainer(K, record, profiled=()):
+            run1 = trainer.main(argv + ["--epochs", "2"])
+            run2 = trainer.main(argv + ["--epochs", "3", "--resume",
+                                        "latest"])
+    finally:
+        CoCa._encode_image = encode
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(K)
+    epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
+    check([s["epoch"] for s in epochs] == [0, 1, 2],
+          f"CoCa trainer: epochs run {[s['epoch'] for s in epochs]}")
+    losses = [line["loss"] for s in epochs for line in s["logged"]]
+    n_steps = 3 * COCA_TRAINER_STEPS
+    check(len(losses) == n_steps and all(np.isfinite(losses)),
+          f"CoCa trainer: a finite loss at every step: {losses}")
+    step_want = {**dict.fromkeys(launches, 0), "K1": 12, "K2": 12}
+    check(record["steps"] == [step_want] * n_steps,
+          f"CoCa trainer step launches {record['steps']}")
+    check(len(record["evals"]) == 2, "CoCa trainer: two evals")
+    want = {**dict.fromkeys(launches, 0), "K1": 12 * len(calls),
+            "K2": 12 * n_steps}
+    check(launches == want, f"CoCa trainer launches {launches}, expected "
+          f"{want} ({len(calls)} vision-tower calls)")
+    for prefix in ("", "ema_"):
+        for key in ("clip_val_loss", "coco_image_to_text_R@1",
+                    "coco_text_to_image_R@10"):
+            v = run2.get(prefix + key)
+            check(v is not None and np.isfinite(v), f"{prefix}{key}: {v}")
+    step_ms = [ms for s in epochs for ms in s["step_ms"][1:]]
+    out = dict(losses=losses, launches=launches, vision_calls=len(calls),
+               eval_launches=record["evals"], step_ms=step_ms,
+               eval_s=[s.get("eval_s") for s in epochs], wall_s=wall_s,
+               metrics={k: v for k, v in run2.items()
+                        if isinstance(v, (int, float))})
+    print(f"[coca] trainer {COCA_MODEL}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; K1 {launches['K1']} "
+          f"over {len(calls)} vision-tower calls, K2 {launches['K2']} over "
+          f"{n_steps} steps; evals "
+          + ", ".join(f"{s:.2f} s" for s in out["eval_s"] if s)
+          + f"; wall {wall_s:.1f} s")
+    shutil.rmtree(f"{logs}/coca")
+    return out
+
+
+def phase_coca(K, data: str, workers: int, tmp: str) -> dict:
+    """Phase 21: CoCa at coca_ViT-B-32's full width.  (f) K1 and K2 held
+    to their plain versions and timed at its vision geometry first, then
+    (a) serving, (b) card against CPU, (c) generation, (d) the step and
+    (e) the trainer."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa = K.fa
+    gen = torch.Generator(device="cuda").manual_seed(COCA_SEED)
+    label, b, l, d3, heads, causal = COCA_GEOMETRY
+    rows = [kernel_row(fa, label, b, l, d3, heads, causal, dtype, gen)
+            for dtype in (torch.float32, torch.bfloat16)]
+    bwd_rows = [kernel_bwd_row(fa, label, b, l, d3, heads, causal, dtype,
+                               gen)
+                for dtype in (torch.float32, torch.bfloat16)]
+    check(fa.supported(heads, d3 // 3, l, 2) and fa.supported(
+        heads, d3 // 3, l, 4), "K1's gate admits CoCa's vision geometry")
+    parts = {"kernels": time.perf_counter() - t0}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    model = _coca_model("bf16", "cuda")
+    serving, k1_serve = _coca_serving(K, model)
+    done("serving")
+    cpu = _coca_model("fp32", "cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    card_vs_cpu = _coca_card_vs_cpu(cpu, gpu)
+    done("card vs CPU")
+    generation, k1_gen = _coca_generation(K, model, cpu, gpu)
+    done("generation")
+    del model, cpu, gpu
+    torch.cuda.empty_cache()
+    step, (k1_step, k2_step) = _coca_step(K)
+    done("step")
+    trainer = _coca_trainer(K, data, workers, f"{tmp}/coca_logs")
+    done("trainer")
+    k1 = {"CoCa serving": k1_serve, "CoCa generation": k1_gen,
+          "CoCa step": k1_step, "CoCa trainer": trainer["launches"]["K1"]}
+    k2 = {"CoCa step": k2_step, "CoCa trainer": trainer["launches"]["K2"]}
+    out = dict(kernel_rows=rows, kernel_bwd_rows=bwd_rows, serving=serving,
+               card_vs_cpu=card_vs_cpu, generation=generation, step=step,
+               trainer=trainer, k1_launches=k1, k2_launches=k2,
+               parts_s=parts, phase_s=time.perf_counter() - t0)
+    print(f"[coca] phase 21 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+          + "); K1 launches "
+          + " ".join(f"{k}={v}" for k, v in k1.items()) + "; K2 launches "
+          + " ".join(f"{k}={v}" for k, v in k2.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -4861,6 +5283,7 @@ def main() -> int:
         # phase 12 left its last checkpoint in work/weights_cache
         weights = phase_weights_in(K, trainer["data_dir"],
                                    f"{work}/weights_cache", work)
+        coca = phase_coca(K, trainer["data_dir"], trainer["workers"], work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = phase_last_flags(K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -4912,7 +5335,8 @@ def main() -> int:
         + trainer["launches"]["K1"] + classification["launches"]["K1"]
         + seg_k1 + options["launches"]["K1"] + dp_k1
         + sum(last_k1.values()) + sum(towers["k1_launches"].values())
-        + beyond_k["K1"] + sum(weights["k1_launches"].values()),
+        + beyond_k["K1"] + sum(weights["k1_launches"].values())
+        + sum(coca["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -4926,7 +5350,8 @@ def main() -> int:
                              **towers["k1_launches"],
                              "beyond DP": beyond_k["K1"],
                              **{f"weights in {k}": v for k, v in
-                                weights["k1_launches"].items()}},
+                                weights["k1_launches"].items()},
+                             **coca["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -4951,7 +5376,7 @@ def main() -> int:
         + trainer["launches"]["K2"] + options["launches"]["K2"]
         + data_parallel["world1"]["launches"]["K2"]
         + last["launches"]["K2"] + sum(towers["k2_launches"].values())
-        + beyond_k["K2"],
+        + beyond_k["K2"] + sum(coca["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -4961,7 +5386,8 @@ def main() -> int:
                                  data_parallel["world1"]["launches"]["K2"],
                              "last flags trainer": last["launches"]["K2"],
                              **towers["k2_launches"],
-                             "beyond DP": beyond_k["K2"]},
+                             "beyond DP": beyond_k["K2"],
+                             **coca["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -5002,6 +5428,7 @@ def main() -> int:
                   segmentation=segmentation, trainer_options=options,
                   data_parallel=data_parallel, last_flags=last,
                   towers=towers, beyond_dp=beyond, weights_in=weights,
+                  coca=coca,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

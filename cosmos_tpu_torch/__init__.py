@@ -7,14 +7,15 @@ PyTorch, and each Pallas kernel of ``cosmos_tpu`` on a ported path is a
 hand-written CUDA kernel for ``sm_90a`` under ``ops/csrc/``.  Entry points
 run on the card unless the caller passes ``device="cpu"``.  Ported: the
 serving path (``create_model``, the encoders), the training step in the
-COSMOS, plain CLIP, SigLIP and distillation modes with accumulation, remat
+COSMOS, plain CLIP, SigLIP, distillation and CoCa modes with accumulation, remat
 and LiT locking (``create_optimizer``, ``create_train_state``,
 ``make_train_step``, ``COSMOSLoss``), the host data pipeline (``data/``), the trainer
 (``python -m cosmos_tpu_torch.training.main``), the timm-family and
 ModifiedResNet vision towers with their configs, and the weights in: every
 local checkpoint format and cached pretrained tag the JAX package's
 ``create_model(pretrained=...)`` reads (``load_checkpoint``,
-``load_openai_model``, the registry).
+``load_openai_model``, the registry), and CoCa (``CoCa``, ``CoCaLoss``,
+caption generation in ``models.coca``).
 
 The names below are the JAX package's public names.  They are imported on
 first use, so that the data loader's worker processes, which import
@@ -37,6 +38,7 @@ _EXPORTS = {
     # model classes and configs; one CLIP class serves the custom-text layout
     "CLIP": ".models.clip",
     "CustomTextCLIP": (".models.clip", "CLIP"),
+    "CoCa": ".models.coca",
     "CLIPCfg": ".models.config",
     "VisionCfg": ".models.config",
     "TextCfg": ".models.config",
@@ -67,6 +69,7 @@ _EXPORTS = {
     "ClipLoss": ".losses.contrastive",
     "DistillClipLoss": ".losses.contrastive",
     "COSMOSLoss": ".losses.contrastive",
+    "CoCaLoss": ".losses.contrastive",
     "SigLipLoss": ".losses.contrastive",
     # training
     "create_optimizer": ".training.train",
@@ -90,11 +93,8 @@ _EXPORTS = {
 }
 
 # the JAX package's names whose feature is not ported: ROADMAP item
-_OTHER_TOWERS = 'queue 1, item 8 ("Other towers, configs and tools"): CoCa'
 _NEEDS_NETWORK = 'queue 1, "Not queued": it needs a download or an upload'
 _UNPORTED = {
-    "CoCa": _OTHER_TOWERS,
-    "CoCaLoss": _OTHER_TOWERS,
     "download_pretrained": _NEEDS_NETWORK,
     "download_pretrained_from_url": _NEEDS_NETWORK,
     "push_to_hf_hub": _NEEDS_NETWORK,

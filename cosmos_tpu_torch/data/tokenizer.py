@@ -1,6 +1,7 @@
 """Byte-BPE tokenizer of the OpenAI CLIP vocabulary (counterpart of
-``cosmos_tpu/data/tokenizer.py``: ``bytes_to_unicode``, ``SimpleTokenizer``,
-``tokenize``, ``decode``).
+``cosmos_tpu/data/tokenizer.py``: ``bytes_to_unicode``, ``SimpleTokenizer``
+with its ``clean``, ``additional_special_tokens`` and ``reduction_mask``
+options, ``tokenize``, ``decode``).
 
 The merge table (``cosmos_tpu_torch/assets/bpe_merges.json.gz``) is a byte
 copy of the JAX package's.  The vocabulary is built the same way: 256 byte
@@ -18,6 +19,14 @@ mark whose other case is a letter (U+0345): such characters match no
 alternative and are dropped, here too.  The two agree on every code point
 that the Unicode version of ``unicodedata`` assigns.
 
+The reduction masks that draw (``simple``, ``random``, ``shuffle``) draw
+from the generator the tokenizer is given: a ``random.Random`` for
+``simple``, a ``np.random.RandomState`` for the other two.  Seeded as the
+global ``random`` and ``np.random`` the JAX package draws from, they give
+its tokens.  ``syntax`` imports ``nltk`` when it runs, and falls back to a
+whitespace split where JAX's does (nltk's data missing, ``LookupError``).
+Additional special tokens match as literals, case-insensitively.
+
 Outputs are numpy int32 arrays of shape ``[N, context_length]``.
 """
 
@@ -26,12 +35,14 @@ from __future__ import annotations
 import gzip
 import html
 import json
+import random
 import re
+import string
 import sys
 import unicodedata
-from functools import lru_cache
+from functools import lru_cache, partial
 from pathlib import Path
-from typing import List, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 
@@ -90,6 +101,46 @@ def basic_clean(text: str) -> str:
 
 def whitespace_clean(text: str) -> str:
     return " ".join(text.split()).strip()
+
+
+def canonicalize_text(
+    text,
+    *,
+    keep_punctuation_exact_string=None,
+    trans_punctuation: dict = str.maketrans("", "", string.punctuation),
+):
+    """Underscores to spaces, punctuation removed (except inside
+    ``keep_punctuation_exact_string``), lower case, whitespace collapsed."""
+    text = text.replace("_", " ")
+    if keep_punctuation_exact_string:
+        text = keep_punctuation_exact_string.join(
+            part.translate(trans_punctuation)
+            for part in text.split(keep_punctuation_exact_string)
+        )
+    else:
+        text = text.translate(trans_punctuation)
+    text = text.lower()
+    return " ".join(text.split()).strip()
+
+
+def _clean_canonicalize(x):
+    return canonicalize_text(basic_clean(x))
+
+
+def _clean_lower(x):
+    return whitespace_clean(basic_clean(x)).lower()
+
+
+def _clean_whitespace(x):
+    return whitespace_clean(basic_clean(x))
+
+
+def get_clean_fn(type_: str) -> Callable[[str], str]:
+    return {
+        "canonicalize": _clean_canonicalize,
+        "lower": _clean_lower,
+        "whitespace": _clean_whitespace,
+    }[type_]
 
 
 def _ranges(points: List[int]) -> str:
@@ -151,10 +202,18 @@ def word_pattern(special_tokens: List[str]) -> "re.Pattern":
 
 
 class SimpleTokenizer:
-    """The JAX package's default tokenizer (``clean="lower"``, no extra
-    special tokens, no reduction mask)."""
+    """The JAX package's tokenizer.  ``clean``: ``lower`` (the default),
+    ``whitespace`` or ``canonicalize``; ``additional_special_tokens`` join
+    the vocabulary after ``<end_of_text>``; ``reduction_mask`` (``simple``,
+    ``random``, ``shuffle``, ``syntax``) shortens long captions its way,
+    drawing from ``rng`` (see the module's text; None: a fresh unseeded
+    generator of the kind the mask needs)."""
 
-    def __init__(self, context_length: int = DEFAULT_CONTEXT_LENGTH):
+    def __init__(self, context_length: int = DEFAULT_CONTEXT_LENGTH,
+                 additional_special_tokens: Optional[List[str]] = None,
+                 clean: str = "lower", reduction_mask: str = "",
+                 rng: Union[random.Random, np.random.RandomState,
+                            None] = None):
         self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         with gzip.open(default_merges_path(), "rt", encoding="utf-8") as f:
@@ -164,6 +223,8 @@ class SimpleTokenizer:
         for merge in merges:
             vocab.append("".join(merge))
         special_tokens = ["<start_of_text>", "<end_of_text>"]
+        if additional_special_tokens:
+            special_tokens += additional_special_tokens
         vocab.extend(special_tokens)
         self.encoder = dict(zip(vocab, range(len(vocab))))
         self.decoder = {v: k for k, v in self.encoder.items()}
@@ -175,6 +236,9 @@ class SimpleTokenizer:
         self.sot_token_id = self.all_special_ids[0]
         self.eot_token_id = self.all_special_ids[1]
         self.context_length = context_length
+        self.clean_fn = get_clean_fn(clean)
+        self.reduction_fn = (get_reduction_mask_fn(reduction_mask, rng)
+                             if reduction_mask else None)
 
     def bpe(self, token: str) -> str:
         if token in self.cache:
@@ -214,7 +278,7 @@ class SimpleTokenizer:
 
     def encode(self, text: str) -> List[int]:
         bpe_tokens: List[int] = []
-        text = whitespace_clean(basic_clean(text)).lower()
+        text = self.clean_fn(text)
         for token in self.pat.findall(text):
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             bpe_tokens.extend(
@@ -238,6 +302,11 @@ class SimpleTokenizer:
         if isinstance(texts, str):
             texts = [texts]
         context_length = context_length or self.context_length
+        if self.reduction_fn is not None:
+            return self.reduction_fn(
+                texts, context_length=context_length,
+                sot_token_id=self.sot_token_id,
+                eot_token_id=self.eot_token_id, encode_fn=self.encode)
         result = np.zeros((len(texts), context_length), dtype=np.int32)
         for i, text in enumerate(texts):
             tokens = [self.sot_token_id] + self.encode(text) + [self.eot_token_id]
@@ -266,3 +335,106 @@ def tokenize(
 
 def decode(output_ids) -> str:
     return _get_default().decode(np.asarray(output_ids))
+
+
+# --- reduction masks -------------------------------------------------------
+
+
+def random_mask_tokenize(texts, context_length, sot_token_id, eot_token_id,
+                         encode_fn, shuffle=False,
+                         rng: Optional[np.random.RandomState] = None
+                         ) -> np.ndarray:
+    """A long caption keeps ``context_length - 2`` of its tokens drawn at
+    random from ``rng``, in their order (or, with ``shuffle``, in the drawn
+    order)."""
+    rng = rng if rng is not None else np.random.RandomState()
+    result = np.zeros((len(texts), context_length), dtype=np.int32)
+    for i, text in enumerate(texts):
+        tokens = np.asarray(encode_fn(text))
+        num_tokens = len(tokens)
+        if num_tokens > context_length - 2:
+            num_keep = context_length - 2
+            indices = rng.permutation(num_tokens)[:num_keep]
+            if not shuffle:
+                indices = np.sort(indices)
+            tokens = tokens[indices]
+            num_tokens = num_keep
+        result[i, 0] = sot_token_id
+        result[i, 1:num_tokens + 1] = tokens
+        result[i, num_tokens + 1] = eot_token_id
+    return result
+
+
+def simple_mask_tokenize(texts, context_length, sot_token_id, eot_token_id,
+                         encode_fn, rng: Optional[random.Random] = None
+                         ) -> np.ndarray:
+    """A long caption keeps a run of ``context_length - 2`` tokens starting
+    where ``rng`` draws."""
+    rng = rng if rng is not None else random.Random()
+    result = np.zeros((len(texts), context_length), dtype=np.int32)
+    for i, text in enumerate(texts):
+        tokens = encode_fn(text)
+        num_tokens = len(tokens)
+        if num_tokens > context_length - 2:
+            num_keep = context_length - 2
+            start = rng.randint(0, num_tokens - num_keep)
+            tokens = tokens[start:start + num_keep]
+        tokens = [sot_token_id] + tokens + [eot_token_id]
+        result[i, :len(tokens)] = tokens
+    return result
+
+
+def syntax_mask_tokenize(texts, context_length, sot_token_id, eot_token_id,
+                         encode_fn) -> np.ndarray:
+    """Keep nouns, then adjectives, then verbs, then the rest, of at most
+    ``context_length - 2`` words, in their order (nltk's tagger; without
+    its data every word counts as a noun)."""
+    import nltk
+
+    def get_order(tag):
+        if tag.startswith("NN"):
+            return 1
+        if tag.startswith("JJ"):
+            return 2
+        if tag.startswith("VB"):
+            return 3
+        return 4
+
+    new_texts = []
+    for text in texts:
+        try:
+            words = nltk.tokenize.word_tokenize(text)
+            pos_tags = nltk.pos_tag(words)
+        except LookupError:  # nltk's data is not installed
+            words = text.split()
+            pos_tags = [(w, "NN") for w in words]
+        order = np.argsort(np.array([get_order(t) for _, t in pos_tags]))
+        sampled = sorted(order[:context_length - 2])
+        new_texts.append(" ".join(str(words[j]) for j in sampled).strip())
+
+    result = np.zeros((len(new_texts), context_length), dtype=np.int32)
+    for i, text in enumerate(new_texts):
+        tokens = [sot_token_id] + encode_fn(text) + [eot_token_id]
+        if len(tokens) > context_length:
+            tokens = tokens[:context_length]
+            tokens[-1] = eot_token_id
+        result[i, :len(tokens)] = tokens
+    return result
+
+
+def get_reduction_mask_fn(type_: str, rng=None) -> Callable:
+    """The reduction mask ``type_``, drawing from ``rng`` where it draws."""
+    if type_ == "syntax":
+        return syntax_mask_tokenize
+    if type_ == "simple":
+        if rng is not None and not isinstance(rng, random.Random):
+            raise TypeError("reduction_mask 'simple' draws from a "
+                            "random.Random")
+        return partial(simple_mask_tokenize, rng=rng)
+    if type_ in ("random", "shuffle"):
+        if rng is not None and not isinstance(rng, np.random.RandomState):
+            raise TypeError(f"reduction_mask {type_!r} draws from a "
+                            "np.random.RandomState")
+        return partial(random_mask_tokenize, shuffle=type_ == "shuffle",
+                       rng=rng)
+    raise KeyError(type_)

@@ -1,3 +1,5 @@
-from .contrastive import ClipLoss, COSMOSLoss, DistillClipLoss, SigLipLoss
+from .contrastive import (ClipLoss, CoCaLoss, COSMOSLoss, DistillClipLoss,
+                          SigLipLoss)
 
-__all__ = ["ClipLoss", "COSMOSLoss", "DistillClipLoss", "SigLipLoss"]
+__all__ = ["ClipLoss", "CoCaLoss", "COSMOSLoss", "DistillClipLoss",
+           "SigLipLoss"]

@@ -1,12 +1,14 @@
 """Contrastive and self-distillation losses (counterpart of
-``cosmos_tpu/losses/contrastive.py``, all but ``CoCaLoss``).
+``cosmos_tpu/losses/contrastive.py``).
 
 Features arrive views-leading, ``[V, B, D]`` (a ``[B, D]`` input is one
 view).  ``ClipLoss`` is InfoNCE averaged over every (image view, text view)
 pair, from one batched ``[Vi, Vt, B, B]`` contraction with a float32 result;
 ``COSMOSLoss`` adds the 4-term cross-modal distillation against the detached
 teacher features; ``DistillClipLoss`` adds a soft cross-entropy against a
-frozen model's logits; ``SigLipLoss`` is the pairwise sigmoid loss of one
+frozen model's logits; ``CoCaLoss`` weighs ``ClipLoss`` and the
+captioner's cross entropy over the labels that are not padding;
+``SigLipLoss`` is the pairwise sigmoid loss of one
 ``[B, B]`` block with ``logit_bias``.  The last two read the first view
 only, as the JAX package's do.
 
@@ -262,6 +264,46 @@ def _pair_logits(img: torch.Tensor, txt: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """``scale * img @ txt.T`` as float32 from [B, D] features."""
     return scale.float() * torch.matmul(img.float(), txt.float().T)
+
+
+@dataclasses.dataclass
+class CoCaLoss:
+    caption_loss_weight: float = 2.0
+    clip_loss_weight: float = 1.0
+    pad_id: int = 0
+    local_loss: bool = False
+    gather_with_grad: bool = True
+    group: Any = None
+    slice_group: Any = None
+    gather_scope: str = "global"
+
+    def __post_init__(self):
+        self.clip_loss = ClipLoss(local_loss=self.local_loss,
+                                  gather_with_grad=self.gather_with_grad,
+                                  group=self.group,
+                                  slice_group=self.slice_group,
+                                  gather_scope=self.gather_scope)
+
+    def __call__(self, image_features: torch.Tensor,
+                 text_features: torch.Tensor, logits: torch.Tensor,
+                 labels: torch.Tensor, logit_scale: torch.Tensor,
+                 output_dict: bool = False):
+        """``logits`` [B, L, vocab], ``labels`` [B, L]: the weighted
+        contrastive loss (0 at weight 0, no gather) and the weighted mean
+        cross entropy over the labels that are not ``pad_id``."""
+        clip_loss = torch.zeros((), device=logits.device)
+        if self.clip_loss_weight:
+            clip_loss = self.clip_loss_weight * self.clip_loss(
+                image_features, text_features, logit_scale)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        picked = logp.gather(-1, labels[..., None])[..., 0]
+        valid = (labels != self.pad_id).float()
+        caption_loss = (-(picked * valid).sum() / valid.sum().clamp_min(1.0)
+                        * self.caption_loss_weight)
+        if output_dict:
+            return {"contrastive_loss": clip_loss,
+                    "caption_loss": caption_loss}
+        return clip_loss, caption_loss
 
 
 @dataclasses.dataclass

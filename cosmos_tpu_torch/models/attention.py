@@ -82,11 +82,13 @@ def dot_product_attention(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain attention over [B, H, L, Dh]; ``mask`` is additive [..., Lq, Lk].
-    Logits stay in the compute dtype; the softmax reduces in float32."""
+    Logits stay in the compute dtype; the softmax reduces in float32 (in
+    float64 for float64 logits)."""
     logits = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
     if mask is not None:
         logits = logits + mask.to(logits.dtype)
-    weights = torch.softmax(logits.float(), dim=-1)
+    weights = torch.softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     return torch.matmul(weights.to(v.dtype), v)
 
 
@@ -130,25 +132,53 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int,
 
 
 class MultiheadAttention(nn.Module):
-    """Packed-QKV multi-head attention (self or cross)."""
+    """Packed-QKV multi-head attention (self or cross).
+
+    ``kdim``: the width of the keys' and values' input, when it is not
+    ``dim`` (CoCa's pooler); the projections are then torch's separate
+    ``q_proj_weight`` ``[D, D]``, ``k_proj_weight`` and ``v_proj_weight``
+    ``[D, kdim]``, the layout of ``nn.MultiheadAttention(dim, heads, kdim=,
+    vdim=)``, and the attention is cross-attention only."""
 
     def __init__(self, dim: int, num_heads: int, add_zero_attn: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None,
+                 kdim: Optional[int] = None):
         super().__init__()
         self.dim = dim
+        self.kdim = dim if kdim is None else kdim
         self.use_flash = use_flash
         self.num_heads = num_heads
         self.add_zero_attn = add_zero_attn
         self.dtype = dtype
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        if self.kdim == dim:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        else:
+            self.in_proj_weight = None
+            self.q_proj_weight = nn.Parameter(torch.empty(dim, dim))
+            self.k_proj_weight = nn.Parameter(torch.empty(dim, self.kdim))
+            self.v_proj_weight = nn.Parameter(torch.empty(dim, self.kdim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Linear(dim, dim, dtype=dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        nn.init.normal_(self.in_proj_weight, std=self.dim ** -0.5,
-                        generator=generator)
+        if self.in_proj_weight is not None:
+            nn.init.normal_(self.in_proj_weight, std=self.dim ** -0.5,
+                            generator=generator)
+        else:
+            for w in (self.q_proj_weight, self.k_proj_weight,
+                      self.v_proj_weight):
+                nn.init.normal_(w, std=w.shape[1] ** -0.5,
+                                generator=generator)
         nn.init.zeros_(self.in_proj_bias)
+
+    def _qkv_weights(self) -> Tuple[torch.Tensor, ...]:
+        """The q, k and v projection weights in the compute dtype."""
+        if self.in_proj_weight is None:
+            ws = (self.q_proj_weight, self.k_proj_weight, self.v_proj_weight)
+        else:
+            ws = _whole(self.in_proj_weight).split(self.dim)
+        return tuple(w.to(self.dtype) for w in ws)
 
     def forward(
         self,
@@ -187,12 +217,12 @@ class MultiheadAttention(nn.Module):
         if kv is None:
             q, k, v = _whole(qkv).split(d, dim=-1)
         else:
-            w = _whole(self.in_proj_weight).to(self.dtype)
+            wq, wk, wv = self._qkv_weights()
             bias = _whole(self.in_proj_bias).to(self.dtype)
             kvc = kv.to(self.dtype)
-            q = F.linear(xc, w[:d], bias[:d])
-            k = F.linear(kvc, w[d:2 * d], bias[d:2 * d])
-            v = F.linear(kvc, w[2 * d:], bias[2 * d:])
+            q = F.linear(xc, wq, bias[:d])
+            k = F.linear(kvc, wk, bias[d:2 * d])
+            v = F.linear(kvc, wv, bias[2 * d:])
         if self.add_zero_attn:
             zeros = k.new_zeros(k.shape[:-2] + (1, d))
             k = torch.cat([k, zeros], dim=-2)
@@ -223,3 +253,32 @@ class AttentionalCrossPooler(nn.Module):
 
     def forward(self, context: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         return self.attn(self.ln_q(q), kv=self.ln_k(context))
+
+
+class AttentionalPooler(nn.Module):
+    """CoCa's learned-query pooler (``cosmos_tpu/models/attention.py``
+    ``AttentionalPooler``): ``n_queries`` queries of width ``dim`` attend
+    over the LayerNormed tokens of width ``context_dim``.
+
+    JAX's pooler takes its width from its input; here it is ``dim``, the
+    decoder's width, with the keys and values projected from
+    ``context_dim`` (OpenCLIP's ``AttentionalPooler(d_model,
+    context_dim)``).  Where the two agree this is JAX's module, parameter
+    for parameter.  Always the plain attention path, as in JAX."""
+
+    def __init__(self, dim: int, context_dim: int, n_queries: int = 256,
+                 num_heads: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.query = nn.Parameter(torch.empty(n_queries, dim))
+        self.ln_q = LayerNorm(dim)
+        self.ln_k = LayerNorm(context_dim)
+        self.attn = MultiheadAttention(dim, num_heads, dtype=dtype,
+                                       kdim=context_dim)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.query, std=1.0, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, N, context_dim] -> [B, n_queries, dim]."""
+        q = self.ln_q(self.query.to(x.dtype))
+        return self.attn(q.expand(x.shape[0], *q.shape), kv=self.ln_k(x))

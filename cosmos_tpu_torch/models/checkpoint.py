@@ -136,11 +136,14 @@ def _strip(sd: Dict[str, Any]) -> Dict[str, Any]:
             if not k.endswith("attn_mask")}
 
 
-def normalize_state_dict(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def normalize_state_dict(sd: Dict[str, Any], text_tower: bool = False
+                         ) -> Dict[str, torch.Tensor]:
     """``_strip``, and a CustomTextCLIP text tower
-    (``text.transformer.resblocks.*``) moved to the top level."""
+    (``text.transformer.resblocks.*``) moved to the top level, unless the
+    model keeps its text tower under ``text.`` (``text_tower``: CoCa)."""
     sd = {k: torch.as_tensor(v) for k, v in _strip(sd).items()}
-    if any(k.startswith("text.transformer.resblocks.") for k in sd):
+    if not text_tower and any(k.startswith("text.transformer.resblocks.")
+                              for k in sd):
         sd = {(k[len("text."):] if k.startswith("text.") else k): v
               for k, v in sd.items()}
     return sd
@@ -152,8 +155,9 @@ def torch_state_dict_to_model(model: nn.Module, state_dict: Dict[str, Any],
     """A reference state dict as the full state dict of ``model``: every
     key of the model, from the checkpoint where it has one (resized or
     reshaped as the module docstring says), else the model's own value."""
-    sd = normalize_state_dict(state_dict)
     target = model.state_dict()
+    sd = normalize_state_dict(state_dict, text_tower=any(
+        k.startswith("text.") for k in target))
     native_vit = hasattr(getattr(model, "visual", None), "class_embedding")
     out: Dict[str, torch.Tensor] = {}
     for key, ref in target.items():

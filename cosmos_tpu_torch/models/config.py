@@ -88,11 +88,24 @@ class TextCfg:
 
 
 @dataclasses.dataclass
+class MultimodalCfg:
+    """CoCa's multimodal text decoder (``models/coca.py``)."""
+    context_length: int = 76
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+    mlp_ratio: float = 4.0
+    ls_init_value: Optional[float] = None
+    attn_pooler_heads: int = 8
+
+
+@dataclasses.dataclass
 class CLIPCfg:
     embed_dim: int = 512
     vision_cfg: VisionCfg = dataclasses.field(default_factory=VisionCfg)
     text_cfg: TextCfg = dataclasses.field(default_factory=TextCfg)
-    multimodal_cfg: Optional[Dict[str, Any]] = None
+    # set for a CoCa config, which create_model builds as models.coca.CoCa
+    multimodal_cfg: Optional[MultimodalCfg] = None
     quick_gelu: bool = False
     init_logit_scale: float = 2.6592600175  # ln(1/0.07)
     init_logit_bias: Optional[float] = None
@@ -135,6 +148,19 @@ def get_model_config(name: str) -> Optional[Dict[str, Any]]:
         return json.load(f)
 
 
+def is_coca_config(name: str) -> bool:
+    """Whether the registered config ``name`` is CoCa's: it has a
+    ``multimodal_cfg``, and ``create_model`` builds it as ``CoCa``."""
+    return bool((get_model_config(name) or {}).get("multimodal_cfg"))
+
+
+def is_coca(model) -> bool:
+    """Whether ``model`` was built from a CoCa config (see
+    ``is_coca_config``)."""
+    return getattr(getattr(model, "cfg", None), "multimodal_cfg",
+                   None) is not None
+
+
 def build_clip_cfg(
     model_name: str,
     overrides: Optional[Dict[str, Any]] = None,
@@ -148,6 +174,7 @@ def build_clip_cfg(
     raw = dict(raw)
     vision_d = dict(raw.get("vision_cfg", {}))
     text_d = dict(raw.get("text_cfg", {}))
+    mm_d = raw.get("multimodal_cfg")
     for key, val in (overrides or {}).items():
         if key in ("attentional_pool", "add_zero_attn", "output_all"):
             vision_d[key] = val
@@ -162,7 +189,9 @@ def build_clip_cfg(
         embed_dim=raw["embed_dim"],
         vision_cfg=VisionCfg(**_filter_fields(VisionCfg, vision_d)),
         text_cfg=TextCfg(**_filter_fields(TextCfg, text_d)),
-        multimodal_cfg=raw.get("multimodal_cfg"),
+        multimodal_cfg=(
+            MultimodalCfg(**_filter_fields(MultimodalCfg, mm_d)) if mm_d
+            else None),
         quick_gelu=raw.get("quick_gelu", False),
         init_logit_scale=raw.get("init_logit_scale", CLIPCfg.init_logit_scale),
         init_logit_bias=raw.get("init_logit_bias"),

@@ -31,16 +31,22 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .config import is_coca
+
 logger = logging.getLogger(__name__)
 
 Entry = Tuple[str, Tuple[str, ...], Optional[str]]
 
 
 def _block_entries(prefix_t: str, prefix_f: Tuple[str, ...],
-                   i: int) -> List[Entry]:
-    t = f"{prefix_t}.resblocks.{i}"
-    f = prefix_f + (f"resblocks_{i}",)
-    return [
+                   i: int, stack: str = "resblocks") -> List[Entry]:
+    """A residual block's entries; ``stack`` ``cross_attn`` names CoCa's
+    decoder's cross-attention blocks, which add ``ln_1_kv``."""
+    t = f"{prefix_t}.{stack}.{i}"
+    f = prefix_f + (f"{stack}_{i}",)
+    kv = [(f"{t}.ln_1_kv.{n}", f + ("ln_1_kv", m), None)
+          for n, m in (("weight", "scale"), ("bias", "bias"))]
+    return (kv if stack == "cross_attn" else []) + [
         (f"{t}.ln_1.weight", f + ("ln_1", "scale"), None),
         (f"{t}.ln_1.bias", f + ("ln_1", "bias"), None),
         (f"{t}.attn.in_proj_weight", f + ("attn", "in_proj_kernel"), "t"),
@@ -76,23 +82,33 @@ def _cross_pool_entries(prefix_t: str,
     ]
 
 
-def build_name_map(vision_layers: int, text_layers: int) -> List[Entry]:
-    """(torch key, flax path, transform) for every parameter a native-ViT
-    COSMOS CLIP may have; entries whose flax path is absent are skipped."""
-    entries: List[Entry] = [
-        ("logit_scale", ("logit_scale",), None),
-        # SigLIP-initialised models (init_logit_bias); OpenCLIP's name
-        ("logit_bias", ("logit_bias",), None),
-        ("token_embedding.weight",
+def _text_entries(prefix_t: str) -> List[Entry]:
+    """The text tower's entries but its blocks: CLIP's at the top level
+    (``prefix_t`` empty), CoCa's under ``text.``."""
+    t = prefix_t
+    return [
+        (f"{t}token_embedding.weight",
          ("text", "token_embedding", "embedding"), None),
-        ("positional_embedding", ("text", "positional_embedding"), None),
-        ("ln_final.weight", ("text", "ln_final", "scale"), None),
-        ("ln_final.bias", ("text", "ln_final", "bias"), None),
-        ("text_projection", ("text", "text_projection_kernel"), None),
+        (f"{t}positional_embedding", ("text", "positional_embedding"), None),
+        (f"{t}ln_final.weight", ("text", "ln_final", "scale"), None),
+        (f"{t}ln_final.bias", ("text", "ln_final", "bias"), None),
+        (f"{t}text_projection", ("text", "text_projection_kernel"), None),
         # a text tower with proj_bias: an nn.Linear
-        ("text_projection.weight", ("text", "text_projection", "kernel"),
+        (f"{t}text_projection.weight", ("text", "text_projection", "kernel"),
          "t"),
-        ("text_projection.bias", ("text", "text_projection", "bias"), None),
+        (f"{t}text_projection.bias", ("text", "text_projection", "bias"),
+         None),
+    ]
+
+
+def _stack_entries(prefix_t: str, prefix_f: Tuple[str, ...],
+                   layers: int) -> List[Entry]:
+    return [e for i in range(layers)
+            for e in _block_entries(prefix_t, prefix_f, i)]
+
+
+def _vit_entries(layers: int) -> List[Entry]:
+    entries: List[Entry] = [
         ("visual.conv1.weight", ("visual", "conv1_kernel"), "conv"),
         ("visual.class_embedding", ("visual", "class_embedding"), None),
         ("visual.positional_embedding",
@@ -103,11 +119,22 @@ def build_name_map(vision_layers: int, text_layers: int) -> List[Entry]:
         ("visual.ln_post.bias", ("visual", "ln_post", "bias"), None),
         ("visual.proj", ("visual", "proj"), None),
     ]
-    for i in range(vision_layers):
-        entries += _block_entries("visual.transformer",
-                                  ("visual", "transformer"), i)
-    for i in range(text_layers):
-        entries += _block_entries("transformer", ("text", "transformer"), i)
+    return entries + _stack_entries("visual.transformer",
+                                    ("visual", "transformer"), layers)
+
+
+def build_name_map(vision_layers: int, text_layers: int) -> List[Entry]:
+    """(torch key, flax path, transform) for every parameter a native-ViT
+    COSMOS CLIP may have; entries whose flax path is absent are skipped."""
+    entries: List[Entry] = [
+        ("logit_scale", ("logit_scale",), None),
+        # SigLIP-initialised models (init_logit_bias); OpenCLIP's name
+        ("logit_bias", ("logit_bias",), None),
+    ]
+    entries += _text_entries("")
+    entries += _vit_entries(vision_layers)
+    entries += _stack_entries("transformer", ("text", "transformer"),
+                              text_layers)
     entries += [
         ("distill_logit_scale", ("distill_logit_scale",), None),
         ("image_token_mapping.weight",
@@ -121,6 +148,54 @@ def build_name_map(vision_layers: int, text_layers: int) -> List[Entry]:
     entries += _cross_pool_entries("text_attn_cross_pool",
                                    ("text", "attn_cross_pool"))
     return entries
+
+
+def build_coca_name_map(vision_layers: int, text_layers: int,
+                        decoder_layers: int) -> List[Entry]:
+    """(torch key, flax path, transform) for every parameter of CoCa:
+    OpenCLIP's CoCa names, and the JAX tree's paths with dots for the
+    pooler (``attn_pool.*``, ``ln_attn_pool.*``).  The pooler's separate
+    q/k/v weights, which a CoCa whose widths differ has, have no JAX
+    counterpart (JAX's CoCa does not build there): their paths name what
+    JAX's tree would call them, and the bridge skips them."""
+    entries: List[Entry] = [("logit_scale", ("logit_scale",), None),
+                            ("text.cls_emb", ("text", "cls_emb"), None)]
+    entries += _text_entries("text.")
+    entries += _stack_entries("text.transformer", ("text", "transformer"),
+                              text_layers)
+    entries += _vit_entries(vision_layers)
+    entries += [("attn_pool.query", ("attn_pool", "query"), None)]
+    entries += _cross_pool_entries("attn_pool", ("attn_pool",))
+    entries += [(f"attn_pool.attn.{n}_proj_weight",
+                 ("attn_pool", "attn", f"{n}_proj_kernel"), "t")
+                for n in "qkv"]
+    entries += [("ln_attn_pool.weight", ("ln_attn_pool", "scale"), None),
+                ("ln_attn_pool.bias", ("ln_attn_pool", "bias"), None)]
+    for i in range(decoder_layers):
+        for stack in ("resblocks", "cross_attn"):
+            entries += _block_entries("text_decoder", ("text_decoder",), i,
+                                      stack)
+    entries += [
+        ("text_decoder.ln_final.weight",
+         ("text_decoder", "ln_final", "scale"), None),
+        ("text_decoder.ln_final.bias",
+         ("text_decoder", "ln_final", "bias"), None),
+        ("text_decoder.text_projection",
+         ("text_decoder", "text_projection_kernel"), None),
+    ]
+    return entries
+
+
+def model_name_map(model: torch.nn.Module) -> List[Entry]:
+    """The name map of a native-ViT ``CLIP`` or of ``CoCa``, at the
+    model's depths (a CLIP's other vision towers have 0 ViT layers)."""
+    visual = getattr(model.visual, "transformer", None)
+    v_layers = len(visual.resblocks) if visual is not None else 0
+    if is_coca(model):
+        return build_coca_name_map(v_layers,
+                                   len(model.text.transformer.resblocks),
+                                   len(model.text_decoder.resblocks))
+    return build_name_map(v_layers, len(model.transformer.resblocks))
 
 
 def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()):
@@ -261,10 +336,17 @@ def _count_blocks(tower: Dict[str, Any]) -> int:
 
 def state_dict_from_jax_params(params: Dict[str, Any]
                                ) -> Dict[str, torch.Tensor]:
-    """The JAX package's CLIP param tree (leaves as tensors, numpy arrays
-    or anything ``np.asarray`` takes) as this package's state dict."""
-    name_map = build_name_map(_count_blocks(params["visual"]),
-                              _count_blocks(params["text"]))
+    """The JAX package's CLIP or CoCa param tree (leaves as tensors, numpy
+    arrays or anything ``np.asarray`` takes) as this package's state
+    dict."""
+    if "text_decoder" in params:
+        name_map = build_coca_name_map(
+            _count_blocks(params["visual"]), _count_blocks(params["text"]),
+            len([k for k in params["text_decoder"]
+                 if k.startswith("resblocks")]))
+    else:
+        name_map = build_name_map(_count_blocks(params["visual"]),
+                                  _count_blocks(params["text"]))
     name_map += vision_entries(params["visual"])
     out: Dict[str, torch.Tensor] = {}
     for tkey, fpath, tf in name_map:

@@ -18,6 +18,7 @@ import torch
 
 from ..parallel import distributed
 from .clip import CLIP
+from .coca import CoCa
 from .config import build_clip_cfg
 
 
@@ -75,11 +76,15 @@ def create_model(
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
     **overrides: Any,
-) -> CLIP:
+) -> Union[CLIP, CoCa]:
     """Build a CLIP config (the native ViT-B-16 and ViT-B-32, the timm-family
     towers of EVA02-B-16, EVA02-L-14, convnext_base_w, convnext_large_d and
     MobileCLIP-S1/S2/B, a ModifiedResNet config registered with
-    ``config.add_model_config``) with random weights from ``seed``; on
+    ``config.add_model_config``), or a CoCa config (``coca_ViT-B-32``,
+    ``coca_Tiny-Test``: ``models.coca.CoCa``, which takes
+    ``grad_checkpointing``, ``remat_policy`` and ``use_flash`` of the
+    options below and refuses ``cosmos``) with random weights from
+    ``seed``; on
     the ``meta`` device, shapes only, with no weights drawn.
     ``act_approx`` picks the tanh GELU, ``text_bucket > 0`` the
     length-bucketed text tower of the COSMOS training forward, ``fuse_ln`` the blocks' fused LayerNorm kernels (K5
@@ -116,10 +121,20 @@ def create_model(
     if force_quick_gelu:
         cfg = dataclasses.replace(cfg, quick_gelu=True)
     with torch.device("meta" if dev.type == "meta" else "cpu"):
-        model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
-                     act_approx=act_approx, text_bucket=text_bucket,
-                     fuse_ln=fuse_ln, remat=grad_checkpointing,
-                     remat_policy=remat_policy, use_flash=use_flash)
+        if cfg.multimodal_cfg is not None:
+            # the CoCa dispatch takes the remat and attention flags only,
+            # as JAX's does
+            if cosmos:
+                raise ValueError("--cosmos is a CLIP-model flag; CoCa "
+                                 "configs train through the CoCa loss path")
+            model = CoCa(cfg, dtype=resolve_dtype(precision),
+                         remat=grad_checkpointing, remat_policy=remat_policy,
+                         use_flash=use_flash)
+        else:
+            model = CLIP(cfg, cosmos=cosmos, dtype=resolve_dtype(precision),
+                         act_approx=act_approx, text_bucket=text_bucket,
+                         fuse_ln=fuse_ln, remat=grad_checkpointing,
+                         remat_policy=remat_policy, use_flash=use_flash)
     if dev.type == "meta":
         return model.eval()
     init_weights(model, torch.Generator().manual_seed(seed))
@@ -131,10 +146,13 @@ def create_model(
     return model.to(dev).eval()
 
 
-def get_tokenizer(model_name: str = ""):
-    """The byte-BPE tokenizer at the config's context length (77 without a
-    config).  The configs the port builds all use it; a config that names
-    an HF tokenizer is refused."""
+def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
+                  **kwargs: Any):
+    """The byte-BPE tokenizer at ``context_length``, by default the
+    config's (77 without a config; 76 for CoCa); ``kwargs`` go to
+    ``SimpleTokenizer`` (``clean``, ``additional_special_tokens``,
+    ``reduction_mask``, ``rng``).  A config that names an HF tokenizer is
+    refused."""
     from ..data.tokenizer import SimpleTokenizer
     from .config import get_model_config
 
@@ -144,7 +162,9 @@ def get_tokenizer(model_name: str = ""):
         raise NotImplementedError(
             f"{model_name}: HF tokenizers are not ported (ROADMAP queue 1, "
             '"Not queued": it needs a download)')
-    return SimpleTokenizer(context_length=text_cfg.get("context_length", 77))
+    if context_length is None:
+        context_length = text_cfg.get("context_length", 77)
+    return SimpleTokenizer(context_length=context_length, **kwargs)
 
 
 def pretrained_preprocess_defaults(
@@ -275,10 +295,10 @@ def get_model_tokenize_cfg(model: CLIP) -> Dict[str, Any]:
 
 
 def create_loss(args):
-    """The loss the trainer's flags name (COSMOS, SigLIP, distillation or
-    plain CLIP); CoCa's is refused."""
-    from ..losses.contrastive import (ClipLoss, COSMOSLoss, DistillClipLoss,
-                                      SigLipLoss)
+    """The loss the trainer's flags name (COSMOS, SigLIP, distillation,
+    CoCa's for a CoCa model, or plain CLIP)."""
+    from ..losses.contrastive import (ClipLoss, CoCaLoss, COSMOSLoss,
+                                      DistillClipLoss, SigLipLoss)
 
     if getattr(args, "cosmos", False):
         return COSMOSLoss(local_loss=args.local_loss,
@@ -290,8 +310,10 @@ def create_loss(args):
         return DistillClipLoss(local_loss=args.local_loss,
                                gather_with_grad=args.gather_with_grad)
     if "coca" in getattr(args, "model", "").lower():
-        raise NotImplementedError(
-            'CoCa is not ported (ROADMAP queue 1, "Other towers, configs '
-            'and tools")')
+        return CoCaLoss(
+            caption_loss_weight=args.coca_caption_loss_weight,
+            clip_loss_weight=args.coca_contrastive_loss_weight,
+            local_loss=args.local_loss,
+            gather_with_grad=args.gather_with_grad)
     return ClipLoss(local_loss=getattr(args, "local_loss", False),
                     gather_with_grad=getattr(args, "gather_with_grad", True))

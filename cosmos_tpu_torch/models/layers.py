@@ -51,8 +51,8 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with single-pass float32 statistics, cast back to the input
-    dtype: var = max(E[x^2] - E[x]^2, 0)."""
+    """LayerNorm with single-pass float32 statistics (float64 for a float64
+    input), cast back to the input dtype: var = max(E[x^2] - E[x]^2, 0)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -64,7 +64,7 @@ class LayerNorm(nn.Module):
         if (FUSED_LN or HYBRID_LN) and fln.supported(x):
             fn = fln.fused_layer_norm if FUSED_LN else fln.hybrid_layer_norm
             return fn(x, self.weight, self.bias, self.eps)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(-1, keepdim=True)
         meansq = xf.square().mean(-1, keepdim=True)
         var = (meansq - mean.square()).clamp_min(0.0)

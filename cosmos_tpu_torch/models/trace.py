@@ -2,7 +2,8 @@
 ``cosmos_tpu/models/trace.py``, the trainer's ``--trace``).
 
 ``trace_model`` exports the normalised ``encode_image(images, True)
-["image_features"]`` and ``encode_text(tokens, True)["text_features"]`` with
+["image_features"]`` and ``encode_text(tokens, True)["text_features"]`` (a
+CoCa model's bare latents) with
 ``torch.export`` at a fixed batch and shape, as JAX exports its jitted
 encoders.  Each program holds its tower's weights (JAX's StableHLO takes
 ``params`` as its first argument instead) and runs every self-attention the
@@ -19,12 +20,14 @@ fake tensors, so it launches nothing.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
 
 from .clip import CLIP
+from .coca import CoCa
+from .config import is_coca
 
 
 class _ImageEncoder(nn.Module):
@@ -60,7 +63,34 @@ class _TextEncoder(nn.Module):
         return CLIP.encode_text(self, tokens, True)["text_features"]
 
 
-def trace_model(model: CLIP, batch_size: int = 256,
+class _CoCaImageEncoder(nn.Module):
+    """``CoCa.encode_image``'s normalised latent over the vision tower and
+    the pooler alone."""
+
+    def __init__(self, model: CoCa):
+        super().__init__()
+        self.dtype = model.dtype
+        self.visual = model.visual
+        self.attn_pool = model.attn_pool
+        self.ln_attn_pool = model.ln_attn_pool
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return CoCa._encode_image(self, images)[0]
+
+
+class _CoCaTextEncoder(nn.Module):
+    """``CoCa.encode_text``'s normalised latent over the text tower
+    alone."""
+
+    def __init__(self, model: CoCa):
+        super().__init__()
+        self.text = model.text
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return CoCa._encode_text(self, tokens)[0]
+
+
+def trace_model(model: Union[CLIP, CoCa], batch_size: int = 256,
                 image_size: Optional[int] = None,
                 context_length: Optional[int] = None
                 ) -> Dict[str, "torch.export.ExportedProgram"]:
@@ -75,11 +105,13 @@ def trace_model(model: CLIP, batch_size: int = 256,
     images = torch.zeros(batch_size, image_size, image_size, 3, device=dev)
     tokens = torch.zeros(batch_size, context_length, dtype=torch.long,
                          device=dev)
+    encoders = ((_CoCaImageEncoder, _CoCaTextEncoder)
+                if is_coca(model) else (_ImageEncoder, _TextEncoder))
     out = {}
     with torch.no_grad():
         for name, module, example in (
-                ("encode_image", _ImageEncoder(model), images),
-                ("encode_text", _TextEncoder(model), tokens)):
+                ("encode_image", encoders[0](model), images),
+                ("encode_text", encoders[1](model), tokens)):
             out[name] = torch.export.export(module, (example,),
                                             strict=False)
     return out

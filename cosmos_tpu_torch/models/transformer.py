@@ -81,16 +81,23 @@ def run_block(block: nn.Module, remat: bool, context_fn, *args):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN attention and pre-LN MLP, each with an optional LayerScale."""
+    """Pre-LN attention and pre-LN MLP, each with an optional LayerScale.
+
+    ``is_cross_attention`` (CoCa's decoder) adds ``ln_1_kv``, the LayerNorm
+    of the keys' and values' input ``kv``; ``fuse_ln`` stays off for such a
+    block, as JAX's gate keeps it off."""
 
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None,
                  act_fn: Callable[[torch.Tensor], torch.Tensor] = gelu,
                  dtype: torch.dtype = torch.float32, fuse_ln: bool = False,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None,
+                 is_cross_attention: bool = False):
         super().__init__()
-        self.fuse_ln = fuse_ln
+        self.fuse_ln = fuse_ln and not is_cross_attention
         self.ln_1 = LayerNorm(width)
+        if is_cross_attention:
+            self.ln_1_kv = LayerNorm(width)
         self.attn = MultiheadAttention(width, num_heads, dtype=dtype,
                                        use_flash=use_flash)
         self.ls_1 = (LayerScale(width, ls_init_value)
@@ -102,16 +109,20 @@ class ResidualAttentionBlock(nn.Module):
                      if ls_init_value is not None else nn.Identity())
 
     def forward(self, x: torch.Tensor, causal: bool = False,
-                csa: bool = False) -> torch.Tensor:
-        # the blocks of both towers are self-attention (kv is None and no
-        # cross-attention), so the JAX gate reduces to fuse_ln
+                csa: bool = False, mask: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: an additive attention mask (the plain path); ``kv``:
+        the keys' and values' input of a cross-attention block."""
         if self.fuse_ln:
             x = x + self.ls_1(self.attn(
                 x, causal=causal, ln=(self.ln_1.weight, self.ln_1.bias),
-                csa=csa))
+                csa=csa, mask=mask))
             return x + self.ls_2(self.mlp(
                 x, ln=(self.ln_2.weight, self.ln_2.bias)))
-        x = x + self.ls_1(self.attn(self.ln_1(x), causal=causal, csa=csa))
+        if kv is not None:
+            kv = self.ln_1_kv(kv)
+        x = x + self.ls_1(self.attn(self.ln_1(x), kv=kv, mask=mask,
+                                    causal=causal, csa=csa))
         return x + self.ls_2(self.mlp(self.ln_2(x)))
 
 
@@ -133,12 +144,14 @@ class Transformer(nn.Module):
         self._context_fn = remat_context_fn(remat_policy)
 
     def forward(self, x: torch.Tensor, causal: bool = False,
-                csa_last_block: bool = False) -> torch.Tensor:
+                csa_last_block: bool = False,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``csa_last_block``: the last block runs SCLIP's correlative
-        self-attention with no causal structure (the segmentor's path)."""
+        self-attention with no causal structure (the segmentor's path).
+        ``mask``: an additive mask for every block (CoCa's text tower)."""
         last = len(self.resblocks) - 1
         for i, block in enumerate(self.resblocks):
             csa = csa_last_block and i == last
             x = run_block(block, self.remat, self._context_fn, x,
-                          causal and not csa, csa)
+                          causal and not csa, csa, mask)
         return x

@@ -82,7 +82,10 @@ class VisionTransformer(nn.Module):
     ``cross_pool`` adds the COSMOS image-token cross pooler
     (``attn_cross_pool``) at ``output_dim``; ``patch_dropout`` is the share
     of patch tokens a forward given a ``patch_drop`` generator drops;
-    ``pool_type`` is ``tok`` or ``avg``."""
+    ``pool_type`` is ``tok`` or ``avg``.  ``proj_in`` is the width of the
+    vector ``proj`` projects: the tower's own (the default), or, in CoCa,
+    the attentional pooler's, which projects the pooled latent itself and
+    calls ``tokens``."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  width: int = 768, layers: int = 12, num_heads: int = 12,
@@ -95,7 +98,8 @@ class VisionTransformer(nn.Module):
                  patch_dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, fuse_ln: bool = False,
                  remat: bool = False, remat_policy: str = "",
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None,
+                 proj_in: Optional[int] = None):
         super().__init__()
         self.image_size = image_size
         self.patch_dropout = patch_dropout
@@ -116,7 +120,7 @@ class VisionTransformer(nn.Module):
                                        ls_init_value, act_fn, dtype, fuse_ln,
                                        remat, remat_policy, use_flash)
         self.ln_post = LayerNorm(width)
-        self.proj = nn.Parameter(torch.empty(width, output_dim))
+        self.proj = nn.Parameter(torch.empty(proj_in or width, output_dim))
         self.attn_cross_pool = (
             AttentionalCrossPooler(output_dim, attn_pooler_heads,
                                    add_zero_attn, dtype)
@@ -141,6 +145,15 @@ class VisionTransformer(nn.Module):
         ``patch_drop``: drop patch tokens after the position embedding,
         drawing from this generator (training only; the reference's
         PatchDropout is the identity in eval)."""
+        pooled, tokens = pool_tokens(self.tokens(images, csa, patch_drop),
+                                     self.pool_type)
+        pooled = torch.matmul(pooled.to(self.dtype), self.proj.to(self.dtype))
+        return pooled, tokens
+
+    def tokens(self, images: torch.Tensor, csa: bool = False,
+               patch_drop: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Every token after ``ln_post``, the CLS token first:
+        [B, 1 + N, width]."""
         b, h, w, _ = images.shape
         x = self.patchify(images)
         cls = self.class_embedding.to(x.dtype).expand(b, 1, self.width)
@@ -153,10 +166,7 @@ class VisionTransformer(nn.Module):
             x = patch_dropout(x, self.patch_dropout, patch_drop)
         x = self.ln_pre(x)
         x = self.transformer(x, csa_last_block=csa)
-        x = self.ln_post(x)
-        pooled, tokens = pool_tokens(x, self.pool_type)
-        pooled = torch.matmul(pooled.to(self.dtype), self.proj.to(self.dtype))
-        return pooled, tokens
+        return self.ln_post(x)
 
 
 class _PatchEmbed(nn.Module):

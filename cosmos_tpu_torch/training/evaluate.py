@@ -42,14 +42,15 @@ def make_encoders(model: torch.nn.Module
     """(normalised image encoder, normalised text encoder, raw text
     encoder).  Each takes a numpy array or tensor, moves it to the model's
     device and runs under ``torch.inference_mode``; features come back as
-    tensors on that device."""
+    tensors on that device.  A CLIP encoder returns a dict, CoCa's the bare
+    features."""
     device = next(model.parameters()).device
 
     def _run(method, normalize: bool, key: str):
         def call(x: Any) -> torch.Tensor:
             with torch.inference_mode():
-                return method(torch.as_tensor(x, device=device),
-                              normalize)[key]
+                out = method(torch.as_tensor(x, device=device), normalize)
+            return out[key] if isinstance(out, dict) else out
         return call
 
     return (

@@ -10,7 +10,8 @@ The JAX trainer's flags (``training/params.py``), one process a card: the
 model and its EMA teacher, AdamW with the weight-decay mask and
 the LR schedule, the teacher-momentum schedule, resume (a path or
 ``latest``), the step's modes (COSMOS, plain CLIP, ``--siglip``,
-``--distill-model`` with a local ``.pt``) and options (``--accum-freq``,
+``--distill-model`` with a local ``.pt``, CoCa for a CoCa model with
+``--coca-*``) and options (``--accum-freq``,
 ``--force-patch-dropout``, ``--grad-checkpointing``/``--remat-policy``,
 ``--lock-image*``/``--lock-text*``, ``--init-last-layer``,
 ``--flash-attention``), the epoch loop over webdataset shards or a CSV of
@@ -83,12 +84,19 @@ from typing import Any, Callable, Dict, Union
 
 import numpy as np
 
+from ..models.config import is_coca, is_coca_config
 from ..models.pretrained import NEEDS_DOWNLOAD
 
 logger = logging.getLogger(__name__)
 
 # ROADMAP's items, by title, for what the port refuses (and NEEDS_DOWNLOAD)
-OTHER_TOWERS = 'queue 1, "Other towers, configs and tools"'
+COCA_SHARDED = 'queue 1, "CoCa under FSDP and TP"'
+
+
+def _tensor_parallel(a) -> bool:
+    return bool(a.mesh_shape and "," in a.mesh_shape
+                and int(a.mesh_shape.split(",")[1]) > 1)
+
 
 # (flag as given, whether the args set it, ROADMAP item): features the port
 # does not have yet.  Each is refused at start-up when set.
@@ -96,10 +104,9 @@ UNPORTED = (
     ("--huggingface-*", lambda a: (bool(a.huggingface_model_name)
                                    or a.huggingface_repo_name
                                    != "sankim2/cosmos"), NEEDS_DOWNLOAD),
-    ("CoCa models and --coca-*", lambda a: ("coca" in a.model.lower()
-                                             or a.coca_caption_loss_weight != 2.0
-                                             or a.coca_contrastive_loss_weight
-                                             != 1.0), OTHER_TOWERS),
+    ("a CoCa model under --fsdp or --mesh-shape dp,tp",
+     lambda a: (is_coca_config(a.model)
+                and (a.fsdp or _tensor_parallel(a))), COCA_SHARDED),
 )
 
 
@@ -216,9 +223,8 @@ def main(argv=None, *, device: Union[str, "torch.device", None] = None
     check_ported(args)
     # a process group the caller made is the caller's to destroy
     owned = not distributed.is_initialized()
-    beyond_dp = args.fsdp or (args.num_slices or 1) > 1 or (
-        args.mesh_shape is not None and "," in args.mesh_shape
-        and int(args.mesh_shape.split(",")[1]) > 1)
+    beyond_dp = (args.fsdp or (args.num_slices or 1) > 1
+                 or _tensor_parallel(args))
     rank, world = distributed.init_distributed(
         device, args.coordinator_address, args.num_processes,
         args.process_id, alone=beyond_dp)
@@ -459,6 +465,10 @@ def _main(args, device, rank: int, world: int, tp: int = 1
         cosmos=args.cosmos,
         siglip=args.siglip,
         distill=args.distill,
+        coca=is_coca(model),
+        coca_caption_loss_weight=args.coca_caption_loss_weight,
+        coca_contrastive_loss_weight=args.coca_contrastive_loss_weight,
+        coca_pad_id=getattr(model, "pad_id", 0),
         accum_freq=args.accum_freq,
         frozen=frozen,
         seed=args.seed,

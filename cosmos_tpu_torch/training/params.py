@@ -357,9 +357,12 @@ def parse_args(args=None):
         parser.error("--distill-model is incompatible with --cosmos/--siglip")
     if ns.distill and ns.accum_freq != 1:
         parser.error("--distill-model requires --accum-freq 1")
-    if "coca" in ns.model.lower() and (ns.cosmos or ns.siglip or ns.distill):
+    from ..models.config import is_coca_config
+
+    coca = is_coca_config(ns.model)
+    if coca and (ns.cosmos or ns.siglip or ns.distill):
         parser.error("CoCa models train with the CoCa loss only")
-    if "coca" in ns.model.lower() and will_train and ns.use_imagecrop_aug:
+    if coca and will_train and ns.use_imagecrop_aug:
         # the CoCa step trains on single-view batches (crop 0 / caption 0,
         # train.py coca branch; reference coca recipe uses plain
         # transforms, coca_model.py:157-191) — multicrop would decode and

@@ -1,14 +1,16 @@
 """The training step (counterpart of ``cosmos_tpu/training/train.py``
-``_build_step``, all but CoCa).
+``_build_step``).
 
 One call of the step function does, in the reference's order:
 
   - the student's forward and the loss of the step's mode: COSMOS
     (``COSMOSLoss`` against the EMA teacher's forward on the 2 global crops
     and the first 2 caption views, ``torch.no_grad``), plain CLIP
-    (``ClipLoss`` over every view), SigLIP (``SigLipLoss``) or distillation
+    (``ClipLoss`` over every view), SigLIP (``SigLipLoss``), distillation
     (``DistillClipLoss`` against a frozen second model's forward on the same
-    views); every self-attention through K1 and K2 on the card;
+    views) or CoCa (``CoCaLoss`` on one view: the first global crop and the
+    first caption, with the captioner's labels); every self-attention that
+    JAX sends to its kernel through K1 and K2 on the card;
   - the backward, once, or over ``accum_freq`` micro-batches: the plain
     CLIP step accumulates OpenCLIP's exact way (``_accum_exact``), COSMOS
     and SigLIP average the micro-batches' gradients;
@@ -63,9 +65,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..losses.contrastive import (ClipLoss, COSMOSLoss, DistillClipLoss,
-                                  SigLipLoss)
-from ..models.convert import build_name_map
+from ..losses.contrastive import (ClipLoss, CoCaLoss, COSMOSLoss,
+                                  DistillClipLoss, SigLipLoss)
+from ..models.config import is_coca
+from ..models.convert import model_name_map
 from ..parallel import distributed
 from ..parallel.fsdp import is_fsdp_managed
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SLICE_AXIS, axis_group,
@@ -113,8 +116,9 @@ def frozen_mask(model: nn.Module, lock_image: bool = False,
     freezes all of it, and ``unlocked_groups`` > 0 raises, as in JAX."""
     vit = hasattr(model.visual, "transformer")
     v_layers = len(model.visual.transformer.resblocks) if vit else 0
-    t_layers = len(model.transformer.resblocks)
-    paths = {key: path for key, path, _ in build_name_map(v_layers, t_layers)}
+    # CoCa keeps its text tower under ``text``
+    t_layers = len(getattr(model, "text", model).transformer.resblocks)
+    paths = {key: path for key, path, _ in model_name_map(model)}
     if not vit:
         # every parameter of the tower sits under the tree's "visual"
         paths.update({name: ("visual",) for name, _ in
@@ -298,11 +302,15 @@ def create_optimizer(
 
 @dataclasses.dataclass
 class TrainStepConfig:
-    # the step's mode: COSMOS, SigLIP or distillation (at most one), or
-    # none of them for the plain CLIP step
+    # the step's mode: COSMOS, SigLIP, distillation or CoCa (at most one),
+    # or none of them for the plain CLIP step
     cosmos: bool = True
     siglip: bool = False
     distill: bool = False
+    coca: bool = False
+    coca_caption_loss_weight: float = 2.0
+    coca_contrastive_loss_weight: float = 1.0
+    coca_pad_id: int = 0
     local_loss: bool = False
     # through the features' all-gather across ranks (see ClipLoss)
     gather_with_grad: bool = True
@@ -403,17 +411,22 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     Metrics: ``loss``, the mode's losses (COSMOS: ``clip_loss``,
     ``distill_loss``; CLIP and SigLIP: ``contrastive_loss``; distillation:
-    ``contrastive_loss``, ``distill_loss``) and ``logit_scale`` as detached
+    ``contrastive_loss``, ``distill_loss``; CoCa: ``contrastive_loss``,
+    ``caption_loss``) and ``logit_scale`` as detached
     0-d tensors on the model's device (reading one syncs the host),
     ``momentum`` and ``lr`` as floats, and ``grad_norm`` when
     ``cfg.log_grad_norm``."""
-    if sum((cfg.cosmos, cfg.siglip, cfg.distill)) > 1:
+    if sum((cfg.cosmos, cfg.siglip, cfg.distill, cfg.coca)) > 1:
         raise ValueError(
             "cosmos / siglip / distill / coca train modes are exclusive")
     if cfg.distill and dist_model is None:
         raise ValueError("cfg.distill needs the frozen dist_model module")
-    if cfg.accum_freq > 1 and cfg.distill:
+    if cfg.accum_freq > 1 and (cfg.distill or cfg.coca):
+        # CoCa's accumulation would need the caption CE's denominators split
         raise ValueError("accum_freq > 1 unsupported with distill/coca")
+    if cfg.coca != is_coca(model):
+        raise ValueError("the CoCa step takes a CoCa model, and a CoCa "
+                         "model trains in the CoCa step only")
     if cfg.accum_freq < 1:
         raise ValueError(f"accum_freq must be >= 1, got {cfg.accum_freq}")
     if cfg.cosmos and getattr(model, "distill_logit_scale", None) is None:
@@ -442,6 +455,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         loss_fn_obj = SigLipLoss()
     elif cfg.distill:
         loss_fn_obj = DistillClipLoss(**gather)
+    elif cfg.coca:
+        loss_fn_obj = CoCaLoss(
+            caption_loss_weight=cfg.coca_caption_loss_weight,
+            clip_loss_weight=cfg.coca_contrastive_loss_weight,
+            pad_id=cfg.coca_pad_id, **gather)
     else:
         loss_fn_obj = ClipLoss(**gather)
     device = next(model.parameters()).device
@@ -522,6 +540,15 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                 s_txt_crossmodal_features=_views(
                     s_out["txt_crossmodal_features"], k),
                 output_dict=True)
+        elif cfg.coca:
+            # one view: the decoder's CE is per caption, and the reference
+            # recipe trains CoCa on plain (not multi-crop) transforms
+            s_out = model(g_flat[:b], t_flat[:b], output_labels=True,
+                          patch_drop=gen)
+            losses = loss_fn_obj(s_out["image_features"],
+                                 s_out["text_features"], s_out["logits"],
+                                 s_out["labels"], s_out["logit_scale"],
+                                 output_dict=True)
         else:
             s_out = model(g_flat, t_flat, l_flat, patch_drop=gen)
             img = _views(s_out["image_features"], vi)
@@ -670,7 +697,13 @@ def make_train_step_gspmd(model: nn.Module, optimizer: torch.optim.Optimizer,
     the data axis, or both (``create_train_state_gspmd``,
     ``create_train_state_fsdp``).  The loss is the global batch's, through
     the data axis's gather; JAX's three refusals hold, with its
-    messages."""
+    messages.  CoCa is refused: JAX's step takes it, the port's sharded
+    placement of its pooler and decoder is not written (ROADMAP queue 1,
+    "CoCa under FSDP and TP")."""
+    if cfg.coca:
+        raise NotImplementedError(
+            "CoCa under --fsdp or tensor parallelism is not ported (ROADMAP "
+            'queue 1, "CoCa under FSDP and TP")')
     if cfg.siglip:
         raise ValueError(
             "siglip's ppermute ring needs the 1-D shard_map step")

@@ -1,7 +1,8 @@
 """The port's public surface against the JAX package's: every name of
 cosmos_tpu's lazy table is exported or refused naming its ROADMAP item;
 apply_pretrained_preprocess_flags, pretrained_preprocess_defaults, the
-preprocess-cfg helpers, get_model_tokenize_cfg, create_loss, the precision
+preprocess-cfg helpers, get_model_tokenize_cfg, create_loss (CoCa's too),
+the precision
 helpers, count_params and convert_weights_to_lp against JAX's;
 create_model_and_transforms and create_model_from_pretrained; and the
 trainer's and seg_eval's --pretrained with a cached tag and with
@@ -36,7 +37,7 @@ from cosmos_tpu_torch.training import main as pmain
 from cosmos_tpu_torch.training import precision as pprecision
 from test_torch_checkpoint_load import COSMOS, jax_random
 
-UNPORTED = {"CoCa", "CoCaLoss", "download_pretrained",
+UNPORTED = {"download_pretrained",
             "download_pretrained_from_url", "push_to_hf_hub",
             "push_pretrained_to_hf_hub"}
 COSMOS_FLAGS = ["--cosmos", "--output-all", "--attentional-pool",
@@ -169,11 +170,16 @@ def test_create_loss(case):
             == type(jfactory.create_loss(args)).__name__)
 
 
-def test_create_loss_refuses_coca():
+def test_create_loss_coca_equals_jax():
     args = types.SimpleNamespace(local_loss=False, gather_with_grad=True,
-                                 model="coca_ViT-B-32")
-    with pytest.raises(NotImplementedError, match="CoCa"):
-        pfactory.create_loss(args)
+                                 model="coca_ViT-B-32",
+                                 coca_caption_loss_weight=1.5,
+                                 coca_contrastive_loss_weight=0.5)
+    got, want = pfactory.create_loss(args), jfactory.create_loss(args)
+    assert type(got).__name__ == type(want).__name__ == "CoCaLoss"
+    for field in ("caption_loss_weight", "clip_loss_weight", "pad_id",
+                  "local_loss", "gather_with_grad"):
+        assert getattr(got, field) == getattr(want, field), field
 
 
 @pytest.mark.parametrize("precision", ["fp32", "amp", "amp_bf16", "bf16",

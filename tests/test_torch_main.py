@@ -85,7 +85,8 @@ UNPORTED_ARGV = {
     # a download
     "distill-tag": ["--distill-model", "ViT-B-32", "--distill-pretrained",
                     "cosmos_cc3m"],
-    "coca": ["--coca-caption-loss-weight", "1.0"],
+    # CoCa itself is ported; under FSDP or tensor parallelism it is not
+    "coca-sharded": ["--model", "coca_Tiny-Test", "--fsdp"],
 }
 
 
@@ -94,7 +95,7 @@ def test_unported_flag_raises(name, tmp_path, monkeypatch):
     monkeypatch.setenv("COSMOS_TPU_CACHE", str(tmp_path / "no_cache"))
     argv = UNPORTED_ARGV[name] + ["--logs-dir", str(tmp_path)]
     # each refusal names its ROADMAP item by title
-    titles = (pmain.NEEDS_DOWNLOAD, pmain.OTHER_TOWERS)
+    titles = (pmain.NEEDS_DOWNLOAD, pmain.COCA_SHARDED)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, ") as e:
         pmain.main(argv, device="cpu")
     assert any(t in str(e.value) for t in titles), e.value
@@ -107,6 +108,31 @@ def test_every_unported_entry_is_exercised():
     for flag, is_set, _ in pmain.UNPORTED:
         assert any(is_set(a) for a in args.values()), flag
         assert not is_set(pparams.parse_args([])), flag
+
+
+def test_coca_is_told_by_its_config_not_its_name(tmp_path, monkeypatch):
+    """A CoCa config registered under a name without "coca" is CoCa to
+    the trainer's refusals and to the step."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.models import config as pconfig
+    from cosmos_tpu_torch.models.coca import CoCa
+    from cosmos_tpu_torch.training.train import (TrainStepConfig,
+                                                 make_train_step)
+
+    monkeypatch.setitem(pconfig._EXTRA_CONFIGS, "Captioner-Tiny",
+                        pconfig.get_model_config("coca_Tiny-Test"))
+    assert pconfig.is_coca_config("Captioner-Tiny")
+    assert not pconfig.is_coca_config("ViT-Tiny-Test")
+    model = create_model("Captioner-Tiny", device="cpu")
+    assert isinstance(model, CoCa) and pconfig.is_coca(model)
+    with pytest.raises(ValueError, match="CoCa step"):
+        make_train_step(model, None, TrainStepConfig(cosmos=False))
+    with pytest.raises(NotImplementedError, match=pmain.COCA_SHARDED):
+        pmain.main(["--model", "Captioner-Tiny", "--fsdp", "--logs-dir",
+                    str(tmp_path)], device="cpu")
+    assert not os.listdir(tmp_path)
+    with pytest.raises(SystemExit):
+        pparams.parse_args(["--model", "Captioner-Tiny", "--cosmos"])
 
 
 def test_pretrained_tag_and_missing_cuda_raise(tmp_path, monkeypatch):
@@ -319,3 +345,54 @@ def test_head_group_routing_equals_jax(heads, dh):
     assert bool(calls) == pfa.supported(heads, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_coca_trainer_trains_evaluates_and_resumes(shards, tmp_path,
+                                                   monkeypatch):
+    """coca_Tiny-Test with the tokenizer's vocabulary (its own 512 ids
+    cannot hold the BPE tokens of the shards' captions) and
+    --coca-caption-loss-weight 1.0: the CoCa step (its two losses,
+    summed), the val and COCO retrieval evals of student and teacher
+    (CoCa's encoders return bare features), a checkpoint that
+    models/checkpoint.py loads back into CoCa, and --resume latest into a
+    second epoch."""
+    from cosmos_tpu_torch.models import config as pconfig
+    from cosmos_tpu_torch.models.checkpoint import load_checkpoint
+    from cosmos_tpu_torch.models.factory import create_model
+
+    name = "coca_Tiny-Test-49408"
+    cfg = pconfig.get_model_config("coca_Tiny-Test")
+    cfg["text_cfg"] = dict(cfg["text_cfg"], vocab_size=49408)
+    monkeypatch.setitem(pconfig._EXTRA_CONFIGS, name, cfg)
+    argv = ["--model", name, "--dataset-type", "webdataset",
+            "--precision", "fp32", "--log-every-n-steps", "1",
+            "--workers", "1", "--lr", "1e-3", "--warmup", "1", "--seed", "3",
+            "--coca-caption-loss-weight", "1.0",
+            "--train-data", str(shards / "train-{0000..0001}.tar"),
+            "--batch-size", "4", "--train-num-samples", "8",
+            "--val-data", str(shards / "val-0000.tar"),
+            "--val-num-samples", "4", "--data-root-dir", str(shards / "root"),
+            "--save-most-recent", "--logs-dir", str(tmp_path),
+            "--name", "coca"]
+    first = pmain.main(argv + ["--epochs", "1"], device="cpu")
+    logged = first["train_epoch_stats"][0]["logged"]
+    assert len(logged) == 2
+    for line in logged:
+        assert line["loss"] == pytest.approx(
+            line["contrastive_loss"] + line["caption_loss"], rel=1e-6)
+        # a caption CE near ln(49408) at weight 1 (the default 2 doubles
+        # it)
+        assert 8.0 < line["caption_loss"] < 14.0
+    for prefix in ("", "ema_"):
+        assert 0.0 <= first[f"{prefix}coco_image_to_text_R@1"] <= 1.0
+        assert np.isfinite(first[f"{prefix}clip_val_loss"])
+    path = tmp_path / "coca" / "checkpoints" / "epoch_1.pt"
+    ckpt = _load(path)
+    model = load_checkpoint(create_model(name, device="cpu"),
+                            str(path), strict=True)
+    _assert_same_bits(model.state_dict(), ckpt["student"])
+    resumed = pmain.main(argv + ["--epochs", "2", "--resume", "latest"],
+                         device="cpu")
+    assert [s["epoch"] for s in resumed["train_epoch_stats"]] == [1]
+    assert _load(tmp_path / "coca" / "checkpoints" / "epoch_2.pt")[
+        "step"] == 4

@@ -9,7 +9,9 @@ JAX's (without the local loss), and the flat world-4 step's for both
 ``local_loss`` settings.
 ``'slice'`` keeps the negatives slice-local: the loss is JAX's per-slice
 loss, and the gradients still average over every rank, so all four ranks
-end on the same weights.  Tolerance ``rtol=1e-5, atol=1e-5`` (the largest
+end on the same weights.  CoCa's step (coca_Tiny-Test) over the 2 slices
+is the flat world-4 step, which tests/test_torch_dp_train.py holds to
+JAX's at world 2.  Tolerance ``rtol=1e-5, atol=1e-5`` (the largest
 error found: 4.8e-07).  JAX's refusals (a bad scope, the no-grad gather
 with slices, SigLIP on a multislice mesh) hold with JAX's messages.
 """
@@ -73,6 +75,11 @@ def runs(tmp_path_factory):
     for local in (False, True):
         payload[f"flat-{local}"] = ("sharded_step", dict(
             step, kind="dp", cfg_kw=dict(local_loss=local)))
+    coca = dict(init=R.step_model("coca").state_dict(),
+                batch=R.coca_step_batch(8), mode="coca")
+    payload["coca-slices"] = ("sharded_step", dict(coca, kind="multislice",
+                                                   shape=(2,)))
+    payload["coca-flat"] = ("sharded_step", dict(coca, kind="dp"))
     data = str(tmp_path_factory.mktemp("ms_trainer"))
     R.write_trainer_data(data)
     payload["trainer"] = ("trainer_runs", dict(argvs=[
@@ -109,6 +116,13 @@ def test_hierarchical_gather_equals_the_flat_step(runs, local, part):
     for rank in runs["ranks"]:
         _close(rank[case][part], rank[f"flat-{local}"][part],
                f"{case} vs flat {part}")
+
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+def test_coca_over_slices_equals_the_flat_step(runs, part):
+    for rank in runs["ranks"]:
+        _close(rank["coca-slices"][part], rank["coca-flat"][part],
+               f"coca over slices vs flat {part}")
 
 
 def test_slice_scope_is_the_per_slice_loss_with_averaged_gradients(runs):

@@ -200,7 +200,13 @@ STEP_MODES = {
     "cosmos": (COSMOS, dict(cosmos=True), 1),
     "clip-accum-exact": ({}, dict(cosmos=False, accum_freq=2), 2),
     "siglip": (SIGLIP, dict(cosmos=False, siglip=True), 1),
+    "coca": ({}, dict(cosmos=False, coca=True, coca_caption_loss_weight=1.5),
+             1),
 }
+# mode -> the config it trains as it stands (the others: ViT-B-16 cut to
+# TINY)
+STEP_MODELS = {"coca": "coca_Tiny-Test"}
+COCA_EOT = 511
 
 
 def step_batch(global_batch: int, accum: int, seed: int = 3
@@ -219,18 +225,43 @@ def step_batch(global_batch: int, accum: int, seed: int = 3
     }
 
 
+def coca_step_batch(global_batch: int, seed: int = 3
+                    ) -> Dict[str, np.ndarray]:
+    """uint8 32px images and one caption view for coca_Tiny-Test, padded
+    (id 0) in the first two rows only: at world 2 the first rank's caption
+    cross-entropy averages fewer tokens than the second's."""
+    rng = np.random.default_rng(seed)
+    texts = rng.integers(1, COCA_EOT, (1, global_batch, 12)).astype(np.int32)
+    texts[0, 0, 5:] = 0
+    texts[0, 1, 8:] = 0
+    return {"global_images": rng.integers(0, 256, (1, global_batch, 32, 32,
+                                                   3), np.uint8),
+            "texts": texts}
+
+
+def step_model(mode: str, model_kw=None):
+    """The port's model of a step mode on the CPU (``model_kw`` overrides
+    TINY's widths, where the mode trains ViT-B-16)."""
+    from cosmos_tpu_torch import create_model
+
+    if mode in STEP_MODELS:
+        return create_model(STEP_MODELS[mode], device="cpu")
+    return create_model("ViT-B-16", device="cpu",
+                        **dict(TINY, **(model_kw or {})), **STEP_MODES[mode][0])
+
+
 def port_step(mode: str, init: Dict[str, Any], batch: Dict[str, np.ndarray],
               steps: int = 1) -> Dict[str, Any]:
     """``steps`` steps of the port's ``make_train_step`` from ``init`` on
     ``batch`` (this rank's block under a process group): the last metrics,
     the averaged gradients and the updated student and teacher."""
-    from cosmos_tpu_torch import (create_model, create_optimizer,
-                                  create_train_state, make_train_step)
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
     from cosmos_tpu_torch.training import scheduler
     from cosmos_tpu_torch.training.train import TrainStepConfig
 
-    model_kw, cfg_kw, _ = STEP_MODES[mode]
-    model = create_model("ViT-B-16", device="cpu", **TINY, **model_kw)
+    cfg_kw = STEP_MODES[mode][1]
+    model = step_model(mode)
     model.load_state_dict(init, strict=True)
     lr = scheduler.const_lr(LR, 0, 10)
     opt = create_optimizer(model, lr, beta1=BETA1, beta2=0.98, eps=EPS,
@@ -399,23 +430,24 @@ class kernel_calls:
 
 def sharded_step(kind: str, init, batch, shape=(), cfg_kw=None,
                  model_kw=None, min_size: int = 256, save: str = None,
-                 fused_ln: bool = False) -> Dict[str, Any]:
-    """One COSMOS step of the port from ``init`` on this rank's block of
-    the global ``batch``: 'dp' (the default group), 'fsdp' (a data mesh),
+                 fused_ln: bool = False, mode: str = "cosmos"
+                 ) -> Dict[str, Any]:
+    """One step of ``mode`` (COSMOS by default) of the port from ``init``
+    on this rank's block of the global ``batch``: 'dp' (the default group),
+    'fsdp' (a data mesh),
     'tp'/'fsdp_tp' (a ('data', 'model') mesh of ``shape``) or
     'multislice' (``shape[0]`` slices), with ``layers.FUSED_LN`` set by
     ``fused_ln``.  Returns the metrics, the whole student and teacher (on
     rank 0 for a sharded state), this rank's stateful bytes and K1/K2
     calls and, with ``save``, writes the checkpoint there (every rank joins
     the gather)."""
-    from cosmos_tpu_torch import create_model, create_optimizer
+    from cosmos_tpu_torch import create_optimizer
     from cosmos_tpu_torch.models import layers
     from cosmos_tpu_torch.parallel.mesh import batch_sharding
     from cosmos_tpu_torch.training import checkpoint, scheduler
     from cosmos_tpu_torch.training import train as T
 
-    model = create_model("ViT-B-16", device="cpu",
-                         **dict(TINY, **(model_kw or {})), **COSMOS)
+    model = step_model(mode, model_kw)
     model.load_state_dict(init, strict=True)
     lr = scheduler.const_lr(LR, 0, 10)
 
@@ -424,8 +456,8 @@ def sharded_step(kind: str, init, batch, shape=(), cfg_kw=None,
                                 weight_decay=0.5)
 
     cfg = T.TrainStepConfig(momentum_teacher=0.9, fix_momentum=True,
-                            lr_schedule=lr, log_grad_norm=True, cosmos=True,
-                            **(cfg_kw or {}))
+                            lr_schedule=lr, log_grad_norm=True,
+                            **dict(STEP_MODES[mode][1], **(cfg_kw or {})))
     mesh = _mesh(kind, shape)
     if kind in ("fsdp", "fsdp_tp"):
         state = T.create_train_state_fsdp(model, make_opt, mesh, min_size)
