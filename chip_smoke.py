@@ -233,9 +233,34 @@ from the sources in the checkout and then:
      of 2 steps with the val and COCO retrieval evals and a checkpoint,
      then --resume latest for a third, K1 12 a vision-tower call and K2
      12 a step.
+ 22. the sharded modes complete: (a) K5 held to its plain version at the
+     column shards tensor parallelism gives it ([R, 768] x [1152, 768],
+     [576, 768], [R, 512] x [384, 512]; R = 1, 63, 65, 7392) in both
+     dtypes with the same bits on a repeat, K5 at those shards and K6 at
+     its hidden shard (D 768, HD 1536, b2 zeros) timed at R = 25216 in
+     bf16 beside the plain version, the stock composition and the bound,
+     and K5 at O = 2304 and 1536 holding the bits of the kernel before its
+     width gate was widened (K5_PRE_BITS); (c) coca_ViT-B-32's step at
+     batch 64 in bf16 under FSDP at world 1 on NCCL against the plain step
+     (the same losses and student to the bit, 12/12 K1/K2 a step), then
+     main([...]) with phase 21's flags and --fsdp, an epoch of 2 steps and
+     a gathered checkpoint, then --resume latest into a second with the
+     val eval; (b) on a (1, 2) mesh of two gloo ranks on this card,
+     fuse_ln with FUSED_LN under tensor parallelism: ViT-B-16 COSMOS at
+     full width in bf16 on 4 rows, 1 + 2 steps, the one-process step's
+     K1-K6 launches a step on each rank (K5 and K6 on the rank's shards),
+     the losses within FUSE_TP_LOSS_RTOL of the one-process step's, ms a
+     step and peak memory a rank; and the 2-layer float32 step against
+     the CPU (phase 8's tolerances); (d) on the same ranks coca_ViT-B-32's
+     TP encoders in float32 against the unsharded features (1e-4; 12 K1 an
+     image call, none a text call) and its 2-layer float32 step against
+     the unsharded step (16(b)'s AdamW and tolerances).
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
-and nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
+and nothing else.  With ``--k5-against DIR`` it builds K5 from the
+``ln_matmul.cu`` of the checkout in DIR (such as the parent commit, from
+``git archive``) and compares it with this one's (``k5_against``), and
+nothing else.  Any failed check raises, so the script exits non-zero.  The last lines are
 the card's name and power limit, one JSON object with the kernel records,
 and {"ok": true, "device": {...}}.  The full record is also written to
 chiprun_out/chip_smoke.json.
@@ -3731,9 +3756,11 @@ GLOO_PROBES = ("all_gather", "all_gather_into_tensor", "all_reduce",
                "reduce_scatter_tensor", "broadcast", "send_recv")
 
 
-def _gspmd_setup(model, lr, dtype, mesh=None, fsdp=False, eps=1e-8):
+def _gspmd_setup(model, lr, dtype, mesh=None, fsdp=False, eps=1e-8,
+                 mode=None):
     """The recipe's step (phase 7's, without --local-loss, which the GSPMD
-    step refuses): make_train_step without ``mesh``, else
+    step refuses; ``mode``: other TrainStepConfig flags, such as CoCa's,
+    in place of ``cosmos=True``): make_train_step without ``mesh``, else
     make_train_step_gspmd over FSDP (``fsdp``) or tensor parallelism."""
     from cosmos_tpu_torch import (create_optimizer, create_train_state,
                                   make_train_step)
@@ -3743,9 +3770,10 @@ def _gspmd_setup(model, lr, dtype, mesh=None, fsdp=False, eps=1e-8):
         return create_optimizer(m, lr, beta1=0.9, beta2=0.98, eps=eps,
                                 weight_decay=0.5)
 
-    cfg = tr.TrainStepConfig(cosmos=True, momentum_teacher=0.999,
-                             fix_momentum=True, lr_schedule=lr,
-                             input_dtype=dtype, log_grad_norm=True)
+    cfg = tr.TrainStepConfig(momentum_teacher=0.999, fix_momentum=True,
+                             lr_schedule=lr, input_dtype=dtype,
+                             log_grad_norm=True,
+                             **(mode or dict(cosmos=True)))
     if mesh is None:
         opt = make_opt(model)
         return make_train_step(model, opt, cfg), create_train_state(model,
@@ -3754,6 +3782,29 @@ def _gspmd_setup(model, lr, dtype, mesh=None, fsdp=False, eps=1e-8):
         tr.create_train_state_gspmd
     state = create(model, make_opt, mesh)
     return tr.make_train_step_gspmd(model, state.optimizer, mesh, cfg), state
+
+
+def _timed_steps(K, step, state, batch, warmup: int, timed: int) -> dict:
+    """``warmup`` + ``timed`` steps on one batch: the losses, K1-K6
+    launches of every step, ms a step (CUDA events) and this process's peak
+    memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches, ms = [], [], []
+    for i in range(warmup + timed):
+        zero_launches(K)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch)
+        end.record()
+        losses.append(m["loss"].item())
+        launches.append(read_launches(K))
+        if i >= warmup:
+            ms.append(start.elapsed_time(end))
+    return dict(losses=losses, launches=launches, step_ms=ms,
+                step_ms_median=float(np.median(ms)),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def _fsdp_run(K, fsdp: bool, layers: int, dtype, b: int, warmup: int,
@@ -3794,23 +3845,8 @@ def _fsdp_run(K, fsdp: bool, layers: int, dtype, b: int, warmup: int,
                       f"{sorted(replicated)}")
                 managed = len(named) - len(kept)
         batch = _train_batch(b, seed=20, device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, launches, ms = [], [], []
-        for i in range(warmup + timed):
-            zero_launches(K)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            m = step(state, batch)
-            end.record()
-            losses.append(m["loss"].item())
-            launches.append(read_launches(K))
-            if i >= warmup:
-                ms.append(start.elapsed_time(end))
-        out = dict(losses=losses, launches=launches, step_ms=ms,
-                   fsdp_managed=managed, step_ms_median=float(np.median(ms)),
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out = dict(_timed_steps(K, step, state, batch, warmup, timed),
+                   fsdp_managed=managed)
         del model, step, state, batch
     finally:
         if fsdp:
@@ -5109,6 +5145,25 @@ def _coca_step(K):
     return out, (launches["K1"] + gpu["K1"], launches["K2"] + gpu["K2"])
 
 
+def _coca_trainer_argv(data, workers, logs):
+    """Phase 12's flags for coca_ViT-B-32: one view (the CoCa step reads
+    the first crop and caption only), COCA_TRAINER_STEPS steps an epoch,
+    the evals every second epoch and at the last."""
+    argv = _drop_flags(
+        _trainer_argv(data, logs, workers),
+        values=("--model", "--name", "--global-crops-number",
+                "--local-crops-number", "--crop-scale",
+                "--caption-sampling-mode", "--num-sampled-captions",
+                "--steps-per-epoch"),
+        switches=("--cosmos", "--output-all", "--attentional-pool",
+                  "--use-imagecrop-aug"))
+    return argv + ["--model", COCA_MODEL, "--name", "coca",
+                   "--caption-sampling-mode", "random",
+                   "--num-sampled-captions", "1", "--steps-per-epoch",
+                   str(COCA_TRAINER_STEPS), "--save-frequency", "0",
+                   "--val-frequency", "2"]
+
+
 def _coca_trainer(K, data, workers, logs):
     """21(e): main([...]) with --model coca_ViT-B-32 on phase 12's shards
     (amp, batch 64, no multi-crop), 2 epochs of 2 steps with the val and
@@ -5118,20 +5173,7 @@ def _coca_trainer(K, data, workers, logs):
     from cosmos_tpu_torch.models.coca import CoCa
     from cosmos_tpu_torch.training import main as trainer
 
-    argv = _drop_flags(
-        _trainer_argv(data, logs, workers),
-        values=("--model", "--name", "--global-crops-number",
-                "--local-crops-number", "--crop-scale",
-                "--caption-sampling-mode", "--num-sampled-captions",
-                "--steps-per-epoch"),
-        switches=("--cosmos", "--output-all", "--attentional-pool",
-                  "--use-imagecrop-aug"))
-    # one view: the CoCa step reads the first crop and caption only
-    argv += ["--model", COCA_MODEL, "--name", "coca",
-             "--caption-sampling-mode", "random",
-             "--num-sampled-captions", "1", "--steps-per-epoch",
-             str(COCA_TRAINER_STEPS), "--save-frequency", "0",
-             "--val-frequency", "2"]
+    argv = _coca_trainer_argv(data, workers, logs)
     calls = []
     encode = CoCa._encode_image
 
@@ -5241,6 +5283,610 @@ def phase_coca(K, data: str, workers: int, tmp: str) -> dict:
     return out
 
 
+# phase 22: the sharded modes complete.  (a) K5 at the column shards of
+# tensor parallelism; (b) fuse_ln under TP, ViT-B-16 COSMOS at full width
+# on two gloo ranks of this card; (c) CoCa under FSDP at world 1 on NCCL;
+# (d) CoCa under TP on the same two ranks as (b)
+# (D, O): ViT-B's packed QKV (2304) at tp 2 and 4, the 512-wide text
+# tower's (1536) at tp 4
+K5_TP_SHAPES = ((768, 1152), (768, 576), (512, 384))
+K5_TP_ROWS = (1, 63, 65, 7392)
+TP_MAIN_ROWS = 25216         # the kernel table's rows: the vision globals
+K6_TP_SHAPE = (768, 1536)    # (D, HD): ViT-B's MLP at tp 2
+# sha256 (first 16 hex digits) of K5's bf16 output at (R, D, O) on
+# _k5_inputs, from the kernel before its width gate was widened (the
+# parent commit's ln_matmul.cu, built and run beside this one by
+# ``--k5-against``): widths that are multiples of 256 keep these bits
+K5_PRE_BITS = {(7392, 768, 2304): "887be864d76b77db",
+               (7392, 512, 1536): "f4c7651981ab3508"}
+SLICE16_TP = 2               # model-axis ranks of 22(b) and (d), gloo
+SLICE16_BATCH = 4            # 22(b)'s rows a step, whole on both ranks
+SLICE16_STEPS = (1, 2)       # 22(b)'s warm-up and timed steps
+SLICE16_SMALL = 2            # layers a tower of 22(b)'s and (d)'s float32 steps
+SLICE16_ENC = (8, 16)        # 22(d)'s images and captions
+SLICE16_LR = 1e-4            # 22(b)'s float32 steps (phase 8's lr)
+# 22(b) in bfloat16: each rank's K6 output is its partial sum rounded to
+# bf16 before the sum over the model group (one more rounding, of a partial
+# about half the output's size, than the one-process step's), so the TP
+# losses are held to the one-process step's within this relative bound
+FUSE_TP_LOSS_RTOL = 5e-3
+COCA_FSDP_STEPS = 2          # 22(c)'s steps of each, plain and FSDP
+
+
+def _k5_inputs(r, d, o):
+    """Seeded bf16 inputs of K5 at (R, D, O) on the card."""
+    rng = np.random.default_rng((r, d, o))
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32)).cuda()
+
+    return (t(r, d, scale=2.0, shift=0.5).bfloat16(), t(d, shift=1.0), t(d),
+            t(o, d, scale=d ** -0.5).bfloat16(), t(o).bfloat16().float())
+
+
+K5_AGAINST_FLAG = "--k5-against"
+# (R, D, O) where ``--k5-against`` times both kernels: the vision and text
+# towers' packed QKV at the kernel table's rows
+K5_AGAINST_TIMED = ((25216, 768, 2304), (25216, 512, 1536))
+
+
+def k5_against(other: str) -> int:
+    """K5 of another checkout (``other``, e.g. the parent commit unpacked by
+    ``git archive``) built from its ``ln_matmul.cu`` and run beside this
+    one's at the widths both take: the bits at K5_PRE_BITS' shapes, and at
+    K5_AGAINST_TIMED whether the outputs are equal and the ms of each, in
+    the order other, this, this, other."""
+    import ctypes
+
+    from cosmos_tpu_torch.ops import build as kernel_build
+
+    K = _kernel_modules()
+    print(phase_card())
+    src = Path(other) / "cosmos_tpu_torch" / "ops" / "csrc" / "ln_matmul.cu"
+    lib = ROOT / "build" / "k5_other.so"
+    lib.parent.mkdir(exist_ok=True)
+    proc = subprocess.run([kernel_build.find_nvcc(), *kernel_build.NVCC_FLAGS,
+                           "-o", str(lib), str(src)], capture_output=True,
+                          text=True)
+    check(proc.returncode == 0, f"nvcc {src}: {proc.stderr[-2000:]}")
+    K.lm.build()
+    fn = ctypes.CDLL(str(lib)).cosmos_ln_matmul_fwd
+    fn.argtypes = K.lm._function().argtypes
+    fn.restype = ctypes.c_int
+
+    def run_other(x, g, b, w, bias):
+        (r, d), o = x.shape, w.shape[0]
+        y = torch.empty(r, o, dtype=x.dtype, device="cuda")
+        st = torch.empty(r, 2, dtype=torch.float32, device="cuda")
+        rc = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
+                bias.data_ptr(), y.data_ptr(), st.data_ptr(), r, d, o, 1e-5,
+                1, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the other K5 failed with cudaError {rc}")
+        return y
+
+    out = {}
+    for shape in K5_PRE_BITS:
+        args = _k5_inputs(*shape)
+        out[f"bits R={shape[0]} D={shape[1]} O={shape[2]}"] = dict(
+            other=_bits(run_other(*args)),
+            this=_bits(K.lm.ln_matmul_fwd(*args)))
+    for shape in K5_AGAINST_TIMED:
+        args = _k5_inputs(*shape)
+        out[f"R={shape[0]} D={shape[1]} O={shape[2]}"] = dict(
+            same_bits=torch.equal(run_other(*args),
+                                  K.lm.ln_matmul_fwd(*args)),
+            ms_other_this_this_other=[
+                time_ms(lambda: run_other(*args)),
+                time_ms(lambda: K.lm.ln_matmul_fwd(*args)),
+                time_ms(lambda: K.lm.ln_matmul_fwd(*args)),
+                time_ms(lambda: run_other(*args))])
+    print(json.dumps({"k5_against": other, **out}))
+    return 0
+
+
+def _bits(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def _slice16_kernels(K) -> dict:
+    """22(a): K5 at the column shards of K5_TP_SHAPES against its plain
+    version at ragged rows in both dtypes, with the same bits on a repeat;
+    K5 at each shard and K6 at its hidden shard timed at TP_MAIN_ROWS in
+    bf16 beside the plain version, the stock composition and the bound;
+    and the bits of the widths the kernel took before."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(32)
+
+    def rand(*shape, scale=1.0, shift=0.0, dtype=f32):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale
+                + shift).to(dtype)
+
+    errs, rows = {}, []
+    for d, o in K5_TP_SHAPES:
+        for dtype in (f32, bf16):
+            for r in K5_TP_ROWS:
+                what = f"R={r} D={d} O={o} {str(dtype)[6:]}"
+                x = rand(r, d, scale=2.0, shift=0.5, dtype=dtype)
+                s, sh = rand(d, shift=1.0), rand(d)
+                w = rand(o, d, scale=d ** -0.5, dtype=dtype)
+                bias = rand(o).to(dtype).float()
+                got = K.lm.ln_matmul_fwd(x, s, sh, w, bias)
+                check(torch.equal(got, K.lm.ln_matmul_fwd(x, s, sh, w, bias)),
+                      f"22(a) K5 repeated at {what}: results differ")
+                errs[what] = _held(f"22(a) K5 at {what}", got,
+                                   K.lm.ln_matmul_reference(x, s, sh, w, bias),
+                                   LN_TOL[dtype])
+    r = TP_MAIN_ROWS
+
+    def row(kernel, shape, err, fn, plain, stock, bound):
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, iters=5)
+        library_ms = time_ms(stock)
+        bound_ms, bound_by, nbytes, ops = bound
+        rows.append(dict(kernel=kernel, shape=list(shape), dtype="bfloat16",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes, ops=ops,
+                         x_bound=ms / bound_ms, x_library=ms / library_ms))
+        print(f"[slice16] (a) {kernel} {list(shape)} bf16: err {err:.3g} | "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, stock "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"x{ms / bound_ms:.2f} bound, x{ms / library_ms:.2f} stock)")
+
+    for d, o in K5_TP_SHAPES:
+        x = rand(r, d, scale=2.0, shift=0.5, dtype=bf16)
+        s, sh = rand(d, shift=1.0), rand(d)
+        w = rand(o, d, scale=d ** -0.5, dtype=bf16)
+        bias = rand(o).to(bf16).float()
+        s_c, sh_c, bias_c = s.to(bf16), sh.to(bf16), bias.to(bf16)
+        err = _held(f"22(a) K5 at R={r} D={d} O={o}",
+                    K.lm.ln_matmul_fwd(x, s, sh, w, bias),
+                    K.lm.ln_matmul_reference(x, s, sh, w, bias), LN_TOL[bf16])
+        row("K5", (r, d, o), err,
+            lambda: K.lm.ln_matmul_fwd(x, s, sh, w, bias),
+            lambda: K.lm.ln_matmul_reference(x, s, sh, w, bias),
+            lambda: F.linear(F.layer_norm(x, (d,), s_c, sh_c), w, bias_c),
+            ln_matmul_bound(r, d, o, bf16))
+        del x, w
+    d, hd = K6_TP_SHAPE
+    x = rand(r, d, scale=2.0, shift=0.5, dtype=bf16)
+    s, sh = rand(d, shift=1.0), rand(d)
+    w1 = rand(hd, d, scale=d ** -0.5, dtype=bf16)
+    w2 = rand(d, hd, scale=(2 * hd) ** -0.5, dtype=bf16)
+    b1 = rand(hd, scale=0.1)
+    # a rank's call: its hidden shard, zeros for b2 (added after the sum)
+    b2 = torch.zeros(d, device="cuda")
+    s_c, sh_c, b1_c = s.to(bf16), sh.to(bf16), b1.to(bf16)
+    args = (x, s, sh, w1, b1, w2, b2, 1e-5, "gelu_tanh")
+    got = K.mb.mlp_block_fwd(*args)
+    check(torch.equal(got, K.mb.mlp_block_fwd(*args)),
+          "22(a) K6 repeated at its hidden shard: results differ")
+    err = _held(f"22(a) K6 at R={r} D={d} HD={hd}", got,
+                K.mb.mlp_block_reference(*args), LN_TOL[bf16])
+    row("K6", (r, d, hd), err, lambda: K.mb.mlp_block_fwd(*args),
+        lambda: K.mb.mlp_block_reference(*args),
+        lambda: F.linear(F.gelu(F.linear(F.layer_norm(x, (d,), s_c, sh_c),
+                                         w1, b1_c), approximate="tanh"), w2),
+        mlp_block_bound(r, d, hd, bf16))
+    del x, w1, w2, got
+    bits = {}
+    for (r, d, o), want in K5_PRE_BITS.items():
+        got = _bits(K.lm.ln_matmul_fwd(*_k5_inputs(r, d, o)))
+        bits[f"R={r} D={d} O={o}"] = got
+        check(got == want, f"22(a) K5 at R={r} D={d} O={o}: bits {got}, "
+              f"before the widened gate {want}")
+    print(f"[slice16] (a) K5 at the column shards, max abs err "
+          + " ".join(f"{k}: {v:.3g}" for k, v in errs.items())
+          + f"; the bits before the widened gate at "
+          + ", ".join(bits) + ": the same")
+    torch.cuda.empty_cache()
+    return dict(errs=errs, rows=rows, bits=bits)
+
+
+COCA_MODE = dict(cosmos=False, coca=True)
+
+
+def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
+    """22(c): the CoCa step at coca_ViT-B-32's full width in bf16, batch
+    64, plain and under FSDP at world 1 on NCCL (a process group of this
+    one rank), COCA_FSDP_STEPS steps of each from the same weights and
+    batch: the same losses and the same student to the bit, 12/12 K1/K2 a
+    step; then main([...]) with phase 21's flags and --fsdp: an epoch of
+    COCA_TRAINER_STEPS steps and a gathered checkpoint, and --resume
+    latest into a second with the val eval."""
+    import hashlib
+
+    from cosmos_tpu_torch.parallel import distributed
+    from cosmos_tpu_torch.parallel.mesh import create_mesh
+    from cosmos_tpu_torch.training.checkpoint import host_state
+    from cosmos_tpu_torch.training.scheduler import const_lr
+
+    runs = {}
+    for fsdp in (False, True):
+        if fsdp:
+            distributed.init_distributed(None, alone=True)
+        try:
+            model = _coca_model("bf16", "cuda").train()
+            step, state = _gspmd_setup(
+                model, const_lr(1e-4, 0, 100), torch.bfloat16,
+                create_mesh(device_type="cuda") if fsdp else None, fsdp,
+                mode=COCA_MODE)
+            batch = _coca_batch(COCA_STEP_BATCH, COCA_SEED + 6, "cuda")
+            run = _timed_steps(K, step, state, batch, 0, COCA_FSDP_STEPS)
+            student = (host_state(state, optimizer=False)["student"] if fsdp
+                       else state.student.state_dict())
+            h = hashlib.sha256()
+            for k, v in student.items():
+                h.update(k.encode())
+                h.update(v.detach().cpu().numpy().tobytes())
+            run["student_digest"] = h.hexdigest()[:16]
+            runs["fsdp" if fsdp else "plain"] = run
+            del model, step, state, batch, student
+        finally:
+            if fsdp:
+                distributed.destroy()
+        torch.cuda.empty_cache()
+    want = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0),
+            "K1": 12, "K2": 12}
+    for name, run in runs.items():
+        check(all(x == want for x in run["launches"]),
+              f"22(c) {name}: launches {run['launches']}, expected {want}")
+    plain, fsdp = runs["plain"], runs["fsdp"]
+    check(fsdp["losses"] == plain["losses"]
+          and fsdp["student_digest"] == plain["student_digest"],
+          f"22(c): FSDP at world 1 losses {fsdp['losses']} (student "
+          f"{fsdp['student_digest']}), plain {plain['losses']} "
+          f"({plain['student_digest']})")
+    print(f"[slice16] (c) CoCa step under FSDP at world 1 (NCCL), bf16 "
+          f"batch {COCA_STEP_BATCH}: losses {fsdp['losses']}, the plain "
+          f"step's bits (student {fsdp['student_digest']}); K1/K2 12/12 a "
+          f"step; ms a step FSDP {fsdp['step_ms']}, plain "
+          f"{plain['step_ms']}; peak memory FSDP {fsdp['peak_mem_gb']:.2f} "
+          f"GB, plain {plain['peak_mem_gb']:.2f} GB")
+
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.training import main as trainer
+
+    logs = f"{tmp}/slice16_coca"
+    # the val eval alone (no COCO retrieval), at the end of the second
+    # epoch (--val-frequency 2)
+    argv = _drop_flags(_coca_trainer_argv(data, workers, logs),
+                       values=("--data-root-dir",)) + ["--fsdp"]
+    record = {"steps": [], "evals": [], "profiles": {}}
+    t0 = time.perf_counter()
+    with _instrumented_trainer(K, record, profiled=()):
+        run1 = trainer.main(argv + ["--epochs", "1", "--val-frequency", "0"])
+        run2 = trainer.main(argv + ["--epochs", "2", "--resume", "latest"])
+    wall_s = time.perf_counter() - t0
+    epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
+    check([e["epoch"] for e in epochs] == [0, 1],
+          f"22(c) trainer: epochs {[e['epoch'] for e in epochs]}")
+    losses = [line["loss"] for e in epochs for line in e["logged"]]
+    n = 2 * COCA_TRAINER_STEPS
+    check(len(losses) == n and all(np.isfinite(losses)),
+          f"22(c) trainer: losses {losses}")
+    check(record["steps"] == [want] * n,
+          f"22(c) trainer: step launches {record['steps']}")
+    check(len(record["evals"]) == 1 and record["evals"][0]["K1"] > 0,
+          f"22(c) trainer: evals {record['evals']}")
+    for key in ("clip_val_loss", "ema_clip_val_loss"):
+        check(np.isfinite(run2.get(key, float("nan"))),
+              f"22(c) trainer: {key} {run2.get(key)}")
+    ckpt = torch.load(f"{logs}/coca/checkpoints/epoch_2.pt",
+                      map_location="cpu", weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in create_model(
+        COCA_MODEL, device="meta").state_dict().items()}
+    for which in ("student", "teacher"):
+        check({k: tuple(v.shape) for k, v in ckpt[which].items()} == shapes,
+              f"22(c) trainer: the checkpoint's {which} is not whole")
+    check(ckpt["num_updates"] == n, "22(c) trainer: the checkpoint's count")
+    shutil.rmtree(logs)
+    trainer_out = dict(losses=losses, launches_per_step=want,
+                       eval_k1=sum(e["K1"] for e in record["evals"]),
+                       step_ms=[ms for e in epochs for ms in e["step_ms"]],
+                       wall_s=wall_s)
+    print(f"[slice16] (c) main([...]) --model {COCA_MODEL} --fsdp: epochs "
+          f"0-1 (resumed), losses {' '.join(f'{x:.5f}' for x in losses)}, "
+          f"K1/K2 12/12 a step, evals K1 "
+          f"{[e['K1'] for e in record['evals']]}, the gathered epoch_2.pt "
+          f"whole; {wall_s:.1f} s")
+    return dict(steps=runs, trainer=trainer_out,
+                k1=sum(x["K1"] for r in runs.values() for x in r["launches"])
+                + n * 12 + trainer_out["eval_k1"],
+                k2=sum(x["K2"] for r in runs.values() for x in r["launches"])
+                + n * 12)
+
+
+def _slice16_reference(K, path: str) -> dict:
+    """22(b) and (d)'s references in this process, saved to ``path``: the
+    one-process fuse_ln step (with FUSED_LN) at full width in bf16 on
+    22(b)'s batch; its 2-layer float32 step on the CPU; the unsharded
+    coca_ViT-B-32's features in float32 on the card; its 2-layer float32
+    step on the card."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.training.scheduler import const_lr, cosine_lr
+
+    ref = {}
+    with ln_setting("fuse_ln"):
+        model = create_model("ViT-B-16", "bf16", device="cuda", seed=0,
+                             fuse_ln=True, **TRAIN_RECIPE)
+        step, state = _gspmd_setup(model, cosine_lr(5e-4, 2000, 100000),
+                                   torch.bfloat16)
+        batch = _train_batch(SLICE16_BATCH, seed=20, device="cuda")
+        ref["fuse"] = _timed_steps(K, step, state, batch, *SLICE16_STEPS)
+        del model, step, state, batch
+        torch.cuda.empty_cache()
+        model = create_model("ViT-B-16", "fp32", device="cpu", seed=7,
+                             vision_layers=SLICE16_SMALL,
+                             text_layers=SLICE16_SMALL, fuse_ln=True,
+                             **TRAIN_RECIPE)
+        step, state = _gspmd_setup(model, const_lr(SLICE16_LR, 0, 100),
+                                   torch.float32)
+        ref["fuse_small_batch"] = _train_batch(2, seed=21, device="cpu")
+        ref["fuse_small"] = _small_result(step(state, ref["fuse_small_batch"]),
+                                          state)
+    images, texts = _coca_inputs(*SLICE16_ENC, seed=COCA_SEED + 8)
+    model = _coca_model("fp32", "cuda").eval()
+    with torch.no_grad():
+        ref["coca_features"] = {
+            "image": model.encode_image(images.cuda()).cpu(),
+            "text": model.encode_text(texts.cuda()).cpu()}
+    ref.update(coca_images=images, coca_texts=texts)
+    del model
+    model = _coca_model("fp32", "cuda", layers=SLICE16_SMALL).train()
+    step, state = _gspmd_setup(model, const_lr(DP_LR, 0, 100), torch.float32,
+                               eps=DP_EPS, mode=COCA_MODE)
+    ref["coca_small_batch"] = _coca_batch(4, COCA_SEED + 9, "cpu")
+    ref["coca_small"] = _small_result(step(state, {
+        k: v.cuda() for k, v in ref["coca_small_batch"].items()}), state)
+    del model, step, state
+    torch.cuda.empty_cache()
+    torch.save(ref, path)
+    return ref
+
+
+def _small_result(metrics, state, whole=None) -> dict:
+    """A float32 step's loss and updated student and teacher on the CPU
+    (``whole``: the gathered state of a sharded one)."""
+    whole = whole or {w: getattr(state, w).state_dict()
+                      for w in ("student", "teacher")}
+    return dict(loss=metrics["loss"].item(),
+                **{w: {k: v.detach().cpu() for k, v in whole[w].items()}
+                   for w in ("student", "teacher")})
+
+
+def _slice16_rank(rank: int, spec: dict) -> None:
+    """22(b) and (d)'s rank on a (1, SLICE16_TP) mesh of gloo ranks on this
+    card: the fuse_ln step (with FUSED_LN) at full width in bf16 and at 2
+    layers in float32; coca_ViT-B-32's TP encoders in float32 and its
+    2-layer float32 step."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.parallel import distributed
+    from cosmos_tpu_torch.parallel.mesh import create_tp_mesh
+    from cosmos_tpu_torch.parallel.tp import make_tp_encoders
+    from cosmos_tpu_torch.training.scheduler import const_lr, cosine_lr
+
+    import faulthandler
+
+    faulthandler.enable()
+    _beyond_env(rank, spec["port"])
+    K = _kernel_modules()
+    distributed.init_distributed(None, backend="gloo")
+    ref = torch.load(spec["ref"], map_location="cpu", weights_only=False)
+    out = {}
+    try:
+        with _sync_functional_collectives():
+            mesh = create_tp_mesh(1, SLICE16_TP, "cuda")
+            with ln_setting("fuse_ln"):
+                model = create_model("ViT-B-16", "bf16", device="cuda",
+                                     seed=0, fuse_ln=True, **TRAIN_RECIPE)
+                step, state = _gspmd_setup(
+                    model, cosine_lr(5e-4, 2000, 100000), torch.bfloat16,
+                    mesh)
+                batch = _train_batch(SLICE16_BATCH, seed=20, device="cuda")
+                out["fuse"] = _timed_steps(K, step, state, batch,
+                                           *SLICE16_STEPS)
+                out["fuse"]["sharded"] = sum(
+                    type(p).__name__ == "DTensor"
+                    for p in state.student.parameters())
+                del model, step, state, batch
+                torch.cuda.empty_cache()
+                model = create_model(
+                    "ViT-B-16", "fp32", device="cuda", seed=7,
+                    vision_layers=SLICE16_SMALL, text_layers=SLICE16_SMALL,
+                    fuse_ln=True, **TRAIN_RECIPE)
+                step, state = _gspmd_setup(model, const_lr(SLICE16_LR, 0, 100),
+                                           torch.float32, mesh)
+                zero_launches(K)
+                m = step(state, {k: v.cuda() for k, v in
+                                 ref["fuse_small_batch"].items()})
+                launches = read_launches(K)
+                out["fuse_small"] = dict(_small_result(m, state, _gathered(
+                    state)), launches=launches)
+                del model, step, state
+            model = _coca_model("fp32", "cuda").eval()
+            _, enc_image, enc_text = make_tp_encoders(model, mesh)
+            feats, k1 = {}, {}
+            for name, enc, x in (("image", enc_image, ref["coca_images"]),
+                                 ("text", enc_text, ref["coca_texts"])):
+                zero_launches(K)
+                feats[name] = enc(x.cuda()).cpu()
+                k1[name] = read_launches(K)["K1"]
+            out["coca_encoders"] = dict(k1=k1, errs={
+                n: (feats[n] - ref["coca_features"][n]).abs().max().item()
+                for n in feats})
+            del model, enc_image, enc_text
+            model = _coca_model("fp32", "cuda", layers=SLICE16_SMALL).train()
+            step, state = _gspmd_setup(model, const_lr(DP_LR, 0, 100),
+                                       torch.float32, mesh, eps=DP_EPS,
+                                       mode=COCA_MODE)
+            zero_launches(K)
+            m = step(state, {k: v.cuda() for k, v in
+                             ref["coca_small_batch"].items()})
+            launches = read_launches(K)
+            out["coca_small"] = dict(_small_result(m, state, _gathered(state)),
+                                     launches=launches)
+            del model, step, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.save(out, f"{spec['out']}.{rank}")
+        distributed.destroy()
+
+
+def _max_err(got: dict, want: dict) -> float:
+    return max((got[k] - v).abs().max().item() for k, v in want.items())
+
+
+def _slice16_tp(K, tmp: str) -> dict:
+    """22(b) and (d): the references in this process, then both parts on
+    SLICE16_TP gloo ranks of this card."""
+    t0 = time.perf_counter()
+    path = f"{tmp}/slice16_ref.pt"
+    ref = _slice16_reference(K, path)
+    ref_s = time.perf_counter() - t0
+    ranks = _spawn_ranks(_slice16_rank, dict(out=f"{tmp}/slice16", ref=path),
+                         600)
+    ranks_s = time.perf_counter() - t0 - ref_s
+    for r, got in enumerate(ranks):
+        check({"fuse", "fuse_small", "coca_encoders", "coca_small"}
+              <= got.keys(), f"22(b)-(d) rank {r}: stopped after "
+              f"{sorted(got)}")
+    # (b) full width: every rank launches the one-process step's K1-K6
+    want = step_launches("fuse_ln", 12, SLICE16_BATCH)
+    check(all(x == want for x in ref["fuse"]["launches"]),
+          f"22(b) one-process fuse_ln launches {ref['fuse']['launches']}, "
+          f"expected {want} a step")
+    fuse = [r["fuse"] for r in ranks]
+    errs = []
+    for r, run in enumerate(fuse):
+        check(all(x == want for x in run["launches"]),
+              f"22(b) rank {r}: launches {run['launches']}, expected {want} "
+              "a step (the one-process step's)")
+        check(run["sharded"] > 0, f"22(b) rank {r}: no sharded weight")
+        check(run["losses"] == fuse[0]["losses"],
+              f"22(b) rank {r}: losses {run['losses']} vs rank 0's")
+        rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   ref["fuse"]["losses"])]
+        errs.append(max(rel))
+        check(max(rel) <= FUSE_TP_LOSS_RTOL, f"22(b) rank {r}: TP losses "
+              f"{run['losses']}, one process {ref['fuse']['losses']}")
+    # (b) 2 layers, float32: the card's TP step against the CPU's
+    small = [r["fuse_small"] for r in ranks]
+    want_small = step_launches("fuse_ln", SLICE16_SMALL, 2)
+    cpu = ref["fuse_small"]
+    small_errs = {"loss": abs(small[0]["loss"] - cpu["loss"])
+                  / abs(cpu["loss"])}
+    check(small_errs["loss"] <= 1e-4, f"22(b) 2-layer float32 TP loss "
+          f"{small[0]['loss']}, CPU {cpu['loss']}")
+    for which in ("student", "teacher"):
+        small_errs[which] = _max_err(small[0][which], cpu[which])
+        check(small_errs[which] <= 2 * SLICE16_LR, f"22(b) 2-layer float32: "
+              f"updated {which} card (TP) vs CPU max err "
+              f"{small_errs[which]}")
+    for r, s in enumerate(small):
+        check(s["launches"] == want_small, f"22(b) 2-layer rank {r}: "
+              f"launches {s['launches']}, expected {want_small}")
+    print(f"[slice16] (b) fuse_ln + FUSED_LN under TP on a (1, "
+          f"{SLICE16_TP}) mesh, ViT-B-16 COSMOS bf16, {SLICE16_BATCH} rows: "
+          f"losses {' '.join(f'{x:.6f}' for x in fuse[0]['losses'])}, one "
+          f"process {' '.join(f'{x:.6f}' for x in ref['fuse']['losses'])} "
+          f"(max rel err {max(errs):.3g}, bound {FUSE_TP_LOSS_RTOL}); "
+          f"launches a step on each rank {want}; ms a step "
+          f"{[r['step_ms'] for r in fuse]} (one process "
+          f"{ref['fuse']['step_ms']}); peak memory a rank "
+          f"{[round(r['peak_mem_gb'], 2) for r in fuse]} GB (one process "
+          f"{ref['fuse']['peak_mem_gb']:.2f} GB); 2-layer float32 TP step "
+          f"against the CPU: " + " ".join(f"{k}={v:.3g}"
+                                          for k, v in small_errs.items()))
+    # (d) CoCa under TP
+    enc = [r["coca_encoders"] for r in ranks]
+    for r, e in enumerate(enc):
+        check(e["k1"] == {"image": 12, "text": 0}, f"22(d) rank {r}: K1 per "
+              f"TP encoder call {e['k1']}, expected 12 an image call, none "
+              "a text call")
+        check(max(e["errs"].values()) <= BEYOND_ENC_TOL, f"22(d) rank {r}: "
+              f"TP features off the unsharded {e['errs']}")
+    coca = [r["coca_small"] for r in ranks]
+    unsharded = ref["coca_small"]
+    coca_errs = {"loss": abs(coca[0]["loss"] - unsharded["loss"])
+                 / abs(unsharded["loss"])}
+    check(coca_errs["loss"] <= DP_LOSS_RTOL, f"22(d) 2-layer TP CoCa loss "
+          f"{coca[0]['loss']}, unsharded {unsharded['loss']}")
+    for which in ("student", "teacher"):
+        coca_errs[which] = _max_err(coca[0][which], unsharded[which])
+        check(coca_errs[which] <= DP_WEIGHT_ATOL, f"22(d) 2-layer TP CoCa: "
+              f"updated {which} max err {coca_errs[which]}")
+    want_coca = {**dict.fromkeys(want, 0), "K1": SLICE16_SMALL,
+                 "K2": SLICE16_SMALL}
+    for r, c in enumerate(coca):
+        check(c["launches"] == want_coca, f"22(d) rank {r}: launches "
+              f"{c['launches']}, expected {want_coca}")
+    print(f"[slice16] (d) {COCA_MODEL} under TP on a (1, {SLICE16_TP}) "
+          f"mesh, float32: encoders ({SLICE16_ENC[0]} images, "
+          f"{SLICE16_ENC[1]} captions) max abs err "
+          f"{[e['errs'] for e in enc]}, K1 a call {enc[0]['k1']}; 2-layer "
+          f"step against the unsharded step: " + " ".join(
+              f"{k}={v:.3g}" for k, v in coca_errs.items())
+          + f"; K1/K2 {want_coca['K1']}/{want_coca['K2']}")
+    launches = {k: sum(x[k] for r in fuse for x in r["launches"])
+                + sum(s["launches"][k] for s in small)
+                for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    launches["K1"] += sum(sum(e["k1"].values()) + c["launches"]["K1"]
+                          for e, c in zip(enc, coca))
+    launches["K2"] += sum(c["launches"]["K2"] for c in coca)
+    return dict(reference=dict(fuse=ref["fuse"]), ref_s=ref_s,
+                ranks_s=ranks_s, fuse=fuse, fuse_loss_rel_err=max(errs),
+                fuse_small_errs=small_errs, coca_encoders=enc,
+                coca_small_errs=coca_errs, launches=launches)
+
+
+def phase_slice16(K, data: str, workers: int, tmp: str) -> dict:
+    """Phase 22: the sharded modes complete: (a) K5 at the column shards of
+    tensor parallelism, (c) CoCa under FSDP at world 1, then (b) fuse_ln
+    and (d) CoCa under tensor parallelism on two gloo ranks."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    kernels = _slice16_kernels(K)
+    done("(a) K5 at the column shards")
+    coca_fsdp = _slice16_coca_fsdp(K, data, workers, tmp)
+    done("(c) CoCa under FSDP")
+    tp = _slice16_tp(K, tmp)
+    done("(b), (d) under TP")
+    k1 = {"fuse_ln under TP": sum(x["K1"] for r in tp["fuse"]
+                                  for x in r["launches"]),
+          "CoCa under FSDP": coca_fsdp["k1"],
+          "sharded 2-layer steps and CoCa TP encoders":
+              tp["launches"]["K1"] - sum(x["K1"] for r in tp["fuse"]
+                                         for x in r["launches"])}
+    k2 = {"fuse_ln under TP": sum(x["K2"] for r in tp["fuse"]
+                                  for x in r["launches"]),
+          "CoCa under FSDP": coca_fsdp["k2"],
+          "sharded 2-layer steps":
+              tp["launches"]["K2"] - sum(x["K2"] for r in tp["fuse"]
+                                         for x in r["launches"])}
+    out = dict(kernels=kernels, coca_fsdp=coca_fsdp, tp=tp,
+               k1_launches=k1, k2_launches=k2,
+               launches={k: tp["launches"][k] for k in ("K3", "K4", "K5",
+                                                        "K6")},
+               fuse_tp_launches={k: sum(x[k] for r in tp["fuse"]
+                                        for x in r["launches"])
+                                 for k in ("K5", "K6")},
+               parts_s=parts, phase_s=time.perf_counter() - t0)
+    print(f"[slice16] phase 22 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -5249,6 +5895,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == [DP_RANK_FLAG]:
         return dp_rank(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == [K5_AGAINST_FLAG]:
+        return k5_against(sys.argv[2])
     from cosmos_tpu_torch.ops import build as kernel_build
 
     K = _kernel_modules()
@@ -5284,6 +5932,8 @@ def main() -> int:
         weights = phase_weights_in(K, trainer["data_dir"],
                                    f"{work}/weights_cache", work)
         coca = phase_coca(K, trainer["data_dir"], trainer["workers"], work)
+        slice16 = phase_slice16(K, trainer["data_dir"], trainer["workers"],
+                                work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = phase_last_flags(K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -5336,7 +5986,8 @@ def main() -> int:
         + seg_k1 + options["launches"]["K1"] + dp_k1
         + sum(last_k1.values()) + sum(towers["k1_launches"].values())
         + beyond_k["K1"] + sum(weights["k1_launches"].values())
-        + sum(coca["k1_launches"].values()),
+        + sum(coca["k1_launches"].values())
+        + sum(slice16["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -5351,7 +6002,8 @@ def main() -> int:
                              "beyond DP": beyond_k["K1"],
                              **{f"weights in {k}": v for k, v in
                                 weights["k1_launches"].items()},
-                             **coca["k1_launches"]},
+                             **coca["k1_launches"],
+                             **slice16["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -5376,7 +6028,8 @@ def main() -> int:
         + trainer["launches"]["K2"] + options["launches"]["K2"]
         + data_parallel["world1"]["launches"]["K2"]
         + last["launches"]["K2"] + sum(towers["k2_launches"].values())
-        + beyond_k["K2"] + sum(coca["k2_launches"].values()),
+        + beyond_k["K2"] + sum(coca["k2_launches"].values())
+        + sum(slice16["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -5387,7 +6040,8 @@ def main() -> int:
                              "last flags trainer": last["launches"]["K2"],
                              **towers["k2_launches"],
                              "beyond DP": beyond_k["K2"],
-                             **coca["k2_launches"]},
+                             **coca["k2_launches"],
+                             **slice16["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     for key, name, source, replaces, match in (
@@ -5403,6 +6057,8 @@ def main() -> int:
         row = pick(ln_rows, LN_MAIN, kernel=key, **match)
         by_path = {f"training {s}": r["launches"][key]
                    for s, r in train_ln.items()}
+        # phase 22's ranks: fuse_ln under TP, full width and 2 layers
+        by_path["fuse_ln under TP"] = slice16["launches"][key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cosmos_tpu_torch/ops/csrc/{source}",
@@ -5414,6 +6070,25 @@ def main() -> int:
                                    "library_device_ms", "library_host_us")
                if k in row}})
         check(kernels[-1]["launches"] > 0, f"{key} never launched")
+    # K5 and K6 on a rank's shard under tensor parallelism (phase 22):
+    # their launches in 22(b)'s full-width steps, each at the shard's width
+    for key, name, source, replaces, shape in (
+            ("K5", "ln_matmul_fwd_tp_shard", "ln_matmul.cu",
+             "cosmos_tpu/ops/experimental/ln_matmul.py:59",
+             [TP_MAIN_ROWS, 768, 1152]),
+            ("K6", "mlp_block_fwd_tp_shard", "mlp_block.cu",
+             "cosmos_tpu/ops/experimental/mlp_block.py:70",
+             [TP_MAIN_ROWS, *K6_TP_SHAPE])):
+        row = next(r for r in slice16["kernels"]["rows"]
+                   if r["kernel"] == key and r["shape"] == shape)
+        n = slice16["fuse_tp_launches"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"cosmos_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": n,
+            "launches_by_path": {"fuse_ln under TP, full width": n},
+            **{k: row[k] for k in keys + ("x_bound", "x_library")}})
+        check(n > 0, f"{key} never launched on a tensor-parallel shard")
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s, kernel_rows=rows,
                   serving=serving, card_vs_cpu=card_vs_cpu,
@@ -5428,7 +6103,7 @@ def main() -> int:
                   segmentation=segmentation, trainer_options=options,
                   data_parallel=data_parallel, last_flags=last,
                   towers=towers, beyond_dp=beyond, weights_in=weights,
-                  coca=coca,
+                  coca=coca, slice16=slice16,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -268,6 +268,16 @@ def _pair_logits(img: torch.Tensor, txt: torch.Tensor,
 
 @dataclasses.dataclass
 class CoCaLoss:
+    """CLIP's loss on the latents and the captioner's cross-entropy.
+
+    Under a process group the caption CE is this rank's mean over its
+    unpadded tokens, and the step's mean over the ranks averages those
+    (JAX's data-parallel step).  ``global_tokens`` (JAX's GSPMD step, whose
+    loss is the global batch's): the mean over the global batch's unpadded
+    tokens, their count summed over ``group``; each rank returns its sum
+    over that count times the group's size, so the mean over the ranks is
+    the global mean."""
+
     caption_loss_weight: float = 2.0
     clip_loss_weight: float = 1.0
     pad_id: int = 0
@@ -276,6 +286,7 @@ class CoCaLoss:
     group: Any = None
     slice_group: Any = None
     gather_scope: str = "global"
+    global_tokens: bool = False
 
     def __post_init__(self):
         self.clip_loss = ClipLoss(local_loss=self.local_loss,
@@ -298,7 +309,12 @@ class CoCaLoss:
         logp = torch.log_softmax(logits.float(), dim=-1)
         picked = logp.gather(-1, labels[..., None])[..., 0]
         valid = (labels != self.pad_id).float()
-        caption_loss = (-(picked * valid).sum() / valid.sum().clamp_min(1.0)
+        denom = valid.sum().clamp_min(1.0)
+        if self.global_tokens and _distributed():
+            total = valid.sum()
+            dist.all_reduce(total, group=self.group)
+            denom = total.clamp_min(1.0) / dist.get_world_size(self.group)
+        caption_loss = (-(picked * valid).sum() / denom
                         * self.caption_loss_weight)
         if output_dict:
             return {"contrastive_loss": clip_loss,

@@ -18,9 +18,11 @@ applied to v (the weights of a row sum to 2), on the plain path only.
 
 Under tensor parallelism (``parallel/tp.py``) the packed projection's
 weight and bias are DTensors sharded on the model axis: the projection
+(``F.linear``, or K5 on each rank's column shard through its own rule)
 then yields a feature-sharded ``qkv`` DTensor, which K1 takes through its
 sharding rule (the columns all-gathered in front of the kernel); every
-other path works on the whole local tensors (``_whole``).
+other path, cross-attention with packed or separate weights among them,
+works on the whole local tensors (``_whole``).
 
 ``use_flash`` is JAX's tri-state (``resolve_fused``): ``False`` sends every
 self-attention to the plain path (JAX's XLA path), so K1 and K2 never run;
@@ -175,7 +177,9 @@ class MultiheadAttention(nn.Module):
     def _qkv_weights(self) -> Tuple[torch.Tensor, ...]:
         """The q, k and v projection weights in the compute dtype."""
         if self.in_proj_weight is None:
-            ws = (self.q_proj_weight, self.k_proj_weight, self.v_proj_weight)
+            ws = tuple(_whole(w) for w in (self.q_proj_weight,
+                                           self.k_proj_weight,
+                                           self.v_proj_weight))
         else:
             ws = _whole(self.in_proj_weight).split(self.dim)
         return tuple(w.to(self.dtype) for w in ws)

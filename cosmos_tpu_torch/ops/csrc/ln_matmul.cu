@@ -16,7 +16,7 @@
 // about 670 operations per byte in bfloat16, above the ~295 at which the
 // H100 stops being memory bound, so the tensor cores bound it.
 //
-// bfloat16 design (ln_matmul_kernel_sm90, D % 64 == 0, O % 256 == 0): a
+// bfloat16 design (ln_matmul_kernel_sm90, D % 64 == 0, O % 64 == 0): a
 // wgmma GEMM with the LayerNorm applied to its A operand.
 //   * One block per tile of BM = 128 rows x BN = 256 output columns: two
 //     consumer warpgroups, each owning 64 rows x 256 columns (128 float32
@@ -42,6 +42,12 @@
 //     (the ring, now free, in 128-byte swizzled boxes of 64 x 64) and
 //     stored by TMA, which drops rows past R.  No atomics; the same bits
 //     on every launch.
+//   * O need not be a multiple of BN (a tensor-parallel column shard:
+//     1152 or 576 of ViT-B's 2304): the last column tile is partial.  The
+//     W map reads rows past O as zeros, and the PARTIAL instantiation
+//     guards the bias read and stores only the 64-column boxes below O.
+//     Where O % 256 == 0 the launch takes the instantiation without the
+//     guards, the code of the kernel before, with its bits and its time.
 // x is read once for the statistics and once per column tile by TMA, W
 // once per 256 rows, and no load latency sits in front of a product.
 //
@@ -131,6 +137,7 @@ ln_matmul_kernel_stats(const bf16* __restrict__ x, float2* __restrict__ stats, i
   if (threadIdx.x % 32 == 0) stats[row] = st;
 }
 
+template <bool PARTIAL>
 __global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(THREADS, 1)
 ln_matmul_kernel_sm90(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_w,
@@ -241,7 +248,9 @@ ln_matmul_kernel_sm90(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = j * 8 + 2 * tq;
-    const float c0 = bias[n0 + col], c1 = bias[n0 + col + 1];
+    // O % 64 == 0: a pair lies wholly below O or wholly past it
+    const bool in = !PARTIAL || n0 + col < O;
+    const float c0 = in ? bias[n0 + col] : 0.f, c1 = in ? bias[n0 + col + 1] : 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<__nv_bfloat162*>(tile + (col / 64) * (64 * 128) +
@@ -252,8 +261,9 @@ ln_matmul_kernel_sm90(const __grid_constant__ CUtensorMap map_x,
   hopper::named_sync(2 + warp / 4, 128);
   if (threadIdx.x % 128 == 0) {
     for (int c = 0; c < BN / 64; ++c)
-      hopper::tma_store_2d(&map_out, tile + c * (64 * 128), n0 + 64 * c,
-                           (int)row0 + (warp / 4) * 64);
+      if (!PARTIAL || n0 + 64 * c < O)
+        hopper::tma_store_2d(&map_out, tile + c * (64 * 128), n0 + 64 * c,
+                             (int)row0 + (warp / 4) * 64);
     hopper::tma_store_wait();
   }
   // no block leaves while its peer may still multicast into it or release
@@ -277,13 +287,14 @@ cudaError_t launch(const void* x, const float* g, const float* b, const void* w,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem = smem_bytes(D);
-  err = cudaFuncSetAttribute(ln_matmul_kernel_sm90,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = O % BN ? ln_matmul_kernel_sm90<true> : ln_matmul_kernel_sm90<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int64_t row_tiles = (R + BM - 1) / BM;
-  const dim3 grid(O / BN, (unsigned)((row_tiles + CLUSTER - 1) / CLUSTER * CLUSTER));
-  ln_matmul_kernel_sm90<<<grid, THREADS, smem, stream>>>(
-      map_x, map_w, map_out, stats, g, b, bias, R, D, O);
+  const dim3 grid((O + BN - 1) / BN,
+                  (unsigned)((row_tiles + CLUSTER - 1) / CLUSTER * CLUSTER));
+  kernel<<<grid, THREADS, smem, stream>>>(map_x, map_w, map_out, stats, g, b, bias, R,
+                                          D, O);
   return cudaGetLastError();
 }
 
@@ -359,7 +370,7 @@ cudaError_t launch_f32(const void* x, const float* g, const float* b, const void
 // dtype: 0 = float32, 1 = bfloat16.  stats: float32 [R, 2] scratch of the
 // bfloat16 path (unused in float32).  Returns a cudaError_t (0 =
 // launched).  The caller checks shapes (D % 64 == 0, 64 <= D <= 1024,
-// O % 256 == 0), dtypes, contiguity and 16-byte alignment.
+// O % 64 == 0), dtypes, contiguity and 16-byte alignment.
 extern "C" int cosmos_ln_matmul_fwd(const void* x, const void* g, const void* b,
                                     const void* w, const void* bias, void* out, void* stats,
                                     int64_t R, int D, int O, float eps, int dtype,
@@ -368,7 +379,7 @@ extern "C" int cosmos_ln_matmul_fwd(const void* x, const void* g, const void* b,
   const float* gf = static_cast<const float*>(g);
   const float* bf = static_cast<const float*>(b);
   const float* biasf = static_cast<const float*>(bias);
-  if (D % sm90::BK || D > 1024 || O % sm90::BN) return (int)cudaErrorInvalidValue;
+  if (D % sm90::BK || D > 1024 || O % 64 || O < 64) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_f32(x, gf, bf, w, biasf, out, R, D, O, eps, s);
   if (dtype == 1)
     return sm90::launch(x, gf, bf, w, biasf, out, static_cast<float2*>(stats), R, D, O, eps,

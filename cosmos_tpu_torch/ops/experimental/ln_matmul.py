@@ -26,7 +26,18 @@ forward is the operator ``torch.ops.cosmos_tpu_torch.ln_matmul_fwd`` (those
 two implementations, a fake one and a FLOP formula).  The
 TPU kernel's VMEM budget (``_pick_row_block`` refuses float32 ViT-B widths)
 has no counterpart: K5 takes any number of rows, with ``D`` a multiple of
-64 up to 1024 and ``O`` a multiple of 256 (``check_shapes``).
+64 up to 1024 and ``O`` a multiple of 64 (``check_shapes``; the bf16
+kernel's last column tile of 256 is partial where ``O % 256`` is not 0).
+
+Under tensor parallelism a fused block passes its column-parallel
+``in_proj_weight``/``in_proj_bias`` as DTensors ``Shard(0)`` on the model
+axis: ``ln_matmul`` then runs K5 through the operator's DTensor rule (``x2``,
+``g``, ``b`` replicated; ``w``, ``bias`` ``Shard(0)``; ``out`` ``Shard(1)``,
+``stats`` replicated) on each rank's local column shard, ``O / tp`` wide,
+and returns the feature-sharded ``[..., O]`` DTensor that K1's rule
+all-gathers.  No rank builds the whole weight.  The backward gives each rank
+its shard's ``dw``/``dbias`` and sums the partial ``dx``, ``dg`` and ``db``
+over the model group in float32 (one all-reduce), before ``dx`` is rounded.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from torch.autograd.function import once_differentiable
 from torch.utils.flop_counter import register_flop_formula
 
 from ..build import build_all, load_kernel_library
+from . import _tp
 from ._cuda import (DTYPE_CODES, check_cuda, check_device, needs_grad,
                     raise_on_error, stream)
 
@@ -47,6 +59,7 @@ SOURCE = "ln_matmul.cu"    # K5
 # the kernel's tiles (csrc/ln_matmul.cu): bfloat16 BM rows x BN columns per
 # block, k-slices of BK in a ring of STAGES; float32 F32_ROWS rows per block
 BM, BN, BK, STAGES = 128, 256, 64, 4
+O_STEP = 64                # O's granule: the output's TMA boxes are 64 wide
 F32_ROWS = 32
 SMEM_LIMIT = 232448        # bytes of shared memory a block can have
 
@@ -107,15 +120,16 @@ def smem_bytes(d: int, dtype: torch.dtype) -> int:
 
 def check_shapes(x2: torch.Tensor, w: torch.Tensor) -> None:
     """Raise unless K5 takes ``x2`` [R, D] and ``w`` [O, D]: any R, D a
-    multiple of 64 up to 1024, O a multiple of 256."""
+    multiple of 64 up to 1024, O a positive multiple of 64 (a tensor-
+    parallel shard of ViT-B-16's 2304 is 1152 at tp 2, 576 at tp 4)."""
     if x2.dim() != 2 or w.dim() != 2 or w.shape[1] != x2.shape[1]:
         raise ValueError(f"ln_matmul: x {tuple(x2.shape)} and w "
                          f"{tuple(w.shape)} are not [R, D] and [O, D]")
     d, o = x2.shape[1], w.shape[0]
-    if (d % BK or not BK <= d <= 1024 or o % BN
+    if (d % BK or not BK <= d <= 1024 or o % O_STEP or o < O_STEP
             or smem_bytes(d, x2.dtype) > SMEM_LIMIT):
         raise ValueError(f"ln_matmul: need D % {BK} == 0, D <= 1024 and "
-                         f"O % {BN} == 0, got D={d} O={o}")
+                         f"O % {O_STEP} == 0, got D={d} O={o}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,6 +210,25 @@ def _fwd_flops(x2_shape, g_shape, b_shape, w_shape, bias_shape, eps,
 _FWD = torch.ops.cosmos_tpu_torch.ln_matmul_fwd.default
 
 
+def _column_sharding(x2, g, b, w, bias, eps) -> list:
+    """K5's DTensor strategies on one mesh dim: all replicated, or the
+    column-parallel split (``w`` and ``bias`` ``Shard(0)``, ``out``
+    ``Shard(1)``); the statistics are the whole rows' on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    r = Replicate()
+    rules = [([r, r], [r, r, r, r, r, None])]
+    if any(p.is_shard(0) for p in w.placements):
+        rules.append(([Shard(1), r], [r, r, r, Shard(0), Shard(0), None]))
+    return rules
+
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(_FWD)(_column_sharding)
+
+
 def ln_matmul_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                   w: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
                   return_stats: bool = False):
@@ -244,12 +277,60 @@ class _LNMatmul(torch.autograd.Function):
         return dx.reshape(x.shape), dg, db, dw, dbias, None
 
 
+class _LNMatmulTP(torch.autograd.Function):
+    """K5 on this rank's column shard of a tensor-parallel ``w`` and
+    ``bias`` (DTensors ``Shard(0)``), through the operator's rule; returns
+    the ``[..., O]`` DTensor sharded on its last dim.  The backward is
+    ``_LNMatmul``'s on the local shard, the partial ``dx``, ``dg`` and
+    ``db`` summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, w, bias, eps):
+        from torch.distributed.tensor import DTensor, Shard
+
+        mesh = w.device_mesh
+        d = x.shape[-1]
+        ctx.eps, ctx.mesh = eps, mesh
+        ctx.save_for_backward(x, g, b, w, bias)
+        out = ln_matmul_fwd(_tp.replicated(x.reshape(-1, d), mesh),
+                            _tp.replicated(g, mesh), _tp.replicated(b, mesh),
+                            w.to(x.dtype).contiguous(),
+                            bias.to(x.dtype).float().contiguous(), eps)
+        local = out.to_local()
+        return DTensor.from_local(
+            local.reshape(x.shape[:-1] + (local.shape[-1],)), mesh,
+            [Shard(x.dim() - 1)], run_check=False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, g, b, w, bias = ctx.saved_tensors
+        wl = w.to_local()
+        d = x.shape[-1]
+        x2 = x.reshape(-1, d)
+        gl = _tp.local_columns(grad, ctx.mesh).reshape(-1, wl.shape[0])
+        g2 = gl.to(x.dtype)
+        xhat, rstd = ln_stats(x2, ctx.eps)
+        y = (xhat * g + b).to(x.dtype)
+        dw = mm_f32(g2.t(), y).to(x.dtype).to(wl.dtype)
+        dbias = gl.float().sum(0)
+        dy = mm_f32(g2, wl.to(x.dtype))
+        dx, dg, db = _tp.sum_over(ctx.mesh, list(
+            ln_backward(dy, xhat, rstd, g, torch.float32)))
+        return (dx.to(x.dtype).reshape(x.shape), dg, db, _tp.like(dw, w),
+                _tp.like(dbias, bias), None)
+
+
 def ln_matmul(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
               w: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """``LayerNorm(x; g, b) @ wᵀ + bias`` with the LayerNorm fused into the
     matmul (K5).  ``x`` [..., D] in the compute dtype, ``w`` [O, D],
-    ``bias`` [O] (rounded to the compute dtype), ``g``, ``b`` [D]."""
+    ``bias`` [O] (rounded to the compute dtype), ``g``, ``b`` [D].  A
+    tensor-parallel ``w`` and ``bias`` (DTensors ``Shard(0)``): K5 on this
+    rank's column shard, the result a DTensor sharded on its last dim."""
+    if _tp.is_dtensor(w):
+        return _LNMatmulTP.apply(x, g, b, w, bias, eps)
     if needs_grad(x, g, b, w, bias):
         return _LNMatmul.apply(x, g, b, w, bias, eps)
     return _forward(x, g, b, w, bias, eps)

@@ -31,6 +31,19 @@ kernel's VMEM budget (``_pick_row_block`` raises for ViT-B widths in
 float32) has no counterpart: K6 takes any number of rows, at ``D`` 512 or
 768 (the widths of the ported towers) and ``HD`` a multiple of 128
 (``check_shapes``).
+
+Under tensor parallelism a fused block passes ``c_fc`` column-parallel
+(``w1``, ``b1`` DTensors ``Shard(0)``) and ``c_proj`` row-parallel (``w2``
+``Shard(1)``, ``b2`` replicated): ``mlp_block`` then runs K6 through the
+operator's DTensor rule on each rank's hidden shard, ``HD / tp`` wide, whose
+output is a partial sum over the model group (``Partial``; the rule takes
+``b2`` as a partial too, and the wrapper passes zeros there).  The partials,
+each rounded to the compute dtype by K6, are summed over the model group
+in float32 (one all-reduce) and ``b2`` is added once after the sum, where
+JAX's row-parallel rule places it (``cosmos_tpu/parallel/tp.py:96-97``),
+before the result is rounded.  The backward gives each rank its shards'
+``dw1``/``db1``/``dw2`` and the whole ``db2``, and sums the partial ``dx``,
+``dg`` and ``db`` in float32.  No rank builds a whole weight.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from torch.autograd.function import once_differentiable
 from torch.utils.flop_counter import register_flop_formula
 
 from ..build import build_all, load_kernel_library
+from . import _tp
 from ._cuda import (DTYPE_CODES, check_cuda, check_device, needs_grad,
                     raise_on_error, stream)
 from .ln_matmul import ln_backward, ln_stats, mm_f32
@@ -187,6 +201,26 @@ def _fwd_flops(x2_shape, g_shape, b_shape, w1_shape, *args, out_shape=None,
 _FWD = torch.ops.cosmos_tpu_torch.mlp_block_fwd.default
 
 
+def _hidden_sharding(x2, g, b, w1, b1, w2, b2, eps, act) -> list:
+    """K6's DTensor strategies on one mesh dim: all replicated, or the
+    hidden split (``w1``, ``b1`` ``Shard(0)``, ``w2`` ``Shard(1)``), whose
+    output, like ``b2``, is a partial sum over the dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    r = Replicate()
+    rules = [([r], [r] * 7 + [None, None])]
+    if any(p.is_shard(0) for p in w1.placements):
+        rules.append(([Partial()], [r, r, r, Shard(0), Shard(0), Shard(1),
+                                    Partial(), None, None]))
+    return rules
+
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(_FWD)(_hidden_sharding)
+
+
 def mlp_block_fwd(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                   w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                   b2: torch.Tensor, eps: float = 1e-5,
@@ -247,12 +281,71 @@ class _MLPBlock(torch.autograd.Function):
                 dw2.to(w2.dtype), db2, None, None)
 
 
+class _MLPBlockTP(torch.autograd.Function):
+    """K6 on this rank's hidden shard of tensor-parallel weights through
+    the operator's rule; the partials summed over the model group in
+    float32 and ``b2`` added once after the sum.  The backward is
+    ``_MLPBlock``'s on the local shards, the partial ``dx``, ``dg`` and
+    ``db`` summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, w1, b1, w2, b2, eps, act):
+        from torch.distributed.tensor import DTensor, Partial
+
+        mesh = w1.device_mesh
+        d = x.shape[-1]
+        ctx.eps, ctx.act, ctx.mesh = eps, act, mesh
+        ctx.save_for_backward(x, g, b, w1, b1, w2, b2)
+        zeros = DTensor.from_local(
+            torch.zeros(d, dtype=torch.float32, device=x.device), mesh,
+            [Partial()], run_check=False)
+        part = mlp_block_fwd(_tp.replicated(x.reshape(-1, d), mesh),
+                             _tp.replicated(g, mesh), _tp.replicated(b, mesh),
+                             w1.to(x.dtype).contiguous(),
+                             b1.float().contiguous(),
+                             w2.to(x.dtype).contiguous(), zeros, eps, act)
+        (total,) = _tp.sum_over(mesh, [part.to_local().float()])
+        return (total + _tp.local(b2).float()).to(x.dtype).reshape(x.shape)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, g, b, w1, b1, w2, b2 = ctx.saved_tensors
+        w1l, b1l, w2l = w1.to_local(), _tp.local(b1), w2.to_local()
+        dt = x.dtype
+        d = x.shape[-1]
+        x2 = x.reshape(-1, d)
+        g2 = grad.reshape(-1, d).to(dt)
+        w1c, w2c = w1l.to(dt), w2l.to(dt)
+        xhat, rstd = ln_stats(x2, ctx.eps)
+        y = (xhat * g + b).to(dt)
+        h_pre = (mm_f32(y, w1c.t()) + b1l).detach().requires_grad_(True)
+        with torch.enable_grad():
+            a_act = _act_fn(ctx.act)(h_pre)
+        a = a_act.detach().to(dt)
+        dw2 = mm_f32(g2.t(), a)
+        db2 = grad.reshape(-1, d).float().sum(0)
+        (dh,) = torch.autograd.grad(a_act, h_pre, mm_f32(g2, w2c))
+        dhc = dh.to(dt)
+        dw1 = mm_f32(dhc.t(), y)
+        dx, dg, db = _tp.sum_over(ctx.mesh, list(ln_backward(
+            mm_f32(dhc, w1c), xhat, rstd, g, torch.float32)))
+        return (dx.to(dt).reshape(x.shape), dg, db,
+                _tp.like(dw1.to(w1l.dtype), w1), _tp.like(dh.sum(0), b1),
+                _tp.like(dw2.to(w2l.dtype), w2), _tp.like(db2, b2), None,
+                None)
+
+
 def mlp_block(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, eps: float = 1e-5,
               act: str = "gelu") -> torch.Tensor:
     """``c_proj(act(c_fc(LayerNorm(x; g, b))))`` as one kernel (K6); the
-    weights in torch's ``[out, in]`` layout."""
+    weights in torch's ``[out, in]`` layout.  Tensor-parallel weights
+    (``w1`` a DTensor ``Shard(0)``): K6 on this rank's hidden shard, the
+    partials summed over the model group."""
+    if _tp.is_dtensor(w1):
+        return _MLPBlockTP.apply(x, g, b, w1, b1, w2, b2, eps, act)
     if needs_grad(x, g, b, w1, b1, w2, b2):
         return _MLPBlock.apply(x, g, b, w1, b1, w2, b2, eps, act)
     return _forward(x, g, b, w1, b1, w2, b2, eps, act)

@@ -78,7 +78,8 @@ def fsdp_tp_spec(name: str, shape: Sequence[int], n_data: int, tp: int,
 
 def _linear_weights(model: nn.Module) -> set:
     """ids of the ``[out, in]`` weights JAX holds as ``[in, out]``
-    kernels: the Linear weights and the packed in-projections."""
+    kernels: the Linear weights and the in-projections, packed or
+    separate."""
     from ..models.attention import MultiheadAttention
     from ..models.layers import Linear
 
@@ -87,7 +88,11 @@ def _linear_weights(model: nn.Module) -> set:
         if isinstance(m, Linear):
             out.add(id(m.weight))
         elif isinstance(m, MultiheadAttention):
-            out.add(id(m.in_proj_weight))
+            if m.in_proj_weight is not None:
+                out.add(id(m.in_proj_weight))
+            else:
+                out.update(id(w) for w in (m.q_proj_weight, m.k_proj_weight,
+                                           m.v_proj_weight))
     return out
 
 
@@ -118,10 +123,10 @@ def fsdp_placements(model: nn.Module, n_data: int, tp: int = 1,
 
 def _blocks(model: nn.Module):
     """The residual blocks of every tower: the members of each
-    ``resblocks``/``blocks`` list."""
+    ``resblocks``/``blocks`` list, and of CoCa's decoder's ``cross_attn``."""
     for name, m in model.named_modules():
         if isinstance(m, nn.ModuleList) and name.split(".")[-1] in (
-                "resblocks", "blocks"):
+                "resblocks", "blocks", "cross_attn"):
             yield from m
 
 

@@ -23,6 +23,17 @@ hooks on their modules place the activations:
     LayerNorm, the attention pool, the head);
   - ``MultiheadAttention``'s packed ``in_proj_weight``/``in_proj_bias``
     (raw parameters, no ``Linear``) are column-parallel in the same way;
+    so are the separate ``q_proj_weight``/``k_proj_weight``/
+    ``v_proj_weight`` of a pooler whose keys are wider than its queries
+    (CoCa at unequal widths; JAX's rule for its ``q_proj``/``k_proj``/
+    ``v_proj`` kernels, though JAX has no such pooler), beside an
+    ``in_proj_bias`` that stays ``Shard(0)`` over its packed ``3D`` (its
+    shards then cut across the q|k|v thirds: that cross-attention takes
+    its weights and bias whole, ``models/attention.py`` ``_qkv_weights``);
+  - under ``fuse_ln`` the blocks hand their weights to K5 and K6 with no
+    ``Linear`` in between, so no hook fires: the operators' own DTensor
+    rules (``ops/experimental/ln_matmul.py``, ``mlp_block.py``) run each
+    kernel on the rank's local shard;
   - a row-parallel ``Linear`` takes a feature-sharded input (a replicated
     one is sliced locally) and returns the reduced, replicated output as a
     local tensor.
@@ -55,6 +66,9 @@ _ROW_KERNELS = ("c_proj", "out_proj", "out", "w3", "head_fc2")
 # (``models/convert.py`` maps the same way); EVA02's ``fc2`` is JAX's
 # ``w3`` and the ViT's its ``c_proj``, row-parallel both
 _TRUNK_BLOCK = re.compile(r"visual\.trunk\.blocks\.\d+\.")
+# a MultiheadAttention's separate projections (its keys wider than its
+# queries): JAX's q_proj/k_proj/v_proj kernels
+_SEPARATE_QKV = ("q_proj_weight", "k_proj_weight", "v_proj_weight")
 _TRUNK_NAMES = {"qkv": "in_proj", "proj": "out_proj", "fc1": "c_fc",
                 "fc2": "c_proj", "fc1_g": "w1", "fc1_x": "w2"}
 
@@ -72,6 +86,8 @@ def _jax_names(name: str) -> Tuple[str, str]:
                         "bias": "in_proj_bias"}[leaf]
     if leaf == "in_proj_weight":
         return parent, "in_proj_kernel"
+    if leaf in _SEPARATE_QKV:
+        return leaf[:-len("_weight")], "kernel"
     return parent, "kernel" if leaf == "weight" else leaf
 
 
@@ -164,7 +180,10 @@ def shard_params_tp(model: nn.Module, mesh) -> nn.Module:
     for mname, module in model.named_modules():
         prefix = f"{mname}." if mname else ""
         if isinstance(module, MultiheadAttention):
-            for leaf in ("in_proj_weight", "in_proj_bias"):
+            leaves = ("in_proj_bias",) + (
+                _SEPARATE_QKV if module.in_proj_weight is None
+                else ("in_proj_weight",))
+            for leaf in leaves:
                 if tp_spec(prefix + leaf, getattr(module, leaf).shape) == 0:
                     _distribute(module, leaf, sub, Shard(0))
         elif isinstance(module, Linear):
@@ -196,7 +215,8 @@ def make_tp_encoders(model: nn.Module, mesh
     batch, which every rank passes whole: the batch, padded with zeros to a
     multiple of the data axis, is split over it, each model group encodes
     its block, and the blocks are all-gathered over the data axis and the
-    padding sliced off."""
+    padding sliced off.  The encoders take a CLIP's dict of features or
+    CoCa's bare ones."""
     import torch.distributed as dist
 
     shard_params_tp(model, mesh)
@@ -219,10 +239,15 @@ def make_tp_encoders(model: nn.Module, mesh
             return out[:n]
         return call
 
+    def features(out, key: str) -> torch.Tensor:
+        return out[key] if isinstance(out, dict) else out
+
     def enc_image(images: torch.Tensor) -> torch.Tensor:
-        return model.encode_image(images, normalize=True)["image_features"]
+        return features(model.encode_image(images, normalize=True),
+                        "image_features")
 
     def enc_text(tokens: torch.Tensor) -> torch.Tensor:
-        return model.encode_text(tokens, normalize=True)["text_features"]
+        return features(model.encode_text(tokens, normalize=True),
+                        "text_features")
 
     return model, _padded(enc_image), _padded(enc_text)

@@ -84,13 +84,10 @@ from typing import Any, Callable, Dict, Union
 
 import numpy as np
 
-from ..models.config import is_coca, is_coca_config
+from ..models.config import is_coca
 from ..models.pretrained import NEEDS_DOWNLOAD
 
 logger = logging.getLogger(__name__)
-
-# ROADMAP's items, by title, for what the port refuses (and NEEDS_DOWNLOAD)
-COCA_SHARDED = 'queue 1, "CoCa under FSDP and TP"'
 
 
 def _tensor_parallel(a) -> bool:
@@ -104,9 +101,6 @@ UNPORTED = (
     ("--huggingface-*", lambda a: (bool(a.huggingface_model_name)
                                    or a.huggingface_repo_name
                                    != "sankim2/cosmos"), NEEDS_DOWNLOAD),
-    ("a CoCa model under --fsdp or --mesh-shape dp,tp",
-     lambda a: (is_coca_config(a.model)
-                and (a.fsdp or _tensor_parallel(a))), COCA_SHARDED),
 )
 
 

@@ -395,7 +395,7 @@ def _trainable_grads(model: nn.Module):
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     cfg: TrainStepConfig,
                     dist_model: Optional[nn.Module] = None,
-                    mesh=None
+                    mesh=None, global_batch: bool = False
                     ) -> Callable[[TrainState, Dict[str, Any]],
                                   Dict[str, Any]]:
     """Returns ``step(state, batch) -> metrics``, which updates the state's
@@ -407,7 +407,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     its data axis (and across slices), the step averages over the ranks
     that hold other blocks of the batch, and the patch-dropout stream folds
     in the data index, so the ranks of one model group drop the same
-    patches.
+    patches.  ``global_batch`` (the GSPMD step's): the loss is the global
+    batch's, as JAX's GSPMD step computes it: CoCa's caption cross-entropy
+    is the mean over the global batch's unpadded tokens, not the mean of
+    the data ranks' means.
 
     Metrics: ``loss``, the mode's losses (COSMOS: ``clip_loss``,
     ``distill_loss``; CLIP and SigLIP: ``contrastive_loss``; distillation:
@@ -459,7 +462,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         loss_fn_obj = CoCaLoss(
             caption_loss_weight=cfg.coca_caption_loss_weight,
             clip_loss_weight=cfg.coca_contrastive_loss_weight,
-            pad_id=cfg.coca_pad_id, **gather)
+            pad_id=cfg.coca_pad_id, global_tokens=global_batch, **gather)
     else:
         loss_fn_obj = ClipLoss(**gather)
     device = next(model.parameters()).device
@@ -696,14 +699,8 @@ def make_train_step_gspmd(model: nn.Module, optimizer: torch.optim.Optimizer,
     ``make_train_step_gspmd``): tensor-parallel over a model axis, FSDP over
     the data axis, or both (``create_train_state_gspmd``,
     ``create_train_state_fsdp``).  The loss is the global batch's, through
-    the data axis's gather; JAX's three refusals hold, with its
-    messages.  CoCa is refused: JAX's step takes it, the port's sharded
-    placement of its pooler and decoder is not written (ROADMAP queue 1,
-    "CoCa under FSDP and TP")."""
-    if cfg.coca:
-        raise NotImplementedError(
-            "CoCa under --fsdp or tensor parallelism is not ported (ROADMAP "
-            'queue 1, "CoCa under FSDP and TP")')
+    the data axis's gather (CoCa's caption cross-entropy over the global
+    batch's tokens); JAX's three refusals hold, with its messages."""
     if cfg.siglip:
         raise ValueError(
             "siglip's ppermute ring needs the 1-D shard_map step")
@@ -713,12 +710,8 @@ def make_train_step_gspmd(model: nn.Module, optimizer: torch.optim.Optimizer,
             "global logits — leave it False")
     if cfg.accum_freq > 1:
         raise ValueError("accum_freq > 1 unsupported in the GSPMD step")
-    if MODEL_AXIS in mesh.mesh_dim_names and any(
-            getattr(m, "fuse_ln", False) for m in model.modules()):
-        raise NotImplementedError(
-            "fuse_ln under tensor parallelism is not ported (ROADMAP "
-            "queue 1, \"Beyond DP\"): its kernels take whole weights")
-    return make_train_step(model, optimizer, cfg, dist_model, mesh=mesh)
+    return make_train_step(model, optimizer, cfg, dist_model, mesh=mesh,
+                           global_batch=True)
 
 
 def _sharded_state(model: nn.Module, make_optimizer, shard,

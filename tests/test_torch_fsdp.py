@@ -6,12 +6,15 @@
 The placement rules (``fsdp_spec``, ``fsdp_tp_spec``) equal JAX's leaf for
 leaf, with no process.  One spawn of 2 ranks runs the data-parallel step,
 the FSDP step (saving its gathered checkpoint) and a data-parallel resume
-of that checkpoint; one spawn of 4 runs FSDP x TP on a (2, 2) mesh.  The
-loss, the metrics and the updated student and teacher lie within
+of that checkpoint; one spawn of 4 runs FSDP x TP on a (2, 2) mesh,
+coca_Tiny-Test's step under FSDP over 4 ranks, and a CoCa of unequal
+widths (its pooler's separate q/k/v) under FSDP and FSDP x TP.  The loss,
+the metrics and the updated student and teacher lie within
 ``rtol=1e-5, atol=1e-5`` of JAX's on the same weights and uint8 batch (the
-largest error found: 4.8e-07 on the updated student); an FSDP rank holds
-about half the stateful bytes of a data-parallel one; the resumed state
-holds the checkpoint's bits.
+largest error found: 4.8e-07 on the updated student) or, for the CoCa JAX
+does not build, of the port's unsharded step; an FSDP rank holds about
+half the stateful bytes of a data-parallel one; the resumed state holds
+the checkpoint's bits.
 
 ``min_size=0``, as JAX's FSDP tests: the tiny model's leaves are all under
 the 64 Ki-element default.
@@ -25,12 +28,15 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_dp_ranks as R
 from cosmos_tpu.models.factory import create_model as jax_create_model
+from cosmos_tpu.models.factory import init_model_params
 from cosmos_tpu.parallel import fsdp as jax_fsdp
 from cosmos_tpu.parallel.mesh import DATA_AXIS, create_mesh
 from cosmos_tpu.parallel.tp import MODEL_AXIS, create_tp_mesh
 from cosmos_tpu.training import scheduler as jax_sched
 from cosmos_tpu.training import train as jax_train
+from cosmos_tpu_torch import create_model
 from cosmos_tpu_torch.models.convert import (build_name_map,
+                                             model_name_map,
                                              state_dict_from_jax_params)
 from cosmos_tpu_torch.parallel import fsdp
 
@@ -44,14 +50,26 @@ def _sd(tree):
                                                              tree))
 
 
-def _jax_gspmd_step(jm, jp, batch, mesh):
+def jax_coca():
+    """JAX's coca_Tiny-Test and parameters drawn with numpy at the shapes
+    ``jax.eval_shape`` gives (no JAX init is compiled)."""
+    jm, _ = jax_create_model("coca_Tiny-Test", init_params=False,
+                             use_flash=False)
+    rng = np.random.default_rng(1)
+    jp = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * 0.3).astype(np.float32),
+        jax.eval_shape(lambda: init_model_params(jm)))
+    return jm, jp
+
+
+def _jax_gspmd_step(jm, jp, batch, mesh, mode="cosmos"):
     """One step of JAX's GSPMD step over FSDP placement on ``mesh``."""
     lr = jax_sched.const_lr(R.LR, 0, 10)
     opt = jax_train.create_optimizer(lr, beta1=R.BETA1, beta2=0.98,
                                      eps=R.EPS, weight_decay=0.5)
     cfg = jax_train.TrainStepConfig(momentum_teacher=0.9, fix_momentum=True,
                                     lr_schedule=lr, log_grad_norm=True,
-                                    cosmos=True)
+                                    **R.STEP_MODES[mode][1])
     # the step donates its state: a copy of the weights each time
     state = jax_train.create_train_state_fsdp(
         jax.tree_util.tree_map(np.array, jp), opt, mesh, min_size=MIN_SIZE)
@@ -79,18 +97,42 @@ def runs(tmp_path_factory):
         "resume_dp": ("resumed", dict(kind="dp",
                                       path=f"{ckpt}/epoch_1.pt")),
     })
+    jm_coca, jp_coca = jax_coca()
+    # one row a rank, the first two padded: the ranks average other counts
+    # of tokens
+    coca_batch = R.coca_step_batch(GLOBAL_BATCH)
+    unequal = R.unequal_coca()
+    with R.registered(unequal):
+        unequal_init = R.perturbed(create_model(
+            unequal[0], device="cpu", seed=1).state_dict())
+    coca = dict(batch=coca_batch, mode="coca", min_size=MIN_SIZE)
     four = R.start(R.beyond_rank, 4, {
         "fsdp_tp": ("sharded_step", dict(step, kind="fsdp_tp",
-                                         shape=(2, 2)))})
+                                         shape=(2, 2))),
+        "fsdp_coca": ("sharded_step", dict(coca, kind="fsdp",
+                                           init=_sd(jp_coca))),
+        "fsdp_coca_unequal": ("sharded_step", dict(
+            coca, kind="fsdp", init=unequal_init, config=unequal)),
+        "fsdp_tp_coca_unequal": ("sharded_step", dict(
+            coca, kind="fsdp_tp", shape=(2, 2), init=unequal_init,
+            config=unequal))})
     devs = jax.devices()
     want = {"fsdp": _jax_gspmd_step(jm, jp, batch,
                                     create_mesh(2, devices=devs[:2])),
             "fsdp_tp": _jax_gspmd_step(jm, jp, batch,
-                                       create_tp_mesh(2, 2, devs[:4]))}
+                                       create_tp_mesh(2, 2, devs[:4])),
+            "fsdp_coca": _jax_gspmd_step(jm_coca, jp_coca, coca_batch,
+                                         create_mesh(4, devices=devs[:4]),
+                                         "coca")}
+    with R.registered(unequal):
+        want["coca_unequal"] = R.port_step("coca", unequal_init, coca_batch,
+                                           config=unequal)
     two, four = two(), four()
     saved = torch.load(f"{ckpt}/epoch_1.pt", map_location="cpu",
                        weights_only=True)
     return {"want": want, "two": two, "four": four, "saved": saved}
+
+
 
 
 def _close(got, want, what):
@@ -127,19 +169,34 @@ def _torch_dim(d, tf, ndim):
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return jax_create_model("ViT-B-16", seed=1, **R.TINY, **R.COSMOS)[1]
+    return {"native": jax_create_model("ViT-B-16", seed=1, **R.TINY,
+                                       **R.COSMOS)[1],
+            "coca": jax_coca()[1]}
 
 
-@pytest.mark.parametrize("tp,n_data", [(1, 2), (1, 8), (2, 2), (4, 2)])
-def test_placements_equal_jax_leaf_for_leaf(jax_params, tp, n_data):
+MESH_SHAPES = [(1, 2), (1, 8), (2, 2), (4, 2)]
+
+
+@pytest.mark.parametrize("tp,n_data,model_name", [
+    pytest.param(tp, n, "native", id=f"{tp}-{n}") for tp, n in MESH_SHAPES
+] + [pytest.param(tp, n, "coca", id=f"{tp}-{n}-coca")
+     for tp, n in MESH_SHAPES])
+def test_placements_equal_jax_leaf_for_leaf(jax_params, tp, n_data,
+                                            model_name):
     from cosmos_tpu_torch import create_model
 
-    jp = jax_params
-    model = create_model("ViT-B-16", device="meta", **R.TINY, **R.COSMOS)
+    jp = jax_params[model_name]
+    if model_name == "coca":
+        model = create_model("coca_Tiny-Test", device="meta")
+        entries = model_name_map(model)
+    else:
+        model = create_model("ViT-B-16", device="meta", **R.TINY,
+                             **R.COSMOS)
+        entries = build_name_map(1, 1)
     got = fsdp.fsdp_placements(model, n_data, tp, MIN_SIZE)
     mesh_shape = {DATA_AXIS: n_data, MODEL_AXIS: tp}
     seen = 0
-    for key, path, tf in build_name_map(1, 1):
+    for key, path, tf in entries:
         node = jp
         try:
             for p in path:
@@ -236,3 +293,30 @@ def test_fsdp_checkpoint_is_whole_and_resumes_data_parallel(runs):
         for i, st in opt["state"].items():
             for k, v in st.items():
                 assert torch.equal(res["optimizer"]["state"][i][k], v)
+
+
+# --- CoCa ----------------------------------------------------------------
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+def test_fsdp_coca_step_equals_jax(runs, part):
+    _close(runs["four"][0]["fsdp_coca"][part], runs["want"]["fsdp_coca"][part],
+           f"fsdp coca {part}")
+
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+@pytest.mark.parametrize("case", ["fsdp_coca_unequal", "fsdp_tp_coca_unequal"])
+def test_coca_of_unequal_widths_equals_its_unsharded_step(runs, case, part):
+    got = runs["four"][0][case]
+    _close(got[part], runs["want"]["coca_unequal"][part], f"{case} {part}")
+    assert got["calls"]["K1"] > 0 and got["calls"]["K2"] > 0
+
+
+def test_fsdp_wraps_the_decoder_s_cross_attention_blocks():
+    from cosmos_tpu_torch import create_model
+
+    model = create_model("coca_Tiny-Test", device="meta")
+    blocks = list(fsdp._blocks(model))
+    assert all(b in blocks for b in model.text_decoder.cross_attn)
+    assert len(blocks) == sum(len(s) for s in (
+        model.visual.transformer.resblocks, model.text.transformer.resblocks,
+        model.text_decoder.resblocks, model.text_decoder.cross_attn))

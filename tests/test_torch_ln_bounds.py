@@ -44,11 +44,25 @@ def test_shapes_of_the_ported_widths_are_taken(d, r, dtype):
                      _meta(d, 4 * d, dtype=dtype))
 
 
+# the column shards of tensor parallelism: ViT-B's packed QKV (2304) at tp
+# 2 and 4, the 512-wide text tower's (1536) at tp 4
+TP_SHARDS = [(768, 1152), (768, 576), (512, 384)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("r", ROWS)
+@pytest.mark.parametrize("d,o", TP_SHARDS)
+def test_ln_matmul_takes_tensor_parallel_column_shards(d, o, r, dtype):
+    tlm.check_shapes(_meta(r, d, dtype=dtype), _meta(o, d, dtype=dtype))
+
+
 @pytest.mark.parametrize("d,w_shape,match", [
     (500, (1500, 500), "got D=500 O=1500"),      # not a multiple of the k-slice
     (1088, (3264, 1088), "got D=1088 O=3264"),   # wider than 1024
-    (768, (2300, 768), "got D=768 O=2300"),      # not a multiple of 256 columns
+    (768, (2300, 768), "got D=768 O=2300"),      # not a multiple of 64 columns
     (768, (2304, 384), "not \\[R, D\\]"),        # w of another width
+    (768, (1160, 768), "got D=768 O=1160"),      # nor is this shard's width
+    (512, (32, 512), "got D=512 O=32"),          # less than one 64-column box
 ])
 def test_ln_matmul_refuses_other_shapes(d, w_shape, match):
     with pytest.raises(ValueError, match=match):
@@ -114,6 +128,9 @@ def test_shared_memory_formulas_follow_the_kernels(d):
     # PERF.md's kernel table: K5 and K6 at the vision globals, bf16
     (chip_smoke.ln_matmul_bound, (25216, 768, 2304), 0.0902),
     (chip_smoke.mlp_block_bound, (25216, 768, 3072), 0.2406),
+    # its K5 TP and K6 TP rows: a rank's shard at tp 2
+    (chip_smoke.ln_matmul_bound, (25216, 768, 1152), 0.0451),
+    (chip_smoke.mlp_block_bound, (25216, 768, 1536), 0.1203),
 ])
 def test_bounds_of_the_main_geometries(bound, shape, want_ms):
     ms, by, nbytes, ops = bound(*shape, torch.bfloat16)

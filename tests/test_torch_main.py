@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dp_ranks as R
 from cosmos_tpu.models import checkpoint as jckpt
 from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.ops import fused_attention as jfa
@@ -85,8 +86,6 @@ UNPORTED_ARGV = {
     # a download
     "distill-tag": ["--distill-model", "ViT-B-32", "--distill-pretrained",
                     "cosmos_cc3m"],
-    # CoCa itself is ported; under FSDP or tensor parallelism it is not
-    "coca-sharded": ["--model", "coca_Tiny-Test", "--fsdp"],
 }
 
 
@@ -95,10 +94,9 @@ def test_unported_flag_raises(name, tmp_path, monkeypatch):
     monkeypatch.setenv("COSMOS_TPU_CACHE", str(tmp_path / "no_cache"))
     argv = UNPORTED_ARGV[name] + ["--logs-dir", str(tmp_path)]
     # each refusal names its ROADMAP item by title
-    titles = (pmain.NEEDS_DOWNLOAD, pmain.COCA_SHARDED)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, ") as e:
         pmain.main(argv, device="cpu")
-    assert any(t in str(e.value) for t in titles), e.value
+    assert pmain.NEEDS_DOWNLOAD in str(e.value), e.value
     assert not os.listdir(tmp_path)   # refused before anything ran
 
 
@@ -110,9 +108,21 @@ def test_every_unported_entry_is_exercised():
         assert not is_set(pparams.parse_args([])), flag
 
 
-def test_coca_is_told_by_its_config_not_its_name(tmp_path, monkeypatch):
+def _coca_argv(shards, logs, name, model, *extra):
+    """A CoCa run of 2 steps of 4 rows, no evals."""
+    return ["--model", model, "--dataset-type", "webdataset",
+            "--precision", "fp32", "--log-every-n-steps", "1",
+            "--workers", "0", "--lr", "1e-3", "--warmup", "1", "--seed", "3",
+            "--train-data", str(shards / "train-{0000..0001}.tar"),
+            "--batch-size", "4", "--train-num-samples", "8", "--epochs", "1",
+            "--logs-dir", str(logs), "--name", name, *extra]
+
+
+def test_coca_is_told_by_its_config_not_its_name(shards, tmp_path,
+                                                 monkeypatch):
     """A CoCa config registered under a name without "coca" is CoCa to
-    the trainer's refusals and to the step."""
+    the trainer and to the step: under --fsdp the trainer runs its CoCa
+    step (the caption loss among the logged metrics)."""
     from cosmos_tpu_torch import create_model
     from cosmos_tpu_torch.models import config as pconfig
     from cosmos_tpu_torch.models.coca import CoCa
@@ -120,19 +130,54 @@ def test_coca_is_told_by_its_config_not_its_name(tmp_path, monkeypatch):
                                                  make_train_step)
 
     monkeypatch.setitem(pconfig._EXTRA_CONFIGS, "Captioner-Tiny",
-                        pconfig.get_model_config("coca_Tiny-Test"))
+                        R.coca_trainer_config()[1])
     assert pconfig.is_coca_config("Captioner-Tiny")
     assert not pconfig.is_coca_config("ViT-Tiny-Test")
     model = create_model("Captioner-Tiny", device="cpu")
     assert isinstance(model, CoCa) and pconfig.is_coca(model)
     with pytest.raises(ValueError, match="CoCa step"):
         make_train_step(model, None, TrainStepConfig(cosmos=False))
-    with pytest.raises(NotImplementedError, match=pmain.COCA_SHARDED):
-        pmain.main(["--model", "Captioner-Tiny", "--fsdp", "--logs-dir",
-                    str(tmp_path)], device="cpu")
-    assert not os.listdir(tmp_path)
+    out = pmain.main(_coca_argv(shards, tmp_path, "captioner",
+                                "Captioner-Tiny", "--fsdp",
+                                "--train-num-samples", "4"), device="cpu")
+    (line,) = out["train_epoch_stats"][0]["logged"]
+    assert line["loss"] == pytest.approx(
+        line["contrastive_loss"] + line["caption_loss"], rel=1e-6)
     with pytest.raises(SystemExit):
         pparams.parse_args(["--model", "Captioner-Tiny", "--cosmos"])
+
+
+def test_coca_trains_under_fsdp_on_one_rank(shards, tmp_path, monkeypatch):
+    """--model coca_Tiny-Test --fsdp without a world: a process group of
+    the one process, 2 steps of the CoCa step under FSDP, and a gathered
+    checkpoint that is whole and loads into the unsharded CoCa."""
+    from cosmos_tpu_torch.models import config as pconfig
+    from cosmos_tpu_torch.models.checkpoint import load_checkpoint
+    from cosmos_tpu_torch.models.factory import create_model
+    from cosmos_tpu_torch.parallel import distributed
+
+    name, cfg = R.coca_trainer_config()
+    monkeypatch.setitem(pconfig._EXTRA_CONFIGS, name, cfg)
+    out = pmain.main(_coca_argv(shards, tmp_path, "coca_fsdp", name,
+                                "--fsdp"), device="cpu")
+    logged = out["train_epoch_stats"][0]["logged"]
+    assert len(logged) == 2
+    for line in logged:
+        assert np.isfinite(line["loss"])
+        assert line["loss"] == pytest.approx(
+            line["contrastive_loss"] + line["caption_loss"], rel=1e-6)
+    # the process group of the one process is gone with the run
+    assert not distributed.is_initialized()
+    path = tmp_path / "coca_fsdp" / "checkpoints" / "epoch_1.pt"
+    ckpt = _load(path)
+    whole = create_model(name, device="cpu").state_dict()
+    for which in ("student", "teacher"):
+        assert {k: v.shape for k, v in ckpt[which].items()} == {
+            k: v.shape for k, v in whole.items()}
+    model = load_checkpoint(create_model(name, device="cpu"), str(path),
+                            strict=True)
+    _assert_same_bits(model.state_dict(), ckpt["student"])
+    assert ckpt["num_updates"] == 2
 
 
 def test_pretrained_tag_and_missing_cuda_raise(tmp_path, monkeypatch):

@@ -1,18 +1,23 @@
 """The port's tensor parallelism (``cosmos_tpu_torch/parallel/tp.py``, DTensor
-placement over the 'model' axis, K1/K2's batch-only sharding rule) against
-cosmos_tpu's ``parallel/tp.py`` and GSPMD step, on gloo ranks of the CPU
-(tests/torch_dp_ranks.py).
+placement over the 'model' axis, K1/K2's batch-only sharding rule, K5/K6's
+column and hidden sharding rules) against cosmos_tpu's ``parallel/tp.py``
+and GSPMD step, on gloo ranks of the CPU (tests/torch_dp_ranks.py).
 
 With no process: the placements equal JAX's ``tp_spec`` leaf for leaf for
-the native towers and the timm ViT, EVA02, ConvNeXt and FastViT trunks, and
-``make_train_step_gspmd`` refuses what JAX's refuses, with its messages.
-One spawn of 4 ranks runs the TP encoders on (2, 2) and (4, 1) meshes for
-a batch no data axis divides (and EVA02's trunk on (2, 2)), the TP train
-step on (2, 2) through K1 and K2 (head dim 64, so the kernels' CPU
-versions run; the test counts their calls), the same step under
-``FUSED_LN``, and a data-parallel step whose checkpoint a TP state resumes.
-The features, the loss and the updated student and teacher lie within
-``rtol=1e-5, atol=1e-5`` of JAX's (the largest error found: 4.2e-07).
+the native towers, CoCa and the timm ViT, EVA02, ConvNeXt and FastViT
+trunks, and ``make_train_step_gspmd`` refuses what JAX's refuses, with its
+messages.  One spawn of 4 ranks runs the TP encoders on (2, 2) and (4, 1)
+meshes for a batch no data axis divides (and EVA02's trunk on (2, 2)),
+the TP train step on (2, 2) through K1 and K2 (head dim 64, so the
+kernels' CPU versions run; the test counts their calls), the same step
+under ``FUSED_LN``, under ``fuse_ln`` (K5 and K6 on each rank's local
+shard) with and without ``FUSED_LN``, coca_Tiny-Test's step, a CoCa of
+unequal widths (its pooler's separate q/k/v column-parallel), a
+data-parallel step whose checkpoint a TP state resumes, and the trainer:
+COSMOS tensor parallel then under FSDP x TP, CoCa under FSDP then tensor
+parallel.  The features, the loss and the updated student and teacher lie
+within ``rtol=1e-5, atol=1e-5`` of JAX's (the largest error found: 4.2e-07)
+or, for the CoCa JAX does not build, of the port's unsharded step.
 """
 
 import types
@@ -30,6 +35,7 @@ from cosmos_tpu.models import eva as jeva
 from cosmos_tpu.models import fastvit as jfastvit
 from cosmos_tpu.models import timm_model as jtimm
 from cosmos_tpu.models.factory import create_model as jax_create_model
+from cosmos_tpu.models.factory import init_model_params
 from cosmos_tpu.parallel import tp as jax_tp
 from cosmos_tpu.parallel.mesh import DATA_AXIS
 from cosmos_tpu.training import scheduler as jax_sched
@@ -39,6 +45,7 @@ from cosmos_tpu_torch.models import eva as peva
 from cosmos_tpu_torch.models import fastvit as pfastvit
 from cosmos_tpu_torch.models import timm_model as ptimm
 from cosmos_tpu_torch.models.convert import (build_name_map,
+                                             model_name_map,
                                              state_dict_from_jax_params,
                                              vision_entries)
 from cosmos_tpu_torch.models.factory import create_model
@@ -74,6 +81,7 @@ TOWERS = {
         vision_timm_model_name="convnext_tp_porttest", vision_image_size=64)),
     "fastvit": ("MobileCLIP-S1", dict(
         vision_timm_model_name="fastvit_tp_porttest", vision_image_size=64)),
+    "coca": ("coca_Tiny-Test", {}),
 }
 
 
@@ -82,19 +90,31 @@ def _sd(tree):
                                                              tree))
 
 
-def _cfg(lr, **kw):
+def _cfg(lr, mode="cosmos"):
     return jax_train.TrainStepConfig(momentum_teacher=0.9, fix_momentum=True,
                                      lr_schedule=lr, log_grad_norm=True,
-                                     cosmos=True, **kw)
+                                     **R.STEP_MODES[mode][1])
 
 
-def _jax_tp_step(jm, jp, batch, mesh):
+def jax_coca():
+    """JAX's coca_Tiny-Test and parameters drawn with numpy at the shapes
+    ``jax.eval_shape`` gives (no JAX init is compiled)."""
+    jm, _ = jax_create_model("coca_Tiny-Test", init_params=False,
+                             use_flash=False)
+    rng = np.random.default_rng(1)
+    jp = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * 0.3).astype(np.float32),
+        jax.eval_shape(lambda: init_model_params(jm)))
+    return jm, jp
+
+
+def _jax_tp_step(jm, jp, batch, mesh, mode="cosmos"):
     lr = jax_sched.const_lr(R.LR, 0, 10)
     opt = jax_train.create_optimizer(lr, beta1=R.BETA1, beta2=0.98,
                                      eps=R.EPS, weight_decay=0.5)
     state = jax_train.create_train_state_gspmd(
         jax.tree_util.tree_map(np.array, jp), opt, mesh)
-    step = jax_train.make_train_step_gspmd(jm, opt, mesh, _cfg(lr))
+    step = jax_train.make_train_step_gspmd(jm, opt, mesh, _cfg(lr, mode))
     sharded = jax.tree_util.tree_map(
         lambda x: jax.device_put(x, NamedSharding(mesh, P(None, DATA_AXIS))),
         batch)
@@ -129,7 +149,16 @@ def runs(tmp_path_factory):
             texts=texts.astype(np.int64), shape=shape, name=name,
             model_kw=kw, eva=eva))
     jm, jp = jax_create_model("ViT-B-16", seed=1, **native, **R.COSMOS)
+    # JAX's K5/K6 in interpret mode; its attention on the XLA path, the
+    # same function as its kernel's, which compiles faster
+    jm_fuse, _ = jax_create_model("ViT-B-16", init_params=False,
+                                  fuse_ln=True, use_flash=False, **native,
+                                  **R.COSMOS)
+    jm_coca, jp_coca = jax_coca()
     batch = R.step_batch(4, 1)
+    # padded captions in the first data rank's rows only: its caption
+    # cross-entropy averages fewer tokens than the second's
+    coca_batch = R.coca_step_batch(4)
     data = str(tmp_path_factory.mktemp("tp_trainer"))
     R.write_trainer_data(data)
     # an epoch tensor parallel, then resumed under FSDP x TP
@@ -139,13 +168,45 @@ def runs(tmp_path_factory):
         R.trainer_argv(data, "tp", *tp_argv, "--epochs", "1"),
         R.trainer_argv(data, "tp", *tp_argv, "--fsdp", "--epochs", "2",
                        "--resume", "latest")]))
+    # CoCa: an epoch under FSDP (4 data ranks of 2 rows), then resumed
+    # tensor parallel on (2, 2)
+    payload["coca_trainer"] = ("trainer_runs", dict(
+        config=R.coca_trainer_config(), argvs=[
+            R.coca_trainer_argv(data, "coca", "--fsdp",
+                                "--train-num-samples", "16", "--epochs", "1"),
+            R.coca_trainer_argv(data, "coca", *tp_argv, "--epochs", "2",
+                                "--resume", "latest")]))
     ckpt = str(tmp_path_factory.mktemp("tp_ckpt"))
     step = dict(init=_sd(jp), batch=batch, model_kw=KERNEL_TINY)
+    # every leaf moved off its init (whose biases are zeros), so that a
+    # bias added on every rank of the model group shows
+    noise = np.random.default_rng(2)
+    jp_fuse = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + np.float32(0.05) * noise.standard_normal(
+            np.shape(x)).astype(np.float32), jp)
+    fuse = dict(step, init=_sd(jp_fuse), kind="tp", shape=(2, 2),
+                model_kw=dict(KERNEL_TINY, fuse_ln=True))
+    unequal = R.unequal_coca()
+    with R.registered(unequal):
+        unequal_init = R.perturbed(create_model(
+            unequal[0], device="cpu", seed=1).state_dict())
+    coca = dict(kind="tp", shape=(2, 2), batch=coca_batch, mode="coca")
+    coca_init = _sd(jp_coca)
+    coca_images = rng.standard_normal((5, 32, 32, 3)).astype(np.float32)
     payload.update({
+        "enc_coca_2x2": ("tp_encoders", dict(
+            init=coca_init, images=coca_images, texts=texts.astype(np.int64),
+            shape=(2, 2), name="coca_Tiny-Test", model_kw={})),
+        "dp_fuse_ln": ("sharded_step", dict(fuse, kind="dp", shape=())),
         "dp": ("sharded_step", dict(step, kind="dp", save=ckpt)),
         "tp": ("sharded_step", dict(step, kind="tp", shape=(2, 2))),
         "tp_fused_ln": ("sharded_step", dict(step, kind="tp", shape=(2, 2),
                                              fused_ln=True)),
+        "tp_fuse_ln": ("sharded_step", fuse),
+        "tp_fuse_ln_fused_ln": ("sharded_step", dict(fuse, fused_ln=True)),
+        "tp_coca": ("sharded_step", dict(coca, init=coca_init)),
+        "tp_coca_unequal": ("sharded_step", dict(
+            coca, init=unequal_init, config=unequal)),
         "resume_tp": ("resumed", dict(kind="tp", shape=(2, 2),
                                       path=f"{ckpt}/epoch_1.pt",
                                       model_kw=KERNEL_TINY)),
@@ -154,12 +215,33 @@ def runs(tmp_path_factory):
     want = {case: _jax_encoders(*models[case], encoders[case][2],
                                 jnp.asarray(images), jnp.asarray(texts))
             for case in encoders}
-    want["tp"] = _jax_tp_step(jm, jp, batch, jax_tp.create_tp_mesh(
-        2, 2, jax.devices()[:4]))
+    mesh = jax_tp.create_tp_mesh(2, 2, jax.devices()[:4])
+    want["tp"] = _jax_tp_step(jm, jp, batch, mesh)
+    want["tp_fuse_ln"] = _jax_tp_step(jm_fuse, jp_fuse, batch, mesh)
+    want["tp_coca"] = _jax_tp_step(jm_coca, jp_coca, coca_batch, mesh,
+                                   "coca")
+    with R.registered(unequal):
+        want["tp_coca_unequal"] = R.port_step("coca", unequal_init,
+                                              coca_batch, config=unequal)
+    want["enc_coca_2x2"] = _port_coca_features(coca_init, coca_images, texts)
     ranks = ranks()
     saved = torch.load(f"{ckpt}/epoch_1.pt", map_location="cpu",
                        weights_only=True)
     return {"want": want, "ranks": ranks, "saved": saved}
+
+
+def _port_coca_features(init, images, texts):
+    """The unsharded port CoCa's normalised features (JAX's
+    ``make_tp_encoders`` indexes CoCa's bare features as a dict and
+    fails)."""
+    model = create_model("coca_Tiny-Test", device="cpu").eval()
+    model.load_state_dict(init, strict=True)
+    with torch.no_grad():
+        return {"image": model.encode_image(torch.from_numpy(images)).numpy(),
+                "text": model.encode_text(torch.from_numpy(
+                    texts.astype(np.int64))).numpy()}
+
+
 
 
 def _close(got, want, what):
@@ -186,6 +268,9 @@ def _jax_param_shapes(name, kw):
     initialise)."""
     if kw.get("cosmos"):
         return jax_create_model(name, use_flash=False, seed=1, **kw)[1]
+    if name.startswith("coca"):
+        return jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype),
+                                      jax_coca()[1])
     jm, _ = jax_create_model(name, init_params=False, **kw)
     size = jm.cfg.vision_cfg.image_size
     shapes = jax.eval_shape(
@@ -200,11 +285,14 @@ def test_tp_spec_equals_jax_leaf_for_leaf(tower):
     name, kw = TOWERS[tower]
     jp = _jax_param_shapes(name, kw)
     model = create_model(name, device="meta", **kw)
-    layers = {"visual": len(getattr(getattr(model.visual, "transformer",
-                                            None), "resblocks", ())),
-              "text": len(model.transformer.resblocks)}
-    entries = build_name_map(layers["visual"], layers["text"]) \
-        + vision_entries(jp["visual"])
+    if tower == "coca":
+        entries = model_name_map(model)
+    else:
+        layers = {"visual": len(getattr(getattr(
+            model.visual, "transformer", None), "resblocks", ())),
+            "text": len(model.transformer.resblocks)}
+        entries = build_name_map(layers["visual"], layers["text"]) \
+            + vision_entries(jp["visual"])
     got = tp.tp_param_placements(model)
     seen = set()
     for key, path, tf in entries:
@@ -229,6 +317,27 @@ def test_tp_spec_equals_jax_leaf_for_leaf(tower):
             "attn.proj.weight", "mlp.fc1_g.weight", "mlp.fc1_x.weight",
             "mlp.fc2.weight", "mlp.fc2.bias", "mlp.norm.weight")] == [
             0, 0, 0, 1, 0, 0, 1, None, None]
+    # the decoder's cross-attention and the pooler, as JAX places them
+    if tower == "coca":
+        assert [got[n] for n in (
+            "text_decoder.cross_attn.0.attn.in_proj_weight",
+            "text_decoder.cross_attn.0.attn.out_proj.weight",
+            "attn_pool.attn.in_proj_bias", "attn_pool.query",
+            "text_decoder.text_projection")] == [0, 1, 0, None, None]
+
+
+def test_separate_qkv_and_their_bias_are_column_parallel():
+    """A pooler whose keys are wider than its queries: its separate
+    q/k/v weights ``Shard(0)`` (JAX's rule for q_proj/k_proj/v_proj
+    kernels), the packed ``in_proj_bias`` ``Shard(0)`` over its 3D."""
+    model = create_model("coca_ViT-B-32", device="meta")
+    got = tp.tp_param_placements(model)
+    pool = "attn_pool.attn."
+    assert model.attn_pool.attn.in_proj_weight is None
+    assert [got[pool + n] for n in ("q_proj_weight", "k_proj_weight",
+                                    "v_proj_weight", "in_proj_bias",
+                                    "out_proj.weight", "out_proj.bias")] \
+        == [0, 0, 0, 0, 1, None]
 
 
 def test_gspmd_step_refusals_are_jax_s():
@@ -246,14 +355,14 @@ def test_gspmd_step_refusals_are_jax_s():
         assert str(got.value) == str(want.value)
 
 
-def test_fuse_ln_under_tp_is_refused_naming_its_item():
-    from cosmos_tpu_torch.training import train as T
-
-    model = create_model("ViT-B-16", device="meta", fuse_ln=True,
-                         **R.TINY, **R.COSMOS)
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        T.make_train_step_gspmd(model, None, mesh, T.TrainStepConfig())
+def test_fuse_ln_under_tp_builds_the_gspmd_step(runs):
+    # every rank built make_train_step_gspmd over the (2, 2) mesh with
+    # fuse_ln and stepped through K5 and K6
+    for rank in runs["ranks"]:
+        for case in ("tp_fuse_ln", "tp_fuse_ln_fused_ln"):
+            got = rank[case]
+            assert got["calls"]["K5"] > 0 and got["calls"]["K6"] > 0
+            assert np.isfinite(got["metrics"]["loss"])
 
 
 # --- the encoders and the step -------------------------------------------
@@ -324,5 +433,71 @@ def test_trainer_runs_tensor_parallel_and_resumes_under_fsdp(runs):
         assert [len(x) for x in r["losses"]] == [2, 2]
         assert np.all(np.isfinite(sum(r["losses"], [])))
     # rank 0 evaluates the gathered state; the others wait
+    assert all(np.isfinite(v) for v in ranks[0]["val_loss"])
+    assert all(r["val_loss"] == [None, None] for r in ranks[1:])
+
+
+# --- fuse_ln (K5, K6) and CoCa under tensor parallelism ------------------
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+@pytest.mark.parametrize("case", ["tp_fuse_ln", "tp_fuse_ln_fused_ln"])
+def test_fuse_ln_under_tp_equals_jax(runs, case, part):
+    # FUSED_LN moves the other LayerNorms onto K3's plain version: JAX's
+    # fuse_ln step without it is the reference of both
+    _close(runs["ranks"][0][case][part], runs["want"]["tp_fuse_ln"][part],
+           f"{case} {part}")
+
+
+def test_k5_k6_run_on_each_rank_s_local_shard(runs):
+    # every K5 and K6 call of the unsharded fuse_ln step, on every rank,
+    # each given the rank's column shard (3D / 2) or hidden shard (4D / 2)
+    # and never a whole weight
+    width = KERNEL_TINY["vision_width"]
+    assert width == KERNEL_TINY["text_width"]
+    for rank in runs["ranks"]:
+        whole = rank["dp_fuse_ln"]["calls"]
+        assert set(whole["K5_widths"]) == {3 * width}
+        for case in ("tp_fuse_ln", "tp_fuse_ln_fused_ln"):
+            calls = rank[case]["calls"]
+            assert all(calls[k] == whole[k] for k in ("K1", "K2", "K5", "K6"))
+            assert set(calls["K5_widths"]) == {3 * width // 2}
+            assert set(calls["K6_widths"]) == {4 * width // 2}
+
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+def test_tp_coca_step_equals_jax(runs, part):
+    _close(runs["ranks"][0]["tp_coca"][part], runs["want"]["tp_coca"][part],
+           f"tp coca {part}")
+
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+def test_tp_coca_of_unequal_widths_equals_its_unsharded_step(runs, part):
+    r0 = runs["ranks"][0]["tp_coca_unequal"]
+    _close(r0[part], runs["want"]["tp_coca_unequal"][part],
+           f"tp unequal coca {part}")
+    # its 128-wide vision tower (head dim 64) takes K1 and K2
+    assert r0["calls"]["K1"] > 0 and r0["calls"]["K2"] > 0
+
+
+@pytest.mark.parametrize("tower", ["image", "text"])
+def test_tp_encoders_take_coca_s_bare_features(runs, tower):
+    want = runs["want"]["enc_coca_2x2"][tower]
+    for rank in runs["ranks"]:
+        got = rank["enc_coca_2x2"][tower].numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_coca_trainer_runs_fsdp_then_resumes_tensor_parallel(runs):
+    ranks = [r["coca_trainer"] for r in runs["ranks"]]
+    for r in ranks:
+        assert r["epochs"] == [[0], [1]]
+        assert r["losses"] == ranks[0]["losses"]
+        assert [len(x) for x in r["losses"]] == [2, 2]
+        for line in sum(r["logged"], []):
+            # the CoCa step's two losses
+            assert np.isfinite(line["loss"])
+            assert line["loss"] == pytest.approx(
+                line["contrastive_loss"] + line["caption_loss"], rel=1e-6)
     assert all(np.isfinite(v) for v in ranks[0]["val_loss"])
     assert all(r["val_loss"] == [None, None] for r in ranks[1:])

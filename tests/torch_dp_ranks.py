@@ -11,6 +11,7 @@ JAX side of each comparison runs in the test's own process.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -209,6 +210,50 @@ STEP_MODELS = {"coca": "coca_Tiny-Test"}
 COCA_EOT = 511
 
 
+def unequal_coca():
+    """(name, config): coca_Tiny-Test with a 128-wide vision tower of head
+    dim 64 (K1 and K2 take it) beside the 32-wide decoder, so the pooler
+    projects its keys and values separately (``q_proj_weight``, ...).
+    JAX's CoCa does not build at unequal widths."""
+    from cosmos_tpu_torch.models import config as pconfig
+
+    cfg = pconfig.get_model_config("coca_Tiny-Test")
+    cfg["vision_cfg"] = dict(cfg["vision_cfg"], width=128, head_width=64)
+    return "coca_Unequal-Test", cfg
+
+
+@contextlib.contextmanager
+def registered(config):
+    """``config``, a (name, config dict), among the port's model configs
+    for the block (a rank registers for good: ``step_model``)."""
+    from cosmos_tpu_torch.models import config as pconfig
+
+    pconfig._EXTRA_CONFIGS[config[0]] = config[1]
+    try:
+        yield
+    finally:
+        pconfig._EXTRA_CONFIGS.pop(config[0], None)
+
+
+def perturbed(state: Dict[str, torch.Tensor], seed: int = 2,
+              scale: float = 0.05) -> Dict[str, torch.Tensor]:
+    """``state`` with seeded normal noise added to every floating tensor:
+    the init's zero biases would hide a bias placed or added wrongly."""
+    gen = torch.Generator().manual_seed(seed)
+    return {k: v + scale * torch.randn(v.shape, generator=gen)
+            if v.is_floating_point() else v for k, v in state.items()}
+
+
+def coca_trainer_config():
+    """(name, config): coca_Tiny-Test with the tokenizer's vocabulary,
+    which the BPE ids of the seeded shards' captions need."""
+    from cosmos_tpu_torch.models import config as pconfig
+
+    cfg = pconfig.get_model_config("coca_Tiny-Test")
+    cfg["text_cfg"] = dict(cfg["text_cfg"], vocab_size=49408)
+    return "coca_Tiny-Test-49408", cfg
+
+
 def step_batch(global_batch: int, accum: int, seed: int = 3
                ) -> Dict[str, np.ndarray]:
     """uint8 views of the global batch (2 global 16px, 2 local 8px crops,
@@ -239,11 +284,16 @@ def coca_step_batch(global_batch: int, seed: int = 3
             "texts": texts}
 
 
-def step_model(mode: str, model_kw=None):
+def step_model(mode: str, model_kw=None, config=None):
     """The port's model of a step mode on the CPU (``model_kw`` overrides
-    TINY's widths, where the mode trains ViT-B-16)."""
+    TINY's widths, where the mode trains ViT-B-16; ``config``: (name,
+    config dict) registered first and built instead)."""
     from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.models import config as pconfig
 
+    if config is not None:
+        pconfig._EXTRA_CONFIGS[config[0]] = config[1]
+        return create_model(config[0], device="cpu")
     if mode in STEP_MODELS:
         return create_model(STEP_MODELS[mode], device="cpu")
     return create_model("ViT-B-16", device="cpu",
@@ -251,17 +301,18 @@ def step_model(mode: str, model_kw=None):
 
 
 def port_step(mode: str, init: Dict[str, Any], batch: Dict[str, np.ndarray],
-              steps: int = 1) -> Dict[str, Any]:
+              steps: int = 1, config=None) -> Dict[str, Any]:
     """``steps`` steps of the port's ``make_train_step`` from ``init`` on
     ``batch`` (this rank's block under a process group): the last metrics,
-    the averaged gradients and the updated student and teacher."""
+    the averaged gradients and the updated student and teacher
+    (``config``: as ``step_model``'s)."""
     from cosmos_tpu_torch import (create_optimizer, create_train_state,
                                   make_train_step)
     from cosmos_tpu_torch.training import scheduler
     from cosmos_tpu_torch.training.train import TrainStepConfig
 
     cfg_kw = STEP_MODES[mode][1]
-    model = step_model(mode)
+    model = step_model(mode, config=config)
     model.load_state_dict(init, strict=True)
     lr = scheduler.const_lr(LR, 0, 10)
     opt = create_optimizer(model, lr, beta1=BETA1, beta2=0.98, eps=EPS,
@@ -364,6 +415,19 @@ def trainer_argv(d: str, name: str, *extra: str) -> List[str]:
             "--name", name, *extra]
 
 
+def coca_trainer_argv(d: str, name: str, *extra: str) -> List[str]:
+    """The trainer's flags for a CoCa run (``coca_trainer_config``) on the
+    shards of ``write_trainer_data(d)``: one crop and one caption, 2 rows a
+    data rank, the val eval."""
+    return ["--model", coca_trainer_config()[0], "--dataset-type",
+            "webdataset", "--train-data", f"{d}/train-{{0000..0003}}.tar",
+            "--batch-size", "2", "--precision", "fp32",
+            "--log-every-n-steps", "1", "--workers", "0", "--lr", "1e-3",
+            "--warmup", "1", "--seed", "3", "--save-most-recent",
+            "--val-data", f"{d}/val-0000.tar", "--val-num-samples", "4",
+            "--logs-dir", f"{d}/logs", "--name", name, *extra]
+
+
 def write_trainer_data(d: str) -> None:
     from cosmos_tpu_torch.data.synthetic import write_shards
 
@@ -402,52 +466,62 @@ def stateful_bytes(state) -> int:
 
 
 class kernel_calls:
-    """Counts the calls of K1's and K2's CPU implementations (their plain
-    versions, looked up at call time) inside the block."""
+    """Counts the calls of K1's, K2's, K5's and K6's CPU implementations
+    (their plain versions, looked up at call time) inside the block, and
+    the widths K5 (``O``) and K6 (``HD``) were given: a rank's local
+    shard's under tensor parallelism."""
 
     def __enter__(self):
         from cosmos_tpu_torch.ops import fused_attention as fa
+        from cosmos_tpu_torch.ops.experimental import ln_matmul as lm
+        from cosmos_tpu_torch.ops.experimental import mlp_block as mb
 
-        self.fa, self.counts = fa, {"K1": 0, "K2": 0}
-        self.saved = (fa.fused_attention_qkv_reference,
-                      fa.fused_attention_qkv_backward_reference)
+        self.counts = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K5_widths": [],
+                       "K6_widths": []}
+        self.patched = [(fa, "fused_attention_qkv_reference", "K1"),
+                        (fa, "fused_attention_qkv_backward_reference", "K2"),
+                        (lm, "ln_matmul_reference", "K5"),
+                        (mb, "mlp_block_reference", "K6")]
+        self.saved = [getattr(m, name) for m, name, _ in self.patched]
 
         def counted(key, fn):
             def call(*a, **kw):
                 self.counts[key] += 1
+                if key in ("K5", "K6"):
+                    # w [O, D] / w1 [HD, D]
+                    self.counts[f"{key}_widths"].append(a[3].shape[0])
                 return fn(*a, **kw)
             return call
 
-        fa.fused_attention_qkv_reference = counted("K1", self.saved[0])
-        fa.fused_attention_qkv_backward_reference = counted("K2",
-                                                            self.saved[1])
+        for (m, name, key), fn in zip(self.patched, self.saved):
+            setattr(m, name, counted(key, fn))
         return self.counts
 
     def __exit__(self, *exc):
-        (self.fa.fused_attention_qkv_reference,
-         self.fa.fused_attention_qkv_backward_reference) = self.saved
+        for (m, name, _), fn in zip(self.patched, self.saved):
+            setattr(m, name, fn)
 
 
 def sharded_step(kind: str, init, batch, shape=(), cfg_kw=None,
                  model_kw=None, min_size: int = 256, save: str = None,
-                 fused_ln: bool = False, mode: str = "cosmos"
+                 fused_ln: bool = False, mode: str = "cosmos", config=None
                  ) -> Dict[str, Any]:
     """One step of ``mode`` (COSMOS by default) of the port from ``init``
     on this rank's block of the global ``batch``: 'dp' (the default group),
     'fsdp' (a data mesh),
     'tp'/'fsdp_tp' (a ('data', 'model') mesh of ``shape``) or
     'multislice' (``shape[0]`` slices), with ``layers.FUSED_LN`` set by
-    ``fused_ln``.  Returns the metrics, the whole student and teacher (on
-    rank 0 for a sharded state), this rank's stateful bytes and K1/K2
-    calls and, with ``save``, writes the checkpoint there (every rank joins
-    the gather)."""
+    ``fused_ln`` (``config``: as ``step_model``'s).  Returns the metrics,
+    the whole student and teacher (on rank 0 for a sharded state), this
+    rank's stateful bytes and kernel calls (``kernel_calls``) and, with
+    ``save``, writes the checkpoint there (every rank joins the gather)."""
     from cosmos_tpu_torch import create_optimizer
     from cosmos_tpu_torch.models import layers
     from cosmos_tpu_torch.parallel.mesh import batch_sharding
     from cosmos_tpu_torch.training import checkpoint, scheduler
     from cosmos_tpu_torch.training import train as T
 
-    model = step_model(mode, model_kw)
+    model = step_model(mode, model_kw, config)
     model.load_state_dict(init, strict=True)
     lr = scheduler.const_lr(LR, 0, 10)
 
@@ -548,13 +622,19 @@ def tp_encoders(init, images, texts, shape, name, model_kw, eva=None
             "k1_text": text_calls["K1"]}
 
 
-def trainer_runs(argvs) -> Dict[str, Any]:
-    """``main(argv, device="cpu")`` for each of ``argvs`` in turn: the
-    logged losses, the val loss and the epochs each run trained."""
+def trainer_runs(argvs, config=None) -> Dict[str, Any]:
+    """``main(argv, device="cpu")`` for each of ``argvs`` in turn (with
+    ``config``, a (name, config) registered first): the logged losses and
+    metrics, the val loss and the epochs each run trained."""
+    from cosmos_tpu_torch.models import config as pconfig
     from cosmos_tpu_torch.training import main as trainer
 
+    if config is not None:
+        pconfig._EXTRA_CONFIGS[config[0]] = config[1]
     runs = [trainer.main(argv, device="cpu") for argv in argvs]
     return {"losses": [[line["loss"] for s in r["train_epoch_stats"]
+                        for line in s["logged"]] for r in runs],
+            "logged": [[line for s in r["train_epoch_stats"]
                         for line in s["logged"]] for r in runs],
             "epochs": [[s["epoch"] for s in r["train_epoch_stats"]]
                        for r in runs],
