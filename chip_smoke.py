@@ -134,7 +134,8 @@ from the sources in the checkout and then:
      same bits, the exact K1/K2 launches of every step (phase 12's), K1
      only in the evals; prints ms per step of both and the ms of the step's
      cross-rank mean of the gradients; (b) takes 3 steps of make_train_step
-     (COSMOS, float32, full width and depth) at world 2, 32 rows a rank,
+     (COSMOS, float32, full width, GLOO_LAYERS blocks a tower) at world
+     2, 32 rows a rank,
      one rank a card under NCCL where the machine has two cards, else both
      on this card under gloo, and holds the first to the world-1 step on
      all 64 rows in this process (loss, every gradient, the updated
@@ -189,8 +190,9 @@ from the sources in the checkout and then:
      this card under gloo over CUDA tensors, after a probe of the
      collectives gloo takes on them (a part whose collectives it refuses
      is left out and printed with gloo's error): (b) on a (1, 2) mesh the
-     tensor-parallel encoders of ViT-B-16 COSMOS in float32 against the
-     unsharded ones (1e-4), K1 on every block, and one TP step against the
+     tensor-parallel encoders of ViT-B-16 COSMOS (full width, GLOO_LAYERS
+     blocks a tower) in float32 against the unsharded ones (1e-4), K1 on
+     every block, and one TP step against the
      plain step (16(b)'s tolerances); (c) 2 steps on a 2-slice mesh
      (--num-slices 2 --gather-scope global) against the flat world-2
      step.
@@ -247,7 +249,8 @@ from the sources in the checkout and then:
      a gathered checkpoint, then --resume latest into a second with the
      val eval; (b) on a (1, 2) mesh of two gloo ranks on this card,
      fuse_ln with FUSED_LN under tensor parallelism: ViT-B-16 COSMOS at
-     full width in bf16 on 4 rows, 1 + 2 steps, the one-process step's
+     full width (SLICE16_LAYERS blocks a tower) in bf16 on 4 rows, 1 + 2
+     steps, the one-process step's
      K1-K6 launches a step on each rank (K5 and K6 on the rank's shards),
      the losses within FUSE_TP_LOSS_RTOL of the one-process step's, ms a
      step and peak memory a rank; and the 2-layer float32 step against
@@ -255,6 +258,25 @@ from the sources in the checkout and then:
      TP encoders in float32 against the unsharded features (1e-4; 12 K1 an
      image call, none a text call) and its 2-layer float32 step against
      the unsharded step (16(b)'s AdamW and tolerances).
+ 23. the last surface that needs no download.  Before phase 12: (a) the
+     native data path (cosmos_tpu_torch/data/csrc/tario.cpp, threaded tar
+     streaming and DCT-scaled libjpeg decode) built with g++, timed, with
+     the compiler, headers and libjpeg named; every trainer from phase 12
+     on reads through it.  Then: (e) K1 and K2 held to their plain
+     versions, with the same bits on a repeat, and timed beside SDPA and
+     the bound at ViT-B-16-SigLIP's geometries (vision [64, 196, 2304],
+     no CLS token; text [256, 64, 2304] for K1 and [64, 64, 2304] for K2,
+     no causal mask; 12 heads) in both dtypes; (b) 96 JPEGs of short side
+     1024-1600 px: ms a sample of PIL's decode, the native decode at the
+     loader's DCT scale and the multi-crop transform on each, and the
+     native decode at 1/1 against PIL's bits; (c) the trainer's loader
+     alone, native and PIL, on phase 12's shards and on (b)'s; (d)
+     ViT-B-16-SigLIP from a big_vision npz of random float32 weights
+     (written here) through create_model(pretrained=...), timed; served
+     in bfloat16 (64 images, 256 captions at 64 tokens: 12 K1 a call
+     each); 2 + 8 --siglip steps at batch 64 in bf16 (24/24 K1/K2 a step,
+     median ms, peak memory); a 2-layer float32 model's features and
+     --siglip step against the CPU.
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
 and nothing else.  With ``--k5-against DIR`` it builds K5 from the
@@ -1267,6 +1289,9 @@ DP_RANK_FLAG = "--dp-rank"
 DP_STEPS = 2            # steps an epoch in 16(a)
 DP_WORLD = 2
 DP_BATCH = 32           # rows a rank in 16(b)
+# blocks a tower of the models on gloo ranks and their references (16(b),
+# 19(b)-(c)): cut from 12 to keep the script within its time limit
+GLOO_LAYERS = 2
 DP_STEPS_B = 3
 # 16(b)'s AdamW: eps 1e-3 keeps the first update a smooth function of the
 # gradient, so the updated weights hold the gradients' agreement
@@ -1481,11 +1506,15 @@ def _dp_step_setup(model, siglip: bool):
 
 
 def _dp_model(siglip: bool, device):
+    """16(b)'s and 19(b)-(c)'s model: ViT-B-16 at full width, GLOO_LAYERS
+    blocks a tower."""
     from cosmos_tpu_torch import create_model
 
     kw = (dict(act_approx=True, init_logit_scale=float(np.log(10.0)),
                init_logit_bias=-10.0) if siglip else TRAIN_RECIPE)
-    return create_model("ViT-B-16", "fp32", device=device, seed=7, **kw)
+    return create_model("ViT-B-16", "fp32", device=device, seed=7,
+                        vision_layers=GLOO_LAYERS, text_layers=GLOO_LAYERS,
+                        **kw)
 
 
 def _dp_batch(rank=None):
@@ -4134,7 +4163,8 @@ def _beyond_rank(rank: int, spec: dict) -> None:
         with _sync_functional_collectives():
             mesh = create_tp_mesh(1, BEYOND_WORLD, "cuda")
             model = create_model("ViT-B-16", "fp32", device="cuda", seed=7,
-                                 **COSMOS).eval()
+                                 vision_layers=GLOO_LAYERS,
+                                 text_layers=GLOO_LAYERS, **COSMOS).eval()
             _, enc_image, enc_text = make_tp_encoders(model, mesh)
             feats, k1 = {}, {}
             for name, enc, x in (("image", enc_image, ref["images"]),
@@ -4232,6 +4262,7 @@ def _beyond_reference(path: str) -> float:
         (BEYOND_ENC[0], 224, 224, 3)).astype(np.float32))
     texts = torch.from_numpy(_train_texts(rng, (1, BEYOND_ENC[1], 77))[0])
     model = create_model("ViT-B-16", "fp32", device="cuda", seed=7,
+                         vision_layers=GLOO_LAYERS, text_layers=GLOO_LAYERS,
                          **COSMOS).eval()
     with torch.no_grad():
         img = model.encode_image(images.cuda(), normalize=True)
@@ -4299,11 +4330,11 @@ def _beyond_gloo(tmp: str) -> dict:
                k1_launches=0, k2_launches=0)
     enc = [r["encoders"] for r in ranks]
     step = [r["tp_step"] for r in ranks]
-    want_step = step_launches(None, 12, BEYOND_TP_BATCH)
+    want_step = step_launches(None, GLOO_LAYERS, BEYOND_TP_BATCH)
     for r, (e, s) in enumerate(zip(enc, step)):
-        check(e["k1"] == {"image": 12, "text": 12}, f"19(b) rank {r}: "
-              f"K1 per TP encoder call {e['k1']}, expected 12 (every "
-              "block)")
+        check(e["k1"] == {"image": GLOO_LAYERS, "text": GLOO_LAYERS},
+              f"19(b) rank {r}: K1 per TP encoder call {e['k1']}, expected "
+              f"{GLOO_LAYERS} (every block)")
         check(max(e["errs"].values()) <= BEYOND_ENC_TOL, f"19(b) rank "
               f"{r}: TP features off the unsharded {e['errs']}")
         check(e["sharded"] > 0, f"19(b) rank {r}: no sharded weight")
@@ -4544,18 +4575,20 @@ def bicubic_resize_np(pe: np.ndarray, src: int, dst: int) -> np.ndarray:
 
 
 def _weights_serve(K, model, size, per_call, label, seed, length=77,
-                   tag="weights"):
+                   tag="weights", captions=None):
     """bfloat16 serving of ``model``: the exact K1 launches of an image
     call of WEIGHTS_IMAGES and a text call of WEIGHTS_CAPTIONS at
-    ``length``, then timed calls; returns the record and the K1 launches
-    of every call made."""
+    ``length`` (``captions``: those token ids, else BPE-shaped ones), then
+    timed calls; returns the record and the K1 launches of every call
+    made."""
     from cosmos_tpu_torch.training.evaluate import make_encoders
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     images = torch.randn(WEIGHTS_IMAGES, size, size, 3, device="cuda",
                          generator=gen)
-    captions = torch.as_tensor(_captions(WEIGHTS_CAPTIONS, length,
-                                         seed=seed), device="cuda")
+    if captions is None:
+        captions = _captions(WEIGHTS_CAPTIONS, length, seed=seed)
+    captions = torch.as_tensor(captions, device="cuda")
     calls = {"image": [], "text": []}
     enc_image, enc_text, _ = make_encoders(model)
     fns = {"image": _counted(lambda: enc_image(images), calls["image"]),
@@ -5303,6 +5336,9 @@ SLICE16_TP = 2               # model-axis ranks of 22(b) and (d), gloo
 SLICE16_BATCH = 4            # 22(b)'s rows a step, whole on both ranks
 SLICE16_STEPS = (1, 2)       # 22(b)'s warm-up and timed steps
 SLICE16_SMALL = 2            # layers a tower of 22(b)'s and (d)'s float32 steps
+# blocks a tower of 22(b)'s bf16 TP step, at full width: cut from 12 to keep
+# the script within its time limit
+SLICE16_LAYERS = 2
 SLICE16_ENC = (8, 16)        # 22(d)'s images and captions
 SLICE16_LR = 1e-4            # 22(b)'s float32 steps (phase 8's lr)
 # 22(b) in bfloat16: each rank's K6 output is its partial sum rounded to
@@ -5613,7 +5649,9 @@ def _slice16_reference(K, path: str) -> dict:
     ref = {}
     with ln_setting("fuse_ln"):
         model = create_model("ViT-B-16", "bf16", device="cuda", seed=0,
-                             fuse_ln=True, **TRAIN_RECIPE)
+                             vision_layers=SLICE16_LAYERS,
+                             text_layers=SLICE16_LAYERS, fuse_ln=True,
+                             **TRAIN_RECIPE)
         step, state = _gspmd_setup(model, cosine_lr(5e-4, 2000, 100000),
                                    torch.bfloat16)
         batch = _train_batch(SLICE16_BATCH, seed=20, device="cuda")
@@ -5683,7 +5721,9 @@ def _slice16_rank(rank: int, spec: dict) -> None:
             mesh = create_tp_mesh(1, SLICE16_TP, "cuda")
             with ln_setting("fuse_ln"):
                 model = create_model("ViT-B-16", "bf16", device="cuda",
-                                     seed=0, fuse_ln=True, **TRAIN_RECIPE)
+                                     seed=0, vision_layers=SLICE16_LAYERS,
+                                     text_layers=SLICE16_LAYERS,
+                                     fuse_ln=True, **TRAIN_RECIPE)
                 step, state = _gspmd_setup(
                     model, cosine_lr(5e-4, 2000, 100000), torch.bfloat16,
                     mesh)
@@ -5756,7 +5796,7 @@ def _slice16_tp(K, tmp: str) -> dict:
               <= got.keys(), f"22(b)-(d) rank {r}: stopped after "
               f"{sorted(got)}")
     # (b) full width: every rank launches the one-process step's K1-K6
-    want = step_launches("fuse_ln", 12, SLICE16_BATCH)
+    want = step_launches("fuse_ln", SLICE16_LAYERS, SLICE16_BATCH)
     check(all(x == want for x in ref["fuse"]["launches"]),
           f"22(b) one-process fuse_ln launches {ref['fuse']['launches']}, "
           f"expected {want} a step")
@@ -5887,6 +5927,489 @@ def phase_slice16(K, data: str, workers: int, tmp: str) -> dict:
     return out
 
 
+# phase 23: the last surface of the JAX package that needs no download.
+# (a) the native data path's build (before phase 12, whose trainer reads
+# through it); (b) the decode split; (c) the loader alone with and without
+# it; (d) ViT-B-16-SigLIP at full width from a big_vision file; (e) K1 and
+# K2 at the SigLIP towers' geometries
+SIGLIP_MODEL = "ViT-B-16-SigLIP"
+SIGLIP_SEED = 23
+SIGLIP_CONTEXT = 64
+# (label, B, L, 3D, heads, causal): the vision tower (no CLS token) at the
+# serving and step batch, the text tower (no causal mask) at the serving
+# batch for K1 and at the step's for K2
+SIGLIP_K1_GEOMETRIES = (
+    ("vision ViT-B-16-SigLIP 224px", 64, 196, 3 * 768, 12, False),
+    ("text ViT-B-16-SigLIP 64 tokens", 256, 64, 3 * 768, 12, False))
+SIGLIP_K2_GEOMETRIES = (
+    ("vision ViT-B-16-SigLIP 224px", 64, 196, 3 * 768, 12, False),
+    ("text ViT-B-16-SigLIP 64 tokens", 64, 64, 3 * 768, 12, False))
+SIGLIP_CALL_K1 = {"image": 12, "text": 12}
+SIGLIP_STEP_BATCH = 64
+SIGLIP_STEPS = (2, 8)         # 23(d): warm-up and timed steps
+SIGLIP_SMALL = 2              # layers a tower of 23(d)'s float32 checks
+SIGLIP_STEP_RTOL = 1e-4
+SIGLIP_VOCAB = 32000          # its SentencePiece vocabulary
+DECODE_IMAGES = (8, 12)       # 23(b): shards x JPEGs, short side 1024-1600
+DECODE_SIDES = (1024, 1600)
+DECODE_FULL_CROPS = 16        # 23(b): JPEGs whose full-size decode is cropped
+# 23(c): (batch, batches timed after the first) on phase 12's shards and on
+# (b)'s; a worker batches within an epoch, so (b)'s 12 JPEGs a shard take
+# batches of 12
+NATIVE_LOADER_RUNS = {"256-640 px": (TRAINER_BATCH, 7),
+                      "1024-1600 px": (12, 14)}
+
+
+def big_vision_state_dict(seed: int, width: int = 768, layers: int = 12,
+                          heads: int = 12, patch: int = 16, grid: int = 14,
+                          vocab: int = 32000, ctx: int = 64,
+                          mlp: int = 3072) -> dict:
+    """ViT-B-16-SigLIP's weights in big_vision's layout (``params/img/...``,
+    ``params/txt/...``, ``t``, ``b``), float32 normals from ``seed``."""
+    rng = np.random.default_rng(seed)
+    hd = width // heads
+    sd = {}
+
+    def put(name, *shape, scale=0.02, shift=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(scale)
+        sd[f"params/{name}"] = a + np.float32(shift)
+
+    def attention(p):
+        for n in ("query", "key", "value"):
+            put(f"{p}/{n}/kernel", width, heads, hd)
+            put(f"{p}/{n}/bias", heads, hd)
+        put(f"{p}/out/kernel", heads, hd, width)
+        put(f"{p}/out/bias", width)
+
+    def ln(p):
+        put(f"{p}/scale", width, shift=1.0)
+        put(f"{p}/bias", width)
+
+    def mlp_block(p):
+        put(f"{p}/Dense_0/kernel", width, mlp)
+        put(f"{p}/Dense_0/bias", mlp)
+        put(f"{p}/Dense_1/kernel", mlp, width)
+        put(f"{p}/Dense_1/bias", width)
+
+    def encoder(p):
+        for i in range(layers):
+            b = f"{p}/encoderblock_{i}"
+            ln(f"{b}/LayerNorm_0")
+            ln(f"{b}/LayerNorm_1")
+            attention(f"{b}/MultiHeadDotProductAttention_0")
+            mlp_block(f"{b}/MlpBlock_0")
+        ln(f"{p}/encoder_norm")
+
+    put("img/embedding/kernel", patch, patch, 3, width)
+    put("img/embedding/bias", width)
+    put("img/pos_embedding", 1, grid * grid, width)
+    encoder("img/Transformer")
+    put("img/MAPHead_0/probe", 1, 1, width)
+    attention("img/MAPHead_0/MultiHeadDotProductAttention_0")
+    ln("img/MAPHead_0/LayerNorm_0")
+    mlp_block("img/MAPHead_0/MlpBlock_0")
+    put("txt/Embed_0/embedding", vocab, width)
+    put("txt/pos_embedding", 1, ctx, width)
+    encoder("txt/Encoder_0")
+    put("txt/head/kernel", width, width)
+    put("txt/head/bias", width)
+    sd["params/t"] = np.asarray([np.log(10.0)], np.float32)
+    sd["params/b"] = np.asarray([-10.0], np.float32)
+    return sd
+
+
+def phase_native_build() -> dict:
+    """23(a): build (or find) the native data path's library, as the loader's
+    parent does, and name the compiler, the headers and libjpeg."""
+    from cosmos_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    path = native.library_path()
+    built = not path.exists()
+    native.load()
+    seconds = time.perf_counter() - t0
+    compiler = subprocess.run(["g++", "--version"], capture_output=True,
+                              text=True).stdout.splitlines()[0]
+    libjpeg = native.find_libjpeg()
+    headers = (native.JPEG_INCLUDE / "jconfig.h").read_text()
+    version = next(line.split()[-1] for line in headers.splitlines()
+                   if line.startswith("#define LIBJPEG_TURBO_VERSION "))
+    out = dict(seconds=seconds, built=built, compiler=compiler,
+               libjpeg=libjpeg, headers=str(native.JPEG_INCLUDE.relative_to(
+                   ROOT)), headers_version=f"libjpeg-turbo {version}",
+               library=path.name)
+    print(f"[native] {'built' if built else 'found'} {path.name} in "
+          f"{seconds:.2f} s: {compiler}; headers {out['headers']} "
+          f"({out['headers_version']}, JPEG_LIB_VERSION 62); libjpeg "
+          f"{libjpeg}")
+    return out
+
+
+def _decode_split(shards) -> dict:
+    """23(b): ms per sample of PIL's decode, the native decode at the
+    loader's DCT scale (min_size 2 x 224) and the multi-crop transform (2 x
+    224 + 6 x 96) on each; and whether the native decode at denominator 1
+    gives PIL's bits."""
+    import io
+    import random
+
+    from PIL import Image
+
+    from cosmos_tpu_torch.data import native
+    from cosmos_tpu_torch.data.loader import WdsTrainConfig, train_transform
+    from cosmos_tpu_torch.data.webdataset import tar_to_samples
+
+    jpegs = [s["jpg"] for shard in shards for s in tar_to_samples(shard)]
+    transform = train_transform(WdsTrainConfig(urls=[]))
+    lib = native.load()
+
+    def pil(data):
+        img = Image.open(io.BytesIO(data))
+        img.load()
+        return img
+
+    def timed(fn, items):
+        t0 = time.perf_counter()
+        out = [fn(x) for x in items]
+        return out, (time.perf_counter() - t0) / len(items) * 1e3
+
+    full, pil_ms = timed(pil, jpegs)
+    scaled, native_ms = timed(lambda d: native.decode_jpeg_scaled(d, 448),
+                              jpegs)
+    denoms = [native.scale_denom(lib, d, 448) for d in jpegs]
+    rng = random.Random(SIGLIP_SEED)
+    _, crop_scaled_ms = timed(lambda a: transform(Image.fromarray(a), rng),
+                              scaled)
+    _, crop_full_ms = timed(lambda img: transform(img, rng),
+                            full[:DECODE_FULL_CROPS])
+    same = sum(np.array_equal(native.decode_jpeg_scaled(d),
+                              np.asarray(img.convert("RGB")))
+               for d, img in zip(jpegs, full))
+    check(all(min(a.shape[:2]) >= 448 for a in scaled),
+          "the DCT-scaled decode keeps the short side >= 448")
+    out = dict(images=len(jpegs), pil_ms=pil_ms, native_ms=native_ms,
+               denominators={str(d): denoms.count(d) for d in set(denoms)},
+               crop_native_ms=crop_scaled_ms, crop_full_ms=crop_full_ms,
+               denom1_equal_pil=same)
+    print(f"[native] decode of {len(jpegs)} JPEGs (short side "
+          f"{DECODE_SIDES[0]}-{DECODE_SIDES[1]} px, 4:2:0, q 90): PIL "
+          f"{pil_ms:.3f} ms, native at 1/{max(denoms)}-1/{min(denoms)} "
+          f"{native_ms:.3f} ms a sample; the multi-crop transform "
+          f"{crop_scaled_ms:.3f} ms on the scaled decode, {crop_full_ms:.3f} "
+          f"ms on PIL's (the first {DECODE_FULL_CROPS}); native at 1/1 gives "
+          f"PIL's bits for {same} of "
+          f"{len(jpegs)}")
+    return out
+
+
+def _native_loader_rate(argv, use_native_io: bool, batches: int) -> dict:
+    """The trainer's loader for ``argv`` with ``use_native_io`` set: time to
+    the first batch, then samples/s over ``batches`` more, timed after one
+    batch a worker has been taken (the batches the workers queued while
+    the first was awaited would time the queue, not the workers)."""
+    import dataclasses
+
+    from cosmos_tpu_torch.data.loader import WdsTrainLoader
+    from cosmos_tpu_torch.models.factory import get_tokenizer
+    from cosmos_tpu_torch.training.data_pipeline import get_data
+    from cosmos_tpu_torch.training.params import parse_args
+
+    made = get_data(parse_args(argv), get_tokenizer("ViT-B-16"))
+    cfg = dataclasses.replace(made["train"].dataloader.cfg,
+                              use_native_io=use_native_io)
+    loader = WdsTrainLoader(cfg)
+    try:
+        with _as_main_module("cosmos_tpu_torch.training.main"):
+            t0 = time.perf_counter()
+            it = iter(loader)
+            next(it)
+        first_s = time.perf_counter() - t0
+        for _ in range(cfg.num_workers):
+            next(it)
+        t1 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        seconds = time.perf_counter() - t1
+    finally:
+        loader.shutdown()
+    return dict(first_batch_s=first_s, workers=cfg.num_workers,
+                batch=cfg.batch_size, batches=batches,
+                samples_per_s=batches * cfg.batch_size / seconds)
+
+
+def _native_loaders(data: str, workers: int, big: str, logs: str) -> dict:
+    """23(c): the loader alone, native and not, on phase 12's shards
+    (256-640 px: no DCT scale engages) and on (b)'s (1024-1600 px)."""
+    base = _trainer_argv(data, logs, workers)
+    argvs = {"256-640 px": base, "1024-1600 px": _drop_flags(
+        base, values=("--train-data",)) + [
+        "--train-data",
+        f"{big}/big-{{0000..{DECODE_IMAGES[0] - 1:04d}}}.tar"]}
+    out = {}
+    for name, argv in argvs.items():
+        batch, batches = NATIVE_LOADER_RUNS[name]
+        argv = _drop_flags(argv, values=("--batch-size",)) + [
+            "--batch-size", str(batch)]
+        for use in (True, False):
+            key = f"{name} {'native' if use else 'PIL'}"
+            out[key] = _native_loader_rate(argv, use, batches)
+            print(f"[native] loader alone, {key}: "
+                  f"{out[key]['samples_per_s']:.1f} samples/s "
+                  f"({out[key]['workers']} workers, {batches} batches of "
+                  f"{batch}), first batch after "
+                  f"{out[key]['first_batch_s']:.2f} s")
+    return out
+
+
+def _siglip_load(path: str) -> tuple:
+    """23(d): ViT-B-16-SigLIP in bf16 from the big_vision file through the
+    load path: the model built on the CPU, the file read, converted and
+    loaded (``load_checkpoint``), the weights moved to the card, each
+    timed; its weights the file's."""
+    from cosmos_tpu_torch import create_model
+    from cosmos_tpu_torch.models.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    model = create_model(SIGLIP_MODEL, "bf16", device="cpu", seed=SIGLIP_SEED)
+    t1 = time.perf_counter()
+    load_checkpoint(model, path)
+    t2 = time.perf_counter()
+    model = model.to("cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    with np.load(path) as f:
+        probe = f["params/img/MAPHead_0/probe"]
+        head = f["params/txt/head/kernel"]
+    check(torch.equal(model.visual.attn_pool.probe.cpu(),
+                      torch.from_numpy(probe))
+          and torch.equal(model.text_projection.weight.cpu(),
+                          torch.from_numpy(head).t())
+          and model.logit_bias.item() == -10.0,
+          "the SigLIP model holds the big_vision file's weights")
+    n = sum(p.numel() for p in model.parameters())
+    gb = Path(path).stat().st_size / 1e9
+    out = dict(build_s=t1 - t0, load_s=t2 - t1, to_card_s=t3 - t2,
+               params=n, file_gb=gb)
+    print(f"[siglip] {SIGLIP_MODEL} ({n / 1e6:.2f} M parameters): built in "
+          f"{out['build_s']:.2f} s, a big_vision npz of {gb:.2f} GB read, "
+          f"converted and loaded in {out['load_s']:.2f} s, moved to the card "
+          f"in {out['to_card_s']:.2f} s")
+    return model, out
+
+
+def _siglip_tokens(n: int, seed: int) -> np.ndarray:
+    """n captions of SIGLIP_CONTEXT ids below SIGLIP_VOCAB (the tower pools
+    the last position, so every position holds a token)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, SIGLIP_VOCAB, (n, SIGLIP_CONTEXT)).astype(np.int64)
+
+
+def _siglip_batch(b, seed, device, size=224):
+    """One global crop and one caption view of ``b`` rows."""
+    rng = np.random.default_rng(seed)
+    return {"global_images": torch.from_numpy(rng.integers(
+                0, 256, (1, b, size, size, 3), np.uint8)).to(device),
+            "texts": torch.from_numpy(_siglip_tokens(b, seed)[None]).to(
+                device)}
+
+
+def _siglip_step(K, model) -> dict:
+    """23(d): the --siglip step at full width in bf16, batch 64, one fixed
+    uint8 batch (one crop, one caption): warm-up and timed steps with CUDA
+    events, exactly 12 K1 and 12 K2 a tower a step, finite losses."""
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import TrainStepConfig
+
+    model.train()
+    lr = const_lr(1e-4, 0, 100)
+    opt = create_optimizer(model, lr, beta1=0.9, beta2=0.98, eps=1e-8,
+                           weight_decay=0.1)
+    cfg = TrainStepConfig(cosmos=False, siglip=True, momentum_teacher=0.999,
+                          fix_momentum=True, lr_schedule=lr,
+                          input_dtype=torch.bfloat16)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt)
+    batch = _siglip_batch(SIGLIP_STEP_BATCH, SIGLIP_SEED + 3, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    zero_launches(K)
+    for i in range(sum(SIGLIP_STEPS)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch)
+        end.record()
+        losses.append(m["loss"].item())
+        if i >= SIGLIP_STEPS[0]:
+            ms.append(start.elapsed_time(end))
+    n = sum(SIGLIP_STEPS)
+    launches = read_launches(K)
+    want = {**dict.fromkeys(launches, 0), "K1": 24 * n, "K2": 24 * n}
+    check(launches == want, f"SigLIP step launches {launches}, expected "
+          f"{want}")
+    check(all(np.isfinite(losses)), f"SigLIP step losses finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(losses=losses, step_ms=ms, step_ms_median=float(np.median(ms)),
+               step_ms_mean=float(np.mean(ms)), peak_mem_gb=peak,
+               samples_per_s=SIGLIP_STEP_BATCH / float(np.median(ms)) * 1e3,
+               launches=launches)
+    print(f"[siglip] --siglip step bf16 batch {SIGLIP_STEP_BATCH}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; ms per step median "
+          f"{out['step_ms_median']:.3f} mean {out['step_ms_mean']:.3f} "
+          f"({out['samples_per_s']:.1f} samples/s); peak memory {peak:.2f} "
+          f"GB; K1/K2 24/24 a step")
+    del step, state, opt
+    return out
+
+
+def _siglip_card_vs_cpu() -> dict:
+    """23(d): a 2-layer float32 ViT-B-16-SigLIP on the card and on the CPU
+    from the same weights: the normalised features of 2 images and 4
+    captions, then one --siglip step at batch 2 (loss, gradients, the
+    updated student and teacher)."""
+    from cosmos_tpu_torch import create_model
+
+    cpu = create_model(SIGLIP_MODEL, "fp32", device="cpu",
+                       seed=SIGLIP_SEED + 4, vision_layers=SIGLIP_SMALL,
+                       text_layers=SIGLIP_SMALL)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    n_img, n_txt = WEIGHTS_CPU
+    rng = np.random.default_rng(SIGLIP_SEED + 5)
+    x = torch.from_numpy(rng.standard_normal((n_img, 224, 224, 3))
+                         .astype(np.float32))
+    toks = torch.from_numpy(_siglip_tokens(n_txt, SIGLIP_SEED + 5))
+    errs = {}
+    for what, fn, inp in (("image", "encode_image", x),
+                          ("text", "encode_text", toks)):
+        with torch.inference_mode():
+            key = f"{what}_features"
+            w = getattr(cpu, fn)(inp, True)[key]
+            g = getattr(gpu, fn)(inp.cuda(), True)[key].cpu()
+        check(g.shape == w.shape and torch.isfinite(g).all().item(),
+              f"SigLIP {what} features shape/finite")
+        errs[what] = (g - w).abs().max().item()
+        check(errs[what] <= WEIGHTS_CPU_TOL,
+              f"SigLIP card vs CPU {what}: max err {errs[what]}")
+    lr = 1e-4
+    small = _siglip_batch(2, SIGLIP_SEED + 6, "cpu")
+    cfg_kw = dict(cosmos=False, siglip=True)
+    want = _step_run(cpu.train(), cfg_kw, small, lr)
+    got = _step_run(gpu.train(), cfg_kw, small, lr)
+    check((got["K1"], got["K2"]) == (2 * SIGLIP_SMALL, 2 * SIGLIP_SMALL),
+          f"2-layer SigLIP step: K1/K2 {got['K1']}/{got['K2']}")
+    errs["loss"] = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    check(errs["loss"] <= SIGLIP_STEP_RTOL,
+          f"SigLIP loss card {got['loss']} vs CPU {want['loss']}")
+    errs["grads"] = _grad_errs(got["grads"], want["grads"], SIGLIP_STEP_RTOL,
+                               1e-8, "SigLIP 2-layer step")
+    for which in ("student", "teacher"):
+        errs[which] = max((got[which][k] - want[which][k]).abs().max().item()
+                          for k in want[which])
+        check(errs[which] <= 2 * lr,
+              f"SigLIP updated {which} card vs CPU: max err {errs[which]}")
+    print(f"[siglip] 2-layer float32 card vs CPU: features image "
+          f"{errs['image']:.3g} text {errs['text']:.3g}; step loss rel err "
+          f"{errs['loss']:.3g}, max grad err {errs['grads']:.3g}, updated "
+          f"student {errs['student']:.3g} teacher {errs['teacher']:.3g}")
+    return errs
+
+
+def _siglip_kernel_rows(fa) -> tuple:
+    """23(e): K1 and K2 held to their plain versions, with the same bits on
+    a repeat, and timed beside the plain version, SDPA and the bound, at
+    the SigLIP towers' geometries in both dtypes."""
+    gen = torch.Generator(device="cuda").manual_seed(SIGLIP_SEED)
+    rows = []
+    for label, b, l, d3, heads, causal in SIGLIP_K1_GEOMETRIES:
+        check(fa.supported(heads, d3 // 3, l, 2) and fa.supported(
+            heads, d3 // 3, l, 4), f"K1's gate admits {label}")
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(kernel_row(fa, label, b, l, d3, heads, causal, dtype,
+                                   gen))
+            x = torch.randn(b, l, d3, device="cuda", generator=gen).to(dtype)
+            _same_bits(f"K1 at {label} {dtype}",
+                       [fa.fused_attention_qkv(x, heads, causal)],
+                       [fa.fused_attention_qkv(x, heads, causal)])
+    bwd = [kernel_bwd_row(fa, label, b, l, d3, heads, causal, dtype, gen)
+           for label, b, l, d3, heads, causal in SIGLIP_K2_GEOMETRIES
+           for dtype in (torch.float32, torch.bfloat16)]
+    return rows, bwd
+
+
+def phase_siglip(K, native_build: dict, data: str, workers: int,
+                 tmp: str) -> dict:
+    """Phase 23: (e) K1/K2 at the SigLIP geometries first, then (b) the
+    decode split, (c) the loader alone, (d) ViT-B-16-SigLIP at full width
+    (the big_vision load, serving, the --siglip step, card against CPU);
+    (a), the native build, ran before phase 12."""
+    from cosmos_tpu_torch.data.synthetic import write_shards
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    rows, bwd_rows = _siglip_kernel_rows(K.fa)
+    done("kernels")
+    big = f"{tmp}/native_big"
+    shards = write_shards(big + "/big-{i:04d}.tar", *DECODE_IMAGES,
+                          seed=SIGLIP_SEED, size_range=DECODE_SIDES)
+    done("JPEGs written")
+    decode = _decode_split(shards)
+    done("decode split")
+    loaders = _native_loaders(data, workers, big, f"{tmp}/native_logs")
+    done("loader alone")
+    path = f"{tmp}/siglip_big_vision.npz"
+    np.savez(path, **big_vision_state_dict(SIGLIP_SEED))
+    done("big_vision file written")
+    model, load = _siglip_load(path)
+    Path(path).unlink()
+    done("load")
+    serve, k1_serve = _weights_serve(
+        K, model, 224, SIGLIP_CALL_K1, SIGLIP_MODEL, SIGLIP_SEED + 1,
+        length=SIGLIP_CONTEXT, tag="siglip",
+        captions=_siglip_tokens(WEIGHTS_CAPTIONS, SIGLIP_SEED + 1))
+    done("serving")
+    step = _siglip_step(K, model)
+    del model
+    torch.cuda.empty_cache()
+    done("step")
+    zero_launches(K)
+    card_vs_cpu = _siglip_card_vs_cpu()
+    small = read_launches(K)
+    done("card vs CPU")
+    k1 = {"SigLIP serving": k1_serve, "SigLIP step": step["launches"]["K1"],
+          "SigLIP 2-layer card vs CPU": small["K1"]}
+    k2 = {"SigLIP step": step["launches"]["K2"],
+          "SigLIP 2-layer card vs CPU": small["K2"]}
+    # the launches at each kernel row's geometry, all bf16: the image calls
+    # and the step's vision tower; the text calls (256 captions); the
+    # step's towers for K2
+    steps = sum(SIGLIP_STEPS)
+    by_geometry = {
+        "K1 vision": serve["k1_launches"]["image"] + 12 * steps,
+        "K1 text": serve["k1_launches"]["text"],
+        "K2 vision": 12 * steps, "K2 text": 12 * steps}
+    out = dict(native_build=native_build, decode=decode,
+               loader_alone=loaders, load=load, serving=serve, step=step,
+               card_vs_cpu=card_vs_cpu, kernel_rows=rows,
+               kernel_bwd_rows=bwd_rows, k1_launches=k1, k2_launches=k2,
+               launches_by_geometry=by_geometry, parts_s=parts,
+               phase_s=time.perf_counter() - t0)
+    print(f"[siglip] phase 23 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+          + "); K1 launches " + " ".join(f"{k}={v}" for k, v in k1.items())
+          + "; K2 launches " + " ".join(f"{k}={v}" for k, v in k2.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -5917,6 +6440,8 @@ def main() -> int:
     train_ln = phase_train_ln(K, train)
     train_ln_card_vs_cpu = {s: phase_train_card_vs_cpu(K, s)
                             for s in LN_SETTINGS}
+    # 23(a): every trainer from phase 12 on reads through the native path
+    native_build = phase_native_build()
     with tempfile.TemporaryDirectory(prefix="cosmos_trainer_") as work:
         trainer = phase_trainer(K, work)
         with tempfile.TemporaryDirectory(prefix="cosmos_evals_") as tmp:
@@ -5934,6 +6459,8 @@ def main() -> int:
         coca = phase_coca(K, trainer["data_dir"], trainer["workers"], work)
         slice16 = phase_slice16(K, trainer["data_dir"], trainer["workers"],
                                 work)
+        siglip = phase_siglip(K, native_build, trainer["data_dir"],
+                              trainer["workers"], work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = phase_last_flags(K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -5987,7 +6514,8 @@ def main() -> int:
         + sum(last_k1.values()) + sum(towers["k1_launches"].values())
         + beyond_k["K1"] + sum(weights["k1_launches"].values())
         + sum(coca["k1_launches"].values())
-        + sum(slice16["k1_launches"].values()),
+        + sum(slice16["k1_launches"].values())
+        + sum(siglip["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -6003,7 +6531,8 @@ def main() -> int:
                              **{f"weights in {k}": v for k, v in
                                 weights["k1_launches"].items()},
                              **coca["k1_launches"],
-                             **slice16["k1_launches"]},
+                             **slice16["k1_launches"],
+                             **siglip["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -6029,7 +6558,8 @@ def main() -> int:
         + data_parallel["world1"]["launches"]["K2"]
         + last["launches"]["K2"] + sum(towers["k2_launches"].values())
         + beyond_k["K2"] + sum(coca["k2_launches"].values())
-        + sum(slice16["k2_launches"].values()),
+        + sum(slice16["k2_launches"].values())
+        + sum(siglip["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -6041,9 +6571,35 @@ def main() -> int:
                              **towers["k2_launches"],
                              "beyond DP": beyond_k["K2"],
                              **coca["k2_launches"],
-                             **slice16["k2_launches"]},
+                             **slice16["k2_launches"],
+                             **siglip["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
+    # K1 and K2 at the SigLIP towers' geometries (phase 23): the bf16
+    # serving calls and the --siglip step at each
+    by_geometry = siglip["launches_by_geometry"]
+    for key, name, source, replaces, table, (label, *_) in (
+            ("K1 vision", "fused_attention_qkv_fwd_siglip_vision",
+             "fused_attention_fwd.cu", "cosmos_tpu/ops/fused_attention.py:101",
+             siglip["kernel_rows"], SIGLIP_K1_GEOMETRIES[0]),
+            ("K1 text", "fused_attention_qkv_fwd_siglip_text",
+             "fused_attention_fwd.cu", "cosmos_tpu/ops/fused_attention.py:101",
+             siglip["kernel_rows"], SIGLIP_K1_GEOMETRIES[1]),
+            ("K2 vision", "fused_attention_qkv_bwd_siglip_vision",
+             "fused_attention_bwd.cu", "cosmos_tpu/ops/fused_attention.py:190",
+             siglip["kernel_bwd_rows"], SIGLIP_K2_GEOMETRIES[0]),
+            ("K2 text", "fused_attention_qkv_bwd_siglip_text",
+             "fused_attention_bwd.cu", "cosmos_tpu/ops/fused_attention.py:190",
+             siglip["kernel_bwd_rows"], SIGLIP_K2_GEOMETRIES[1])):
+        n = by_geometry[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"cosmos_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": n,
+            "launches_by_path": {f"SigLIP serving and step, {key}": n},
+            **{k: pick(table, (label, torch.bfloat16))[k]
+               for k in attention_keys}})
+        check(n > 0, f"{key} never launched at the SigLIP geometry")
     for key, name, source, replaces, match in (
             ("K3", "layer_norm_fwd", "layer_norm_fwd.cu",
              "cosmos_tpu/ops/experimental/layer_norm.py:40", {}),
@@ -6103,7 +6659,7 @@ def main() -> int:
                   segmentation=segmentation, trainer_options=options,
                   data_parallel=data_parallel, last_flags=last,
                   towers=towers, beyond_dp=beyond, weights_in=weights,
-                  coca=coca, slice16=slice16,
+                  coca=coca, slice16=slice16, siglip=siglip,
                   total_s=time.perf_counter() - t0, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -9,13 +9,18 @@ run on the card unless the caller passes ``device="cpu"``.  Ported: the
 serving path (``create_model``, the encoders), the training step in the
 COSMOS, plain CLIP, SigLIP, distillation and CoCa modes with accumulation, remat
 and LiT locking (``create_optimizer``, ``create_train_state``,
-``make_train_step``, ``COSMOSLoss``), the host data pipeline (``data/``), the trainer
-(``python -m cosmos_tpu_torch.training.main``), the timm-family and
+``make_train_step``, ``COSMOSLoss``), the host data pipeline (``data/``,
+with the native tar streaming and DCT-scaled JPEG decode of
+``data/native.py``, built with g++ from ``data/csrc/``), the trainer
+(``python -m cosmos_tpu_torch.training.main``), the native ViT in every
+configuration of the JAX package's (SigLIP's MAP-pooled, no-CLS tower and
+the ``ViT-B-16-SigLIP`` config among them), the timm-family and
 ModifiedResNet vision towers with their configs, and the weights in: every
 local checkpoint format and cached pretrained tag the JAX package's
 ``create_model(pretrained=...)`` reads (``load_checkpoint``,
-``load_openai_model``, the registry), and CoCa (``CoCa``, ``CoCaLoss``,
-caption generation in ``models.coca``).
+``load_openai_model``, the registry, big_vision SigLIP files), and CoCa
+(``CoCa``, ``CoCaLoss``, caption generation in ``models.coca``).  What
+needs a download (HF tokenizers and towers, the hub) is refused.
 
 The names below are the JAX package's public names.  They are imported on
 first use, so that the data loader's worker processes, which import

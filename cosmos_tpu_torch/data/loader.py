@@ -6,7 +6,11 @@ by worker), decode and augment on the host, and put COMPLETE batches on a
 queue; the main process takes them in arrival order.  Crops cross the
 process boundary as uint8: mean/std normalisation runs on the device in the
 train step.  The workers import this package's data modules only (numpy,
-PIL, the standard library), never torch.
+PIL, ctypes, the standard library), never torch.  By default
+(``use_native_io``) a worker streams each shard through the native tar
+reader and decodes JPEGs at a reduced DCT scale (``data/native.py``), as the
+JAX package's loader does; the parent builds that library before it starts
+a worker, so a build failure raises there.
 
 Epoch bookkeeping: the loader is an infinite stream; ``num_batches`` per
 epoch comes from --train-num-samples and the global batch, and
@@ -65,6 +69,9 @@ class WdsTrainConfig:
     # --aug-cfg kwargs (scale/ratio/color_jitter[_prob]/gray_scale_prob)
     # for the non-multicrop train transform
     aug_cfg: Optional[dict] = None
+    # native C++ tar streaming + DCT-scaled JPEG decode (data/native.py);
+    # False reads with tarfile and decodes with PIL
+    use_native_io: bool = True
 
 
 def train_transform(cfg: WdsTrainConfig):
@@ -113,14 +120,33 @@ def _worker_loop(cfg: WdsTrainConfig, worker_index: int, epoch0: int,
         worker_count=cfg.num_workers,
     )
 
+    jpeg_decoder = None
+    if cfg.use_native_io:
+        from cosmos_tpu_torch.data import native
+
+        # decode JPEGs at a reduced DCT scale but keep >= 2x the largest
+        # crop, so RandomResizedCrop's geometry is unchanged (only texture
+        # finer than 2x the target is dropped)
+        decode_min_size = 2 * cfg.image_size
+
+        def jpeg_decoder(data):
+            return native.decode_jpeg_scaled(data, min_size=decode_min_size)
+
+    def shard_samples(shard):
+        if not cfg.use_native_io:
+            yield from tar_to_samples(shard)
+            return
+        with native.NativeTarStream([shard]) as stream:
+            yield from stream
+
     epoch = epoch0
     while True:
         rng = random.Random(hash((cfg.seed, epoch, cfg.process_index, worker_index)))
 
         def sample_stream():
             for shard in shards.epoch_shards(epoch):
-                for raw in tar_to_samples(shard):
-                    decoded = decode_sample(raw)
+                for raw in shard_samples(shard):
+                    decoded = decode_sample(raw, jpeg_decoder=jpeg_decoder)
                     if decoded is None:
                         continue
                     yield decoded
@@ -223,6 +249,12 @@ class WdsTrainLoader:
                 "--train-data-upsampling-factors is only supported with "
                 "--dataset-resampled "
             )
+        if self.cfg.use_native_io:
+            # build (or find) the native library here, once: a worker only
+            # loads it, and a failed build raises in this process
+            from cosmos_tpu_torch.data import native
+
+            native.load()
         local = [u for u in self.cfg.urls if "://" not in str(u)]
         if local and not any(os.path.exists(u) for u in local):
             # every shard-open failure is nothrow-swallowed per sample

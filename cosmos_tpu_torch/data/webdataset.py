@@ -9,8 +9,9 @@
     duplicate keys tolerated;
   - a sample shuffle buffer.
 
-Pure stdlib (tarfile) + PIL; no webdataset dependency.  Images decode with
-PIL, the JAX package's path when its native tar reader is absent.
+Pure stdlib (tarfile) + PIL; no webdataset dependency.  The training
+loader streams shards through ``data/native.py`` instead and hands its
+DCT-scaled JPEG decoder to ``decode_sample``.
 """
 
 from __future__ import annotations
@@ -207,17 +208,20 @@ def shuffle_buffer(
     yield from buf
 
 
-def decode_sample(sample: Dict[str, bytes]):
+def decode_sample(sample: Dict[str, bytes], jpeg_decoder=None):
     """bytes -> (PIL image, caption dict) or None if not a valid pair.
 
-    The JAX package's PIL path: its native DCT-scaled JPEG decoder is not
-    ported, so JPEG members decode to the full-size PIL image."""
+    ``jpeg_decoder(data) -> np.ndarray | None`` decodes a JPEG member (the
+    native DCT-scaled decoder); where it returns None or raises (a CMYK or
+    corrupt JPEG), PIL decodes the member, as every other image."""
     from PIL import Image
 
     img_bytes = None
+    img_ext = None
     for ext in IMG_EXTS:
         if ext in sample:
             img_bytes = sample[ext]
+            img_ext = ext
             break
     meta = None
     if "json" in sample:
@@ -230,6 +234,14 @@ def decode_sample(sample: Dict[str, bytes]):
         meta = {"raw_caption": [sample["txt"].decode("utf-8", "replace")]}
     if not img_bytes or meta is None:  # absent OR zero-length member
         return None
+    if jpeg_decoder is not None and img_ext in ("jpg", "jpeg"):
+        try:
+            arr = jpeg_decoder(img_bytes)
+        except Exception as e:
+            log_and_continue(e)
+            arr = None
+        if arr is not None:
+            return Image.fromarray(arr), meta
     try:
         img = Image.open(io.BytesIO(img_bytes))
         img.load()

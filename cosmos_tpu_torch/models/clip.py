@@ -14,7 +14,9 @@ and the MLP (K6); ``remat`` recomputes each block in the backward
 ``vision_cfg.patch_dropout > 0`` drops patch tokens in the forwards that
 pass a ``patch_drop`` generator (the student's training forwards).
 
-The vision tower is the native ViT, a timm-family tower (``timm_model_name``:
+The vision tower is the native ViT (any configuration of the JAX
+package's: SigLIP's no-CLS, MAP-pooled, unprojected tower among them), a
+timm-family tower (``timm_model_name``:
 the timm ViT, EVA02, ConvNeXt or FastViT/MCi, ``models/timm_model.py``) or
 ModifiedResNet (list-valued ``layers``), dispatched as the JAX package
 dispatches them.  The last two take plain CLIP/SigLIP only: the COSMOS
@@ -91,18 +93,25 @@ class CLIP(nn.Module):
                 image_size=v.image_size, width=v.width, dtype=dtype)
             token_width = self.visual.num_features
         else:
-            if (v.pool_type not in ("tok", "avg") or not v.class_token
-                    or v.no_proj or v.patch_bias or v.final_ln_after_pool
-                    or v.pos_embed_type != "learnable"):
+            if cross_pool and (v.pool_type not in ("tok", "avg", "map") or (
+                    v.no_proj and v.width != cfg.embed_dim)):
+                # the JAX package's init traces the cross-modal heads and
+                # fails there on these towers
                 raise ValueError(
-                    "the native vision tower takes the CLS-token, 'tok'- or "
-                    "'avg'-pooled, learned-position OpenCLIP ViT only")
+                    "the COSMOS cross-modal heads need one pooled image "
+                    f"feature of the embedding width {cfg.embed_dim}; pool "
+                    f"{v.pool_type!r} with no_proj={v.no_proj} at width "
+                    f"{v.width} gives none")
             self.visual = VisionTransformer(
                 image_size=v.image_size, patch_size=v.patch_size,
                 width=v.width, layers=v.layers, num_heads=v.heads,
                 mlp_ratio=v.mlp_ratio, output_dim=cfg.embed_dim,
                 ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
-                pool_type=v.pool_type, cross_pool=cross_pool,
+                pool_type=v.pool_type, class_token=v.class_token,
+                patch_bias=v.patch_bias, no_proj=v.no_proj,
+                pos_embed_type=v.pos_embed_type,
+                final_ln_after_pool=v.final_ln_after_pool,
+                cross_pool=cross_pool,
                 attn_pooler_heads=v.attn_pooler_heads,
                 add_zero_attn=v.add_zero_attn, act_fn=act,
                 patch_dropout=v.patch_dropout, **blocks)

@@ -18,7 +18,7 @@ JAX tree's paths with dots (a ``kernel`` as ``weight``); ModifiedResNet
 takes OpenAI's names, ``build_resnet_vision_map``'s.
 
 The third-party layouts (``detect_format``, ``convert_state_dict``: bare
-timm trunks, Apple's MobileCLIP) follow at the end; ``models/checkpoint.py``
+timm trunks, big_vision SigLIP, Apple's MobileCLIP) follow at the end; ``models/checkpoint.py``
 reads the files.
 """
 
@@ -108,8 +108,23 @@ def _stack_entries(prefix_t: str, prefix_f: Tuple[str, ...],
 
 
 def _vit_entries(layers: int) -> List[Entry]:
+    """The native ViT's entries, SigLIP's parts with the JAX tree's paths
+    with dots (``conv1.bias``, ``attn_pool.*``: JAX's own bridge has no
+    names for them and drops them)."""
+    pool = [("visual.attn_pool.probe", ("visual", "attn_pool", "probe"),
+             None),
+            ("visual.attn_pool.ln.weight",
+             ("visual", "attn_pool", "ln", "scale"), None),
+            ("visual.attn_pool.ln.bias",
+             ("visual", "attn_pool", "ln", "bias"), None)]
+    for n in ("q", "kv", "out", "c_fc", "c_proj"):
+        pool += [(f"visual.attn_pool.{n}.weight",
+                  ("visual", "attn_pool", n, "kernel"), "t"),
+                 (f"visual.attn_pool.{n}.bias",
+                  ("visual", "attn_pool", n, "bias"), None)]
     entries: List[Entry] = [
         ("visual.conv1.weight", ("visual", "conv1_kernel"), "conv"),
+        ("visual.conv1.bias", ("visual", "conv1_bias"), None),
         ("visual.class_embedding", ("visual", "class_embedding"), None),
         ("visual.positional_embedding",
          ("visual", "positional_embedding"), None),
@@ -118,7 +133,7 @@ def _vit_entries(layers: int) -> List[Entry]:
         ("visual.ln_post.weight", ("visual", "ln_post", "scale"), None),
         ("visual.ln_post.bias", ("visual", "ln_post", "bias"), None),
         ("visual.proj", ("visual", "proj"), None),
-    ]
+    ] + pool
     return entries + _stack_entries("visual.transformer",
                                     ("visual", "transformer"), layers)
 
@@ -498,10 +513,7 @@ def convert_state_dict(model: torch.nn.Module, sd: Dict[str, Any]
     if fmt == "open_clip":
         return torch_state_dict_to_model(model, sd)
     if fmt == "big_vision_siglip":
-        raise NotImplementedError(
-            "big_vision SigLIP .npz checkpoints are not ported: the port's "
-            "ViT has no 'map' pool (ROADMAP queue 1, \"Not queued\": "
-            "the ViT-B-16-SigLIP towers)")
+        return convert_big_vision_siglip(model, sd)
     if fmt in ("timm_vit", "timm_eva", "timm_convnext"):
         if not hasattr(getattr(model, "visual", None), "trunk"):
             if fmt == "timm_convnext":
@@ -535,6 +547,132 @@ def convert_state_dict(model: torch.nn.Module, sd: Dict[str, Any]
     if fmt == "mobileclip":
         return convert_mobileclip(model, sd)
     raise ValueError(f"unrecognized checkpoint format (keys: {list(sd)[:5]})")
+
+
+# --- big_vision SigLIP (.npz) ----------------------------------------------
+#
+# The big_vision layout goes into the JAX package's parameter tree, as its
+# ``convert_big_vision_siglip`` builds it, then through the bridge's names.
+# The model must be SigLIP-shaped: a no-CLS ViT with a biased patch
+# embedding, the MAP head and no projection; a text tower without a causal
+# mask, 'last' pooling and a biased projection; a logit bias.
+
+
+def _bv(sd: Dict[str, Any], key: str) -> np.ndarray:
+    for prefix in ("params/", ""):
+        if prefix + key in sd:
+            return np_(sd[prefix + key])
+    raise KeyError(key)
+
+
+def _bv_ln(sd: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _bv(sd, f"{prefix}/scale"),
+            "bias": _bv(sd, f"{prefix}/bias")}
+
+
+def _bv_attention(sd: Dict[str, Any], att: str
+                  ) -> Dict[str, np.ndarray]:
+    """A MultiHeadDotProductAttention's q, k, v and out as [in, out]
+    kernels and flat biases."""
+    d = _bv(sd, f"{att}/query/kernel").shape[0]
+    out = {}
+    for n in ("query", "key", "value"):
+        out[n] = (_bv(sd, f"{att}/{n}/kernel").reshape(d, -1),
+                  _bv(sd, f"{att}/{n}/bias").reshape(-1))
+    out["out"] = (_bv(sd, f"{att}/out/kernel").reshape(-1, d),
+                  _bv(sd, f"{att}/out/bias"))
+    return out
+
+
+def _bv_dense(sd: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _bv(sd, f"{prefix}/kernel"),
+            "bias": _bv(sd, f"{prefix}/bias")}
+
+
+def _bv_block(sd: Dict[str, Any], p: str) -> Dict[str, Any]:
+    """One big_vision encoderblock in the JAX tree's resblock layout."""
+    att = _bv_attention(sd, f"{p}/MultiHeadDotProductAttention_0")
+    qkv = [att[n] for n in ("query", "key", "value")]
+    return {
+        "ln_1": _bv_ln(sd, f"{p}/LayerNorm_0"),
+        "ln_2": _bv_ln(sd, f"{p}/LayerNorm_1"),
+        "attn": {
+            "in_proj_kernel": np.concatenate([k for k, _ in qkv], axis=1),
+            "in_proj_bias": np.concatenate([b for _, b in qkv]),
+            "out_proj": dict(zip(("kernel", "bias"), att["out"])),
+        },
+        "mlp": {"c_fc": _bv_dense(sd, f"{p}/MlpBlock_0/Dense_0"),
+                "c_proj": _bv_dense(sd, f"{p}/MlpBlock_0/Dense_1")},
+    }
+
+
+def _bv_blocks(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    blocks = {}
+    i = 0
+    while (f"params/{prefix}/encoderblock_{i}/LayerNorm_0/scale" in sd
+           or f"{prefix}/encoderblock_{i}/LayerNorm_0/scale" in sd):
+        blocks[f"resblocks_{i}"] = _bv_block(sd, f"{prefix}/encoderblock_{i}")
+        i += 1
+    return blocks
+
+
+def convert_big_vision_siglip(model: torch.nn.Module, sd: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """A big_vision SigLIP checkpoint (``params/img/...``, ``params/txt/...``,
+    ``t``, ``b``; with or without the ``params/`` prefix) as the full
+    float32 state dict of ``model``.  Parameters the checkpoint lacks keep
+    the model's values; a converted tensor the model has no slot for, or a
+    slot of another shape, raises."""
+    mp = "img/MAPHead_0"
+    att = _bv_attention(sd, f"{mp}/MultiHeadDotProductAttention_0")
+    pe = _bv(sd, "img/pos_embedding")
+    visual = {
+        "conv1_kernel": _bv(sd, "img/embedding/kernel"),      # HWIO
+        "conv1_bias": _bv(sd, "img/embedding/bias"),
+        "positional_embedding": pe.reshape(-1, pe.shape[-1]),  # no CLS row
+        "transformer": _bv_blocks(sd, "img/Transformer"),
+        "ln_post": _bv_ln(sd, "img/Transformer/encoder_norm"),
+        "attn_pool": {
+            "probe": _bv(sd, f"{mp}/probe"),
+            "q": dict(zip(("kernel", "bias"), att["query"])),
+            "kv": {"kernel": np.concatenate([att["key"][0], att["value"][0]],
+                                            axis=1),
+                   "bias": np.concatenate([att["key"][1], att["value"][1]])},
+            "out": dict(zip(("kernel", "bias"), att["out"])),
+            "ln": _bv_ln(sd, f"{mp}/LayerNorm_0"),
+            "c_fc": _bv_dense(sd, f"{mp}/MlpBlock_0/Dense_0"),
+            "c_proj": _bv_dense(sd, f"{mp}/MlpBlock_0/Dense_1"),
+        },
+    }
+    tpe = _bv(sd, "txt/pos_embedding")
+    text = {
+        "token_embedding": {"embedding": _bv(sd, "txt/Embed_0/embedding")},
+        "positional_embedding": tpe.reshape(-1, tpe.shape[-1]),
+        "transformer": _bv_blocks(sd, "txt/Encoder_0"),
+        "ln_final": _bv_ln(sd, "txt/Encoder_0/encoder_norm"),
+        "text_projection": _bv_dense(sd, "txt/head"),
+    }
+    tree = {"visual": visual, "text": text,
+            "logit_scale": _bv(sd, "t").reshape(()),
+            "logit_bias": _bv(sd, "b").reshape(())}
+    new = state_dict_from_jax_params(tree)
+    target = model.state_dict()
+    unused = sorted(set(new) - set(target))
+    if unused:
+        raise ValueError(
+            f"converted SigLIP tensors have no slot in the target model: "
+            f"{unused[:8]} — build the model with the SigLIP vision/text "
+            "config (pool_type='map', class_token=False, patch_bias=True, "
+            "init_logit_bias)")
+    out = dict(target)
+    for key, value in new.items():
+        if tuple(value.shape) != tuple(target[key].shape):
+            raise ValueError(f"shape mismatch at {key}: {tuple(value.shape)} "
+                             f"vs {tuple(target[key].shape)}")
+        out[key] = value.float()
+    logger.info("converted SigLIP npz: %d vision + %d text blocks",
+                len(visual["transformer"]), len(text["transformer"]))
+    return out
 
 
 # --- MobileCLIP (Apple ml-mobileclip checkpoints) -------------------------

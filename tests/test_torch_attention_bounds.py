@@ -15,8 +15,10 @@ from cosmos_tpu.ops.fused_attention import _cost
 
 # (B, L, D, heads): the serving and training geometries of chip_smoke.py
 GEOMETRIES = sorted({(b, l, d3 // 3, heads)
-                     for _, b, l, d3, heads, _ in (chip_smoke.GEOMETRIES
-                                                   + chip_smoke.TRAIN_GEOMETRIES)})
+                     for _, b, l, d3, heads, _ in (
+                         chip_smoke.GEOMETRIES + chip_smoke.TRAIN_GEOMETRIES
+                         + list(chip_smoke.SIGLIP_K1_GEOMETRIES)
+                         + list(chip_smoke.SIGLIP_K2_GEOMETRIES))})
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -60,6 +62,9 @@ def test_causal_counts_the_lower_triangle(bound, l):
     # training globals, bf16
     (chip_smoke.attention_bound, (256, 197, 768), 0.0925),
     (chip_smoke.attention_bwd_bound, (128, 197, 768), 0.0809),
+    # the SigLIP towers (no CLS token, no causal mask): 77.1 and 100.7 MB
+    (chip_smoke.attention_bound, (64, 196, 768), 0.0230),
+    (chip_smoke.attention_bound, (256, 64, 768), 0.0300),
 ])
 def test_bounds_of_the_main_geometries(bound, shape, want_ms):
     ms, by, nbytes, ops = bound(*shape, False, torch.bfloat16)

@@ -222,11 +222,24 @@ def test_eva_variants_refused_as_jax(variant):
 
 
 def test_big_vision_is_refused_by_name(tmp_path):
+    # a big_vision file loads into a SigLIP-shaped model, and a model
+    # without SigLIP's towers refuses it, naming the SigLIP config
+    from test_siglip_convert import make_bv_npz
+    from test_torch_siglip import _bv_model_kw
+
     path = tmp_path / "siglip.npz"
-    np.savez(path, **{"params/img/embedding/kernel": np.zeros((2, 2))})
+    sd = make_bv_npz(np.random.default_rng(0))
+    np.savez(path, **{f"params/{k}": v for k, v in sd.items()})
     tm = create_model("ViT-Tiny-Test", device="cpu")
-    with pytest.raises(NotImplementedError, match="ViT-B-16-SigLIP"):
+    with pytest.raises(ValueError, match="SigLIP vision/text config"):
         pckpt.load_checkpoint(tm, str(path))
+    model = create_model("ViT-B-16", device="cpu", **_bv_model_kw())
+    pckpt.load_checkpoint(model, str(path))
+    want = pconvert.convert_big_vision_siglip(model, sd)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    assert torch.equal(model.visual.attn_pool.probe,
+                       torch.from_numpy(sd["img/MAPHead_0/probe"]))
 
 
 def _mobileclip_b_checkpoint():

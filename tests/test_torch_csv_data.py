@@ -34,7 +34,7 @@ def _cfgs(**kw):
                        local_crops_number=2, local_size=16,
                        num_sampled_captions=4, context_length=16, seed=7,
                        caption_sampling_mode="textcrop"), **kw)
-    return (ploader.WdsTrainConfig(**common),
+    return (ploader.WdsTrainConfig(**common, use_native_io=False),
             jloader.WdsTrainConfig(**common, use_native_io=False))
 
 

@@ -4,9 +4,9 @@ sampling, the multi-crop, eval and plain train transforms, shard lists,
 tar reading, the train and val loaders, the retrieval data, and the
 prefetcher's CPU path.  Every comparison is exact.
 
-Images are PNG members (or JPEG decoded through JAX's PIL path,
-`use_native_io=False`), so that both sides decode with PIL: JAX's native
-reader decodes JPEG at a reduced DCT scale, which the port does not copy.
+Images are PNG members (or JPEG read with `use_native_io=False` on both
+sides), so that both sides decode with PIL; tests/test_torch_native_io.py
+holds the native tar reader and DCT-scaled JPEG decode to JAX's.
 """
 
 import random
@@ -172,7 +172,7 @@ def _train_cfgs(data_dir, **kw):
                        local_crops_number=2, local_size=16,
                        num_sampled_captions=4, context_length=16, seed=7),
                   **kw)
-    return (ploader.WdsTrainConfig(**common),
+    return (ploader.WdsTrainConfig(**common, use_native_io=False),
             jloader.WdsTrainConfig(**common, use_native_io=False))
 
 
@@ -296,6 +296,8 @@ def test_worker_imports_do_not_import_torch():
             "import cosmos_tpu_torch.data.transforms, cosmos_tpu_torch.data.webdataset\n"
             "import cosmos_tpu_torch.data.tokenizer, cosmos_tpu_torch.data.datasets\n"
             "import cosmos_tpu_torch.data.synthetic\n"
+            "import cosmos_tpu_torch.data.native\n"
+            "cosmos_tpu_torch.data.native.load()\n"
             # the workers re-import __main__: the trainer's module
             "import cosmos_tpu_torch.training.main\n"
             "assert 'torch' not in sys.modules, 'torch imported'\n")

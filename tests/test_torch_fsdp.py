@@ -39,6 +39,7 @@ from cosmos_tpu_torch.models.convert import (build_name_map,
                                              model_name_map,
                                              state_dict_from_jax_params)
 from cosmos_tpu_torch.parallel import fsdp
+from test_torch_siglip import jax_model
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GLOBAL_BATCH = 4
@@ -171,7 +172,8 @@ def _torch_dim(d, tf, ndim):
 def jax_params():
     return {"native": jax_create_model("ViT-B-16", seed=1, **R.TINY,
                                        **R.COSMOS)[1],
-            "coca": jax_coca()[1]}
+            "coca": jax_coca()[1],
+            "siglip": jax_model(dict(R.TINY, **R.SIGLIP_TOWERS))[1]}
 
 
 MESH_SHAPES = [(1, 2), (1, 8), (2, 2), (4, 2)]
@@ -179,8 +181,8 @@ MESH_SHAPES = [(1, 2), (1, 8), (2, 2), (4, 2)]
 
 @pytest.mark.parametrize("tp,n_data,model_name", [
     pytest.param(tp, n, "native", id=f"{tp}-{n}") for tp, n in MESH_SHAPES
-] + [pytest.param(tp, n, "coca", id=f"{tp}-{n}-coca")
-     for tp, n in MESH_SHAPES])
+] + [pytest.param(tp, n, name, id=f"{tp}-{n}-{name}")
+     for name in ("coca", "siglip") for tp, n in MESH_SHAPES])
 def test_placements_equal_jax_leaf_for_leaf(jax_params, tp, n_data,
                                             model_name):
     from cosmos_tpu_torch import create_model
@@ -190,8 +192,8 @@ def test_placements_equal_jax_leaf_for_leaf(jax_params, tp, n_data,
         model = create_model("coca_Tiny-Test", device="meta")
         entries = model_name_map(model)
     else:
-        model = create_model("ViT-B-16", device="meta", **R.TINY,
-                             **R.COSMOS)
+        towers = R.SIGLIP_TOWERS if model_name == "siglip" else R.COSMOS
+        model = create_model("ViT-B-16", device="meta", **R.TINY, **towers)
         entries = build_name_map(1, 1)
     got = fsdp.fsdp_placements(model, n_data, tp, MIN_SIZE)
     mesh_shape = {DATA_AXIS: n_data, MODEL_AXIS: tp}

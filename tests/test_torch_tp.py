@@ -50,6 +50,7 @@ from cosmos_tpu_torch.models.convert import (build_name_map,
                                              vision_entries)
 from cosmos_tpu_torch.models.factory import create_model
 from cosmos_tpu_torch.parallel import tp
+from test_torch_siglip import jax_model
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # head dim 64: K1 and K2 take the self-attentions
@@ -82,7 +83,12 @@ TOWERS = {
     "fastvit": ("MobileCLIP-S1", dict(
         vision_timm_model_name="fastvit_tp_porttest", vision_image_size=64)),
     "coca": ("coca_Tiny-Test", {}),
+    "siglip": ("ViT-B-16", dict(R.TINY, **R.SIGLIP_TOWERS)),
 }
+# the SigLIP towers at head dim 64 (K1, K2), the embedding at the ViT's
+# width (no projection), stepped as plain CLIP: JAX's GSPMD step refuses
+# the SigLIP loss
+SIGLIP_TP = dict(KERNEL_TINY, embed_dim=128, **R.SIGLIP_TOWERS)
 
 
 def _sd(tree):
@@ -155,6 +161,7 @@ def runs(tmp_path_factory):
                                   fuse_ln=True, use_flash=False, **native,
                                   **R.COSMOS)
     jm_coca, jp_coca = jax_coca()
+    jm_siglip, jp_siglip = jax_model(dict(R.TINY, **SIGLIP_TP))
     batch = R.step_batch(4, 1)
     # padded captions in the first data rank's rows only: its caption
     # cross-entropy averages fewer tokens than the second's
@@ -205,6 +212,9 @@ def runs(tmp_path_factory):
         "tp_fuse_ln": ("sharded_step", fuse),
         "tp_fuse_ln_fused_ln": ("sharded_step", dict(fuse, fused_ln=True)),
         "tp_coca": ("sharded_step", dict(coca, init=coca_init)),
+        "tp_siglip": ("sharded_step", dict(
+            kind="tp", shape=(2, 2), init=_sd(jp_siglip), batch=batch,
+            mode="clip", model_kw=SIGLIP_TP)),
         "tp_coca_unequal": ("sharded_step", dict(
             coca, init=unequal_init, config=unequal)),
         "resume_tp": ("resumed", dict(kind="tp", shape=(2, 2),
@@ -220,6 +230,8 @@ def runs(tmp_path_factory):
     want["tp_fuse_ln"] = _jax_tp_step(jm_fuse, jp_fuse, batch, mesh)
     want["tp_coca"] = _jax_tp_step(jm_coca, jp_coca, coca_batch, mesh,
                                    "coca")
+    want["tp_siglip"] = _jax_tp_step(jm_siglip, jp_siglip, batch, mesh,
+                                     "clip")
     with R.registered(unequal):
         want["tp_coca_unequal"] = R.port_step("coca", unequal_init,
                                               coca_batch, config=unequal)
@@ -476,6 +488,14 @@ def test_tp_coca_of_unequal_widths_equals_its_unsharded_step(runs, part):
     _close(r0[part], runs["want"]["tp_coca_unequal"][part],
            f"tp unequal coca {part}")
     # its 128-wide vision tower (head dim 64) takes K1 and K2
+    assert r0["calls"]["K1"] > 0 and r0["calls"]["K2"] > 0
+
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+def test_tp_siglip_towers_step_equals_jax(runs, part):
+    # MAPHead's q, kv and c_fc column-parallel, out and c_proj row-parallel
+    r0 = runs["ranks"][0]["tp_siglip"]
+    _close(r0[part], runs["want"]["tp_siglip"][part], f"tp siglip {part}")
     assert r0["calls"]["K1"] > 0 and r0["calls"]["K2"] > 0
 
 

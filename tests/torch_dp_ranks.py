@@ -37,6 +37,13 @@ TINY = dict(embed_dim=32, vision_image_size=16, vision_patch_size=8,
 COSMOS = dict(cosmos=True, output_all=True, attentional_pool=True,
               add_zero_attn=True)
 SIGLIP = dict(init_logit_scale=float(np.log(10.0)), init_logit_bias=-10.0)
+# the towers of ViT-B-16-SigLIP: a no-CLS, MAP-pooled, unprojected ViT with
+# a biased patch embedding, and a text tower without a causal mask, 'last'
+# pooling and a biased projection (the embedding width must be the ViT's)
+SIGLIP_TOWERS = dict(vision_class_token=False, vision_patch_bias=True,
+                     vision_no_proj=True, vision_no_ln_pre=True,
+                     vision_pool_type="map", text_no_causal_mask=True,
+                     text_pool_type="last", text_proj_bias=True)
 LR, BETA1, EPS = 1e-3, 0.9, 1e-3
 
 
@@ -199,6 +206,7 @@ def losses_rank(rank: int, world: int, payload) -> Dict[str, Any]:
 # mode -> (model overrides, step config, micro-batches)
 STEP_MODES = {
     "cosmos": (COSMOS, dict(cosmos=True), 1),
+    "clip": ({}, dict(cosmos=False), 1),
     "clip-accum-exact": ({}, dict(cosmos=False, accum_freq=2), 2),
     "siglip": (SIGLIP, dict(cosmos=False, siglip=True), 1),
     "coca": ({}, dict(cosmos=False, coca=True, coca_caption_loss_weight=1.5),
