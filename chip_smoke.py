@@ -71,13 +71,16 @@ from the sources in the checkout and then:
  11. repeats phase 8's 2-layer float32 step, card against CPU, under each
      of (a)-(c);
  12. drives the trainer, python -m cosmos_tpu_torch.training.main, through
-     main([...]) at full width: ViT-B-16 COSMOS with scripts/train_cc3m.sh's
+     main([...]) at full width and TRAINER_LAYERS (6) blocks a tower (the
+     trainer paths of phases 12, 15-17, 19, 21(e) and 22(c) all run that
+     depth, ViT-B-16's and coca_ViT-B-32's configs registered at run time
+     by register_trainer_models): ViT-B-16 COSMOS with scripts/train_cc3m.sh's
      flags (amp, exact GELU, no text bucket, multi-crop 2 + 6, textcrop
      with 8 captions, momentum 0.999 fixed, a checkpoint every epoch) at
      batch 64 on webdataset shards of synthetic JPEGs written from a seed
-     (min(8, cpus - 1) loader workers), 2 epochs of 4 steps with val and
+     (min(8, cpus - 1) loader workers), an epoch of 4 steps with val and
      COCO retrieval evals of student and teacher, then --resume latest for
-     a third; checks finite losses, the logit-scale clamp, the exact K1/K2
+     a second; checks finite losses, the logit-scale clamp, the exact K1/K2
      launches of every step (none of K3-K6), K1 only in the evals, the
      resumed run's epoch and LR, the metrics' ranges and that every
      checkpoint loads; prints ms per step (CUDA events), samples/s, the
@@ -87,7 +90,7 @@ from the sources in the checkout and then:
      point, main([... "--eval-mode", "classification" ...]): ViT-B-16
      COSMOS in bfloat16 (amp) from a checkpoint of random weights, student
      and teacher, on an ImageNet val layout of 1000 class dirs x 1 seeded
-     JPEG and a CIFAR-10 test batch of 2000 seeded images; checks 12 K1
+     JPEG and a CIFAR-10 test batch of 1000 seeded images; checks 12 K1
      launches in every text and image call and none of K2-K6, the
      classifiers' prompt counts (80000 for ImageNet), the images of each
      pass and top-1/top-5 in [0, 1]; prints the classifier's build time
@@ -139,11 +142,11 @@ from the sources in the checkout and then:
      one rank a card under NCCL where the machine has two cards, else both
      on this card under gloo, and holds the first to the world-1 step on
      all 64 rows in this process (loss, every gradient, the updated
-     student and teacher) and the ranks to the same bits after the third;
+     student and teacher) and the ranks to the same bits after the second;
      SigLIP's ring at world 2 runs under NCCL, and under gloo a send/recv
      of a CUDA tensor is tried and its refusal reported;
  17. the trainer's last flags: main([...]) at full width (phase 12's
-     flags, batch 64, 2 epochs of 4 steps, no evals) on a CSV of 256
+     flags, batch 64, 2 epochs of 2 steps, no evals) on a CSV of 128
      seeded JPEG rows under --dataset-type auto, with --profile-steps 2,
      --trace, --remote-sync <tmp>/remote --remote-sync-protocol fsspec
      (every 2 s) and --save-most-recent; checks finite losses, the exact
@@ -173,7 +176,7 @@ from the sources in the checkout and then:
      batch 2, the normalised features within 1e-4, for the seven configs
      and OpenAI's RN50 geometry (registered at run time); (c) main([...])
      with phase 12's shards and flags in plain CLIP mode, no local crops,
-     on EVA02-B-16 and MobileCLIP-B: an epoch of 4 steps with val and COCO
+     on EVA02-B-16 and MobileCLIP-B: an epoch of 2 steps with val and COCO
      retrieval evals and a checkpoint, then --resume latest for a second,
      the exact K1/K2 launches of every step (12/12 and 24/24), ms per step
      and peak memory; and one convnext_base_w step through
@@ -203,8 +206,9 @@ from the sources in the checkout and then:
      served in bfloat16 (64 images at 224 px, 256 captions at 77: 24 K1
      launches an image call, 12 a text call) and 2 images / 4 captions
      card against CPU in float32 (1e-4); (b) the trainer's eval-only
-     retrieval of ViT-B-16 COSMOS from the cosmos_cc3m tag, its file phase
-     12's last checkpoint in a COSMOS_TPU_CACHE directory, at
+     retrieval of ViT-B-16 COSMOS from the cosmos_cc3m tag, its file a
+     full-depth training checkpoint of random weights written to a
+     COSMOS_TPU_CACHE directory, at
      --force-image-size 336 (K1 at L 442), with the position table's
      difference from a float64 numpy bicubic resize (1e-6); (c)
      MobileCLIP-S2 from random weights under Apple's train-form names
@@ -231,10 +235,10 @@ from the sources in the checkout and then:
      a step (median, mean, samples/s, peak memory), exactly 12 K1 and 12
      K2 a step and a falling loss, then a 2-layer float32 step at batch 2
      against the CPU (1e-4 relative); (e) main([...]) with --model
-     coca_ViT-B-32 on phase 12's shards (one crop, one caption), 2 epochs
-     of 2 steps with the val and COCO retrieval evals and a checkpoint,
-     then --resume latest for a third, K1 12 a vision-tower call and K2
-     12 a step.
+     coca_ViT-B-32's config at TRAINER_LAYERS blocks on phase 12's shards
+     (one crop, one caption), an epoch of 2 steps with the val and COCO
+     retrieval evals and a checkpoint, then --resume latest for a second,
+     K1 TRAINER_LAYERS a vision-tower call and K2 TRAINER_LAYERS a step.
  22. the sharded modes complete: (a) K5 held to its plain version at the
      column shards tensor parallelism gives it ([R, 768] x [1152, 768],
      [576, 768], [R, 512] x [384, 512]; R = 1, 63, 65, 7392) in both
@@ -249,7 +253,7 @@ from the sources in the checkout and then:
      a gathered checkpoint, then --resume latest into a second with the
      val eval; (b) on a (1, 2) mesh of two gloo ranks on this card,
      fuse_ln with FUSED_LN under tensor parallelism: ViT-B-16 COSMOS at
-     full width (SLICE16_LAYERS blocks a tower) in bf16 on 4 rows, 1 + 2
+     full width (SLICE16_LAYERS blocks a tower) in bf16 on 4 rows, 1 + 1
      steps, the one-process step's
      K1-K6 launches a step on each rank (K5 and K6 on the rank's shards),
      the losses within FUSE_TP_LOSS_RTOL of the one-process step's, ms a
@@ -277,6 +281,24 @@ from the sources in the checkout and then:
      each); 2 + 8 --siglip steps at batch 64 in bf16 (24/24 K1/K2 a step,
      median ms, peak memory); a 2-layer float32 model's features and
      --siglip step against the CPU.
+ 24. HF text towers built from an offline hf_model_config: OpenCLIP's
+     roberta-ViT-B-32 by overrides (roberta-base's widths, mean pooling,
+     the MLP head), random weights from a seed.  K1 held to its plain
+     version at the serving geometry [256, 50, 2304] and K2 at the step's
+     [64, 50, 2304], both dtypes, timed beside SDPA and the bound; (a)
+     served in bf16 (256 images, 256 captions of 77 ids with trailing pads
+     of RoBERTa's pad id 1: 12 K1 an image call, none a text call); (b) 2 +
+     6 plain-CLIP and --siglip steps at batch 64 in bf16 (12/12 K1/K2 a
+     step, median ms, peak memory); (e) one --lock-text
+     --lock-text-unlocked-layers 2 step whose frozen tensors keep their
+     bits; (c) an mT5-base text tower encoding 256 captions; (d) BERT,
+     RoBERTa, XLM-RoBERTa, T5 and mT5 at the base widths, 2 layers and a
+     4096-id vocabulary, float32 features and one plain-CLIP step, card
+     against CPU; (f) save_for_hf of a 2-layer ViT-B-32, both weight files
+     read back to the bits, and an HF-tower model refused.
+
+Every phase prints its seconds on a line of its own, ``[phase N] <s> s``,
+and the record keeps them (``phase_s``).
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
 and nothing else.  With ``--k5-against DIR`` it builds K5 from the
@@ -1287,12 +1309,13 @@ def _profile_steps(step, state, batch, n: int = 2):
 # torchrun against the same trainer in this process; (b) the step at world 2
 DP_RANK_FLAG = "--dp-rank"
 DP_STEPS = 2            # steps an epoch in 16(a)
+DP_VAL_SAMPLES = 64     # 16(a)'s and 19(a)'s val eval (one loader thread)
 DP_WORLD = 2
 DP_BATCH = 32           # rows a rank in 16(b)
 # blocks a tower of the models on gloo ranks and their references (16(b),
 # 19(b)-(c)): cut from 12 to keep the script within its time limit
 GLOO_LAYERS = 2
-DP_STEPS_B = 3
+DP_STEPS_B = 2
 # 16(b)'s AdamW: eps 1e-3 keeps the first update a smooth function of the
 # gradient, so the updated weights hold the gradients' agreement
 DP_LR, DP_EPS = 1e-4, 1e-3
@@ -1308,8 +1331,10 @@ def _dp_trainer_argv(data, logs):
     two runs read the same batches in the same order, DP_STEPS steps an
     epoch, the val eval only, one checkpoint kept."""
     argv = _drop_flags(_trainer_argv(data, logs, 0),
-                       values=("--data-root-dir", "--steps-per-epoch"))
+                       values=("--data-root-dir", "--steps-per-epoch",
+                               "--val-num-samples"))
     return argv + ["--steps-per-epoch", str(DP_STEPS),
+                   "--val-num-samples", str(DP_VAL_SAMPLES),
                    "--delete-previous-checkpoint"]
 
 
@@ -1376,6 +1401,7 @@ def dp_rank(out: str, argv) -> int:
     torchrun made, its record written to ``out`` as JSON."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    register_trainer_models(str(Path(out).parent))
     record = _dp_trainer_runs(_kernel_modules(), argv)
     Path(out).write_text(json.dumps(record))
     return 0
@@ -1432,7 +1458,8 @@ def _phase_dp_world1(K, data: str, tmp: str) -> dict:
           f"{proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     rank = json.loads(Path(out).read_text())
 
-    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+    per_step = step_launches(None, TRAINER_LAYERS, TRAINER_BATCH,
+                             bucketed=False)
     want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
     steps = 2 * DP_STEPS
     for tag, rec in (("one process", one), ("world 1", rank)):
@@ -2017,6 +2044,32 @@ TRAINER_SHARD_SAMPLES = 96
 # steps of the trainer phase taken under the profiler: the first after an
 # epoch boundary (epoch 1's first) and the one after it
 TRAINER_PROFILED_STEPS = (TRAINER_STEPS, TRAINER_STEPS + 1)
+# the trainer paths (phases 12, 15-17, 19, 21(e), 22(c)) train towers of
+# TRAINER_LAYERS blocks at full width: ViT-B-16's and coca_ViT-B-32's
+# configs at that depth, registered at run time (register_trainer_models).
+# Phases 4, 7 and 10 keep the shipped configs' 12 blocks.
+TRAINER_LAYERS = 6
+TRAINER_MODEL = f"ViT-B-16-{TRAINER_LAYERS}blocks"
+COCA_TRAINER_MODEL = f"coca_ViT-B-32-{TRAINER_LAYERS}blocks"
+
+
+def register_trainer_models(tmp: str) -> None:
+    """Register TRAINER_MODEL and COCA_TRAINER_MODEL with the port's
+    add_model_config, from JSON files written under ``tmp``: the shipped
+    configs with every tower (and CoCa's decoder) at TRAINER_LAYERS
+    blocks."""
+    from cosmos_tpu_torch.models.config import (add_model_config,
+                                                get_model_config)
+
+    for src, name in (("ViT-B-16", TRAINER_MODEL),
+                      ("coca_ViT-B-32", COCA_TRAINER_MODEL)):
+        cfg = get_model_config(src)
+        for part in ("vision_cfg", "text_cfg", "multimodal_cfg"):
+            if cfg.get(part):
+                cfg[part] = dict(cfg[part], layers=TRAINER_LAYERS)
+        path = Path(tmp) / f"{name}.json"
+        path.write_text(json.dumps(cfg))
+        add_model_config(str(path))
 
 
 def _trainer_argv(data, logs, workers, *extra):
@@ -2024,7 +2077,7 @@ def _trainer_argv(data, logs, workers, *extra):
     counts of the smoke run."""
     return [
         "--logs-dir", logs, "--name", "trainer",
-        "--model", "ViT-B-16", "--dataset-type", "webdataset",
+        "--model", TRAINER_MODEL, "--dataset-type", "webdataset",
         "--lr", "5e-4", "--warmup", "2000",
         "--train-data",
         f"{data}/train-{{0000..{max(8, workers) - 1:04d}}}.tar",
@@ -2185,9 +2238,9 @@ def phase_trainer(K, tmp: str):
     COSMOS, train_cc3m.sh's recipe (amp, exact GELU, no text bucket,
     multi-crop 2 + 6, textcrop with 8 captions, momentum 0.999 fixed),
     batch 64, on webdataset shards of synthetic JPEGs made from a seed;
-    2 epochs of 4 steps with val and COCO retrieval evals of student and
-    teacher and a checkpoint each, then --resume latest for a third.
-    The shards go to ``tmp``/data, where phase 15 reads them too."""
+    an epoch of 4 steps with val and COCO retrieval evals of student and
+    teacher and a checkpoint, then --resume latest for a second.  The
+    shards go to ``tmp``/data, where phase 15 reads them too."""
     import os
     import shutil
 
@@ -2217,15 +2270,15 @@ def phase_trainer(K, tmp: str):
     zero_launches(K)
     t0 = time.perf_counter()
     with _instrumented_trainer(K, record), _gc_pauses(record["gc_ms"]):
-        run1 = trainer.main(argv + ["--epochs", "2"])
-        run2 = trainer.main(argv + ["--epochs", "3", "--resume", "latest"])
+        run1 = trainer.main(argv + ["--epochs", "1"])
+        run2 = trainer.main(argv + ["--epochs", "2", "--resume", "latest"])
     wall_s = time.perf_counter() - t0
     launches = read_launches(K)
-    loader = _loader_alone(argv + ["--epochs", "3"])
+    loader = _loader_alone(argv + ["--epochs", "2"], batches=10)
     ckpt_dir = f"{logs}/trainer/checkpoints"
-    model = create_model("ViT-B-16", "amp", device="cuda", cosmos=True,
+    model = create_model(TRAINER_MODEL, "amp", device="cuda", cosmos=True,
                          output_all=True, attentional_pool=True)
-    for epoch in (1, 2, 3):
+    for epoch in (1, 2):
         for which in ("student", "teacher"):
             sd = read_checkpoint(f"{ckpt_dir}/epoch_{epoch}.pt", which)
             model.load_state_dict(sd, strict=True)
@@ -2235,39 +2288,36 @@ def phase_trainer(K, tmp: str):
                       f"epoch {epoch} {which} {name} = {v}")
     del model
     torch.cuda.empty_cache()
-    # the last epoch's checkpoint stays as phase 20's cached cosmos_cc3m
-    # file; the other 5 GB of checkpoints go, the shards stay for phase 15
-    cache = f"{tmp}/weights_cache"
-    Path(cache).mkdir(exist_ok=True)
-    shutil.move(f"{ckpt_dir}/epoch_3.pt", f"{cache}/cosmos_vitb16_cc3m.pt")
+    # the checkpoints go, the shards stay for phase 15
     shutil.rmtree(logs)
 
     epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
-    check([s["epoch"] for s in epochs] == [0, 1, 2],
+    check([s["epoch"] for s in epochs] == [0, 1],
           f"epochs run {[s['epoch'] for s in epochs]}: the resumed run "
-          "starts at epoch 2")
+          "starts at epoch 1")
     logged = [line for s in epochs for line in s["logged"]]
     losses = [line["loss"] for line in logged]
     print(f"[trainer] losses {' '.join(f'{x:.5f}' for x in losses)}")
-    check(len(losses) == 3 * TRAINER_STEPS and all(np.isfinite(losses)),
+    check(len(losses) == 2 * TRAINER_STEPS and all(np.isfinite(losses)),
           f"a finite loss at every step: {losses}")
     for line in logged:
         check(0.0 < line["logit_scale"] <= 100.0 + 1e-3,
               f"exp(logit_scale) {line['logit_scale']} outside (0, 100]")
-    lr = get_lr_scheduler("cosine", 5e-4, 2000, 3 * TRAINER_STEPS)
-    first = epochs[2]["logged"][0]["lr"]
-    check(first == lr(2 * TRAINER_STEPS),
+    lr = get_lr_scheduler("cosine", 5e-4, 2000, 2 * TRAINER_STEPS)
+    first = epochs[1]["logged"][0]["lr"]
+    check(first == lr(TRAINER_STEPS),
           f"resumed lr {first} vs the schedule at update "
-          f"{2 * TRAINER_STEPS}: {lr(2 * TRAINER_STEPS)}")
-    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+          f"{TRAINER_STEPS}: {lr(TRAINER_STEPS)}")
+    per_step = step_launches(None, TRAINER_LAYERS, TRAINER_BATCH,
+                             bucketed=False)
     want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
     for i, got in enumerate(record["steps"]):
         check(got == want, f"step {i}: launches {got}, expected {want}")
-    check(len(record["steps"]) == 3 * TRAINER_STEPS, "steps counted")
+    check(len(record["steps"]) == 2 * TRAINER_STEPS, "steps counted")
     for got in record["evals"]:
         check(got["K1"] > 0 and all(got[k] == 0 for k in got if k != "K1"),
               f"an eval launches K1 only: {got}")
-    check(len(record["evals"]) == 3, "one eval per epoch")
+    check(len(record["evals"]) == 2, "one eval per epoch")
     for prefix in ("", "ema_"):
         for key in ("clip_val_loss", "coco_image_to_text_R@1",
                     "coco_text_to_image_R@10", "image_to_text_R@5"):
@@ -2351,7 +2401,7 @@ def phase_trainer(K, tmp: str):
 # segmentation eval through its own
 EVAL_MODEL_SEED = 7
 CLS_IMAGENET_CLASSES = 1000
-CLS_CIFAR_IMAGES = 2000
+CLS_CIFAR_IMAGES = 1000
 CLS_BATCH = 256
 # ImageNet classes held card against CPU
 CLS_CARD_VS_CPU_CLASSES = 8
@@ -2486,7 +2536,7 @@ def phase_classification(K, ckpt: str):
     """python -m cosmos_tpu_torch.training.main --eval-mode classification
     at full width: ViT-B-16 COSMOS in bfloat16 (amp) from a random
     checkpoint, student and teacher, on an ImageNet val layout of 1000
-    classes x 1 seeded JPEG (256-500 px) and a CIFAR-10 test batch of 2000
+    classes x 1 seeded JPEG (256-500 px) and a CIFAR-10 test batch of 1000
     seeded images; then the ImageNet classifier's columns of 8 classes,
     card against CPU, on the same float32 weights."""
     import tempfile
@@ -2759,7 +2809,7 @@ OPTION_RUNS = [
     ("clip", ["--accum-freq", "2", "--force-patch-dropout", "0.5",
               "--grad-checkpointing"], 2, "",
      # the exact accumulation's cache pass, then its gradient pass
-     (0, 0, 0, 12, 12, 12)),
+     (0, 0, 0, TRAINER_LAYERS, TRAINER_LAYERS, TRAINER_LAYERS)),
     ("cosmos-locked", ["--cosmos", "--lock-image",
                        "--lock-image-unlocked-groups", "2", "--lock-text",
                        "--lock-text-unlocked-layers", "1",
@@ -2769,9 +2819,10 @@ OPTION_RUNS = [
      "dots_with_no_batch_dims_saveable",
      # the last block of each student tower is trainable
      (1, 1, 1, 0, 0)),
-    ("siglip", ["--siglip", "--accum-freq", "2"], 2, None, (12, 12, 12)),
-    ("distill", ["--distill-model", "ViT-B-16"], 1, None,
-     (12, 12, 12, 0, 0, 0)),
+    ("siglip", ["--siglip", "--accum-freq", "2"], 2, None,
+     (TRAINER_LAYERS,) * 3),
+    ("distill", ["--distill-model", TRAINER_MODEL], 1, None,
+     (TRAINER_LAYERS,) * 3 + (0, 0, 0)),
     ("cosmos-flash-off", ["--cosmos", "--flash-attention", "off"], 1, None,
      None),
 ]
@@ -2825,10 +2876,10 @@ def _options_kernel_rows(fa):
     return rows, bwd
 
 
-def _step_run(model, cfg_kw, batch, lr, frozen=None, dist=None):
-    """One training step of ``model`` on its device: (loss, every
-    gradient, the updated student and teacher, all on the CPU; the step's
-    K1 and K2 launches)."""
+def _step_run(model, cfg_kw, batch, lr, frozen=None, dist=None, eps=1e-8):
+    """One training step of ``model`` on its device, AdamW's ``eps``
+    given: (loss, every gradient, the updated student and teacher, all on
+    the CPU; the step's K1 and K2 launches)."""
     from cosmos_tpu_torch import create_optimizer, create_train_state
     from cosmos_tpu_torch.ops import fused_attention as fa
     from cosmos_tpu_torch.training.scheduler import const_lr
@@ -2839,7 +2890,7 @@ def _step_run(model, cfg_kw, batch, lr, frozen=None, dist=None):
     if frozen is not None:
         freeze(model, frozen)
     opt = create_optimizer(model, const_lr(lr, 0, 100), beta1=0.9,
-                           beta2=0.98, eps=1e-8, weight_decay=0.5)
+                           beta2=0.98, eps=eps, weight_decay=0.5)
     cfg = TrainStepConfig(momentum_teacher=0.999, fix_momentum=True,
                           frozen=frozen, seed=3, **cfg_kw)
     step = make_train_step(model, opt, cfg, dist_model=dist)
@@ -2973,7 +3024,7 @@ def phase_trainer_options(K, card: str, trainer_record, tmp: str):
     data = trainer_record["data_dir"]
     workers = trainer_record["workers"]
     dist_pt = f"{tmp}/distill_vit_b_16.pt"
-    torch.save(create_model("ViT-B-16", "fp32", device="cpu",
+    torch.save(create_model(TRAINER_MODEL, "fp32", device="cpu",
                             seed=11).state_dict(), dist_pt)
     base = _drop_flags(
         _trainer_argv(data, f"{tmp}/option_logs", workers),
@@ -2999,7 +3050,8 @@ def phase_trainer_options(K, card: str, trainer_record, tmp: str):
             seen["frozen"] = {n: p.detach().clone() for n, p in
                               state.student.named_parameters()
                               if not p.requires_grad}
-            last = "visual.transformer.resblocks.11.attn.in_proj_weight"
+            last = (f"visual.transformer.resblocks.{TRAINER_LAYERS - 1}"
+                    ".attn.in_proj_weight")
             first = "visual.transformer.resblocks.0.attn.in_proj_weight"
             s, t = state.student.state_dict(), state.teacher.state_dict()
             seen["last_differs"] = not torch.equal(s[last], t[last])
@@ -3012,7 +3064,7 @@ def phase_trainer_options(K, card: str, trainer_record, tmp: str):
             metrics = trainer.main(base + ["--name", name] + flags)
         wall_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = option_launches(accum, policy, calls)
+        want = option_launches(accum, policy, calls, TRAINER_LAYERS)
         stats = metrics["train_epoch_stats"][0]
         logged = stats["logged"]
         losses = [line["loss"] for line in logged]
@@ -3085,7 +3137,9 @@ def phase_trainer_options(K, card: str, trainer_record, tmp: str):
 
 # phase 17: the trainer's last flags (a CSV of image rows, --remote-sync,
 # --profile-steps, --trace) and the FLOPs/params profiler
-CSV_ROWS = 256                  # one pass an epoch: TRAINER_STEPS x 64
+# the CSV trainer decodes inline, so its time is its steps': 2 an epoch
+LAST_FLAGS_STEPS = 2
+CSV_ROWS = 128                  # one pass an epoch: LAST_FLAGS_STEPS x 64
 CSV_SIZES = (256, 400)          # the seeded JPEGs' width and height
 LAST_FLAGS_EPOCHS = 2
 LAST_PROFILE_STEPS = 2
@@ -3253,7 +3307,7 @@ def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
     (ViT-B-16 COSMOS, train_cc3m.sh's flags, batch 64) on a CSV of seeded
     JPEG rows under --dataset-type auto, with --profile-steps 2, --trace,
     --remote-sync <tmp>/remote --remote-sync-protocol fsspec and
-    --save-most-recent, 2 epochs of 4 steps; the exported encoders loaded
+    --save-most-recent, 2 epochs of 2 steps; the exported encoders loaded
     and run in a fresh process against the live model; the profiler's
     rows of plain and COSMOS ViT-B-16 with K1 running; the host cost of a
     call through the registered operators."""
@@ -3282,7 +3336,7 @@ def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
     argv = base + [
         "--dataset-type", "auto", "--train-data", csv_path,
         "--csv-separator", ",", "--workers", "0",
-        "--steps-per-epoch", str(TRAINER_STEPS), "--val-frequency", "0"]
+        "--steps-per-epoch", str(LAST_FLAGS_STEPS), "--val-frequency", "0"]
     run_argv = argv + [
         "--name", "last-flags", "--epochs", str(LAST_FLAGS_EPOCHS),
         "--profile-steps", str(LAST_PROFILE_STEPS), "--trace",
@@ -3296,10 +3350,11 @@ def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
     # the steps and their launches; the export, on fake tensors, none
     stats = metrics["train_epoch_stats"]
     losses = [line["loss"] for s in stats for line in s["logged"]]
-    steps = LAST_FLAGS_EPOCHS * TRAINER_STEPS
+    steps = LAST_FLAGS_EPOCHS * LAST_FLAGS_STEPS
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"a finite loss at every step: {losses}")
-    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+    per_step = step_launches(None, TRAINER_LAYERS, TRAINER_BATCH,
+                             bucketed=False)
     want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
     check(len(record["steps"]) == steps, "steps counted")
     for i, got in enumerate(record["steps"]):
@@ -3347,7 +3402,7 @@ def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
     # the exported encoders (amp, batch 64, the initial weights) and a
     # float32 export, in a fresh process
     t0 = time.perf_counter()
-    f32 = create_model("ViT-B-16", "fp32", device="cuda", seed=17,
+    f32 = create_model(TRAINER_MODEL, "fp32", device="cuda", seed=17,
                        **COSMOS)
     save_traced(trace_model(f32, batch_size=TRACE_F32_BATCH),
                 f"{tmp}/traced_fp32")
@@ -3374,9 +3429,10 @@ def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
         feats = torch.load(f"{path}/features.pt")
         for name in ("encode_image", "encode_text"):
             err = (feats[name].float() - live[case][name]).abs().max().item()
-            check(child_launches[case][name] == 12,
+            check(child_launches[case][name] == TRAINER_LAYERS,
                   f"{case} {name}: {child_launches[case][name]} K1 "
-                  "launches in the loaded program, expected 12")
+                  f"launches in the loaded program, expected "
+                  f"{TRAINER_LAYERS}")
             check(err <= TRACE_TOL[case],
                   f"{case} {name}: loaded against live max err {err}")
             traced[f"{case} {name}"] = dict(
@@ -3416,7 +3472,7 @@ def phase_last_flags(K, card: str, default_step_ms: float, tmp: str):
     loader_sps = 2 * TRAINER_BATCH / (time.perf_counter() - t0)
     step_ms = [ms for e, s in enumerate(stats)
                for i, ms in enumerate(s["step_ms"])
-               if i > 0 and e * TRAINER_STEPS + i >= LAST_PROFILE_STEPS]
+               if i > 0 and e * LAST_FLAGS_STEPS + i >= LAST_PROFILE_STEPS]
     out = dict(
         csv_rows=CSV_ROWS, data_write_s=data_s, wall_s=wall_s,
         losses=losses, launches=launches, launches_per_step=want,
@@ -3446,7 +3502,7 @@ TOWER_CONFIGS = ("EVA02-B-16", "EVA02-L-14", "convnext_base_w",
                  "convnext_large_d", "MobileCLIP-S1", "MobileCLIP-S2",
                  "MobileCLIP-B")
 TOWER_IMAGE_BATCH, TOWER_TEXT_BATCH = 64, 256
-TOWER_TIMED_CALLS = 5
+TOWER_TIMED_CALLS = 3
 TOWER_SEED = 18
 # OpenAI's RN50 geometry (OpenCLIP's RN50.json), registered at run time
 RN50_NAME = "RN50"
@@ -3460,6 +3516,7 @@ TOWER_CPU_TOL = 1e-4
 # the trainer runs of 18(c): phase 12's shards and flags, plain CLIP, no
 # local crops, TRAINER_STEPS steps an epoch, then --resume latest for one
 TOWER_TRAINER_MODELS = ("EVA02-B-16", "MobileCLIP-B")
+TOWER_TRAINER_STEPS = 2       # 18(c)'s steps an epoch
 # K1 at the text geometries the towers add (serving, batch 256, and the
 # trainer's 2 caption views of 64) and K2 at their training geometry
 TOWER_K1_GEOMETRIES = [
@@ -3572,8 +3629,7 @@ def _tower_serving(K, name: str) -> dict:
           f"{name}: K1 launches of the timed calls {timed}")
     out.update(
         k1_per_call=launches,
-        k1_launches=per_call["image"] * len(img_calls)
-        + per_call["text"] * len(txt_calls),
+        k1_launches=sum(launches.values()) + timed["K1"],
         image_size=size, image_call_ms=img_ms, text_call_ms=txt_ms,
         images_per_s=TOWER_IMAGE_BATCH / img_ms * 1e3,
         captions_per_s=TOWER_TEXT_BATCH / txt_ms * 1e3,
@@ -3587,8 +3643,8 @@ def _tower_serving(K, name: str) -> dict:
 def _tower_trainer(K, name: str, data: str, workers: int, logs: str
                    ) -> dict:
     """18(c): the trainer at full width on a tower config, plain CLIP in
-    bfloat16 (amp) on phase 12's shards: an epoch of TRAINER_STEPS steps
-    with val and COCO retrieval evals and a checkpoint, then --resume
+    bfloat16 (amp) on phase 12's shards: an epoch of TOWER_TRAINER_STEPS
+    steps with val and COCO retrieval evals and a checkpoint, then --resume
     latest for a second; the exact K1/K2 launches of every step."""
     from cosmos_tpu_torch.training import main as trainer
 
@@ -3598,10 +3654,12 @@ def _tower_trainer(K, name: str, data: str, workers: int, logs: str
             "K1": per_call["image"] + per_call["text"],
             "K2": per_call["image"] + per_call["text"]}
     argv = _drop_flags(_trainer_argv(data, logs, workers),
-                       values=("--model", "--local-crops-number", "--name"),
+                       values=("--model", "--local-crops-number", "--name",
+                               "--steps-per-epoch"),
                        switches=("--cosmos", "--output-all",
                                  "--attentional-pool"))
-    argv += ["--model", name, "--local-crops-number", "0", "--name", name]
+    argv += ["--model", name, "--local-crops-number", "0", "--name", name,
+             "--steps-per-epoch", str(TOWER_TRAINER_STEPS)]
     record = {"steps": [], "evals": [], "profiles": {}}
     zero_launches(K)
     torch.cuda.reset_peak_memory_stats()
@@ -3615,9 +3673,10 @@ def _tower_trainer(K, name: str, data: str, workers: int, logs: str
     check([s["epoch"] for s in epochs] == [0, 1],
           f"{name}: epochs run {[s['epoch'] for s in epochs]}")
     losses = [line["loss"] for s in epochs for line in s["logged"]]
-    check(len(losses) == 2 * TRAINER_STEPS and all(np.isfinite(losses)),
+    check(len(losses) == 2 * TOWER_TRAINER_STEPS
+          and all(np.isfinite(losses)),
           f"{name}: a finite loss at every step: {losses}")
-    check(len(record["steps"]) == 2 * TRAINER_STEPS, f"{name}: steps")
+    check(len(record["steps"]) == 2 * TOWER_TRAINER_STEPS, f"{name}: steps")
     for i, got in enumerate(record["steps"]):
         check(got == want, f"{name} step {i}: launches {got}, expected "
               f"{want}")
@@ -3769,6 +3828,7 @@ def phase_towers(K, data: str, workers: int, tmp: str) -> dict:
 # card under gloo over CUDA tensors
 BEYOND_SMALL_STEPS = 3       # 19(a)'s 2-layer float32 steps
 BEYOND_STEPS = (2, 5)        # 19(a)'s full-width warm-up and timed steps
+BEYOND_TRAINER_STEPS = 1     # 19(a)'s trainer under --fsdp: steps an epoch
 BEYOND_LOSS_RTOL = 1e-6      # 19(a) in float32
 BEYOND_BF16_ATOL = 1e-3      # 19(a) in bfloat16: phase 7's tolerance
 BEYOND_WORLD = 2
@@ -3895,8 +3955,8 @@ def _beyond_fsdp(K, data: str, tmp: str) -> dict:
     for tag, layers, dtype, b, warmup, timed, tol in (
             ("2-layer float32", 2, torch.float32, 2, 0, BEYOND_SMALL_STEPS,
              None),
-            ("full width bfloat16", 12, torch.bfloat16, 64, *BEYOND_STEPS,
-             BEYOND_BF16_ATOL)):
+            ("full width bfloat16", TRAINER_LAYERS, torch.bfloat16, 64,
+             *BEYOND_STEPS, BEYOND_BF16_ATOL)):
         plain = _fsdp_run(K, False, layers, dtype, b, warmup, timed)
         fsdp = _fsdp_run(K, True, layers, dtype, b, warmup, timed)
         want = step_launches(None, layers, b)
@@ -3930,12 +3990,15 @@ def _beyond_fsdp(K, data: str, tmp: str) -> dict:
               f"{plain['peak_mem_gb']:.2f} GB")
     logs = f"{tmp}/beyond_fsdp"
     t0 = time.perf_counter()
-    rec = _dp_trainer_runs(K, _dp_trainer_argv(data, logs) + ["--fsdp"])
+    rec = _dp_trainer_runs(K, _drop_flags(
+        _dp_trainer_argv(data, logs), values=("--steps-per-epoch",))
+        + ["--fsdp", "--steps-per-epoch", str(BEYOND_TRAINER_STEPS)])
     trainer_s = time.perf_counter() - t0
-    per_step = step_launches(None, 12, TRAINER_BATCH, bucketed=False)
+    per_step = step_launches(None, TRAINER_LAYERS, TRAINER_BATCH,
+                             bucketed=False)
     want = {k: (v if k in ("K1", "K2") else 0) for k, v in per_step.items()}
     check(rec["epochs"] == [0, 1], f"19(a) trainer: epochs {rec['epochs']}")
-    check(len(rec["steps"]) == 2 * DP_STEPS and all(
+    check(len(rec["steps"]) == 2 * BEYOND_TRAINER_STEPS and all(
         got == want for got in rec["steps"]),
         f"19(a) trainer: launches {rec['steps']}, expected {want} a step")
     check(len(rec["evals"]) == 2 and all(e["K1"] > 0 for e in rec["evals"]),
@@ -3946,12 +4009,12 @@ def _beyond_fsdp(K, data: str, tmp: str) -> dict:
     ckpt = torch.load(f"{logs}/trainer/checkpoints/epoch_2.pt",
                       map_location="cpu", weights_only=True)
     shapes = {k: tuple(v.shape) for k, v in create_model(
-        "ViT-B-16", device="meta", **TRAIN_RECIPE).state_dict().items()}
+        TRAINER_MODEL, device="meta", **TRAIN_RECIPE).state_dict().items()}
     for which in ("student", "teacher"):
         check({k: tuple(v.shape) for k, v in ckpt[which].items()} == shapes,
               f"19(a) trainer: the checkpoint's {which} is not whole")
     check(len(ckpt["optimizer"]["state"]) == len(shapes)
-          and ckpt["num_updates"] == 2 * DP_STEPS,
+          and ckpt["num_updates"] == 2 * BEYOND_TRAINER_STEPS,
           "19(a) trainer: the checkpoint's optimizer state")
     shutil.rmtree(logs)
     res["trainer"] = dict(
@@ -4575,19 +4638,19 @@ def bicubic_resize_np(pe: np.ndarray, src: int, dst: int) -> np.ndarray:
 
 
 def _weights_serve(K, model, size, per_call, label, seed, length=77,
-                   tag="weights", captions=None):
+                   tag="weights", captions=None, n_images=WEIGHTS_IMAGES):
     """bfloat16 serving of ``model``: the exact K1 launches of an image
-    call of WEIGHTS_IMAGES and a text call of WEIGHTS_CAPTIONS at
-    ``length`` (``captions``: those token ids, else BPE-shaped ones), then
-    timed calls; returns the record and the K1 launches of every call
-    made."""
+    call of ``n_images`` and a text call of WEIGHTS_CAPTIONS at ``length``
+    (``captions``: those token ids, else BPE-shaped ones), then timed
+    calls; returns the record and the K1 launches of every call made."""
     from cosmos_tpu_torch.training.evaluate import make_encoders
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    images = torch.randn(WEIGHTS_IMAGES, size, size, 3, device="cuda",
+    images = torch.randn(n_images, size, size, 3, device="cuda",
                          generator=gen)
     if captions is None:
         captions = _captions(WEIGHTS_CAPTIONS, length, seed=seed)
+    n_captions = len(captions)
     captions = torch.as_tensor(captions, device="cuda")
     calls = {"image": [], "text": []}
     enc_image, enc_text, _ = make_encoders(model)
@@ -4595,6 +4658,7 @@ def _weights_serve(K, model, size, per_call, label, seed, length=77,
            "text": _counted(lambda: enc_text(captions), calls["text"])}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    k1 = {}
     for what, fn in fns.items():
         zero_launches(K)
         feats = fn()
@@ -4604,21 +4668,24 @@ def _weights_serve(K, model, size, per_call, label, seed, length=77,
               f"{label} encode_{what}: launches {got}, expected K1 "
               f"{per_call[what]} only")
         check(torch.isfinite(feats).all().item(), f"{label} {what} finite")
-    zero_launches(K)
-    img_ms = time_ms(fns["image"], iters=TOWER_TIMED_CALLS)
-    txt_ms = time_ms(fns["text"], iters=TOWER_TIMED_CALLS)
-    timed = read_launches(K)["K1"]
-    check(timed == sum(per_call[w] * (len(calls[w]) - 1) for w in calls),
-          f"{label}: K1 launches of the timed calls {timed}")
-    k1 = {w: per_call[w] * len(calls[w]) for w in calls}
+        k1[what] = got["K1"]
+    ms = {}
+    for what, fn in fns.items():
+        zero_launches(K)
+        ms[what] = time_ms(fn, iters=TOWER_TIMED_CALLS)
+        timed = read_launches(K)["K1"]
+        check(timed == per_call[what] * (len(calls[what]) - 1),
+              f"{label}: K1 launches of the timed {what} calls {timed}")
+        k1[what] += timed
+    img_ms, txt_ms = ms["image"], ms["text"]
     out = dict(image_call_ms=img_ms, text_call_ms=txt_ms,
-               images_per_s=WEIGHTS_IMAGES / img_ms * 1e3,
-               captions_per_s=WEIGHTS_CAPTIONS / txt_ms * 1e3,
+               images_per_s=n_images / img_ms * 1e3,
+               captions_per_s=n_captions / txt_ms * 1e3,
                k1_per_call=per_call, k1_launches=k1,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[{tag}] {label}: {out['images_per_s']:.1f} images/s "
-          f"({WEIGHTS_IMAGES} at {size} px, bf16), "
-          f"{out['captions_per_s']:.1f} captions/s ({WEIGHTS_CAPTIONS} at "
+          f"({n_images} at {size} px, bf16), "
+          f"{out['captions_per_s']:.1f} captions/s ({n_captions} at "
           f"{length}), K1 {per_call['image']} an image call and "
           f"{per_call['text']} a text call, peak {out['peak_mem_gb']:.2f} GB")
     return out, sum(k1.values())
@@ -4694,15 +4761,24 @@ def _weights_openai_l14(K, fa, tmp):
 
 
 def _weights_trainer_tag(K, data, cache, tmp):
-    """20(b): the trainer's retrieval eval from the cosmos_cc3m tag, its
-    file phase 12's epoch checkpoint in the cache, at 336 px."""
+    """20(b): the trainer's retrieval eval from the cosmos_cc3m tag, at
+    336 px.  Its file is a full-depth ViT-B-16 COSMOS training checkpoint
+    (phase 12's towers have TRAINER_LAYERS blocks), written to the cache
+    here by the trainer's own writer after one AdamW update (random
+    gradients), so that its student and teacher differ: the eval gets each
+    from its half."""
     import os
 
+    from cosmos_tpu_torch.models import checkpoint as ckpt_mod
     from cosmos_tpu_torch.models.checkpoint import (load_checkpoint,
                                                     read_checkpoint)
     from cosmos_tpu_torch.models.factory import create_model
     from cosmos_tpu_torch.models.pretrained import resolve_pretrained
     from cosmos_tpu_torch.training import main as trainer
+    from cosmos_tpu_torch.training.checkpoint import save_checkpoint
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import (create_optimizer,
+                                                 create_train_state)
 
     argv = ["--logs-dir", f"{tmp}/logs", "--name", "weights_in",
             "--model", "ViT-B-16", "--precision", "amp", "--cosmos",
@@ -4711,8 +4787,38 @@ def _weights_trainer_tag(K, data, cache, tmp):
             "--force-image-size", str(TAG_IMAGE_SIZE),
             "--data-root-dir", f"{data}/eval", "--batch-size", "64",
             "--workers", "1"]
+    tag_kw = dict(cosmos=True, output_all=True, attentional_pool=True)
+    student = create_model("ViT-B-16", "fp32", device="cpu",
+                           seed=WEIGHTS_SEED + 2, **tag_kw).train()
+    # the teacher is the student's copy before the update, as the EMA of a
+    # first step lags
+    state = create_train_state(student, create_optimizer(
+        student, const_lr(1e-4, 0, 100)))
+    gen = torch.Generator().manual_seed(WEIGHTS_SEED + 3)
+    for p in student.parameters():
+        p.grad = torch.randn(p.shape, generator=gen)
+    state.optimizer.step()
+    state.step = 1
+    os.replace(save_checkpoint(state, f"{tmp}/tag_checkpoint", 3),
+               f"{cache}/cosmos_vitb16_cc3m.pt")
+    # the patch embedding of each half, to tell which one the trainer loads
+    probe = "visual.conv1.weight"
+    halves = {w: getattr(state, w).state_dict()[probe].clone()
+              for w in ("student", "teacher")}
+    check(not torch.equal(*halves.values()), "20(b): student == teacher")
+    del state, student
+    loaded = []
+    load = ckpt_mod.load_checkpoint
+
+    def spy(model, path, **kw):
+        out = load(model, path, **kw)
+        loaded.append((kw.get("which", "student"),
+                       model.state_dict()[probe].detach().cpu().clone()))
+        return out
+
     old = os.environ.get("COSMOS_TPU_CACHE")
     os.environ["COSMOS_TPU_CACHE"] = cache
+    ckpt_mod.load_checkpoint = spy
     try:
         path = resolve_pretrained("ViT-B-16", "cosmos_cc3m")
         check(path == f"{cache}/cosmos_vitb16_cc3m.pt", f"tag -> {path}")
@@ -4722,10 +4828,16 @@ def _weights_trainer_tag(K, data, cache, tmp):
         wall_s = time.perf_counter() - t0
         launches = read_launches(K)
     finally:
+        ckpt_mod.load_checkpoint = load
         if old is None:
             del os.environ["COSMOS_TPU_CACHE"]
         else:
             os.environ["COSMOS_TPU_CACHE"] = old
+    # the eval takes the student as the model and the teacher as the EMA
+    check(sorted(w for w, _ in loaded) == ["student", "teacher"] and all(
+        torch.equal(x, halves[w]) for w, x in loaded),
+          f"20(b): the trainer's loads {[w for w, _ in loaded]} do not give "
+          "the checkpoint's student and teacher")
     check(launches == {**dict.fromkeys(launches, 0), "K1": launches["K1"]}
           and launches["K1"] > 0 and launches["K1"] % 12 == 0,
           f"the tag's eval launches {launches}")
@@ -4885,6 +4997,7 @@ def phase_weights_in(K, data: str, cache: str, tmp: str) -> dict:
     (d) the int8 ops; K1 held to its plain version at ViT-L-14's geometry
     first."""
     t0 = time.perf_counter()
+    Path(cache).mkdir(parents=True, exist_ok=True)
     fa = K.fa
     gen = torch.Generator(device="cuda").manual_seed(WEIGHTS_SEED)
     label, b, l, d3, heads, causal = L14_GEOMETRY
@@ -5190,7 +5303,7 @@ def _coca_trainer_argv(data, workers, logs):
                 "--steps-per-epoch"),
         switches=("--cosmos", "--output-all", "--attentional-pool",
                   "--use-imagecrop-aug"))
-    return argv + ["--model", COCA_MODEL, "--name", "coca",
+    return argv + ["--model", COCA_TRAINER_MODEL, "--name", "coca",
                    "--caption-sampling-mode", "random",
                    "--num-sampled-captions", "1", "--steps-per-epoch",
                    str(COCA_TRAINER_STEPS), "--save-frequency", "0",
@@ -5199,10 +5312,10 @@ def _coca_trainer_argv(data, workers, logs):
 
 def _coca_trainer(K, data, workers, logs):
     """21(e): main([...]) with --model coca_ViT-B-32 on phase 12's shards
-    (amp, batch 64, no multi-crop), 2 epochs of 2 steps with the val and
-    COCO retrieval evals at the second and a checkpoint, then --resume
-    latest for a third; K1 12 a vision-tower call (the steps' and the
-    evals'), K2 12 a step."""
+    (amp, batch 64, no multi-crop), an epoch of 2 steps with the val and
+    COCO retrieval evals and a checkpoint, then --resume latest for a
+    second with the evals again; K1 TRAINER_LAYERS a vision-tower call
+    (the steps' and the evals'), K2 TRAINER_LAYERS a step."""
     from cosmos_tpu_torch.models.coca import CoCa
     from cosmos_tpu_torch.training import main as trainer
 
@@ -5220,26 +5333,28 @@ def _coca_trainer(K, data, workers, logs):
     CoCa._encode_image = counted
     try:
         with _instrumented_trainer(K, record, profiled=()):
-            run1 = trainer.main(argv + ["--epochs", "2"])
-            run2 = trainer.main(argv + ["--epochs", "3", "--resume",
+            run1 = trainer.main(argv + ["--epochs", "1"])
+            run2 = trainer.main(argv + ["--epochs", "2", "--resume",
                                         "latest"])
     finally:
         CoCa._encode_image = encode
     wall_s = time.perf_counter() - t0
     launches = read_launches(K)
     epochs = run1["train_epoch_stats"] + run2["train_epoch_stats"]
-    check([s["epoch"] for s in epochs] == [0, 1, 2],
+    check([s["epoch"] for s in epochs] == [0, 1],
           f"CoCa trainer: epochs run {[s['epoch'] for s in epochs]}")
     losses = [line["loss"] for s in epochs for line in s["logged"]]
-    n_steps = 3 * COCA_TRAINER_STEPS
+    n_steps = 2 * COCA_TRAINER_STEPS
     check(len(losses) == n_steps and all(np.isfinite(losses)),
           f"CoCa trainer: a finite loss at every step: {losses}")
-    step_want = {**dict.fromkeys(launches, 0), "K1": 12, "K2": 12}
+    step_want = {**dict.fromkeys(launches, 0), "K1": TRAINER_LAYERS,
+                 "K2": TRAINER_LAYERS}
     check(record["steps"] == [step_want] * n_steps,
           f"CoCa trainer step launches {record['steps']}")
     check(len(record["evals"]) == 2, "CoCa trainer: two evals")
-    want = {**dict.fromkeys(launches, 0), "K1": 12 * len(calls),
-            "K2": 12 * n_steps}
+    want = {**dict.fromkeys(launches, 0),
+            "K1": TRAINER_LAYERS * len(calls),
+            "K2": TRAINER_LAYERS * n_steps}
     check(launches == want, f"CoCa trainer launches {launches}, expected "
           f"{want} ({len(calls)} vision-tower calls)")
     for prefix in ("", "ema_"):
@@ -5253,7 +5368,7 @@ def _coca_trainer(K, data, workers, logs):
                eval_s=[s.get("eval_s") for s in epochs], wall_s=wall_s,
                metrics={k: v for k, v in run2.items()
                         if isinstance(v, (int, float))})
-    print(f"[coca] trainer {COCA_MODEL}: losses "
+    print(f"[coca] trainer {COCA_TRAINER_MODEL}: losses "
           f"{' '.join(f'{x:.5f}' for x in losses)}; K1 {launches['K1']} "
           f"over {len(calls)} vision-tower calls, K2 {launches['K2']} over "
           f"{n_steps} steps; evals "
@@ -5334,7 +5449,7 @@ K5_PRE_BITS = {(7392, 768, 2304): "887be864d76b77db",
                (7392, 512, 1536): "f4c7651981ab3508"}
 SLICE16_TP = 2               # model-axis ranks of 22(b) and (d), gloo
 SLICE16_BATCH = 4            # 22(b)'s rows a step, whole on both ranks
-SLICE16_STEPS = (1, 2)       # 22(b)'s warm-up and timed steps
+SLICE16_STEPS = (1, 1)       # 22(b)'s warm-up and timed steps
 SLICE16_SMALL = 2            # layers a tower of 22(b)'s and (d)'s float32 steps
 # blocks a tower of 22(b)'s bf16 TP step, at full width: cut from 12 to keep
 # the script within its time limit
@@ -5546,7 +5661,8 @@ def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
         if fsdp:
             distributed.init_distributed(None, alone=True)
         try:
-            model = _coca_model("bf16", "cuda").train()
+            model = _coca_model("bf16", "cuda",
+                                layers=TRAINER_LAYERS).train()
             step, state = _gspmd_setup(
                 model, const_lr(1e-4, 0, 100), torch.bfloat16,
                 create_mesh(device_type="cuda") if fsdp else None, fsdp,
@@ -5567,7 +5683,7 @@ def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
                 distributed.destroy()
         torch.cuda.empty_cache()
     want = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0),
-            "K1": 12, "K2": 12}
+            "K1": TRAINER_LAYERS, "K2": TRAINER_LAYERS}
     for name, run in runs.items():
         check(all(x == want for x in run["launches"]),
               f"22(c) {name}: launches {run['launches']}, expected {want}")
@@ -5579,8 +5695,8 @@ def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
           f"({plain['student_digest']})")
     print(f"[slice16] (c) CoCa step under FSDP at world 1 (NCCL), bf16 "
           f"batch {COCA_STEP_BATCH}: losses {fsdp['losses']}, the plain "
-          f"step's bits (student {fsdp['student_digest']}); K1/K2 12/12 a "
-          f"step; ms a step FSDP {fsdp['step_ms']}, plain "
+          f"step's bits (student {fsdp['student_digest']}); K1/K2 "
+          f"{TRAINER_LAYERS}/{TRAINER_LAYERS} a step; ms a step FSDP {fsdp['step_ms']}, plain "
           f"{plain['step_ms']}; peak memory FSDP {fsdp['peak_mem_gb']:.2f} "
           f"GB, plain {plain['peak_mem_gb']:.2f} GB")
 
@@ -5615,7 +5731,7 @@ def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
     ckpt = torch.load(f"{logs}/coca/checkpoints/epoch_2.pt",
                       map_location="cpu", weights_only=True)
     shapes = {k: tuple(v.shape) for k, v in create_model(
-        COCA_MODEL, device="meta").state_dict().items()}
+        COCA_TRAINER_MODEL, device="meta").state_dict().items()}
     for which in ("student", "teacher"):
         check({k: tuple(v.shape) for k, v in ckpt[which].items()} == shapes,
               f"22(c) trainer: the checkpoint's {which} is not whole")
@@ -5625,16 +5741,18 @@ def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
                        eval_k1=sum(e["K1"] for e in record["evals"]),
                        step_ms=[ms for e in epochs for ms in e["step_ms"]],
                        wall_s=wall_s)
-    print(f"[slice16] (c) main([...]) --model {COCA_MODEL} --fsdp: epochs "
-          f"0-1 (resumed), losses {' '.join(f'{x:.5f}' for x in losses)}, "
-          f"K1/K2 12/12 a step, evals K1 "
+    print(f"[slice16] (c) main([...]) --model {COCA_TRAINER_MODEL} --fsdp: "
+          f"epochs 0-1 (resumed), losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}, K1/K2 "
+          f"{TRAINER_LAYERS}/{TRAINER_LAYERS} a step, evals K1 "
           f"{[e['K1'] for e in record['evals']]}, the gathered epoch_2.pt "
           f"whole; {wall_s:.1f} s")
     return dict(steps=runs, trainer=trainer_out,
                 k1=sum(x["K1"] for r in runs.values() for x in r["launches"])
-                + n * 12 + trainer_out["eval_k1"],
+                + sum(x["K1"] for x in record["steps"])
+                + trainer_out["eval_k1"],
                 k2=sum(x["K2"] for r in runs.values() for x in r["launches"])
-                + n * 12)
+                + sum(x["K2"] for x in record["steps"]))
 
 
 def _slice16_reference(K, path: str) -> dict:
@@ -5956,8 +6074,8 @@ DECODE_FULL_CROPS = 16        # 23(b): JPEGs whose full-size decode is cropped
 # 23(c): (batch, batches timed after the first) on phase 12's shards and on
 # (b)'s; a worker batches within an epoch, so (b)'s 12 JPEGs a shard take
 # batches of 12
-NATIVE_LOADER_RUNS = {"256-640 px": (TRAINER_BATCH, 7),
-                      "1024-1600 px": (12, 14)}
+NATIVE_LOADER_RUNS = {"256-640 px": (TRAINER_BATCH, 4),
+                      "1024-1600 px": (12, 8)}
 
 
 def big_vision_state_dict(seed: int, width: int = 768, layers: int = 12,
@@ -6391,12 +6509,14 @@ def phase_siglip(K, native_build: dict, data: str, workers: int,
           "SigLIP 2-layer card vs CPU": small["K2"]}
     # the launches at each kernel row's geometry, all bf16: the image calls
     # and the step's vision tower; the text calls (256 captions); the
-    # step's towers for K2
-    steps = sum(SIGLIP_STEPS)
+    # step's towers for K2; the step's counts, held to 24 a step, split
+    # evenly between its two 12-block towers
     by_geometry = {
-        "K1 vision": serve["k1_launches"]["image"] + 12 * steps,
+        "K1 vision": serve["k1_launches"]["image"]
+        + step["launches"]["K1"] // 2,
         "K1 text": serve["k1_launches"]["text"],
-        "K2 vision": 12 * steps, "K2 text": 12 * steps}
+        "K2 vision": step["launches"]["K2"] // 2,
+        "K2 text": step["launches"]["K2"] // 2}
     out = dict(native_build=native_build, decode=decode,
                loader_alone=loaders, load=load, serving=serve, step=step,
                card_vs_cpu=card_vs_cpu, kernel_rows=rows,
@@ -6406,6 +6526,384 @@ def phase_siglip(K, native_build: dict, data: str, workers: int,
     print(f"[siglip] phase 23 in {out['phase_s']:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
           + "); K1 launches " + " ".join(f"{k}={v}" for k, v in k1.items())
+          + "; K2 launches " + " ".join(f"{k}={v}" for k, v in k2.items()))
+    return out
+
+
+# phase 24: HF text towers built from an offline hf_model_config.
+# OpenCLIP's roberta-ViT-B-32 by overrides (no config file), with random
+# weights from HF_SEED drawn as transformers draws them; the towers'
+# attention runs on stock torch ops, as it runs on XLA in JAX, so K1/K2
+# take the vision tower only ([B, 50, 3 x 768], 12 heads)
+HF_SEED = 24
+HF_VISION = "ViT-B-32"
+ROBERTA_BASE = dict(model_type="roberta", hidden_size=768,
+                    num_hidden_layers=12, num_attention_heads=12,
+                    intermediate_size=3072, vocab_size=50265,
+                    max_position_embeddings=514, type_vocab_size=1,
+                    layer_norm_eps=1e-5, pad_token_id=1)
+HF_ROBERTA = dict(text_hf_model_config=ROBERTA_BASE,
+                  text_hf_proj_type="mlp", text_hf_pooler_type="mean_pooler",
+                  text_hf_model_pretrained=False)
+MT5_BASE = dict(model_type="mt5", d_model=768, num_layers=12, num_heads=12,
+                d_kv=64, d_ff=2048, vocab_size=250112,
+                feed_forward_proj="gated-gelu", tie_word_embeddings=False)
+# 24(d): the five architectures' base widths at HF_SMALL layers a tower and
+# a vocabulary of HF_SMALL_VOCAB ids
+HF_SMALL, HF_SMALL_VOCAB = 2, 4096
+_BERT_BASE = dict(hidden_size=768, num_attention_heads=12,
+                  intermediate_size=3072, num_hidden_layers=HF_SMALL,
+                  vocab_size=HF_SMALL_VOCAB)
+HF_SMALL_CONFIGS = {
+    "bert": dict(_BERT_BASE, model_type="bert"),
+    "roberta": dict(ROBERTA_BASE, num_hidden_layers=HF_SMALL,
+                    vocab_size=HF_SMALL_VOCAB),
+    "xlm-roberta": dict(_BERT_BASE, model_type="xlm-roberta",
+                        max_position_embeddings=514, type_vocab_size=1,
+                        layer_norm_eps=1e-5),
+    "t5": dict(model_type="t5", d_model=768, num_layers=HF_SMALL,
+               num_heads=12, d_kv=64, d_ff=3072, vocab_size=HF_SMALL_VOCAB),
+    "mt5": dict(MT5_BASE, num_layers=HF_SMALL, vocab_size=HF_SMALL_VOCAB),
+}
+HF_PAD = {"bert": 0, "roberta": 1, "xlm-roberta": 1, "t5": 0, "mt5": 0}
+HF_K1_GEOMETRY = ("vision roberta-ViT-B-32 serving", 256, 50, 3 * 768, 12,
+                  False)
+HF_K2_GEOMETRY = ("vision roberta-ViT-B-32 step", 64, 50, 3 * 768, 12, False)
+HF_SERVE = 256                 # images and captions a call, 24(a), (c)
+HF_CONTEXT = 77
+HF_CALL_K1 = {"image": 12, "text": 0}
+HF_STEP_BATCH = 64
+HF_STEPS = (2, 6)              # 24(b): warm-up and timed steps a mode
+HF_CPU_TOL = 1e-5              # 24(d): features, loss, student (fp32)
+HF_GRAD_RTOL = 1e-4            # 24(d): each gradient against its largest
+HF_UNLOCKED = 2                # 24(e): --lock-text-unlocked-layers
+
+
+def hf_captions(n: int, vocab: int, pad: int, seed: int,
+                length: int = HF_CONTEXT) -> np.ndarray:
+    """``n`` captions of ids in ``[3, vocab)`` with 0 to length/2
+    trailing pads of ``pad``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(3, vocab, (n, length)).astype(np.int64)
+    for row, cut in zip(toks, rng.integers(length // 2, length + 1, n)):
+        row[cut:] = pad
+    return toks
+
+
+def _hf_model(precision, device, seed, siglip=False, **overrides):
+    from cosmos_tpu_torch import create_model
+
+    kw = dict(HF_ROBERTA, **overrides)
+    if siglip:
+        kw.update(init_logit_scale=float(np.log(10.0)), init_logit_bias=-10.0)
+    return create_model(HF_VISION, precision, device=device, seed=seed, **kw)
+
+
+def _hf_batch(b: int, seed: int, device) -> dict:
+    """One 224 px crop and one caption view of ``b`` rows."""
+    rng = np.random.default_rng(seed)
+    return {"global_images": torch.from_numpy(rng.integers(
+                0, 256, (1, b, 224, 224, 3), np.uint8)).to(device),
+            "texts": torch.from_numpy(hf_captions(
+                b, ROBERTA_BASE["vocab_size"], 1, seed)[None]).to(device)}
+
+
+def _hf_step(K, model, siglip: bool) -> dict:
+    """24(b): the plain-CLIP or --siglip step in bf16 at batch 64 on one
+    fixed batch: warm-up and timed steps (CUDA events), exactly 12 K1 and
+    12 K2 a step (the vision tower), finite losses."""
+    from cosmos_tpu_torch import (create_optimizer, create_train_state,
+                                  make_train_step)
+    from cosmos_tpu_torch.training.scheduler import const_lr
+    from cosmos_tpu_torch.training.train import TrainStepConfig
+
+    model.train()
+    lr = const_lr(1e-4, 0, 100)
+    opt = create_optimizer(model, lr, beta1=0.9, beta2=0.98, eps=1e-8,
+                           weight_decay=0.1)
+    cfg = TrainStepConfig(cosmos=False, siglip=siglip,
+                          momentum_teacher=0.999, fix_momentum=True,
+                          lr_schedule=lr, input_dtype=torch.bfloat16)
+    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, opt)
+    batch = _hf_batch(HF_STEP_BATCH, HF_SEED + 3, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    n = sum(HF_STEPS)
+    zero_launches(K)
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch)
+        end.record()
+        losses.append(m["loss"].item())
+        if i >= HF_STEPS[0]:
+            ms.append(start.elapsed_time(end))
+    launches = read_launches(K)
+    mode = "siglip" if siglip else "clip"
+    want = {**dict.fromkeys(launches, 0), "K1": 12 * n, "K2": 12 * n}
+    check(launches == want, f"HF {mode} step launches {launches}, "
+          f"expected {want}")
+    check(all(np.isfinite(losses)), f"HF {mode} step losses: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(losses=losses, step_ms=ms, step_ms_median=float(np.median(ms)),
+               step_ms_mean=float(np.mean(ms)), peak_mem_gb=peak,
+               samples_per_s=HF_STEP_BATCH / float(np.median(ms)) * 1e3,
+               launches=launches)
+    print(f"[hf] {mode} step bf16 batch {HF_STEP_BATCH}: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; ms per step median "
+          f"{out['step_ms_median']:.3f} mean {out['step_ms_mean']:.3f} "
+          f"({out['samples_per_s']:.1f} samples/s); peak memory {peak:.2f} "
+          f"GB; K1/K2 12/12 a step")
+    del step, state, opt
+    return out
+
+
+def _hf_lock_step(K, model) -> dict:
+    """24(e): one plain-CLIP step under --lock-text
+    --lock-text-unlocked-layers HF_UNLOCKED: the frozen parameters keep
+    their bits, the others move; K1/K2 12/12 (the vision tower)."""
+    from cosmos_tpu_torch.training.train import frozen_mask
+
+    frozen = frozen_mask(model, lock_text=True,
+                         text_unlocked_layers=HF_UNLOCKED)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    zero_launches(K)
+    run = _step_run(model.train(), dict(cosmos=False),
+                    _hf_batch(HF_STEP_BATCH, HF_SEED + 4, "cpu"), 1e-4,
+                    frozen=frozen)
+    launches = read_launches(K)
+    kept = [k for k, f in frozen.items() if f
+            and torch.equal(run["student"][k], before[k].cpu())]
+    # a trainable tensor with a gradient moves (AdamW's first update is
+    # lr x sign(grad)); the pooler's bias, which mean pooling does not
+    # reach and the decay leaves out, stays
+    reached = [k for k, f in frozen.items() if not f
+               and run["grads"][k].abs().max().item() > 0]
+    still = [k for k in reached
+             if torch.equal(run["student"][k], before[k].cpu())]
+    n_frozen = sum(frozen.values())
+    layers = ROBERTA_BASE["num_hidden_layers"]
+    check(n_frozen > 0 and len(kept) == n_frozen,
+          f"--lock-text: {n_frozen - len(kept)} of {n_frozen} frozen "
+          "tensors moved")
+    check(reached and not still,
+          f"--lock-text: trainable tensors that did not move: {still[:4]}")
+    check(not any(frozen[f"text.transformer.encoder.layer.{i}.output.dense."
+                         f"weight"] for i in range(layers - HF_UNLOCKED,
+                                                   layers))
+          and frozen["text.transformer.encoder.layer.0.output.dense.weight"],
+          "--lock-text: the last layers trainable, the first frozen")
+    check((run["K1"], run["K2"]) == (12, 12) and launches["K1"] == 12,
+          f"--lock-text step: K1/K2 {run['K1']}/{run['K2']}")
+    print(f"[hf] --lock-text --lock-text-unlocked-layers {HF_UNLOCKED} step "
+          f"(bf16, batch {HF_STEP_BATCH}): {n_frozen} frozen tensors kept "
+          f"their bits, {len(reached)} trainable with a gradient moved; loss "
+          f"{run['loss']:.5f}; K1/K2 12/12")
+    return dict(frozen=n_frozen, moved=len(reached), loss=run["loss"],
+                launches=launches)
+
+
+def _hf_card_vs_cpu() -> dict:
+    """24(d): for each architecture, a HF_SMALL-layer float32 model at the
+    base widths on the card and on the CPU from the same weights: the
+    normalised features of 2 images and 4 captions (right-end pads of the
+    architecture's pad id), then one plain-CLIP step at batch 2 (loss,
+    every gradient, the updated student)."""
+    from cosmos_tpu_torch import create_model
+
+    errs = {}
+    lr = 1e-4
+    for i, (arch, cfg) in enumerate(HF_SMALL_CONFIGS.items()):
+        cpu = create_model(HF_VISION, "fp32", device="cpu",
+                           seed=HF_SEED + 10 + i, vision_layers=HF_SMALL,
+                           text_hf_model_config=cfg,
+                           text_hf_model_pretrained=False)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        rng = np.random.default_rng(HF_SEED + 20 + i)
+        x = torch.from_numpy(rng.standard_normal((2, 224, 224, 3))
+                             .astype(np.float32))
+        toks = torch.from_numpy(hf_captions(4, HF_SMALL_VOCAB, HF_PAD[arch],
+                                            HF_SEED + 20 + i))
+        e = {}
+        for what, fn, inp in (("image", "encode_image", x),
+                              ("text", "encode_text", toks)):
+            with torch.inference_mode():
+                key = f"{what}_features"
+                w = getattr(cpu, fn)(inp, True)[key]
+                g = getattr(gpu, fn)(inp.cuda(), True)[key].cpu()
+            check(g.shape == w.shape and torch.isfinite(g).all().item(),
+                  f"{arch} {what} features shape/finite")
+            e[what] = (g - w).abs().max().item()
+            check(e[what] <= HF_CPU_TOL,
+                  f"{arch} card vs CPU {what}: max err {e[what]}")
+        small = {"global_images": torch.from_numpy(rng.integers(
+                     0, 256, (1, 2, 224, 224, 3), np.uint8)),
+                 "texts": toks[None, :2]}
+        want = _step_run(cpu.train(), dict(cosmos=False), small, lr,
+                         eps=DP_EPS)
+        got = _step_run(gpu.train(), dict(cosmos=False), small, lr,
+                        eps=DP_EPS)
+        check((got["K1"], got["K2"]) == (HF_SMALL, HF_SMALL),
+              f"{arch} 2-layer step: K1/K2 {got['K1']}/{got['K2']}")
+        e["loss"] = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        check(e["loss"] <= HF_CPU_TOL,
+              f"{arch} loss card {got['loss']} vs CPU {want['loss']}")
+        e["grads"] = _grad_errs(got["grads"], want["grads"], HF_GRAD_RTOL,
+                                1e-8, f"{arch} 2-layer step")
+        # AdamW's first update is lr g / (|g| + eps): at DP_EPS a smooth
+        # function of the gradient, so the two students agree as the
+        # gradients do
+        e["student"] = max((got["student"][k] - want["student"][k]).abs()
+                           .max().item() for k in want["student"])
+        check(e["student"] <= HF_CPU_TOL,
+              f"{arch} updated student card vs CPU: max err {e['student']}")
+        errs[arch] = e
+        print(f"[hf] {arch} {HF_SMALL}-layer float32 card vs CPU: features "
+              f"image {e['image']:.3g} text {e['text']:.3g}; step loss rel "
+              f"err {e['loss']:.3g}, max grad err {e['grads']:.3g}, updated "
+              f"student {e['student']:.3g}")
+        del cpu, gpu
+    return errs
+
+
+def _hf_export(tmp: str) -> dict:
+    """24(f): save_for_hf of a HF_SMALL-layer ViT-B-32 at full width, both
+    weight files read back to the model's bits (load_checkpoint, and the
+    msgpack reader's tree leaf for leaf); an HF-tower model refused."""
+    from cosmos_tpu_torch import create_model, save_for_hf
+    from cosmos_tpu_torch.models.checkpoint import load_checkpoint
+    from cosmos_tpu_torch.models.msgpack import read_msgpack
+    from cosmos_tpu_torch.models.push_to_hf_hub import (HF_FLAX_WEIGHTS_NAME,
+                                                        HF_WEIGHTS_NAME,
+                                                        params_tree)
+
+    small = dict(vision_layers=HF_SMALL, text_layers=HF_SMALL)
+    model = create_model(HF_VISION, "fp32", device="cpu", seed=HF_SEED + 5,
+                         **small)
+    out = Path(tmp) / "hf_export"
+    t0 = time.perf_counter()
+    save_for_hf(model, str(out))
+    save_s = time.perf_counter() - t0
+    want = model.state_dict()
+    for name in (HF_WEIGHTS_NAME, HF_FLAX_WEIGHTS_NAME):
+        back = load_checkpoint(create_model(HF_VISION, "fp32", device="cpu",
+                                            seed=1, **small),
+                               str(out / name), strict=True).state_dict()
+        check(back.keys() == want.keys() and all(
+            torch.equal(back[k], v) for k, v in want.items()),
+              f"save_for_hf: {name} read back to other bits")
+    tree = read_msgpack(str(out / HF_FLAX_WEIGHTS_NAME))
+    ref = params_tree(model)
+
+    def leaves(t, path=()):
+        for k, v in t.items():
+            yield from (leaves(v, path + (k,)) if isinstance(v, dict)
+                        else [(path + (k,), v)])
+
+    got, ref_leaves = dict(leaves(tree)), dict(leaves(ref))
+    check(got.keys() == ref_leaves.keys() and all(
+        torch.equal(got[k], v) for k, v in ref_leaves.items()),
+          "save_for_hf: the msgpack tree is not the bridge's tree")
+    try:
+        save_for_hf(_hf_model("fp32", "meta", HF_SEED), str(out / "hf"))
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "save_for_hf of an HF-tower model did not raise")
+    sizes = {p.name: p.stat().st_size for p in out.iterdir()}
+    shutil.rmtree(out)
+    print(f"[hf] save_for_hf of a {HF_SMALL}-layer {HF_VISION}: {sizes} in "
+          f"{save_s:.1f} s, both weight files read back to the bits, "
+          f"{len(got)} flax leaves; an HF-tower model refused")
+    return dict(files=sizes, save_s=save_s, flax_leaves=len(got))
+
+
+def phase_hf(K, tmp: str) -> dict:
+    """Phase 24: K1 and K2 at the vision tower's geometries first, then
+    (a) roberta-ViT-B-32 served in bf16, (b) its plain-CLIP and --siglip
+    steps, (e) the --lock-text step, (c) an mT5-base tower encoding, (d)
+    the five architectures card against CPU, (f) the HF export."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    fa = K.fa
+    gen = torch.Generator(device="cuda").manual_seed(HF_SEED)
+    rows = [kernel_row(fa, *HF_K1_GEOMETRY, dtype, gen)
+            for dtype in (torch.float32, torch.bfloat16)]
+    bwd_rows = [kernel_bwd_row(fa, *HF_K2_GEOMETRY, dtype, gen)
+                for dtype in (torch.float32, torch.bfloat16)]
+    done("kernels")
+    model = _hf_model("bf16", "cuda", HF_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    done("build")
+    serve, k1_serve = _weights_serve(
+        K, model, 224, HF_CALL_K1, f"roberta-{HF_VISION}", HF_SEED + 1,
+        length=HF_CONTEXT, tag="hf", n_images=HF_SERVE,
+        captions=hf_captions(HF_SERVE, ROBERTA_BASE["vocab_size"], 1,
+                             HF_SEED + 1))
+    done("serving")
+    clip = _hf_step(K, model, siglip=False)
+    done("clip step")
+    lock = _hf_lock_step(K, model)
+    del model
+    torch.cuda.empty_cache()
+    done("lock-text step")
+    model = _hf_model("bf16", "cuda", HF_SEED + 2, siglip=True)
+    siglip = _hf_step(K, model, siglip=True)
+    del model
+    torch.cuda.empty_cache()
+    done("siglip step")
+    mt5 = _hf_model("bf16", "cuda", HF_SEED + 6,
+                    text_hf_model_config=MT5_BASE)
+    mt5_serve, k1_mt5 = _weights_serve(
+        K, mt5, 224, HF_CALL_K1, f"mT5-base-{HF_VISION}", HF_SEED + 7,
+        length=HF_CONTEXT, tag="hf", n_images=HF_SERVE,
+        captions=hf_captions(HF_SERVE, MT5_BASE["vocab_size"], 0,
+                             HF_SEED + 7))
+    mt5_params = sum(p.numel() for p in mt5.text.parameters())
+    del mt5
+    torch.cuda.empty_cache()
+    done("mT5 encode")
+    zero_launches(K)
+    card_vs_cpu = _hf_card_vs_cpu()
+    small = read_launches(K)
+    done("card vs CPU")
+    export = _hf_export(tmp)
+    done("export")
+    k1 = {"HF serving": k1_serve, "HF mT5 serving": k1_mt5,
+          "HF CLIP step": clip["launches"]["K1"],
+          "HF SigLIP step": siglip["launches"]["K1"],
+          "HF --lock-text step": lock["launches"]["K1"],
+          "HF 2-layer card vs CPU": small["K1"]}
+    k2 = {"HF CLIP step": clip["launches"]["K2"],
+          "HF SigLIP step": siglip["launches"]["K2"],
+          "HF --lock-text step": lock["launches"]["K2"],
+          "HF 2-layer card vs CPU": small["K2"]}
+    out = dict(params=n_params, mt5_text_params=mt5_params,
+               serving=serve, clip_step=clip, siglip_step=siglip,
+               lock_text=lock, mt5_serving=mt5_serve,
+               card_vs_cpu=card_vs_cpu, export=export, kernel_rows=rows,
+               kernel_bwd_rows=bwd_rows, k1_launches=k1, k2_launches=k2,
+               launches_by_geometry={
+                   "K1 serving": serve["k1_launches"]["image"]
+                   + mt5_serve["k1_launches"]["image"],
+                   "K2 step": sum(k2[k] for k in (
+                       "HF CLIP step", "HF SigLIP step",
+                       "HF --lock-text step"))},
+               parts_s=parts, phase_s=time.perf_counter() - t0)
+    print(f"[hf] phase 24 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+          + f"); roberta-{HF_VISION} {n_params / 1e6:.2f} M parameters, "
+          f"mT5-base text tower {mt5_params / 1e6:.2f} M; K1 launches "
+          + " ".join(f"{k}={v}" for k, v in k1.items())
           + "; K2 launches " + " ".join(f"{k}={v}" for k, v in k2.items()))
     return out
 
@@ -6425,44 +6923,58 @@ def main() -> int:
     K = _kernel_modules()
     fa, ln, lm, mb = K.fa, K.ln, K.lm, K.mb
     t0 = time.perf_counter()
-    card = phase_card()
-    build_s = phase_build(kernel_build, (fa, ln, lm, mb))
-    host_floor = phase_host_floor(K)
-    rows = phase_kernel(fa)
-    serving = phase_serving(fa, rows)
-    card_vs_cpu = phase_card_vs_cpu(fa)
-    bwd_rows, function_errs = phase_kernel_bwd(fa)
-    ragged = phase_ragged(fa)
-    train = phase_train(K, bwd_rows)
-    train_card_vs_cpu = phase_train_card_vs_cpu(K)
-    ln_rows = phase_ln_kernels(K)
-    ln_ragged = phase_ln_ragged(K)
-    train_ln = phase_train_ln(K, train)
-    train_ln_card_vs_cpu = {s: phase_train_card_vs_cpu(K, s)
-                            for s in LN_SETTINGS}
+    phase_s = {}
+
+    def timed(label, fn, *args):
+        """Run one phase, then print and keep its seconds."""
+        start = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - start
+        print(f"[phase {label}] {phase_s[label]:.1f} s", flush=True)
+        return out
+
+    card = timed("1", phase_card)
+    build_s = timed("2 build", phase_build, kernel_build, (fa, ln, lm, mb))
+    host_floor = timed("2 host floor", phase_host_floor, K)
+    rows = timed("3", phase_kernel, fa)
+    serving = timed("4", phase_serving, fa, rows)
+    card_vs_cpu = timed("5", phase_card_vs_cpu, fa)
+    bwd_rows, function_errs = timed("6", phase_kernel_bwd, fa)
+    ragged = timed("6 ragged", phase_ragged, fa)
+    train = timed("7", phase_train, K, bwd_rows)
+    train_card_vs_cpu = timed("8", phase_train_card_vs_cpu, K)
+    ln_rows = timed("9", phase_ln_kernels, K)
+    ln_ragged = timed("9 ragged", phase_ln_ragged, K)
+    train_ln = timed("10", phase_train_ln, K, train)
+    train_ln_card_vs_cpu = timed("11", lambda: {
+        s: phase_train_card_vs_cpu(K, s) for s in LN_SETTINGS})
     # 23(a): every trainer from phase 12 on reads through the native path
-    native_build = phase_native_build()
+    native_build = timed("23(a)", phase_native_build)
     with tempfile.TemporaryDirectory(prefix="cosmos_trainer_") as work:
-        trainer = phase_trainer(K, work)
+        register_trainer_models(work)
+        trainer = timed("12", phase_trainer, K, work)
         with tempfile.TemporaryDirectory(prefix="cosmos_evals_") as tmp:
-            ckpt = _eval_checkpoint(f"{tmp}/vit_b_16_cosmos.pt")
-            classification = phase_classification(K, ckpt)
-            segmentation = phase_segmentation(K, ckpt)
-        options = phase_trainer_options(K, card, trainer, work)
-        data_parallel = phase_data_parallel(K, trainer["data_dir"], work)
-        towers = phase_towers(K, trainer["data_dir"], trainer["workers"],
-                              work)
-        beyond = phase_beyond_dp(K, trainer["data_dir"], work)
-        # phase 12 left its last checkpoint in work/weights_cache
-        weights = phase_weights_in(K, trainer["data_dir"],
-                                   f"{work}/weights_cache", work)
-        coca = phase_coca(K, trainer["data_dir"], trainer["workers"], work)
-        slice16 = phase_slice16(K, trainer["data_dir"], trainer["workers"],
-                                work)
-        siglip = phase_siglip(K, native_build, trainer["data_dir"],
-                              trainer["workers"], work)
+            ckpt = timed("13 checkpoint", _eval_checkpoint,
+                         f"{tmp}/vit_b_16_cosmos.pt")
+            classification = timed("13", phase_classification, K, ckpt)
+            segmentation = timed("14", phase_segmentation, K, ckpt)
+        options = timed("15", phase_trainer_options, K, card, trainer, work)
+        data_parallel = timed("16", phase_data_parallel, K,
+                              trainer["data_dir"], work)
+        towers = timed("18", phase_towers, K, trainer["data_dir"],
+                       trainer["workers"], work)
+        beyond = timed("19", phase_beyond_dp, K, trainer["data_dir"], work)
+        weights = timed("20", phase_weights_in, K, trainer["data_dir"],
+                        f"{work}/weights_cache", work)
+        coca = timed("21", phase_coca, K, trainer["data_dir"],
+                     trainer["workers"], work)
+        slice16 = timed("22", phase_slice16, K, trainer["data_dir"],
+                        trainer["workers"], work)
+        siglip = timed("23", phase_siglip, K, native_build,
+                       trainer["data_dir"], trainer["workers"], work)
+        hf = timed("24", phase_hf, K, work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
-        last = phase_last_flags(K, card, train["step_ms"], tmp)
+        last = timed("17", phase_last_flags, K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
     dp_k1 = (data_parallel["world1"]["launches"]["K1"]
              + data_parallel["world1"]["eval_k1"])
@@ -6515,7 +7027,8 @@ def main() -> int:
         + beyond_k["K1"] + sum(weights["k1_launches"].values())
         + sum(coca["k1_launches"].values())
         + sum(slice16["k1_launches"].values())
-        + sum(siglip["k1_launches"].values()),
+        + sum(siglip["k1_launches"].values())
+        + sum(hf["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -6532,7 +7045,8 @@ def main() -> int:
                                 weights["k1_launches"].items()},
                              **coca["k1_launches"],
                              **slice16["k1_launches"],
-                             **siglip["k1_launches"]},
+                             **siglip["k1_launches"],
+                             **hf["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -6559,7 +7073,8 @@ def main() -> int:
         + last["launches"]["K2"] + sum(towers["k2_launches"].values())
         + beyond_k["K2"] + sum(coca["k2_launches"].values())
         + sum(slice16["k2_launches"].values())
-        + sum(siglip["k2_launches"].values()),
+        + sum(siglip["k2_launches"].values())
+        + sum(hf["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -6572,7 +7087,8 @@ def main() -> int:
                              "beyond DP": beyond_k["K2"],
                              **coca["k2_launches"],
                              **slice16["k2_launches"],
-                             **siglip["k2_launches"]},
+                             **siglip["k2_launches"],
+                             **hf["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     # K1 and K2 at the SigLIP towers' geometries (phase 23): the bf16
@@ -6600,6 +7116,24 @@ def main() -> int:
             **{k: pick(table, (label, torch.bfloat16))[k]
                for k in attention_keys}})
         check(n > 0, f"{key} never launched at the SigLIP geometry")
+    # K1 and K2 at roberta-ViT-B-32's vision geometries (phase 24): the
+    # bf16 image calls of 24(a) and (c) and the steps of 24(b) and (e)
+    for key, name, source, replaces, table, (label, *_) in (
+            ("K1 serving", "fused_attention_qkv_fwd_hf_vision",
+             "fused_attention_fwd.cu", "cosmos_tpu/ops/fused_attention.py:101",
+             hf["kernel_rows"], HF_K1_GEOMETRY),
+            ("K2 step", "fused_attention_qkv_bwd_hf_vision",
+             "fused_attention_bwd.cu", "cosmos_tpu/ops/fused_attention.py:190",
+             hf["kernel_bwd_rows"], HF_K2_GEOMETRY)):
+        n = hf["launches_by_geometry"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"cosmos_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": n,
+            "launches_by_path": {f"HF towers, {key}": n},
+            **{k: pick(table, (label, torch.bfloat16))[k]
+               for k in attention_keys}})
+        check(n > 0, f"{key} never launched at roberta-ViT-B-32's geometry")
     for key, name, source, replaces, match in (
             ("K3", "layer_norm_fwd", "layer_norm_fwd.cu",
              "cosmos_tpu/ops/experimental/layer_norm.py:40", {}),
@@ -6659,8 +7193,9 @@ def main() -> int:
                   segmentation=segmentation, trainer_options=options,
                   data_parallel=data_parallel, last_flags=last,
                   towers=towers, beyond_dp=beyond, weights_in=weights,
-                  coca=coca, slice16=slice16, siglip=siglip,
-                  total_s=time.perf_counter() - t0, kernels=kernels)
+                  coca=coca, slice16=slice16, siglip=siglip, hf=hf,
+                  phase_s=phase_s, total_s=time.perf_counter() - t0,
+                  kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -19,8 +19,11 @@ ModifiedResNet vision towers with their configs, and the weights in: every
 local checkpoint format and cached pretrained tag the JAX package's
 ``create_model(pretrained=...)`` reads (``load_checkpoint``,
 ``load_openai_model``, the registry, big_vision SigLIP files), and CoCa
-(``CoCa``, ``CoCaLoss``, caption generation in ``models.coca``).  What
-needs a download (HF tokenizers and towers, the hub) is refused.
+(``CoCa``, ``CoCaLoss``, caption generation in ``models.coca``), HF text
+towers built from an offline ``hf_model_config`` (BERT, RoBERTa,
+XLM-RoBERTa, T5, mT5: ``models.hf_model``) and the local HF export
+(``save_for_hf``).  What needs a download or an upload (HF tokenizers, hub
+models and weights, the hub) is refused.
 
 The names below are the JAX package's public names.  They are imported on
 first use, so that the data loader's worker processes, which import
@@ -95,6 +98,10 @@ _EXPORTS = {
     "OPENAI_IMAGENET_TEMPLATES": ".training.zero_shot",
     "SIMPLE_IMAGENET_TEMPLATES": ".training.zero_shot",
     "IMAGENET_CLASSNAMES": ".training.zero_shot",
+    # the local HF export
+    "save_for_hf": ".models.push_to_hf_hub",
+    "save_config_for_hf": ".models.push_to_hf_hub",
+    "generate_readme": ".models.push_to_hf_hub",
 }
 
 # the JAX package's names whose feature is not ported: ROADMAP item

@@ -21,6 +21,13 @@ the timm ViT, EVA02, ConvNeXt or FastViT/MCi, ``models/timm_model.py``) or
 ModifiedResNet (list-valued ``layers``), dispatched as the JAX package
 dispatches them.  The last two take plain CLIP/SigLIP only: the COSMOS
 heads need the native ViT's cross-attention pooler.
+
+The text tower is the native one, whose parts sit at the model's top level
+as in OpenCLIP's CLIP (``models/text.py``), or, for a ``text_cfg`` with
+``hf_model_config``, an HF encoder under ``text`` (``models/hf_model.py``;
+OpenCLIP's ``CustomTextCLIP`` names, ``text.transformer.*`` and
+``text.proj.*``), which takes plain CLIP/SigLIP only: it has no
+cross-attention pooler for the COSMOS heads.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch import nn
 
 from .attention import AttentionalCrossPooler
 from .config import CLIPCfg
+from .hf_model import build_hf_text_tower
 from .layers import Linear, get_act_fn, l2_normalize
 from .modified_resnet import ModifiedResNet
 from .text import add_text_tower, encode_tokens, init_text_tower
@@ -115,7 +123,21 @@ class CLIP(nn.Module):
                 attn_pooler_heads=v.attn_pooler_heads,
                 add_zero_attn=v.add_zero_attn, act_fn=act,
                 patch_dropout=v.patch_dropout, **blocks)
-        add_text_tower(self, t, cfg.embed_dim, act, **blocks)
+        if t.is_hf:
+            if cross_pool:
+                # the JAX package's HF tower has no cross-attention pooler
+                # (``attn_cross_pool = None``) and its init fails there
+                raise ValueError(
+                    "the COSMOS cross-modal heads need the native text "
+                    "tower's cross-attention pooler; an HF text tower has "
+                    "none (build without cosmos + output_all + "
+                    "attentional_pool)")
+            self.text_cfg = t
+            self.text = build_hf_text_tower(t, cfg.embed_dim, dtype)
+            text_width = self.text.width
+        else:
+            add_text_tower(self, t, cfg.embed_dim, act, **blocks)
+            text_width = t.width
         self.text_attn_cross_pool = (
             AttentionalCrossPooler(cfg.embed_dim, t.attn_pooler_heads,
                                    t.add_zero_attn, dtype)
@@ -128,11 +150,12 @@ class CLIP(nn.Module):
         if self.output_all:
             self.image_token_mapping = Linear(token_width, cfg.embed_dim,
                                               dtype=dtype)
-            self.text_token_mapping = Linear(t.width, cfg.embed_dim,
+            self.text_token_mapping = Linear(text_width, cfg.embed_dim,
                                              dtype=dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        init_text_tower(self, generator)
+        if not self.text_cfg.is_hf:
+            init_text_tower(self, generator)
         nn.init.constant_(self.logit_scale, self.cfg.init_logit_scale)
         if self.distill_logit_scale is not None:
             nn.init.constant_(self.distill_logit_scale,
@@ -141,6 +164,12 @@ class CLIP(nn.Module):
             nn.init.constant_(self.logit_bias, self.cfg.init_logit_bias)
 
     # --- encoders ----------------------------------------------------------
+
+    def _encode_text(self, text: torch.Tensor):
+        """(pooled, tokens) of the text tower."""
+        if self.text_cfg.is_hf:
+            return self.text(text)
+        return encode_tokens(self, text, self.dtype)
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
                      csa: bool = False) -> Dict[str, torch.Tensor]:
@@ -154,7 +183,7 @@ class CLIP(nn.Module):
 
     def encode_text(self, text: torch.Tensor, normalize: bool = False
                     ) -> Dict[str, torch.Tensor]:
-        pooled, tokens = encode_tokens(self, text, self.dtype)
+        pooled, tokens = self._encode_text(text)
         out = {"text_features": l2_normalize(pooled) if normalize else pooled}
         if self.output_all:
             out["text_tokens"] = self.text_token_mapping(tokens)
@@ -190,8 +219,8 @@ class CLIP(nn.Module):
         short_toks = toks[short_idx]
         if fits:
             short_toks = short_toks[:, :l_short]
-        f_short = encode_tokens(self, short_toks, self.dtype)[0]
-        f_long = encode_tokens(self, toks[long_idx], self.dtype)[0]
+        f_short = self._encode_text(short_toks)[0]
+        f_long = self._encode_text(toks[long_idx])[0]
         feats = torch.cat([f_short, f_long], dim=0)
         return feats[torch.argsort(order)]                 # undo the sort
 
@@ -247,14 +276,13 @@ class CLIP(nn.Module):
                 and texts.shape[0] - 2 * b_ >= 4
             )
             if bucket:
-                head_features, t_tokens = encode_tokens(
-                    self, texts[:2 * b_], self.dtype)
+                head_features, t_tokens = self._encode_text(
+                    texts[:2 * b_])
                 rest_features = self._bucketed_text_pooled(
                     texts[2 * b_:], self.text_bucket)
                 txt_features = torch.cat([head_features, rest_features])
             else:
-                txt_features, t_tokens = encode_tokens(self, texts,
-                                                       self.dtype)
+                txt_features, t_tokens = self._encode_text(texts)
             if self.output_all:
                 # bucketed: token features of the 2 global views only, all
                 # that the pooler reads ([:B])

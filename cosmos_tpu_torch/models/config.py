@@ -72,7 +72,19 @@ class TextCfg:
     pool_type: str = "argmax"
     proj_bias: bool = False
     output_all: bool = False
+    # an HF text tower (``models/hf_model.py``): ``hf_model_config`` is an
+    # offline dict with ``model_type`` and the config's fields; a hub
+    # ``hf_model_name`` and ``hf_tokenizer_name`` are refused (downloads)
     hf_model_name: Optional[str] = None
+    hf_tokenizer_name: Optional[str] = None
+    hf_model_pretrained: bool = True
+    hf_proj_type: Optional[str] = None
+    hf_pooler_type: Optional[str] = None
+    hf_model_config: Optional[Dict[str, Any]] = None
+
+    @property
+    def is_hf(self) -> bool:
+        return bool(self.hf_model_name or self.hf_model_config)
 
     @property
     def eot_truncation_exact(self) -> bool:
@@ -80,7 +92,9 @@ class TextCfg:
         caption at >= eot+1 preserves its pooled feature iff attention is
         causal and pooling is argmax-EOT: HF towers, embed_cls towers and
         SigLIP-style towers (no_causal_mask / last-pool) must encode at
-        full context."""
+        full context.  The JAX package's gate, copied as it is: it reads
+        ``hf_model_name`` only, so an HF tower given by ``hf_model_config``
+        alone passes it there and here (``ROADMAP.md`` §3)."""
         return (not self.hf_model_name
                 and not self.embed_cls
                 and not self.no_causal_mask

@@ -17,6 +17,14 @@ the JAX package's ``convert_timm_vit``/``convert_timm_eva``/
 JAX tree's paths with dots (a ``kernel`` as ``weight``); ModifiedResNet
 takes OpenAI's names, ``build_resnet_vision_map``'s.
 
+An HF text tower (``models/hf_model.py``) takes transformers' torch names
+under ``text.transformer.``, the Flax tree's paths below ``text/hf`` with a
+Dense ``kernel`` as ``weight`` (transposed), an ``embedding`` as
+``weight`` and a LayerNorm ``scale`` as ``weight``; its head ``text/proj``
+takes OpenCLIP's ``text.proj.weight`` (``linear``) or ``text.proj.0/2.
+weight`` (``mlp``).  The JAX package's own bridge has no names for them
+(``params_to_torch_state_dict`` raises on an HF tree).
+
 The third-party layouts (``detect_format``, ``convert_state_dict``: bare
 timm trunks, big_vision SigLIP, Apple's MobileCLIP) follow at the end; ``models/checkpoint.py``
 reads the files.
@@ -201,15 +209,70 @@ def build_coca_name_map(vision_layers: int, text_layers: int,
     return entries
 
 
+_HF_PROJ = {"weight": "proj", "0.weight": "dense1", "2.weight": "dense2"}
+
+
+def _hf_leaf(name: str) -> Tuple[str, Optional[str]]:
+    """A Flax leaf of an HF tower -> (torch's name, transform)."""
+    if name == "kernel":
+        return "weight", "t"
+    return {"embedding": "weight", "scale": "weight"}.get(name, name), None
+
+
+def hf_tree_entries(text: Dict[str, Any]) -> List[Entry]:
+    """(torch key, flax path, transform) of every leaf of an HF tower's
+    ``text`` subtree (``hf`` and ``proj``)."""
+    entries: List[Entry] = []
+    for path, _ in _leaves(text.get("hf", {})):
+        name, tf = _hf_leaf(path[-1])
+        entries.append((".".join(("text.transformer",) + path[:-1] + (name,)),
+                        ("text", "hf") + path, tf))
+    proj = {v: k for k, v in _HF_PROJ.items()}
+    for path, _ in _leaves(text.get("proj", {})):
+        entries.append((f"text.proj.{proj[path[0]]}", ("text", "proj") + path,
+                        "t"))
+    return entries
+
+
+def hf_model_entries(model: torch.nn.Module) -> List[Entry]:
+    """``hf_tree_entries`` from the port's side: the flax path of every
+    parameter of ``model.text``, by the type of the module that holds it."""
+    from .hf_bert import Embed
+    from .layers import LayerNorm, Linear
+
+    entries: List[Entry] = []
+    for mname, mod in model.text.transformer.named_modules():
+        path = tuple(mname.split(".")) if mname else ()
+        for pname, _ in mod.named_parameters(recurse=False):
+            tf = None
+            if isinstance(mod, Linear) and pname == "weight":
+                leaf, tf = "kernel", "t"
+            elif isinstance(mod, Embed):
+                leaf = "embedding"
+            elif isinstance(mod, LayerNorm) and pname == "weight":
+                leaf = "scale"
+            else:
+                leaf = pname
+            entries.append((f"text.transformer.{mname}.{pname}",
+                            ("text", "hf") + path + (leaf,), tf))
+    for pname, _ in model.text.proj.named_parameters():
+        entries.append((f"text.proj.{pname}",
+                        ("text", "proj", _HF_PROJ[pname], "kernel"), "t"))
+    return entries
+
+
 def model_name_map(model: torch.nn.Module) -> List[Entry]:
-    """The name map of a native-ViT ``CLIP`` or of ``CoCa``, at the
-    model's depths (a CLIP's other vision towers have 0 ViT layers)."""
+    """The name map of a native-ViT ``CLIP`` (with either text tower) or of
+    ``CoCa``, at the model's depths (a CLIP's other vision towers have 0
+    ViT layers)."""
     visual = getattr(model.visual, "transformer", None)
     v_layers = len(visual.resblocks) if visual is not None else 0
     if is_coca(model):
         return build_coca_name_map(v_layers,
                                    len(model.text.transformer.resblocks),
                                    len(model.text_decoder.resblocks))
+    if model.text_cfg.is_hf:
+        return build_name_map(v_layers, 0) + hf_model_entries(model)
     return build_name_map(v_layers, len(model.transformer.resblocks))
 
 
@@ -363,6 +426,7 @@ def state_dict_from_jax_params(params: Dict[str, Any]
         name_map = build_name_map(_count_blocks(params["visual"]),
                                   _count_blocks(params["text"]))
     name_map += vision_entries(params["visual"])
+    name_map += hf_tree_entries(params.get("text", {}))
     out: Dict[str, torch.Tensor] = {}
     for tkey, fpath, tf in name_map:
         node: Any = params

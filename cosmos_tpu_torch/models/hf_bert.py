@@ -1,0 +1,236 @@
+"""BERT-family text encoders (BERT, RoBERTa, XLM-RoBERTa) in PyTorch: the
+counterpart of transformers' ``FlaxBertModule``, ``FlaxRobertaModule`` and
+``FlaxXLMRobertaModule``, which the JAX package's HF tower wraps
+(``cosmos_tpu/models/hf_model.py``).
+
+Parameters keep transformers' torch names (``embeddings.word_embeddings``,
+``encoder.layer.N.attention.self.query``, ``pooler.dense``, ...), which
+are the Flax tree's paths with a Dense ``kernel`` as ``weight``
+(transposed), an ``embedding`` as ``weight`` and a LayerNorm ``scale`` as
+``weight``.  Casts follow Flax's ``dtype``: embeddings and Dense layers
+compute in the compute dtype, LayerNorms reduce in float32 and return the
+input's dtype, and the attention mask is a bias of ``finfo(dtype).min``
+added to the scaled logits before a softmax in the compute dtype.  The
+attention runs on stock torch ops, as it runs on XLA in JAX.
+
+The building blocks (``Dense``, ``Embed``, ``LayerNorm``, ``ACT2FN``,
+``attention``) are shared with ``hf_t5.py``.  Weights are drawn as
+transformers draws them: a normal at ``initializer_range`` for kernels and
+embeddings, zero biases, unit LayerNorms.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers
+
+ACT2FN = {
+    "gelu": F.gelu,
+    "relu": F.relu,
+    "silu": F.silu,
+    "swish": F.silu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "quick_gelu": layers.quick_gelu,
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "tanh": torch.tanh,
+}
+
+
+def act_fn(name: str):
+    if name not in ACT2FN:
+        raise ValueError(f"HF activation {name!r}: the port has "
+                         f"{sorted(ACT2FN)}")
+    return ACT2FN[name]
+
+
+class Dense(layers.Linear):
+    """Flax ``nn.Dense(dtype=...)`` drawn from a normal at ``std``."""
+
+    def __init__(self, in_features: int, out_features: int, std: float,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias, dtype)
+        self.std = std
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.weight, std=self.std, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class Embed(nn.Module):
+    """Flax ``nn.Embed(dtype=...)``: rows of a float32 table, cast to the
+    compute dtype."""
+
+    def __init__(self, num: int, dim: int, std: float,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.std, self.dtype = std, dtype
+        self.weight = nn.Parameter(torch.empty(num, dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.weight, std=self.std, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight).to(self.dtype)
+
+
+class LayerNorm(layers.LayerNorm):
+    """Flax ``nn.LayerNorm``; transformers' Flax modules do not use the
+    package's LayerNorm, so ``FUSED_LN``/``HYBRID_LN`` leave it plain."""
+
+    fusable = False
+
+
+def mask_bias(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A ``[B, L]`` 0/1 mask as the additive ``[B, 1, 1, L]`` bias of
+    transformers' Flax attention: 0 or ``finfo(dtype).min``."""
+    zero = torch.zeros((), dtype=dtype, device=mask.device)
+    low = torch.full((), torch.finfo(dtype).min, dtype=dtype,
+                     device=mask.device)
+    return torch.where(mask[:, None, None, :] > 0, zero, low)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              heads: int, bias: torch.Tensor, scale: bool = True
+              ) -> torch.Tensor:
+    """flax ``dot_product_attention_weights`` and the value product of
+    transformers' Flax attention: ``[B, L, H*Dh]`` each -> ``[B, L,
+    H*Dh]``; ``bias`` broadcasts to ``[B, H, L, L]``; ``scale`` divides q
+    by sqrt(Dh) (T5 does not)."""
+    b, l, d = q.shape
+    q, k, v = (t.reshape(b, -1, heads, t.shape[-1] // heads)
+               for t in (q, k, v))
+    if scale:
+        q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype)
+    w = torch.einsum("bqhd,bkhd->bhqk", q, k) + bias
+    w = torch.softmax(w, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, l, -1)
+
+
+class _SelfAttention(nn.Module):
+    def __init__(self, cfg, dtype):
+        super().__init__()
+        d, std = cfg.hidden_size, cfg.initializer_range
+        self.heads = cfg.num_attention_heads
+        self.query = Dense(d, d, std, dtype=dtype)
+        self.key = Dense(d, d, std, dtype=dtype)
+        self.value = Dense(d, d, std, dtype=dtype)
+
+    def forward(self, h, bias):
+        return attention(self.query(h), self.key(h), self.value(h),
+                         self.heads, bias)
+
+
+class _AddNorm(nn.Module):
+    """``LayerNorm(dense(x) + residual)``: ``attention.output`` and
+    ``output``."""
+
+    def __init__(self, d_in, cfg, dtype):
+        super().__init__()
+        self.dense = Dense(d_in, cfg.hidden_size, cfg.initializer_range,
+                           dtype=dtype)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, x, residual):
+        return self.LayerNorm(self.dense(x) + residual)
+
+
+class _Attention(nn.Module):
+    def __init__(self, cfg, dtype):
+        super().__init__()
+        self.self = _SelfAttention(cfg, dtype)
+        self.output = _AddNorm(cfg.hidden_size, cfg, dtype)
+
+    def forward(self, h, bias):
+        return self.output(self.self(h, bias), h)
+
+
+class _Intermediate(nn.Module):
+    def __init__(self, cfg, dtype):
+        super().__init__()
+        self.dense = Dense(cfg.hidden_size, cfg.intermediate_size,
+                           cfg.initializer_range, dtype=dtype)
+        self.act = act_fn(cfg.hidden_act)
+
+    def forward(self, h):
+        return self.act(self.dense(h))
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg, dtype):
+        super().__init__()
+        self.attention = _Attention(cfg, dtype)
+        self.intermediate = _Intermediate(cfg, dtype)
+        self.output = _AddNorm(cfg.intermediate_size, cfg, dtype)
+
+    def forward(self, h, bias):
+        h = self.attention(h, bias)
+        return self.output(self.intermediate(h), h)
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg, dtype):
+        super().__init__()
+        self.layer = nn.ModuleList(BertLayer(cfg, dtype)
+                                   for _ in range(cfg.num_hidden_layers))
+
+
+class _Embeddings(nn.Module):
+    def __init__(self, cfg, dtype):
+        super().__init__()
+        d, std = cfg.hidden_size, cfg.initializer_range
+        self.word_embeddings = Embed(cfg.vocab_size, d, std, dtype)
+        self.position_embeddings = Embed(cfg.max_position_embeddings, d, std,
+                                         dtype)
+        self.token_type_embeddings = Embed(cfg.type_vocab_size, d, std,
+                                           dtype)
+        self.LayerNorm = LayerNorm(d, cfg.layer_norm_eps)
+
+    def forward(self, ids, token_type_ids, position_ids):
+        return self.LayerNorm(self.word_embeddings(ids)
+                              + self.token_type_embeddings(token_type_ids)
+                              + self.position_embeddings(position_ids))
+
+
+class _Pooler(nn.Module):
+    def __init__(self, cfg, dtype):
+        super().__init__()
+        self.dense = Dense(cfg.hidden_size, cfg.hidden_size,
+                           cfg.initializer_range, dtype=dtype)
+
+    def forward(self, hidden):
+        return torch.tanh(self.dense(hidden[:, 0]))
+
+
+class BertModel(nn.Module):
+    """``forward(ids, mask, token_type_ids, position_ids) -> (last hidden
+    state [B, L, D], pooler output [B, D])``.  The pooler exists whatever
+    the tower's pooling, as in Flax: its weights take zero gradients
+    under ``mean_pooler`` and are still decayed."""
+
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.embeddings = _Embeddings(cfg, dtype)
+        self.encoder = _Encoder(cfg, dtype)
+        self.pooler = _Pooler(cfg, dtype)
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None):
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(ids)
+        if position_ids is None:
+            position_ids = torch.arange(ids.shape[1], device=ids.device
+                                        ).expand_as(ids)
+        h = self.embeddings(ids, token_type_ids, position_ids)
+        bias = mask_bias(mask, self.dtype)
+        for layer in self.encoder.layer:
+            h = layer(h, bias)
+        return h, self.pooler(h)

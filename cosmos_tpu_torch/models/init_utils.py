@@ -26,6 +26,10 @@ def reinit_last_transformer_layer(model: nn.Module,
         # the JAX package's fails on these trees too (no visual/transformer)
         raise ValueError("--init-last-layer needs the native ViT image "
                          "tower; this tower has no transformer blocks")
+    if getattr(model, "text_cfg", None) is not None and model.text_cfg.is_hf:
+        # nor has an HF tower's tree a text/transformer in JAX's
+        raise ValueError("--init-last-layer needs the native text tower; "
+                         "an HF text tower has no resblocks")
     for tower in (model.visual.transformer, model.transformer):
         blocks = tower.resblocks
         block = blocks[-1]

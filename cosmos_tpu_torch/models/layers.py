@@ -52,7 +52,10 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 class LayerNorm(nn.Module):
     """LayerNorm with single-pass float32 statistics (float64 for a float64
-    input), cast back to the input dtype: var = max(E[x^2] - E[x]^2, 0)."""
+    input), cast back to the input dtype: var = max(E[x^2] - E[x]^2, 0).
+    ``FUSED_LN``/``HYBRID_LN`` act on it unless ``fusable`` is False."""
+
+    fusable = True
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -61,7 +64,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if (FUSED_LN or HYBRID_LN) and fln.supported(x):
+        if (FUSED_LN or HYBRID_LN) and self.fusable and fln.supported(x):
             fn = fln.fused_layer_norm if FUSED_LN else fln.hybrid_layer_norm
             return fn(x, self.weight, self.bias, self.eps)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))

@@ -1,7 +1,7 @@
-"""A reader of flax's ``serialization.to_bytes`` files (``.msgpack`` /
-``.flax`` parameter exports, ``cosmos_tpu/training/checkpoint.py``
-``save_params_msgpack``), in plain Python: the card's machine has no
-``msgpack`` package.
+"""A reader and a writer of flax's ``serialization.to_bytes`` files
+(``.msgpack`` / ``.flax`` parameter exports, ``cosmos_tpu/training/
+checkpoint.py`` ``save_params_msgpack``), in plain Python: the card's
+machine has no ``msgpack`` package.
 
 The format is MessagePack (https://github.com/msgpack/msgpack/blob/master/
 spec.md): maps of string keys down to the leaves, a leaf an extension of
@@ -9,8 +9,9 @@ type 1 (an ndarray: a packed ``(shape, dtype name, C-order bytes)``), 3 (a
 numpy scalar, packed the same way) or 2 (a complex, packed ``(real,
 imag)``).  flax splits an array above 2**30 bytes into a map
 ``{"__msgpack_chunked_array__": True, "shape": {...}, "chunks": {...}}``,
-which ``read_msgpack`` joins again.  A ``bfloat16`` leaf, whose dtype numpy
-does not know, is read as ``uint16`` and viewed as ``torch.bfloat16``.
+which ``read_msgpack`` joins again and ``write_msgpack`` writes so.  A
+``bfloat16`` leaf, whose dtype numpy does not know, is read as ``uint16``
+and viewed as ``torch.bfloat16``, and written so.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import numpy as np
 import torch
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+# flax's MAX_CHUNK_SIZE: arrays of more bytes are written in chunks
+MAX_CHUNK_SIZE = 2 ** 30
 
 
 class _Ext:
@@ -147,3 +150,106 @@ def read_msgpack(path: str) -> Dict[str, Any]:
     """A flax ``to_bytes`` file as a nested dict of tensors."""
     with open(path, "rb") as f:
         return _leaf(unpackb(f.read()))
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int,
+              codes: Tuple[int, ...]) -> None:
+    """A length header: the fixed form below ``fix_max``, else the first
+    of ``codes`` (8/16/32-bit or 16/32-bit lengths) that holds ``n``."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    sizes = (1, 2, 4) if len(codes) == 3 else (2, 4)
+    for code, size in zip(codes, sizes):
+        if n < 1 << (8 * size):
+            out.append(code)
+            out += n.to_bytes(size, "big")
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        elif obj >= 0:
+            size = next(s for s in (1, 2, 4, 8) if obj < 1 << (8 * s))
+            out.append(0xCC + (1, 2, 4, 8).index(size))
+            out += obj.to_bytes(size, "big")
+        else:
+            size = next(s for s in (1, 2, 4, 8) if obj >= -(1 << (8 * s - 1)))
+            out.append(0xD0 + (1, 2, 4, 8).index(size))
+            out += obj.to_bytes(size, "big", signed=True)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode()
+        _pack_len(out, len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _pack_len(out, len(data), None, -1, (0xC4, 0xC5, 0xC6))
+        out += data
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, (0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, (0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, _Ext):
+        n = len(obj.data)
+        if n in (1, 2, 4, 8, 16):
+            out.append(0xD4 + (1, 2, 4, 8, 16).index(n))
+        else:
+            _pack_len(out, n, None, -1, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", obj.code)
+        out += obj.data
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def packb(obj: Any) -> bytes:
+    """One MessagePack document (``_Ext`` values as extensions)."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def _ndarray_ext(t: torch.Tensor) -> _Ext:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        name, raw = "bfloat16", t.view(torch.int16).numpy().tobytes()
+    else:
+        arr = t.numpy()
+        name, raw = arr.dtype.name, arr.tobytes()
+    return _Ext(_EXT_NDARRAY, packb((list(t.shape), name, raw)))
+
+
+def _write_leaf(value: Any) -> Any:
+    if isinstance(value, dict):
+        return {str(k): _write_leaf(v) for k, v in value.items()}
+    t = torch.as_tensor(value)
+    if t.numel() * t.element_size() > MAX_CHUNK_SIZE:
+        step = max(1, MAX_CHUNK_SIZE // t.element_size())
+        flat = t.reshape(-1)
+        chunks = [flat[i:i + step] for i in range(0, flat.numel(), step)]
+        return {"__msgpack_chunked_array__": True,
+                "shape": {str(i): n for i, n in enumerate(t.shape)},
+                "chunks": {str(i): _ndarray_ext(c)
+                           for i, c in enumerate(chunks)}}
+    return _ndarray_ext(t)
+
+
+def write_msgpack(tree: Dict[str, Any], path: str) -> None:
+    """A nested dict of tensors (or arrays) as a flax ``to_bytes`` file,
+    which flax's ``from_bytes`` and ``read_msgpack`` read back."""
+    with open(path, "wb") as f:
+        f.write(packb(_write_leaf(tree)))

@@ -61,9 +61,8 @@ def add_text_tower(owner: nn.Module, cfg: TextCfg, output_dim: int,
                    remat: bool = False, remat_policy: str = "",
                    use_flash: Optional[bool] = None) -> None:
     """Register the text tower's parts on ``owner`` (with ``embed_cls``,
-    ``cls_emb`` and one more position)."""
-    if cfg.hf_model_name:
-        raise ValueError("HF text towers are not ported")
+    ``cls_emb`` and one more position).  An HF tower is
+    ``models.hf_model.HFTextTower``."""
     owner.text_cfg = cfg
     owner.token_embedding = nn.Embedding(
         cfg.vocab_size, cfg.width,

@@ -49,10 +49,14 @@ class _TextEncoder(nn.Module):
     alone (no token outputs)."""
 
     output_all = False
+    _encode_text = CLIP._encode_text
 
     def __init__(self, model: CLIP):
         super().__init__()
         self.text_cfg, self.dtype = model.text_cfg, model.dtype
+        if model.text_cfg.is_hf:
+            self.text = model.text
+            return
         self.token_embedding = model.token_embedding
         self.positional_embedding = model.positional_embedding
         self.transformer = model.transformer

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence
 
 from torch import nn
 
+from ..models.hf_model import refuse_sharded
 from .mesh import DATA_AXIS, MODEL_AXIS
 from .tp import shard_params_tp, tp_spec
 
@@ -138,6 +139,7 @@ def shard_params_fsdp(model: nn.Module, mesh,
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
+    refuse_sharded(model, "--fsdp")
     names = mesh.mesh_dim_names
     tp = mesh[MODEL_AXIS].size() if MODEL_AXIS in names else 1
     data = mesh[DATA_AXIS] if len(names) > 1 else mesh

@@ -53,6 +53,7 @@ import torch
 from torch import nn
 
 from ..models.attention import MultiheadAttention
+from ..models.hf_model import refuse_sharded
 from ..models.layers import Linear, Mlp
 from .mesh import DATA_AXIS, MODEL_AXIS, axis_group, batch_sharding
 
@@ -171,6 +172,7 @@ def shard_params_tp(model: nn.Module, mesh) -> nn.Module:
     local shards are cut from them without communication)."""
     from torch.distributed.tensor import Replicate, Shard
 
+    refuse_sharded(model, "tensor parallelism (--mesh-shape dp,tp)")
     sub = mesh[MODEL_AXIS] if MODEL_AXIS in (mesh.mesh_dim_names or ()) \
         else mesh
     parents = {}

@@ -112,12 +112,20 @@ def frozen_mask(model: nn.Module, lock_image: bool = False,
     tower's LayerNorms, as the reference's native tower does; False leaves
     every text LayerNorm (``ln_*``) trainable.
 
+    An HF text tower (BERT family) follows the reference's module list:
+    ``[embeddings, *encoder.layer][:-n]`` frozen (all of them for n = 0),
+    the pooler and the projection head never; its LayerNorms stay
+    trainable unless ``text_freeze_layer_norm`` is True.  A T5 tower has no
+    ``encoder.layer`` and ``lock_text`` raises, as in JAX.
+
     A timm-family or ModifiedResNet tower has no groups: ``lock_image``
     freezes all of it, and ``unlocked_groups`` > 0 raises, as in JAX."""
     vit = hasattr(model.visual, "transformer")
     v_layers = len(model.visual.transformer.resblocks) if vit else 0
+    hf = getattr(model, "text_cfg", None) is not None and model.text_cfg.is_hf
     # CoCa keeps its text tower under ``text``
-    t_layers = len(getattr(model, "text", model).transformer.resblocks)
+    t_layers = 0 if hf else len(
+        getattr(model, "text", model).transformer.resblocks)
     paths = {key: path for key, path, _ in model_name_map(model)}
     if not vit:
         # every parameter of the tower sits under the tree's "visual"
@@ -144,6 +152,31 @@ def frozen_mask(model: nn.Module, lock_image: bool = False,
                          for i in range(min(text_unlocked_layers, t_layers))}
     freeze_ln = True if text_freeze_layer_norm is None \
         else text_freeze_layer_norm
+    hf_frozen = None
+    if lock_text and hf:
+        layer = getattr(model.text.transformer.encoder, "layer", None)
+        if layer is None:
+            raise NotImplementedError(
+                "--lock-text on an HF text tower needs the standard "
+                "encoder.layer module layout (bert/roberta-family); this "
+                "checkpoint's layout is not recognized")
+        modules = ["embeddings"] + [str(i) for i in range(len(layer))]
+        hf_frozen = set(modules[:-text_unlocked_layers]
+                        if text_unlocked_layers else modules)
+
+    def mark_hf(names) -> bool:
+        """JAX's HF branch, on the tree path ``text/hf/...``."""
+        if len(names) < 2 or names[1] != "hf":
+            return False
+        frozen = False
+        if "embeddings" in names:
+            frozen = "embeddings" in hf_frozen
+        elif "layer" in names:
+            li = names.index("layer")
+            frozen = li + 1 < len(names) and names[li + 1] in hf_frozen
+        if frozen and not text_freeze_layer_norm and "LayerNorm" in names:
+            return False
+        return frozen
 
     def mark(names) -> bool:
         top = names[0]
@@ -152,6 +185,8 @@ def frozen_mask(model: nn.Module, lock_image: bool = False,
                         or (lnpost_unlocked and "ln_post" in names)
                         or (stem_unlocked and any(n in _STEM for n in names))
                         or any(n in unlocked_layers for n in names))
+        if lock_text and top == "text" and hf_frozen is not None:
+            return mark_hf(names)
         if lock_text and top == "text":
             if text_unlocked_layers > 0 and any(
                     n in text_unlocked or n == "ln_final"
@@ -647,6 +682,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         else:
             total, aux = loss_fn(batch, teacher, state.step)
             total.backward()
+        # a trainable parameter the loss does not reach (an HF tower's
+        # pooler under mean pooling) takes a zero gradient, so that AdamW
+        # still decays it, as optax's does
+        for p in student.parameters():
+            if p.requires_grad and p.grad is None and not _is_dtensor(p):
+                p.grad = torch.zeros_like(p)
 
         params = list(student.parameters())
         metrics: Dict[str, Any] = {

@@ -1,0 +1,121 @@
+"""Shared cases of the HF text-tower tests (``test_torch_hf_*.py``): tiny
+configs of the five architectures at width 32 and 2 layers, their token
+batches (pads at the right ends, each with its architecture's pad id), and
+JAX's model with parameters drawn with numpy at the shapes
+``jax.eval_shape`` gives (no JAX init is compiled)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from cosmos_tpu.models.factory import create_model as jax_create_model
+from cosmos_tpu_torch import create_model
+from cosmos_tpu_torch.models.convert import state_dict_from_jax_params
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+VOCAB = 128
+CONTEXT = 12
+VISION = dict(embed_dim=32, vision_image_size=16, vision_patch_size=8,
+              vision_width=32, vision_layers=1, vision_head_width=16,
+              text_context_length=CONTEXT)
+_BERT = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+             intermediate_size=64, vocab_size=VOCAB,
+             max_position_embeddings=32)
+_T5 = dict(d_model=32, num_layers=2, num_heads=2, d_kv=16, d_ff=64,
+           vocab_size=VOCAB)
+HF = {
+    "bert": dict(_BERT, model_type="bert"),
+    "roberta": dict(_BERT, model_type="roberta", layer_norm_eps=1e-5),
+    "xlm-roberta": dict(_BERT, model_type="xlm-roberta"),
+    "t5": dict(_T5, model_type="t5"),
+    "mt5": dict(_T5, model_type="mt5", tie_word_embeddings=False),
+}
+# the fields each encoder reads, by architecture
+BERT_FIELDS = ("vocab_size", "hidden_size", "num_hidden_layers",
+               "num_attention_heads", "intermediate_size", "hidden_act",
+               "max_position_embeddings", "type_vocab_size",
+               "initializer_range", "layer_norm_eps", "pad_token_id",
+               "is_decoder", "add_cross_attention", "is_encoder_decoder")
+T5_FIELDS = ("vocab_size", "d_model", "d_kv", "d_ff", "num_layers",
+             "num_heads", "relative_attention_num_buckets",
+             "relative_attention_max_distance", "layer_norm_epsilon",
+             "initializer_factor", "feed_forward_proj", "dense_act_fn",
+             "is_gated_act", "tie_word_embeddings", "pad_token_id",
+             "is_decoder", "is_encoder_decoder")
+PAD = {"bert": 0, "roberta": 1, "xlm-roberta": 1, "t5": 0, "mt5": 0}
+
+
+def model_kw(arch: str, **extra) -> dict:
+    return {**VISION, "text_hf_model_config": HF[arch],
+            "text_hf_model_pretrained": False, **extra}
+
+
+def tokens(arch: str, n: int = 4, seed: int = 0) -> np.ndarray:
+    """``[n, CONTEXT]`` ids in ``[3, VOCAB)`` with 0, 3, 5, ... trailing
+    pads of the architecture's pad id."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(3, VOCAB, (n, CONTEXT)).astype(np.int32)
+    for i in range(n):
+        if i:
+            t[i, CONTEXT - 1 - 2 * i:] = PAD[arch]
+    return t
+
+
+def jax_module(kw):
+    """JAX's ViT-B-16 with the overrides ``kw``, no parameters."""
+    return jax_create_model("ViT-B-16", use_flash=False, init_params=False,
+                            **kw)[0]
+
+
+def jax_model(kw, seed=1, scale=0.1):
+    """JAX's ViT-B-16 with the overrides ``kw`` and numpy parameters."""
+    jm = jax_module(kw)
+    v, t = jm.cfg.vision_cfg, jm.cfg.text_cfg
+    # the COSMOS heads are created by the cross-modal forward
+    extra = ({"batch_size": 1} if v.output_all and v.attentional_pool
+             else {})
+    shapes = jax.eval_shape(
+        lambda key, x, y: jm.init(key, x, y, **extra)["params"],
+        jax.random.PRNGKey(0),
+        jnp.zeros((1, v.image_size, v.image_size, 3), jnp.float32),
+        jnp.zeros((1, t.context_length), jnp.int32))
+    rng = np.random.default_rng(seed)
+    return jm, jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * scale).astype(np.float32),
+        shapes)
+
+
+# XLA's CPU compiler without its optimisation passes: the same functions,
+# compiled in about half the time
+FAST_XLA = {"xla_backend_optimization_level": 0}
+
+
+def run_jax(jitted, *args):
+    """The ``jax.jit`` function ``jitted`` on ``args``, compiled with
+    FAST_XLA."""
+    return jitted.lower(*args).compile(FAST_XLA)(*args)
+
+
+def to_port(tree) -> dict:
+    return state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray,
+                                                             tree))
+
+
+def port_model(kw, state_dict=None, **extra):
+    model = create_model("ViT-B-16", device="cpu", **kw, **extra).eval()
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+def close(got, want, what=""):
+    w = np.asarray(want)
+    np.testing.assert_allclose(
+        np.asarray(got), w, rtol=TOL["rtol"],
+        atol=TOL["atol"] * max(1.0, float(np.abs(w).max(initial=0.0))),
+        err_msg=what)
+
+
+def as_torch(batch: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
