@@ -131,7 +131,8 @@ from the sources in the checkout and then:
      --nproc-per-node 1 chip_smoke.py --dp-rank OUT <flags>, this script as
      the rank, which drives main([...]) as phase 12 does) with phase 12's
      flags and shards, one loader thread, 1 epoch of 2 steps and then
-     --resume latest into a second, beside the same two runs in this
+     --resume latest into a second with the val eval, beside the same two
+     runs in this
      process without a process group; checks that the logged metrics of
      every step and epoch_2.pt (student, teacher, optimizer state) are the
      same bits, the exact K1/K2 launches of every step (phase 12's), K1
@@ -176,8 +177,9 @@ from the sources in the checkout and then:
      batch 2, the normalised features within 1e-4, for the seven configs
      and OpenAI's RN50 geometry (registered at run time); (c) main([...])
      with phase 12's shards and flags in plain CLIP mode, no local crops,
-     on EVA02-B-16 and MobileCLIP-B: an epoch of 2 steps with val and COCO
-     retrieval evals and a checkpoint, then --resume latest for a second,
+     on EVA02-B-16 and MobileCLIP-B: an epoch of 2 steps and a
+     checkpoint, then --resume latest for a second with val and COCO
+     retrieval evals,
      the exact K1/K2 launches of every step (12/12 and 24/24), ms per step
      and peak memory; and one convnext_base_w step through
      make_train_step at batch 64 (K1/K2 12/12).
@@ -188,8 +190,8 @@ from the sources in the checkout and then:
      within 1e-6 relative) and 7 at full width in bfloat16 at batch 64
      (within phase 7's 1e-3), the exact K1/K2 launches of every step,
      median ms a step and peak memory of both; then main([...]) with phase
-     16(a)'s flags and --fsdp, an epoch with the val eval and a gathered
-     checkpoint, and --resume latest into a second; (b)-(c) two ranks on
+     16(a)'s flags and --fsdp, an epoch and a gathered checkpoint, and
+     --resume latest into a second with the val eval; (b)-(c) two ranks on
      this card under gloo over CUDA tensors, after a probe of the
      collectives gloo takes on them (a part whose collectives it refuses
      is left out and printed with gloo's error): (b) on a (1, 2) mesh the
@@ -296,6 +298,28 @@ from the sources in the checkout and then:
      4096-id vocabulary, float32 features and one plain-CLIP step, card
      against CPU; (f) save_for_hf of a 2-layer ViT-B-32, both weight files
      read back to the bits, and an HF-tower model refused.
+ 25. HF text towers complete: (a) local hf_model_name directories of
+     roberta-ViT-B-32 that the script writes itself (the card's machine
+     has no transformers): config.json with flax_model.msgpack, a head
+     model's file (the encoder under "roberta" beside an lm_head leaf) and
+     a sharded index of 4 files; create_model(...,
+     text_hf_model_name=dir) loads every parameter to the source model's
+     bits and gives its features' bits on 256 images and captions, with
+     the load's seconds; the loaded model served at 256 (12 K1 an image
+     call) and 1 + 3 plain-CLIP steps at batch 64 (12/12 K1/K2); (b) 2
+     plain-CLIP steps in bf16 at batch 64, plain twice and under FSDP at
+     world 1 on NCCL: the same losses, and every parameter the plain
+     run's bits (the pooler, which mean pooling does not reach, decayed in
+     both) but the embedding tables, whose CUDA backward is not
+     reproducible (the second plain run differs there too), within 1e-8;
+     ms a step and peak memory; (c) on a (1, 2) mesh of two gloo ranks on
+     this card, a BERT
+     and a T5 tower at the base widths and 2 layers in float32: one
+     plain-CLIP step under TP and under FSDP x TP against the one-process
+     step (16(b)'s tolerances), 2/2 K1/K2 a step on each rank, T5's q the
+     text tower's one model-sharded weight, and the TP encoders against
+     the unsharded features (1e-4); (d) save_for_hf of a ModifiedResNet
+     CLIP at OpenAI RN50's widths, both files read back to the bits.
 
 Every phase prints its seconds on a line of its own, ``[phase N] <s> s``,
 and the record keeps them (``phase_s``).
@@ -1363,16 +1387,19 @@ def _timed_means(record):
 
 
 def _dp_trainer_runs(K, argv):
-    """main([...]) for one epoch, then --resume latest into a second, with
-    the K1/K2 launches of every step and eval, the logged step metrics,
-    the step's ms (CUDA events) and the ms of the cross-rank mean in it."""
+    """main([...]) for one epoch, then --resume latest into a second with
+    the val eval, with the K1/K2 launches of every step and eval, the
+    logged step metrics, the step's ms (CUDA events) and the ms of the
+    cross-rank mean in it."""
     from cosmos_tpu_torch.training import main as trainer
 
     record = {"steps": [], "evals": [], "profiles": {}}
     means = []
     zero_launches(K)
     with _instrumented_trainer(K, record, profiled=()), _timed_means(means):
-        runs = [trainer.main(argv + ["--epochs", "1"]),
+        # the val eval at the end of the second epoch alone
+        runs = [trainer.main(argv + ["--epochs", "1", "--val-frequency",
+                                     "0"]),
                 trainer.main(argv + ["--epochs", "2", "--resume", "latest"])]
     torch.cuda.synchronize()
     stats = [s for r in runs for s in r["train_epoch_stats"]]
@@ -1467,7 +1494,7 @@ def _phase_dp_world1(K, data: str, tmp: str) -> dict:
         check(len(rec["steps"]) == steps and all(
             got == want for got in rec["steps"]),
             f"16(a) {tag}: launches {rec['steps']}, expected {want} a step")
-        check(len(rec["evals"]) == 2 and all(
+        check(len(rec["evals"]) == 1 and all(
             e["K1"] > 0 and all(v == 0 for k, v in e.items() if k != "K1")
             for e in rec["evals"]), f"16(a) {tag}: evals {rec['evals']}")
         check(len(rec["logged"]) == steps and all(
@@ -3644,8 +3671,8 @@ def _tower_trainer(K, name: str, data: str, workers: int, logs: str
                    ) -> dict:
     """18(c): the trainer at full width on a tower config, plain CLIP in
     bfloat16 (amp) on phase 12's shards: an epoch of TOWER_TRAINER_STEPS
-    steps with val and COCO retrieval evals and a checkpoint, then --resume
-    latest for a second; the exact K1/K2 launches of every step."""
+    steps and a checkpoint, then --resume latest for a second with val and
+    COCO retrieval evals; the exact K1/K2 launches of every step."""
     from cosmos_tpu_torch.training import main as trainer
 
     per_call = tower_call_launches(name)
@@ -3665,7 +3692,8 @@ def _tower_trainer(K, name: str, data: str, workers: int, logs: str
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _instrumented_trainer(K, record, profiled=()):
-        run1 = trainer.main(argv + ["--epochs", "1"])
+        # the val and COCO evals at the end of the second epoch alone
+        run1 = trainer.main(argv + ["--epochs", "1", "--val-frequency", "0"])
         run2 = trainer.main(argv + ["--epochs", "2", "--resume", "latest"])
     wall_s = time.perf_counter() - t0
     launches = read_launches(K)
@@ -3680,7 +3708,8 @@ def _tower_trainer(K, name: str, data: str, workers: int, logs: str
     for i, got in enumerate(record["steps"]):
         check(got == want, f"{name} step {i}: launches {got}, expected "
               f"{want}")
-    check(len(record["evals"]) == 2, f"{name}: one eval an epoch")
+    check(len(record["evals"]) == 1, f"{name}: one eval, the second "
+          "epoch's")
     for got in record["evals"]:
         check(got["K1"] > 0 and all(got[k] == 0 for k in got if k != "K1"),
               f"{name}: an eval launches K1 only: {got}")
@@ -3694,7 +3723,7 @@ def _tower_trainer(K, name: str, data: str, workers: int, logs: str
                eval_launches=record["evals"], losses=losses,
                step_ms=step_ms, step_ms_mean=float(np.mean(step_ms)),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               eval_s=[s["eval_s"] for s in epochs], wall_s=wall_s,
+               eval_s=[s.get("eval_s") for s in epochs], wall_s=wall_s,
                metrics={k: v for k, v in run2.items()
                         if isinstance(v, (int, float))})
     print(f"[towers] trainer {name}: losses "
@@ -3702,7 +3731,7 @@ def _tower_trainer(K, name: str, data: str, workers: int, logs: str
           f"events, steps 2+ of each epoch) {out['step_ms_mean']:.3f}; "
           f"peak memory {out['peak_mem_gb']:.2f} GB; K1/K2 per step "
           f"{want['K1']}/{want['K2']}; evals "
-          + ", ".join(f"{s:.2f} s" for s in out["eval_s"])
+          + ", ".join(f"{s:.2f} s" for s in out["eval_s"] if s)
           + f"; wall {wall_s:.1f} s")
     shutil.rmtree(f"{logs}/{name}")
     return out
@@ -3947,8 +3976,8 @@ def _fsdp_run(K, fsdp: bool, layers: int, dtype, b: int, warmup: int,
 def _beyond_fsdp(K, data: str, tmp: str) -> dict:
     """19(a): the FSDP step against the plain step at 2 layers in float32
     and at full width in bfloat16, then main([...]) under --fsdp: an epoch
-    with the val eval and a checkpoint, and --resume latest into a
-    second."""
+    and a checkpoint, and --resume latest into a second with the val
+    eval."""
     from cosmos_tpu_torch import create_model
 
     res = {}
@@ -4001,7 +4030,7 @@ def _beyond_fsdp(K, data: str, tmp: str) -> dict:
     check(len(rec["steps"]) == 2 * BEYOND_TRAINER_STEPS and all(
         got == want for got in rec["steps"]),
         f"19(a) trainer: launches {rec['steps']}, expected {want} a step")
-    check(len(rec["evals"]) == 2 and all(e["K1"] > 0 for e in rec["evals"]),
+    check(len(rec["evals"]) == 1 and all(e["K1"] > 0 for e in rec["evals"]),
           f"19(a) trainer: evals {rec['evals']}")
     check(all(np.isfinite(line["loss"]) for line in rec["logged"]),
           "19(a) trainer: losses")
@@ -6608,10 +6637,10 @@ def _hf_batch(b: int, seed: int, device) -> dict:
                 b, ROBERTA_BASE["vocab_size"], 1, seed)[None]).to(device)}
 
 
-def _hf_step(K, model, siglip: bool) -> dict:
+def _hf_step(K, model, siglip: bool, steps=HF_STEPS) -> dict:
     """24(b): the plain-CLIP or --siglip step in bf16 at batch 64 on one
-    fixed batch: warm-up and timed steps (CUDA events), exactly 12 K1 and
-    12 K2 a step (the vision tower), finite losses."""
+    fixed batch: ``steps``' warm-up and timed steps (CUDA events), exactly
+    12 K1 and 12 K2 a step (the vision tower), finite losses."""
     from cosmos_tpu_torch import (create_optimizer, create_train_state,
                                   make_train_step)
     from cosmos_tpu_torch.training.scheduler import const_lr
@@ -6630,7 +6659,7 @@ def _hf_step(K, model, siglip: bool) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, ms = [], []
-    n = sum(HF_STEPS)
+    n = sum(steps)
     zero_launches(K)
     for i in range(n):
         start = torch.cuda.Event(enable_timing=True)
@@ -6639,7 +6668,7 @@ def _hf_step(K, model, siglip: bool) -> dict:
         m = step(state, batch)
         end.record()
         losses.append(m["loss"].item())
-        if i >= HF_STEPS[0]:
+        if i >= steps[0]:
             ms.append(start.elapsed_time(end))
     launches = read_launches(K)
     mode = "siglip" if siglip else "clip"
@@ -6908,6 +6937,541 @@ def phase_hf(K, tmp: str) -> dict:
     return out
 
 
+
+# phase 25: HF text towers complete.  (a) roberta-ViT-B-32 from a local
+# hf_model_name directory the script writes itself, as transformers lays
+# one out (the card's machine has no transformers): config.json and
+# flax_model.msgpack, a head model's file with the encoder nested under
+# "roberta" beside an lm_head leaf, and a sharded index; (b) its CLIP step
+# under FSDP at world 1 on NCCL; (c) a BERT and a T5 tower at 2 layers
+# under TP and FSDP x TP on two gloo ranks of the card; (d) the
+# ModifiedResNet HF export at OpenAI RN50's widths
+HFDIR_SEED = 25
+HFDIR_VARIANTS = ("flax_model.msgpack", "head model", "sharded index")
+HFDIR_SHARDS = 4              # 25(a): files of the sharded index
+HFDIR_STEPS = (1, 3)          # 25(a): warm-up and timed CLIP steps
+HFDIR_FSDP_STEPS = 2          # 25(b): steps of each, plain and FSDP
+# 25(b): the embedding tables' tolerance, FSDP and a second plain run
+# against the plain run (a few float32 ulps at their magnitudes)
+HFDIR_EMBED_ATOL = 1e-8
+HFDIR_TP_ARCHS = ("bert", "t5")
+HFDIR_TP_MODES = ("tp", "fsdp_tp")
+HFDIR_TP_BATCH = 4            # 25(c): rows of the float32 step
+HFDIR_TP_ENC = (4, 16)        # 25(c): images and captions of the encoders
+RN50 = dict(embed_dim=1024, vision_layers=[3, 4, 6, 3], vision_width=64,
+            vision_head_width=64)
+
+
+def hf_flax_tree(encoder) -> dict:
+    """An HF tower's encoder as the parameter tree of transformers' Flax
+    module: the weight bridge's paths (``convert.hf_encoder_entries``), a
+    Dense kernel as its ``[in, out]``, float32 on the CPU."""
+    from cosmos_tpu_torch.models.convert import hf_encoder_entries
+
+    state = encoder.state_dict()
+    tree = {}
+    for name, path, tf in hf_encoder_entries(encoder):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        value = state[name].detach().float().cpu()
+        node[path[-1]] = (value.t() if tf == "t" else value).contiguous()
+    return tree
+
+
+def write_hf_dir(path: str, model, variant: str) -> None:
+    """A local hf_model_name directory of ``model``'s HF tower, as
+    transformers writes one: ``config.json`` (the resolved config's fields
+    and ``model_type``) and the weights as ``variant`` says: the base
+    model's ``flax_model.msgpack``; a head model's, the encoder under its
+    base-model prefix beside an ``lm_head``; or HFDIR_SHARDS files of flat
+    ``a/b/c`` keys and ``flax_model.msgpack.index.json``."""
+    from cosmos_tpu_torch.models.convert import HF_BASE_MODEL_PREFIX
+    from cosmos_tpu_torch.models.msgpack import write_msgpack
+
+    Path(path).mkdir(parents=True, exist_ok=True)
+    config = vars(model.text.config)
+    Path(f"{path}/config.json").write_text(json.dumps(config, indent=2))
+    tree = hf_flax_tree(model.text.transformer)
+    if variant == "flax_model.msgpack":
+        write_msgpack(tree, f"{path}/flax_model.msgpack")
+    elif variant == "head model":
+        write_msgpack({HF_BASE_MODEL_PREFIX[config["model_type"]]: tree,
+                       "lm_head": {"bias": torch.zeros(config["vocab_size"])}},
+                      f"{path}/flax_model.msgpack")
+    else:
+        def flat(t, prefix=""):
+            for k, v in t.items():
+                yield from (flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                            else [(f"{prefix}{k}", v)])
+
+        leaves = list(flat(tree))
+        per = -(-len(leaves) // HFDIR_SHARDS)
+        weight_map = {}
+        for i in range(HFDIR_SHARDS):
+            name = f"flax_model-{i + 1:05d}-of-{HFDIR_SHARDS:05d}.msgpack"
+            part = dict(leaves[i * per:(i + 1) * per])
+            write_msgpack(part, f"{path}/{name}")
+            weight_map.update(dict.fromkeys(part, name))
+        Path(f"{path}/flax_model.msgpack.index.json").write_text(json.dumps(
+            {"metadata": {"total_size": sum(
+                v.numel() * v.element_size() for _, v in leaves)},
+             "weight_map": weight_map}))
+
+
+def _hfdir_write(tmp: str) -> dict:
+    """25(a), on the CPU: a seeded roberta-ViT-B-32 (HF_ROBERTA) and a
+    directory of each of HFDIR_VARIANTS written from it."""
+    src = _hf_model("bf16", "cpu", HFDIR_SEED)
+    dirs, variants = {}, {}
+    for variant in HFDIR_VARIANTS:
+        d = dirs[variant] = f"{tmp}/hf_dir_{variant.replace(' ', '_')}"
+        t0 = time.perf_counter()
+        write_hf_dir(d, src, variant)
+        variants[variant] = dict(
+            files=sorted(p.name for p in Path(d).iterdir()),
+            write_s=time.perf_counter() - t0)
+    return dict(src=src, dirs=dirs, variants=variants)
+
+
+def _hfdir_local(K, written: dict) -> dict:
+    """25(a), on the card: roberta-ViT-B-32 from each of ``written``'s
+    directories: every parameter the source's bits, and the features of
+    256 images and captions the source's bits; then the loaded model
+    served at 256 and one CLIP step at batch 64, K1/K2 counted."""
+    from cosmos_tpu_torch import create_model
+
+    src, dirs = written.pop("src"), written["dirs"]
+    want = {k: v.detach().clone() for k, v in src.state_dict().items()}
+    kw = dict(HF_ROBERTA, text_hf_model_pretrained=True)
+    del kw["text_hf_model_config"]
+    out = {"variants": written["variants"]}
+    rng = np.random.default_rng(HFDIR_SEED + 1)
+    images = torch.from_numpy(rng.standard_normal(
+        (HF_SERVE, 224, 224, 3)).astype(np.float32)).cuda()
+    texts = torch.from_numpy(hf_captions(
+        HF_SERVE, ROBERTA_BASE["vocab_size"], 1, HFDIR_SEED + 1)).cuda()
+
+    def features(model):
+        with torch.inference_mode():
+            return (model.encode_image(images, True)["image_features"],
+                    model.encode_text(texts, True)["text_features"])
+
+    src = src.cuda().eval()
+    src_feats = features(src)
+    del src
+    model = None
+    for variant, d in dirs.items():
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = create_model(HF_VISION, "bf16", device="cuda",
+                             seed=HFDIR_SEED, text_hf_model_name=d, **kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = model.state_dict()
+        moved = [k for k, v in want.items() if not torch.equal(
+            got[k].cpu(), v)]
+        check(got.keys() == want.keys() and not moved,
+              f"25(a) {variant}: loaded parameters off the source's bits: "
+              f"{moved[:6]}")
+        feats = features(model.eval())
+        same = [torch.equal(a, b) for a, b in zip(feats, src_feats)]
+        check(all(same), f"25(a) {variant}: features (image, text) the "
+              f"source's bits: {same}")
+        shutil.rmtree(d)
+        rec = out["variants"][variant]
+        rec["load_s"] = load_s
+        print(f"[hfdir] (a) {variant}: {len(rec['files'])} files written "
+              f"in {rec['write_s']:.1f} s, create_model(..., "
+              f"text_hf_model_name=dir) {load_s:.1f} s; {len(want)} "
+              f"parameters and the features of {HF_SERVE} images and "
+              "captions the source's bits")
+    serve, k1 = _weights_serve(
+        K, model, 224, HF_CALL_K1, f"roberta-{HF_VISION} from a directory",
+        HFDIR_SEED + 2, length=HF_CONTEXT, tag="hfdir", n_images=HF_SERVE,
+        captions=hf_captions(HF_SERVE, ROBERTA_BASE["vocab_size"], 1,
+                             HFDIR_SEED + 2))
+    step = _hf_step(K, model, siglip=False, steps=HFDIR_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    return dict(out, serving=serve, serving_k1=k1, step=step)
+
+
+def _hfdir_fsdp(K) -> dict:
+    """25(b): roberta-ViT-B-32's plain-CLIP step in bf16 at batch 64,
+    HFDIR_FSDP_STEPS steps from the same weights and batch, plain twice and
+    under FSDP at world 1 on NCCL: the same losses, every parameter of the
+    FSDP run the plain run's bits (the pooler, which mean pooling does not
+    reach, decayed in both) but the embedding tables, whose CUDA backward
+    sums repeated ids in no fixed order (the two plain runs differ there
+    too), held within HFDIR_EMBED_ATOL; 12/12 K1/K2 a step; ms a step and
+    peak memory."""
+    from cosmos_tpu_torch.models.hf_bert import Embed
+    from cosmos_tpu_torch.parallel import distributed
+    from cosmos_tpu_torch.parallel.mesh import create_mesh
+    from cosmos_tpu_torch.training.checkpoint import host_state
+    from cosmos_tpu_torch.training.scheduler import const_lr
+
+    runs, embed = {}, set()
+    for name, fsdp in (("plain", False), ("plain again", False),
+                       ("fsdp", True)):
+        if fsdp:
+            distributed.init_distributed(None, alone=True)
+        try:
+            model = _hf_model("bf16", "cuda", HFDIR_SEED + 3).train()
+            embed = {f"{m}.weight" for m, mod in model.named_modules()
+                     if isinstance(mod, Embed)}
+            step, state = _gspmd_setup(
+                model, const_lr(1e-4, 0, 100), torch.bfloat16,
+                create_mesh(device_type="cuda") if fsdp else None, fsdp,
+                mode=dict(cosmos=False))
+            batch = _hf_batch(HF_STEP_BATCH, HFDIR_SEED + 4, "cuda")
+            run = _timed_steps(K, step, state, batch, 0, HFDIR_FSDP_STEPS)
+            student = (host_state(state, optimizer=False)["student"] if fsdp
+                       else state.student.state_dict())
+            run["student"] = {k: v.detach().cpu() for k, v in student.items()}
+            runs[name] = run
+            del model, step, state, batch, student
+        finally:
+            if fsdp:
+                distributed.destroy()
+        torch.cuda.empty_cache()
+    want = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0),
+            "K1": 12, "K2": 12}
+    for name, run in runs.items():
+        check(all(x == want for x in run["launches"]),
+              f"25(b) {name}: launches {run['launches']}, expected {want}")
+    plain = runs["plain"]
+    diffs = {}
+    for name in ("plain again", "fsdp"):
+        run = runs[name]
+        diffs[name] = {k: (v.float() - run["student"][k].float()).abs().max()
+                       .item() for k, v in plain["student"].items()
+                       if not torch.equal(v, run["student"][k])}
+        bad = {k: e for k, e in diffs[name].items()
+               if k not in embed or e > HFDIR_EMBED_ATOL}
+        check(run["losses"] == plain["losses"] and not bad,
+              f"25(b) {name}: losses {run['losses']}, plain "
+              f"{plain['losses']}; parameters off the plain run's bits "
+              f"beyond the embedding tables' tolerance: "
+              f"{dict(list(bad.items())[:8])}")
+    for run in runs.values():
+        del run["student"]
+    fsdp = runs["fsdp"]
+    print(f"[hfdir] (b) roberta-{HF_VISION} CLIP step under FSDP at world 1 "
+          f"(NCCL), bf16 batch {HF_STEP_BATCH}: losses {fsdp['losses']}, "
+          f"the plain run's; parameters off its bits: FSDP {diffs['fsdp']}, "
+          f"a second plain run {diffs['plain again']} (embedding tables, "
+          f"held within {HFDIR_EMBED_ATOL}); K1/K2 12/12 a step; ms a step "
+          f"FSDP {fsdp['step_ms']}, plain {plain['step_ms']}; peak memory "
+          f"FSDP {fsdp['peak_mem_gb']:.2f} GB, plain "
+          f"{plain['peak_mem_gb']:.2f} GB")
+    return dict(runs, off_bits=diffs)
+
+
+def _hfdir_small(arch: str, device):
+    """25(c)'s model: ``arch`` at the base widths, HF_SMALL layers a tower
+    and HF_SMALL_VOCAB ids (HF_SMALL_CONFIGS), float32, weights from
+    HFDIR_SEED."""
+    from cosmos_tpu_torch import create_model
+
+    return create_model(HF_VISION, "fp32", device=device,
+                        seed=HFDIR_SEED + 5, vision_layers=HF_SMALL,
+                        text_hf_model_config=HF_SMALL_CONFIGS[arch],
+                        text_hf_model_pretrained=False)
+
+
+def _hfdir_inputs(arch: str) -> dict:
+    """25(c)'s inputs of ``arch``, on the CPU: the step's batch and the
+    encoders' images and captions (right-end pads of the pad id)."""
+    rng = np.random.default_rng(HFDIR_SEED + 6)
+    pad = HF_PAD[arch]
+    n_img, n_txt = HFDIR_TP_ENC
+    return dict(
+        batch={"global_images": torch.from_numpy(rng.integers(
+                   0, 256, (1, HFDIR_TP_BATCH, 224, 224, 3), np.uint8)),
+               "texts": torch.from_numpy(hf_captions(
+                   HFDIR_TP_BATCH, HF_SMALL_VOCAB, pad,
+                   HFDIR_SEED + 7))[None]},
+        images=torch.from_numpy(rng.standard_normal(
+            (n_img, 224, 224, 3)).astype(np.float32)),
+        texts=torch.from_numpy(hf_captions(n_txt, HF_SMALL_VOCAB, pad,
+                                           HFDIR_SEED + 8)))
+
+
+def _hfdir_rank(rank: int, spec: dict) -> None:
+    """25(c)'s rank on a (1, 2) mesh of gloo ranks on this card: for a BERT
+    and a T5 tower, the float32 step under TP and under FSDP x TP (loss,
+    gathered student and teacher, K1-K6, the text parameters sharded over
+    the model axis), and the TP encoders' features with K1 a call."""
+    from cosmos_tpu_torch.parallel import distributed
+    from cosmos_tpu_torch.parallel.mesh import create_tp_mesh
+    from cosmos_tpu_torch.parallel.tp import make_tp_encoders
+    from cosmos_tpu_torch.training.scheduler import const_lr
+
+    import faulthandler
+
+    faulthandler.enable()
+    _beyond_env(rank, spec["port"])
+    K = _kernel_modules()
+    distributed.init_distributed(None, backend="gloo")
+    out = {}
+    try:
+        with _sync_functional_collectives():
+            for arch in HFDIR_TP_ARCHS:
+                inputs = _hfdir_inputs(arch)
+                for mode in HFDIR_TP_MODES:
+                    model = _hfdir_small(arch, "cuda").train()
+                    step, state = _gspmd_setup(
+                        model, const_lr(DP_LR, 0, 100), torch.float32,
+                        create_tp_mesh(1, SLICE16_TP, "cuda"),
+                        fsdp=mode == "fsdp_tp", eps=DP_EPS,
+                        mode=dict(cosmos=False))
+                    zero_launches(K)
+                    m = step(state, {k: v.cuda() for k, v in
+                                     inputs["batch"].items()})
+                    launches = read_launches(K)
+                    sharded = sorted(
+                        n for n, p in state.student.named_parameters()
+                        if n.startswith("text.")
+                        and type(p).__name__ == "DTensor"
+                        and "model" in (p.device_mesh.mesh_dim_names or ())
+                        and any(type(pl).__name__ == "Shard"
+                                for pl, ax in zip(
+                                    p.placements,
+                                    p.device_mesh.mesh_dim_names)
+                                if ax == "model"))
+                    out[f"{arch} {mode}"] = dict(
+                        _small_result(m, state, _gathered(state)),
+                        launches=launches, text_sharded=sharded)
+                    del model, step, state
+                model = _hfdir_small(arch, "cuda").eval()
+                _, enc_image, enc_text = make_tp_encoders(
+                    model, create_tp_mesh(1, SLICE16_TP, "cuda"))
+                feats, k1 = {}, {}
+                for name, enc in (("image", enc_image), ("text", enc_text)):
+                    zero_launches(K)
+                    feats[name] = enc(inputs[f"{name}s"].cuda()).cpu()
+                    k1[name] = read_launches(K)["K1"]
+                out[f"{arch} encoders"] = dict(features=feats, k1=k1)
+                del model, enc_image, enc_text
+                torch.cuda.empty_cache()
+    finally:
+        torch.save(out, f"{spec['out']}.{rank}")
+        distributed.destroy()
+
+
+def _hfdir_reference() -> dict:
+    """25(c)'s references in this process, on the card: each tower's
+    unsharded float32 step and its normalised features."""
+    from cosmos_tpu_torch.training.scheduler import const_lr
+
+    ref = {}
+    for arch in HFDIR_TP_ARCHS:
+        inputs = _hfdir_inputs(arch)
+        model = _hfdir_small(arch, "cuda").train()
+        step, state = _gspmd_setup(model, const_lr(DP_LR, 0, 100),
+                                   torch.float32, eps=DP_EPS,
+                                   mode=dict(cosmos=False))
+        m = step(state, {k: v.cuda() for k, v in inputs["batch"].items()})
+        ref[f"{arch} step"] = _small_result(m, state)
+        model = _hfdir_small(arch, "cuda").eval()
+        with torch.no_grad():
+            ref[f"{arch} features"] = {
+                "image": model.encode_image(inputs["images"].cuda(),
+                                            True)["image_features"].cpu(),
+                "text": model.encode_text(inputs["texts"].cuda(),
+                                          True)["text_features"].cpu()}
+        del model, step, state
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _hfdir_tp_start(tmp: str):
+    """25(c)'s ranks, started: (their process context, spec)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        spec = dict(out=f"{tmp}/hfdir", port=sock.getsockname()[1],
+                    t0=time.perf_counter())
+    return mp.start_processes(_hfdir_rank, args=(spec,), nprocs=BEYOND_WORLD,
+                              join=False, start_method="spawn"), spec
+
+
+def _hfdir_tp(K, started) -> dict:
+    """25(c): the references in this process while the ranks (started by
+    ``_hfdir_tp_start``) run, then the comparison."""
+    ctx, spec = started
+    t0 = time.perf_counter()
+    try:
+        ref = _hfdir_reference()
+        ref_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 600
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  "25(c): the ranks outlasted 600 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    ranks_s = time.perf_counter() - spec["t0"]
+    ranks = [torch.load(f"{spec['out']}.{r}", weights_only=False)
+             for r in range(BEYOND_WORLD)]
+    want_step = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0),
+                 "K1": HF_SMALL, "K2": HF_SMALL}
+    errs, launches = {}, {"K1": 0, "K2": 0}
+    for arch in HFDIR_TP_ARCHS:
+        q = [f"text.transformer.encoder.block.{i}.layer.0.SelfAttention.q."
+             "weight" for i in range(HF_SMALL)] if arch == "t5" else []
+        for r, got in enumerate(ranks):
+            check({f"{arch} {m}" for m in HFDIR_TP_MODES}
+                  | {f"{arch} encoders"} <= got.keys(),
+                  f"25(c) rank {r}: stopped after {sorted(got)}")
+            for mode in HFDIR_TP_MODES:
+                run = got[f"{arch} {mode}"]
+                ref_step = ref[f"{arch} step"]
+                check(run["launches"] == want_step, f"25(c) rank {r} {arch} "
+                      f"{mode}: launches {run['launches']}, expected "
+                      f"{want_step}")
+                check(run["text_sharded"] == q, f"25(c) rank {r} {arch} "
+                      f"{mode}: text parameters sharded over the model axis "
+                      f"{run['text_sharded']}, expected {q}")
+                launches["K1"] += run["launches"]["K1"]
+                launches["K2"] += run["launches"]["K2"]
+                if r:
+                    continue
+                e = {"loss": abs(run["loss"] - ref_step["loss"])
+                     / abs(ref_step["loss"])}
+                check(e["loss"] <= DP_LOSS_RTOL, f"25(c) {arch} {mode}: loss "
+                      f"{run['loss']}, one process {ref_step['loss']}")
+                for which in ("student", "teacher"):
+                    e[which] = _max_err(run[which], ref_step[which])
+                    check(e[which] <= DP_WEIGHT_ATOL, f"25(c) {arch} {mode}: "
+                          f"updated {which} max err {e[which]}")
+                errs[f"{arch} {mode}"] = e
+            enc = got[f"{arch} encoders"]
+            check(enc["k1"] == {"image": HF_SMALL, "text": 0}, f"25(c) rank "
+                  f"{r} {arch}: K1 a TP encoder call {enc['k1']}")
+            launches["K1"] += sum(enc["k1"].values())
+            fe = {n: (enc["features"][n] - ref[f"{arch} features"][n]).abs()
+                  .max().item() for n in ("image", "text")}
+            check(max(fe.values()) <= BEYOND_ENC_TOL, f"25(c) rank {r} "
+                  f"{arch}: TP features off the unsharded {fe}")
+            errs[f"{arch} encoders rank {r}"] = fe
+        print(f"[hfdir] (c) {arch} ({HF_SMALL} layers a tower, float32) on "
+              f"a (1, {SLICE16_TP}) mesh of gloo ranks: " + "; ".join(
+                  f"{k}: " + " ".join(f"{n}={v:.3g}" for n, v in e.items())
+                  for k, e in errs.items() if k.startswith(arch))
+              + f"; K1/K2 a step {HF_SMALL}/{HF_SMALL} on each rank; text "
+              f"parameters sharded over the model axis: {len(q)} (T5's q)")
+    return dict(errs=errs, launches=launches, ref_s=ref_s, ranks_s=ranks_s)
+
+
+def _hfdir_resnet_export(tmp: str) -> dict:
+    """25(d): save_for_hf of a ModifiedResNet CLIP at OpenAI RN50's widths
+    (by overrides of ViT-B-32): the .bin read back to the model's bits,
+    the .msgpack read back to the bridge's tree leaf for leaf, the
+    BatchNorm statistics among its leaves."""
+    from cosmos_tpu_torch import create_model, save_for_hf
+    from cosmos_tpu_torch.models.checkpoint import load_checkpoint
+    from cosmos_tpu_torch.models.msgpack import read_msgpack
+    from cosmos_tpu_torch.models.push_to_hf_hub import (HF_FLAX_WEIGHTS_NAME,
+                                                        HF_WEIGHTS_NAME,
+                                                        params_tree)
+
+    model = create_model(HF_VISION, "fp32", device="cpu",
+                         seed=HFDIR_SEED + 9, **RN50)
+    check(type(model.visual).__name__ == "ModifiedResNet",
+          "25(d): the RN50 overrides did not build a ModifiedResNet")
+    out = Path(tmp) / "rn50_export"
+    t0 = time.perf_counter()
+    save_for_hf(model, str(out))
+    save_s = time.perf_counter() - t0
+    want = model.state_dict()
+    back = load_checkpoint(create_model(HF_VISION, "fp32", device="cpu",
+                                        seed=1, **RN50),
+                           str(out / HF_WEIGHTS_NAME), strict=True)
+    got = back.state_dict()
+    check(got.keys() == want.keys() and all(
+        torch.equal(got[k], v) for k, v in want.items()),
+          "25(d): the .bin read back to other bits")
+
+    def leaves(t, path=()):
+        for k, v in t.items():
+            yield from (leaves(v, path + (k,)) if isinstance(v, dict)
+                        else [(path + (k,), v)])
+
+    tree = dict(leaves(read_msgpack(str(out / HF_FLAX_WEIGHTS_NAME))))
+    ref = dict(leaves(params_tree(model)))
+    check(tree.keys() == ref.keys() and all(
+        torch.equal(tree[k], v) for k, v in ref.items()),
+          "25(d): the .msgpack is not the bridge's tree")
+    check(("visual", "bn1", "var") in tree
+          and ("visual", "layer4_2", "conv3", "kernel") in tree,
+          "25(d): the tree lacks the ResNet's BatchNorm statistics or stages")
+    sizes = {p.name: p.stat().st_size for p in out.iterdir()}
+    shutil.rmtree(out)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[hfdir] (d) save_for_hf of ModifiedResNet RN50 ({n / 1e6:.2f} M "
+          f"parameters): {sizes} in {save_s:.1f} s; the .bin and the "
+          f".msgpack ({len(tree)} leaves, BatchNorm statistics among them) "
+          "read back to the bits")
+    return dict(files=sizes, save_s=save_s, flax_leaves=len(tree), params=n)
+
+
+def phase_hf_local(K, tmp: str) -> dict:
+    """Phase 25: (a) roberta-ViT-B-32 from local directories, (b) its step
+    under FSDP at world 1, (c) BERT and T5 towers under TP and FSDP x TP
+    on gloo ranks, (d) the ModifiedResNet export."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (c)'s gloo ranks start first; the CPU work of (d) and (a) runs while
+    # they start, the card's measurements of (a) and (b) after they end
+    started = _hfdir_tp_start(tmp)
+    export = _hfdir_resnet_export(tmp)
+    done("(d) RN50 export")
+    written = _hfdir_write(tmp)
+    done("(a) directories written")
+    tp = _hfdir_tp(K, started)
+    done("(c) TP and FSDP x TP")
+    local = _hfdir_local(K, written)
+    done("(a) loads, serving, step")
+    fsdp = _hfdir_fsdp(K)
+    done("(b) FSDP at world 1")
+    fsdp_k = {k: sum(x[k] for name, r in fsdp.items() if name != "off_bits"
+                     for x in r["launches"]) for k in ("K1", "K2")}
+    k1 = {"HF directory serving": local["serving_k1"],
+          "HF directory step": local["step"]["launches"]["K1"],
+          "HF under FSDP": fsdp_k["K1"],
+          "HF under TP, 2 layers": tp["launches"]["K1"]}
+    k2 = {"HF directory step": local["step"]["launches"]["K2"],
+          "HF under FSDP": fsdp_k["K2"],
+          "HF under TP, 2 layers": tp["launches"]["K2"]}
+    out = dict(local=local, fsdp=fsdp, tp=tp, export=export,
+               k1_launches=k1, k2_launches=k2,
+               launches_by_geometry={
+                   "K1 serving": local["serving"]["k1_launches"]["image"],
+                   "K2 step": local["step"]["launches"]["K2"]
+                   + fsdp_k["K2"]},
+               parts_s=parts, phase_s=time.perf_counter() - t0)
+    print(f"[hfdir] phase 25 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+          + "); K1 launches " + " ".join(f"{k}={v}" for k, v in k1.items())
+          + "; K2 launches " + " ".join(f"{k}={v}" for k, v in k2.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -6973,6 +7537,7 @@ def main() -> int:
         siglip = timed("23", phase_siglip, K, native_build,
                        trainer["data_dir"], trainer["workers"], work)
         hf = timed("24", phase_hf, K, work)
+        hfdir = timed("25", phase_hf_local, K, work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = timed("17", phase_last_flags, K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -7028,7 +7593,8 @@ def main() -> int:
         + sum(coca["k1_launches"].values())
         + sum(slice16["k1_launches"].values())
         + sum(siglip["k1_launches"].values())
-        + sum(hf["k1_launches"].values()),
+        + sum(hf["k1_launches"].values())
+        + sum(hfdir["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -7046,7 +7612,8 @@ def main() -> int:
                              **coca["k1_launches"],
                              **slice16["k1_launches"],
                              **siglip["k1_launches"],
-                             **hf["k1_launches"]},
+                             **hf["k1_launches"],
+                             **hfdir["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -7074,7 +7641,8 @@ def main() -> int:
         + beyond_k["K2"] + sum(coca["k2_launches"].values())
         + sum(slice16["k2_launches"].values())
         + sum(siglip["k2_launches"].values())
-        + sum(hf["k2_launches"].values()),
+        + sum(hf["k2_launches"].values())
+        + sum(hfdir["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -7088,7 +7656,8 @@ def main() -> int:
                              **coca["k2_launches"],
                              **slice16["k2_launches"],
                              **siglip["k2_launches"],
-                             **hf["k2_launches"]},
+                             **hf["k2_launches"],
+                             **hfdir["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     # K1 and K2 at the SigLIP towers' geometries (phase 23): the bf16
@@ -7116,8 +7685,9 @@ def main() -> int:
             **{k: pick(table, (label, torch.bfloat16))[k]
                for k in attention_keys}})
         check(n > 0, f"{key} never launched at the SigLIP geometry")
-    # K1 and K2 at roberta-ViT-B-32's vision geometries (phase 24): the
-    # bf16 image calls of 24(a) and (c) and the steps of 24(b) and (e)
+    # K1 and K2 at roberta-ViT-B-32's vision geometries (phases 24-25):
+    # the bf16 image calls of 24(a), (c) and 25(a), the steps of 24(b),
+    # (e), 25(a) and (b)
     for key, name, source, replaces, table, (label, *_) in (
             ("K1 serving", "fused_attention_qkv_fwd_hf_vision",
              "fused_attention_fwd.cu", "cosmos_tpu/ops/fused_attention.py:101",
@@ -7125,12 +7695,15 @@ def main() -> int:
             ("K2 step", "fused_attention_qkv_bwd_hf_vision",
              "fused_attention_bwd.cu", "cosmos_tpu/ops/fused_attention.py:190",
              hf["kernel_bwd_rows"], HF_K2_GEOMETRY)):
-        n = hf["launches_by_geometry"][key]
+        by_path = {f"HF towers, {key}": hf["launches_by_geometry"][key],
+                   f"HF towers complete, {key}":
+                       hfdir["launches_by_geometry"][key]}
+        n = sum(by_path.values())
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cosmos_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": n,
-            "launches_by_path": {f"HF towers, {key}": n},
+            "launches_by_path": by_path,
             **{k: pick(table, (label, torch.bfloat16))[k]
                for k in attention_keys}})
         check(n > 0, f"{key} never launched at roberta-ViT-B-32's geometry")
@@ -7194,6 +7767,7 @@ def main() -> int:
                   data_parallel=data_parallel, last_flags=last,
                   towers=towers, beyond_dp=beyond, weights_in=weights,
                   coca=coca, slice16=slice16, siglip=siglip, hf=hf,
+                  hf_local=hfdir,
                   phase_s=phase_s, total_s=time.perf_counter() - t0,
                   kernels=kernels)
     out_dir = ROOT / "chiprun_out"

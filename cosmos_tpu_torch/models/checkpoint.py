@@ -17,6 +17,8 @@ one into a ``CLIP`` in place.  The files it reads:
 
 A pickled ``nn.Module`` is refused: the JAX package reads with
 ``weights_only=False``, which runs the file's pickled code.
+``read_safetensors`` reads a ``.safetensors`` file (an HF text tower's
+``model.safetensors``, ``hf_model.load_hf_pretrained``).
 
 A reference state dict loads as ``torch_state_dict_to_params`` loads it:
 ``module.`` is stripped, ``attn_mask`` dropped, the CustomTextCLIP ``text.``
@@ -32,6 +34,7 @@ their initial values or cannot read the file.
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import pickle
@@ -127,6 +130,36 @@ def read_checkpoint(path: str, which: str = "student"
     else:
         sd = ckpt
     return _strip(sd)
+
+
+# the dtype names of the safetensors format
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool}
+
+
+def read_safetensors(path: str):
+    """A ``.safetensors`` file (an 8-byte little-endian header length, a
+    JSON header of each tensor's dtype, shape and byte range, the bytes):
+    ``({name: tensor}, the header's ``__metadata__`` or None)``, with no
+    ``safetensors`` package."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = f.read()
+    metadata = header.pop("__metadata__", None)
+    out = {}
+    for name, info in header.items():
+        start, end = info["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        if end == start:
+            out[name] = torch.empty(info["shape"], dtype=dtype)
+            continue
+        raw = torch.frombuffer(bytearray(data[start:end]), dtype=torch.uint8)
+        out[name] = raw.view(dtype).reshape(info["shape"])
+    return out, metadata
 
 
 def _strip(sd: Dict[str, Any]) -> Dict[str, Any]:

@@ -234,14 +234,15 @@ def hf_tree_entries(text: Dict[str, Any]) -> List[Entry]:
     return entries
 
 
-def hf_model_entries(model: torch.nn.Module) -> List[Entry]:
-    """``hf_tree_entries`` from the port's side: the flax path of every
-    parameter of ``model.text``, by the type of the module that holds it."""
+def hf_encoder_entries(encoder: torch.nn.Module) -> List[Entry]:
+    """(name, flax path, transform) of every parameter of an HF tower's
+    encoder (``hf_bert.BertModel``, ``hf_t5.T5EncoderModel``), by the type
+    of the module that holds it: the paths of transformers' Flax module."""
     from .hf_bert import Embed
     from .layers import LayerNorm, Linear
 
     entries: List[Entry] = []
-    for mname, mod in model.text.transformer.named_modules():
+    for mname, mod in encoder.named_modules():
         path = tuple(mname.split(".")) if mname else ()
         for pname, _ in mod.named_parameters(recurse=False):
             tf = None
@@ -253,18 +254,78 @@ def hf_model_entries(model: torch.nn.Module) -> List[Entry]:
                 leaf = "scale"
             else:
                 leaf = pname
-            entries.append((f"text.transformer.{mname}.{pname}",
-                            ("text", "hf") + path + (leaf,), tf))
+            entries.append((f"{mname}.{pname}" if mname else pname,
+                            path + (leaf,), tf))
+    return entries
+
+
+def hf_model_entries(model: torch.nn.Module) -> List[Entry]:
+    """``hf_tree_entries`` from the port's side: the flax path of every
+    parameter of ``model.text``."""
+    entries: List[Entry] = [
+        (f"text.transformer.{name}", ("text", "hf") + path, tf)
+        for name, path, tf in hf_encoder_entries(model.text.transformer)]
     for pname, _ in model.text.proj.named_parameters():
         entries.append((f"text.proj.{pname}",
                         ("text", "proj", _HF_PROJ[pname], "kernel"), "t"))
     return entries
 
 
+# the ``base_model_prefix`` of transformers' model of each architecture: a
+# head model's file (``FlaxBertForMaskedLM``, ...) holds the encoder under it
+HF_BASE_MODEL_PREFIX = {"bert": "bert", "roberta": "roberta",
+                        "xlm-roberta": "roberta", "t5": "transformer",
+                        "mt5": "transformer"}
+
+
+def hf_pretrained_state_dict(weights: Dict[str, Any], kind: str,
+                             encoder: torch.nn.Module, model_type: str
+                             ) -> Tuple[Dict[str, torch.Tensor], List[str],
+                                        List[str]]:
+    """A transformers checkpoint as ``FlaxAutoModel.from_pretrained`` takes
+    it into the base model, under the names of the port's ``encoder``:
+    ``kind`` ``"flax"`` for a nested flax tree, ``"pt"`` for a torch state
+    dict (whose names are the port's).  A head model's base-model prefix is
+    stripped.  Returns (the state dict, the encoder's names the checkpoint
+    lacks, the checkpoint's leaves the encoder does not have, such as a
+    head's or T5's decoder); a leaf of another shape raises."""
+    prefix = HF_BASE_MODEL_PREFIX[model_type]
+    params = dict(encoder.named_parameters())
+    state: Dict[str, torch.Tensor] = {}
+    unexpected: List[str] = []
+    if kind == "pt":
+        head = prefix in {k.split(".")[0] for k in weights}
+        for key, value in weights.items():
+            parts = key.split(".")
+            if head and parts[0] == prefix:
+                parts = parts[1:]
+            name = ".".join(parts)
+            if name in params:
+                state[name] = _tensor(value)
+            else:
+                unexpected.append(key)
+    else:
+        if prefix in weights:
+            weights = weights[prefix]
+        flat = dict(_leaves(weights))
+        for name, path, tf in hf_encoder_entries(encoder):
+            if path in flat:
+                state[name] = _from_flax(_tensor(flat.pop(path)), tf)
+        unexpected = ["/".join(path) for path in flat]
+    for name, value in state.items():
+        if tuple(value.shape) != tuple(params[name].shape):
+            raise ValueError(
+                f"Trying to load the pretrained weight for {name} failed: "
+                f"checkpoint has shape {tuple(value.shape)} which is "
+                f"incompatible with the model shape "
+                f"{tuple(params[name].shape)}")
+    return state, [n for n in params if n not in state], unexpected
+
+
 def model_name_map(model: torch.nn.Module) -> List[Entry]:
-    """The name map of a native-ViT ``CLIP`` (with either text tower) or of
-    ``CoCa``, at the model's depths (a CLIP's other vision towers have 0
-    ViT layers)."""
+    """The name map of a native-ViT or ModifiedResNet ``CLIP`` (with either
+    text tower) or of ``CoCa``, at the model's depths (a CLIP's other
+    vision towers have 0 ViT layers and no entries)."""
     visual = getattr(model.visual, "transformer", None)
     v_layers = len(visual.resblocks) if visual is not None else 0
     if is_coca(model):
@@ -272,8 +333,15 @@ def model_name_map(model: torch.nn.Module) -> List[Entry]:
                                    len(model.text.transformer.resblocks),
                                    len(model.text_decoder.resblocks))
     if model.text_cfg.is_hf:
-        return build_name_map(v_layers, 0) + hf_model_entries(model)
-    return build_name_map(v_layers, len(model.transformer.resblocks))
+        entries = build_name_map(v_layers, 0) + hf_model_entries(model)
+    else:
+        entries = build_name_map(v_layers, len(model.transformer.resblocks))
+    if hasattr(model.visual, "attnpool"):
+        # OpenAI's ResNet names in place of the ViT's (both have a conv1)
+        vit = {key for key, _, _ in _vit_entries(0)}
+        entries = [e for e in entries if e[0] not in vit] \
+            + resnet_model_entries(model)
+    return entries
 
 
 def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()):
@@ -382,6 +450,34 @@ def vision_entries(visual: Dict[str, Any]) -> List[Entry]:
         for path, value in _leaves(visual):
             key, tf = _resnet_key(path, value)
             entries.append((f"visual.{key}", ("visual",) + path, tf))
+    return entries
+
+
+_RESNET_LEAF = {"running_mean": "mean", "running_var": "var"}
+
+
+def resnet_model_entries(model: torch.nn.Module) -> List[Entry]:
+    """The ModifiedResNet part of ``vision_entries`` from the port's side:
+    (OpenAI's name, flax path, transform) of every parameter of
+    ``model.visual``, its BatchNorm statistics among them."""
+    entries: List[Entry] = []
+    for name, p in model.visual.named_parameters(prefix="visual"):
+        _, *mods, leaf = name.split(".")
+        m = re.fullmatch(r"layer(\d+)", mods[0])
+        if m:
+            sub = mods[2:]
+            if sub[:1] == ["downsample"]:
+                sub = [("downsample_conv", "downsample_bn")[int(sub[1])]]
+            mods = [f"layer{m[1]}_{mods[1]}", *sub]
+        tf = None
+        if leaf == "weight" and p.ndim == 4:
+            leaf, tf = "kernel", "conv"
+        elif leaf == "weight" and p.ndim == 2:
+            leaf, tf = "kernel", "t"
+        elif leaf == "weight":
+            leaf = "scale"
+        entries.append((name, ("visual", *mods, _RESNET_LEAF.get(leaf, leaf)),
+                        tf))
     return entries
 
 

@@ -99,7 +99,10 @@ def create_model(
     ``checkpoint.load_checkpoint``; the ``openai`` tag forces QuickGELU, as
     do ``force_quick_gelu`` and a config's ``quick_gelu``;
     ``force_image_size`` resizes the vision tower (a checkpoint's position
-    table is resized to it)."""
+    table is resized to it).  An HF text tower whose ``text_hf_model_name``
+    is a local directory loads that directory's weights
+    (``hf_model.load_hf_pretrained``) unless ``text_hf_model_pretrained`` is
+    off or ``pretrained`` is given."""
     dev = resolve_device(device)
     if pretrained and dev.type == "meta":
         raise ValueError("a meta-device model holds no weights to load into")
@@ -138,6 +141,13 @@ def create_model(
     if dev.type == "meta":
         return model.eval()
     init_weights(model, torch.Generator().manual_seed(seed))
+    t = cfg.text_cfg
+    if t.hf_model_name and t.hf_model_pretrained and not pretrained:
+        # the HF tower's weights from its local directory; a pretrained
+        # checkpoint supersedes them, as in JAX's factory
+        from .hf_model import load_hf_pretrained
+
+        load_hf_pretrained(model, t.hf_model_name)
     if pretrained:
         from .checkpoint import load_checkpoint
         from .pretrained import resolve_pretrained
@@ -160,8 +170,9 @@ def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
     text_cfg = (cfg or {}).get("text_cfg", {})
     if text_cfg.get("hf_tokenizer_name"):
         raise NotImplementedError(
-            f"{model_name}: HF tokenizers are not ported (ROADMAP queue 1, "
-            '"Not queued": it needs a download)')
+            f"{model_name}: HF tokenizers are not ported: one from a local "
+            'directory is ROADMAP queue 1, "An HF tokenizer from a local '
+            'directory"; a hub name needs a download ("Not queued")')
     if context_length is None:
         context_length = text_cfg.get("context_length", 77)
     return SimpleTokenizer(context_length=context_length, **kwargs)

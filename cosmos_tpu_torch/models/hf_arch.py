@@ -1,13 +1,19 @@
-"""The port's stand-in for ``transformers.AutoConfig.for_model``: an offline
-``hf_model_config`` dict (``model_type`` and the config's fields) as a
-namespace with the defaults of transformers' ``BertConfig``,
-``RobertaConfig``, ``XLMRobertaConfig``, ``T5Config`` and ``MT5Config`` for
-every field the encoders of ``hf_bert.py`` and ``hf_t5.py`` read
-(``cosmos_tpu/models/hf_model.py`` ``resolve_hf_config``).  The port never
-imports ``transformers``: the card's machine does not have it.
+"""The port's stand-in for ``transformers.AutoConfig.for_model`` and
+``AutoConfig.from_pretrained`` on a local directory: an offline
+``hf_model_config`` dict, or the dict a directory's ``config.json`` holds
+(``model_type`` and the config's fields), as a namespace with the defaults
+of transformers' ``BertConfig``, ``RobertaConfig``, ``XLMRobertaConfig``,
+``T5Config`` and ``MT5Config`` for every field the encoders of
+``hf_bert.py`` and ``hf_t5.py`` read (``cosmos_tpu/models/hf_model.py``
+``resolve_hf_config``).  The dict's other keys (transformers' bookkeeping:
+``architectures``, ``transformers_version``, ``torch_dtype``, dropout
+rates, ...) are left out.  The port never imports ``transformers``: the
+card's machine does not have it.
 
 T5's ``feed_forward_proj`` parses as transformers parses it: ``"relu"`` or
-``"gated-<act>"``, with ``"gated-gelu"`` meaning the gated ``gelu_new``.
+``"gated-<act>"``, with ``"gated-gelu"`` meaning the gated ``gelu_new``;
+a saved config's own ``dense_act_fn`` and ``is_gated_act`` win over the
+parse, as they do in ``T5Config``.
 ``m2m_100`` is refused as the JAX package refuses it (no Flax encoder);
 any other type is refused, naming the ``ROADMAP.md`` item that would add
 it.
@@ -62,7 +68,8 @@ def _parse_ff(proj: str):
 
 
 def resolve_hf_config(hf_model_config: Dict[str, Any]) -> SimpleNamespace:
-    """The dict's fields over its type's defaults, as attributes."""
+    """The dict's fields over its type's defaults, as attributes (the
+    fields the encoders read, and ``model_type``)."""
     d = dict(hf_model_config)
     model_type = d.pop("model_type")
     if model_type == "m2m_100":
@@ -74,10 +81,12 @@ def resolve_hf_config(hf_model_config: Dict[str, Any]) -> SimpleNamespace:
         raise NotImplementedError(
             f"HF text tower {model_type!r}: the port writes its encoders "
             f"itself and has {', '.join(DEFAULTS)}; see {UNPORTED}")
-    fields = dict(DEFAULTS[model_type], **d, model_type=model_type)
+    fields = {k: d.get(k, v) for k, v in DEFAULTS[model_type].items()}
+    fields["model_type"] = model_type
     if model_type in T5_FAMILY:
-        fields["dense_act_fn"], fields["is_gated_act"] = _parse_ff(
-            fields["feed_forward_proj"])
+        act, gated = _parse_ff(fields["feed_forward_proj"])
+        fields["dense_act_fn"] = d.get("dense_act_fn", act)
+        fields["is_gated_act"] = d.get("is_gated_act", gated)
     elif fields["is_decoder"] or fields["add_cross_attention"]:
         raise NotImplementedError(
             f"HF text tower {model_type!r} as a decoder: the port builds "

@@ -1,7 +1,8 @@
 """The HF text tower (counterpart of ``cosmos_tpu/models/hf_model.py``): an
-encoder built from an offline ``hf_model_config`` (``hf_arch.py``: BERT,
-RoBERTa, XLM-RoBERTa in ``hf_bert.py``, T5 and mT5 in ``hf_t5.py``), a
-pooler and a projection head to the CLIP embedding width.
+encoder built from an offline ``hf_model_config`` or the ``config.json``
+of a local ``hf_model_name`` directory (``hf_arch.py``: BERT, RoBERTa,
+XLM-RoBERTa in ``hf_bert.py``, T5 and mT5 in ``hf_t5.py``), a pooler and a
+projection head to the CLIP embedding width.
 
 ``HFTextTower`` is OpenCLIP's ``HFTextEncoder`` under the ``text`` of its
 ``CustomTextCLIP``: the encoder is ``transformer``, the head ``proj``
@@ -13,13 +14,21 @@ the config's pad id, RoBERTa-family position ids count up from
 are zeros, and ``cls_pooler`` takes the encoder's pooler output (the
 first state where it has none) and the states after the first as tokens.
 
-A hub ``hf_model_name``, its pretrained weights and HF tokenizers need a
-download and are refused (``ROADMAP.md``, "Not queued").
+``load_hf_pretrained`` reads a local directory's weights as
+``FlaxAutoModel.from_pretrained`` reads them (``flax_model.msgpack``, its
+sharded index, or a torch-layout ``model.safetensors``) into the encoder;
+``create_model`` calls it when ``hf_model_pretrained`` is set and no
+``pretrained`` checkpoint is given, as JAX's factory does.  A hub
+``hf_model_name``, that is one that names no local directory, needs a
+download and is refused (``ROADMAP.md``, "Not queued").
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import json
+import logging
+import os
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -29,8 +38,16 @@ from .hf_bert import BertModel
 from .hf_t5 import T5EncoderModel
 from .layers import Linear
 
+logger = logging.getLogger(__name__)
+
 NOT_QUEUED = 'ROADMAP.md queue 1, "Not queued": it needs a download'
-SHARDED = 'ROADMAP.md queue 1, "HF text towers under FSDP and TP"'
+# the files transformers looks for in a local directory
+CONFIG_NAME = "config.json"
+FLAX_WEIGHTS_NAME = "flax_model.msgpack"
+FLAX_WEIGHTS_INDEX_NAME = "flax_model.msgpack.index.json"
+SAFE_WEIGHTS_NAME = "model.safetensors"
+SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
+WEIGHTS_NAME = "pytorch_model.bin"
 # the pooler of each architecture when hf_pooler_type is unset (the
 # "pooler" entries of JAX's hf_configs.arch_dict; every other type pools
 # by the mean)
@@ -114,21 +131,40 @@ class HFTextTower(nn.Module):
         return self.proj(pooled), tokens
 
 
+def local_directory(hf_model_name: str) -> str:
+    """``hf_model_name`` where it is a local directory; a hub name is
+    refused."""
+    if not os.path.isdir(hf_model_name):
+        raise NotImplementedError(
+            f"hf_model_name {hf_model_name!r} is not a local directory: a "
+            f"hub name needs a download ({NOT_QUEUED}); point it at a "
+            f"directory holding {CONFIG_NAME} and {FLAX_WEIGHTS_NAME}, or "
+            "pass the config's fields as text_hf_model_config")
+    return hf_model_name
+
+
+def hf_config_dict(text_cfg) -> Dict[str, Any]:
+    """The HF config's fields: ``hf_model_config`` where it is given (it
+    wins over ``hf_model_name``, as in JAX), else the ``config.json`` of
+    the ``hf_model_name`` directory."""
+    if text_cfg.hf_model_config:
+        return text_cfg.hf_model_config
+    path = os.path.join(local_directory(text_cfg.hf_model_name), CONFIG_NAME)
+    if not os.path.isfile(path):
+        raise OSError(f"{text_cfg.hf_model_name} does not appear to have a "
+                      f"file named {CONFIG_NAME}")
+    with open(path) as f:
+        return json.load(f)
+
+
 def build_hf_text_tower(text_cfg, embed_dim: int,
                         dtype: torch.dtype = torch.float32) -> HFTextTower:
-    """``text_cfg`` with ``hf_model_config`` -> the tower.  The pooler is
+    """``text_cfg`` with ``hf_model_config`` or a local ``hf_model_name``
+    directory -> the tower, with its own random weights
+    (``load_hf_pretrained`` loads the directory's).  The pooler is
     ``hf_pooler_type`` or the architecture's (``DEFAULT_POOLER``), the pad id
     the config's (``text_cfg.pad_id`` where it has none)."""
-    if not text_cfg.hf_model_config:
-        raise NotImplementedError(
-            f"hf_model_name {text_cfg.hf_model_name!r} without "
-            f"hf_model_config: the HF config is on the hub ({NOT_QUEUED}); "
-            "pass the config's fields as text_hf_model_config")
-    if text_cfg.hf_model_name and text_cfg.hf_model_pretrained:
-        raise NotImplementedError(
-            f"the pretrained weights of {text_cfg.hf_model_name!r} are on "
-            f"the hub ({NOT_QUEUED}); pass text_hf_model_pretrained=False")
-    config = resolve_hf_config(text_cfg.hf_model_config)
+    config = resolve_hf_config(hf_config_dict(text_cfg))
     pooler = text_cfg.hf_pooler_type or DEFAULT_POOLER.get(
         config.model_type, "mean_pooler")
     pad = config.pad_token_id
@@ -138,10 +174,71 @@ def build_hf_text_tower(text_cfg, embed_dim: int,
                        dtype=dtype)
 
 
-def refuse_sharded(model: nn.Module, mode: str) -> None:
-    """FSDP and tensor parallelism have no placement for an HF tower's
-    leaves yet: raise for such a model (data parallelism takes it)."""
-    cfg = getattr(model, "text_cfg", None)
-    if cfg is not None and cfg.is_hf:
+def read_hf_weights(directory: str) -> Tuple[str, Dict[str, Any]]:
+    """The weights of a local directory, from the file
+    ``FlaxAutoModel.from_pretrained`` picks there: ``("flax", tree)`` from
+    ``flax_model.msgpack`` or its sharded index, ``("pt", state dict)`` from
+    a ``model.safetensors`` that torch wrote.  A directory with
+    ``pytorch_model.bin`` alone raises, as JAX's load does, which passes no
+    ``from_pt``."""
+    from .checkpoint import read_safetensors
+    from .msgpack import read_msgpack, read_msgpack_index
+
+    def path(name: str) -> str:
+        return os.path.join(directory, name)
+
+    if os.path.isfile(path(FLAX_WEIGHTS_NAME)):
+        return "flax", read_msgpack(path(FLAX_WEIGHTS_NAME))
+    if os.path.isfile(path(FLAX_WEIGHTS_INDEX_NAME)):
+        return "flax", read_msgpack_index(path(FLAX_WEIGHTS_INDEX_NAME))
+    if os.path.isfile(path(SAFE_WEIGHTS_NAME)):
+        state, metadata = read_safetensors(path(SAFE_WEIGHTS_NAME))
+        layout = (metadata or {}).get("format")
+        if layout != "pt":
+            raise OSError(
+                f"{path(SAFE_WEIGHTS_NAME)}: a safetensors archive of "
+                f"{layout!r} layout; the port reads torch's (\"pt\")")
+        return "pt", state
+    if os.path.isfile(path(SAFE_WEIGHTS_INDEX_NAME)):
         raise NotImplementedError(
-            f"{mode} on an HF text tower is not ported ({SHARDED})")
+            f"{path(SAFE_WEIGHTS_INDEX_NAME)}: transformers' Flax loader, "
+            "and so the JAX package, refuses sharded safetensors "
+            "checkpoints (\"Support for sharded checkpoints using "
+            "safetensors is coming soon!\")")
+    if os.path.isfile(path(WEIGHTS_NAME)):
+        raise OSError(
+            f"Error no file named {FLAX_WEIGHTS_NAME} found in directory "
+            f"{directory} but there is a file for PyTorch weights. Use "
+            "`from_pt=True` to load this model from those weights.")
+    raise OSError(f"Error no file named {FLAX_WEIGHTS_NAME} or {WEIGHTS_NAME} "
+                  f"found in directory {directory}.")
+
+
+def load_hf_pretrained(model: nn.Module, hf_model_name: str) -> List[str]:
+    """The weights of the local directory ``hf_model_name`` into the HF
+    tower's encoder (``model.text.transformer``), as JAX's
+    ``load_hf_pretrained_params`` puts ``FlaxAutoModel.from_pretrained``'s
+    under ``text/hf``; returns the encoder's parameters the file lacks.
+    Those keep the port's own initial values, where transformers draws
+    fresh ones, and are named in a warning; leaves the tower does not have
+    (a head model's ``lm_head`` or ``cls``, T5's decoder) are left out."""
+    from .convert import hf_pretrained_state_dict
+
+    kind, weights = read_hf_weights(local_directory(hf_model_name))
+    encoder = model.text.transformer
+    state, missing, unexpected = hf_pretrained_state_dict(
+        weights, kind, encoder, model.text.config.model_type)
+    with torch.no_grad():
+        for name, p in encoder.named_parameters():
+            if name in state:
+                p.copy_(state[name])
+    if unexpected:
+        logger.info("%s: %d leaves the HF text tower does not use, under %s",
+                    hf_model_name, len(unexpected),
+                    sorted({k.split("/")[0].split(".")[0]
+                            for k in unexpected}))
+    if missing:
+        logger.warning(
+            "%s lacks these weights of the HF text tower, which keep their "
+            "initial values: %s", hf_model_name, sorted(missing))
+    return missing

@@ -10,7 +10,8 @@ DenseReluDense.{wi,wo}`` or ``{wi_0,wi_1,wo}``, the ``layer_norm``s and
 ``shared`` alone: the encoder reads it, as Flax's ``embed_tokens`` does.
 
 As in Flax: no ``1/sqrt(d_kv)`` scaling of the logits; bidirectional
-relative-position buckets, computed in block 0 with the additive mask of
+relative-position buckets, computed in block 0 (inside its forward, so
+that FSDP has gathered its table) with the additive mask of
 ``finfo(dtype).min`` added and the sum shared by the later blocks;
 ``T5LayerNorm`` is an RMS norm in float32 with no mean and no bias, whose
 float32 output the next Dense casts to the compute dtype; the gated
@@ -131,7 +132,13 @@ class T5Block(nn.Module):
             _LayerFF(cfg, dtype)])
 
     def forward(self, h, bias):
-        return self.layer[1](self.layer[0](h, bias))
+        """-> (h, the attention bias): the block with the relative-position
+        table adds its bias to the mask's, for itself and the later
+        blocks."""
+        attn = self.layer[0].SelfAttention
+        if hasattr(attn, "relative_attention_bias"):
+            bias = attn.position_bias(h.shape[1], h.device) + bias
+        return self.layer[1](self.layer[0](h, bias)), bias
 
 
 class _Stack(nn.Module):
@@ -156,9 +163,7 @@ class T5EncoderModel(nn.Module):
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor):
         h = self.shared(ids)
-        attn = self.encoder.block[0].layer[0].SelfAttention
-        bias = (attn.position_bias(ids.shape[1], ids.device)
-                + mask_bias(mask, self.dtype))
+        bias = mask_bias(mask, self.dtype)
         for block in self.encoder.block:
-            h = block(h, bias)
+            h, bias = block(h, bias)
         return self.encoder.final_layer_norm(h), None

@@ -9,13 +9,18 @@ type 1 (an ndarray: a packed ``(shape, dtype name, C-order bytes)``), 3 (a
 numpy scalar, packed the same way) or 2 (a complex, packed ``(real,
 imag)``).  flax splits an array above 2**30 bytes into a map
 ``{"__msgpack_chunked_array__": True, "shape": {...}, "chunks": {...}}``,
-which ``read_msgpack`` joins again and ``write_msgpack`` writes so.  A
+which ``read_msgpack`` joins again and ``write_msgpack`` writes so.
+transformers shards a large model over several such files, each a map of
+``a/b/c`` paths to leaves, listed by the ``weight_map`` of an index
+(``read_msgpack_index``).  A
 ``bfloat16`` leaf, whose dtype numpy does not know, is read as ``uint16``
 and viewed as ``torch.bfloat16``, and written so.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import struct
 from typing import Any, Dict, Tuple
 
@@ -150,6 +155,41 @@ def read_msgpack(path: str) -> Dict[str, Any]:
     """A flax ``to_bytes`` file as a nested dict of tensors."""
     with open(path, "rb") as f:
         return _leaf(unpackb(f.read()))
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"a/b/c": leaf}`` as the nested ``{"a": {"b": {"c": leaf}}}``."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def read_msgpack_index(path: str) -> Dict[str, Any]:
+    """A sharded flax checkpoint (``flax_model.msgpack.index.json``): every
+    shard its ``weight_map`` names, read and joined into one nested tree,
+    as transformers' ``load_flax_sharded_weights`` joins them."""
+    with open(path) as f:
+        shards = sorted(set(json.load(f)["weight_map"].values()))
+    flat: Dict[str, Any] = {}
+    for shard in shards:
+        flat.update(_flatten(read_msgpack(os.path.join(os.path.dirname(path),
+                                                       shard))))
+    return _unflatten(flat)
 
 
 def _pack_len(out: bytearray, n: int, fix: int, fix_max: int,

@@ -10,10 +10,11 @@ writes the model card.  The uploads (``push_to_hf_hub``,
 
 ``save_for_hf`` takes the model alone, which holds its weights; the JAX
 package's takes ``(model, params, ...)``.  It exports what the JAX
-package's bridge can name: the native ViT CLIP (and CoCa, whose tree the
-port's bridge names).  An HF text tower raises, as the JAX package's
-``params_to_torch_state_dict`` does on an HF tree; a timm-family or
-ModifiedResNet tower raises too (``ROADMAP.md`` queue 1).
+package's bridge can name: the native ViT and the ModifiedResNet CLIP (and
+CoCa, whose tree the port's bridge names).  An HF text tower raises, as
+the JAX package's ``params_to_torch_state_dict`` does on an HF tree; so
+does a timm-family tower, on which JAX's export fails too (its
+``params_to_torch_state_dict`` reads ``params["visual"]["transformer"]``).
 """
 
 from __future__ import annotations
@@ -80,7 +81,8 @@ def _to_flax(value: torch.Tensor, tf: Optional[str]) -> torch.Tensor:
 
 def params_tree(model: torch.nn.Module) -> Dict[str, Any]:
     """The JAX package's parameter tree of ``model`` (float32 CPU tensors):
-    the weight bridge's name map, inverted."""
+    the weight bridge's name map, inverted (a ModifiedResNet's BatchNorm
+    statistics among its parameters, as JAX's tree keeps them)."""
     from .convert import model_name_map
 
     if getattr(model, "text_cfg", None) is not None and model.text_cfg.is_hf:
@@ -88,10 +90,12 @@ def params_tree(model: torch.nn.Module) -> Dict[str, Any]:
             "save_for_hf on an HF text tower: the JAX package's weight "
             "bridge (params_to_torch_state_dict) has no names for it and "
             "its save_for_hf fails there")
-    if not hasattr(model.visual, "transformer"):
+    if not any(hasattr(model.visual, m) for m in ("transformer", "attnpool")):
         raise NotImplementedError(
-            "save_for_hf exports the native ViT tower (ROADMAP.md queue 1, "
-            '"The HF export of the other vision towers")')
+            "save_for_hf exports the native ViT and the ModifiedResNet "
+            "tower, as JAX's does: its params_to_torch_state_dict reads "
+            "params['visual']['transformer'] and fails on a timm-family "
+            "tower's tree")
     sd = model.state_dict()
     tree: Dict[str, Any] = {}
     for key, path, tf in model_name_map(model):

@@ -30,7 +30,6 @@ from typing import Dict, Optional, Sequence
 
 from torch import nn
 
-from ..models.hf_model import refuse_sharded
 from .mesh import DATA_AXIS, MODEL_AXIS
 from .tp import shard_params_tp, tp_spec
 
@@ -124,9 +123,17 @@ def fsdp_placements(model: nn.Module, n_data: int, tp: int = 1,
 
 def _blocks(model: nn.Module):
     """The residual blocks of every tower: the members of each
-    ``resblocks``/``blocks`` list, and of CoCa's decoder's ``cross_attn``."""
+    ``resblocks``/``blocks`` list, of CoCa's decoder's ``cross_attn``, and
+    an HF encoder's layers (BERT's ``encoder.layer``, T5's
+    ``encoder.block``; not the two sublayers of a T5 block, its
+    ``layer``)."""
+    from ..models.hf_bert import BertLayer
+    from ..models.hf_t5 import T5Block
+
     for name, m in model.named_modules():
-        if isinstance(m, nn.ModuleList) and name.split(".")[-1] in (
+        if isinstance(m, (BertLayer, T5Block)):
+            yield m
+        elif isinstance(m, nn.ModuleList) and name.split(".")[-1] in (
                 "resblocks", "blocks", "cross_attn"):
             yield from m
 
@@ -139,7 +146,6 @@ def shard_params_fsdp(model: nn.Module, mesh,
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
-    refuse_sharded(model, "--fsdp")
     names = mesh.mesh_dim_names
     tp = mesh[MODEL_AXIS].size() if MODEL_AXIS in names else 1
     data = mesh[DATA_AXIS] if len(names) > 1 else mesh

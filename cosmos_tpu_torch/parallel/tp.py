@@ -20,7 +20,9 @@ hooks on their modules place the activations:
     sharding rule of ``ops/fused_attention.py``: the qkv columns are
     all-gathered in front of it), else all-gathered to the whole local
     tensor (EVA02's separate q/k/v, its SwiGLU before the hidden
-    LayerNorm, the attention pool, the head);
+    LayerNorm, the attention pool, the head, and an HF T5 tower's ``q``,
+    whose heads the attention reshapes: JAX's rule makes it the one
+    sharded leaf of an HF tower);
   - ``MultiheadAttention``'s packed ``in_proj_weight``/``in_proj_bias``
     (raw parameters, no ``Linear``) are column-parallel in the same way;
     so are the separate ``q_proj_weight``/``k_proj_weight``/
@@ -53,7 +55,6 @@ import torch
 from torch import nn
 
 from ..models.attention import MultiheadAttention
-from ..models.hf_model import refuse_sharded
 from ..models.layers import Linear, Mlp
 from .mesh import DATA_AXIS, MODEL_AXIS, axis_group, batch_sharding
 
@@ -172,7 +173,6 @@ def shard_params_tp(model: nn.Module, mesh) -> nn.Module:
     local shards are cut from them without communication)."""
     from torch.distributed.tensor import Replicate, Shard
 
-    refuse_sharded(model, "tensor parallelism (--mesh-shape dp,tp)")
     sub = mesh[MODEL_AXIS] if MODEL_AXIS in (mesh.mesh_dim_names or ()) \
         else mesh
     parents = {}

@@ -684,9 +684,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             total.backward()
         # a trainable parameter the loss does not reach (an HF tower's
         # pooler under mean pooling) takes a zero gradient, so that AdamW
-        # still decays it, as optax's does
+        # still decays it, as optax's does (a sharded one a zero shard)
         for p in student.parameters():
-            if p.requires_grad and p.grad is None and not _is_dtensor(p):
+            if p.requires_grad and p.grad is None:
                 p.grad = torch.zeros_like(p)
 
         params = list(student.parameters())

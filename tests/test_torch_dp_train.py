@@ -3,7 +3,8 @@ ranks on the CPU (tests/torch_dp_ranks.py), against cosmos_tpu's
 make_train_step on a 2-device mesh.
 
 One step of COSMOS, of plain CLIP with the exact accumulation, of
-SigLIP (its ring) and of CoCa (coca_Tiny-Test, the gathered CoCaLoss),
+SigLIP (its ring), of CoCa (coca_Tiny-Test, the gathered CoCaLoss) and of
+plain CLIP on an HF text tower (BERT, its unreached pooler decayed),
 from the same weights and uint8 batch, each rank on its contiguous block
 of the global batch as a device of JAX's mesh: the averaged loss and
 metrics, the averaged gradients (JAX's from its first Adam moment,
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 import torch_dp_ranks as R
+import torch_hf_cases as H
 from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.models.factory import init_model_params
 from cosmos_tpu.parallel.mesh import create_mesh, shard_batch
@@ -79,9 +81,12 @@ def _jax_step(mode, jm, jp, batch):
 
 
 def _jax_model(mode):
-    """JAX's model of ``mode`` and its parameters; CoCa's drawn with numpy
-    at the shapes jax.eval_shape gives (no JAX init is compiled)."""
+    """JAX's model of ``mode`` and its parameters; CoCa's and the HF
+    tower's drawn with numpy at the shapes jax.eval_shape gives (no JAX
+    init is compiled)."""
     model_kw = R.STEP_MODES[mode][0]
+    if mode == "hf":
+        return H.jax_model(dict(R.TINY, **model_kw))
     if mode not in R.STEP_MODELS:
         return jax_create_model("ViT-B-16", seed=1, **R.TINY, **model_kw)
     jm, _ = jax_create_model(R.STEP_MODELS[mode], init_params=False,
@@ -98,9 +103,15 @@ def steps():
     """{mode: (JAX on the 2-device mesh, [the port's 2 ranks], the port in
     one process without a process group, the port under a group of one
     rank)}.  The ranks run while JAX compiles its steps."""
-    payload, models = {}, {}
-    for mode, (_, _, accum) in R.STEP_MODES.items():
-        jm, jp = _jax_model(mode)
+    payload, models, built = {}, {}, {}
+    for mode, (model_kw, _, accum) in R.STEP_MODES.items():
+        # modes of one model (plain CLIP, its exact accumulation) share it;
+        # each step takes a copy of the weights
+        key = (R.STEP_MODELS.get(mode), repr(model_kw))
+        if key not in built:
+            built[key] = _jax_model(mode)
+        jm, jp = built[key][0], jax.tree_util.tree_map(np.array,
+                                                       built[key][1])
         batch = (R.coca_step_batch(GLOBAL_BATCH) if mode == "coca"
                  else R.step_batch(GLOBAL_BATCH, accum))
         # the JAX step donates its state: the weights are read first

@@ -17,7 +17,9 @@ half the stateful bytes of a data-parallel one; the resumed state holds
 the checkpoint's bits.
 
 ``min_size=0``, as JAX's FSDP tests: the tiny model's leaves are all under
-the 64 Ki-element default.
+the 64 Ki-element default.  The placements of a BERT and a T5 text tower
+are JAX's too, and FSDP wraps their encoders' layers; their sharded steps
+run in ``test_torch_tp.py``'s spawn.
 """
 
 import jax
@@ -27,6 +29,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_dp_ranks as R
+import torch_hf_cases as H
 from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.models.factory import init_model_params
 from cosmos_tpu.parallel import fsdp as jax_fsdp
@@ -168,12 +171,40 @@ def _torch_dim(d, tf, ndim):
             "cls": lambda: 2, "pos": lambda: d + 1}[tf]()
 
 
+def _bridge_tree(model) -> dict:
+    """JAX's parameter tree of ``model`` as zeros, its paths and layout
+    (a Dense kernel ``[in, out]``, a conv kernel HWIO) from the weight
+    bridge's name map.  For an HF tower the bridge is held to JAX's tree
+    leaf for leaf (``test_torch_hf_model.py``), so no JAX HF module, and no
+    ``transformers``, is built here."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    tree: dict = {}
+    for key, path, tf in model_name_map(model):
+        if key not in shapes:
+            continue
+        shape = shapes[key]
+        if tf == "t":
+            shape = shape[::-1]
+        elif tf == "conv":
+            shape = tuple(shape[i] for i in (2, 3, 1, 0))
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.zeros(shape, np.float32)
+    return tree
+
+
 @pytest.fixture(scope="module")
 def jax_params():
-    return {"native": jax_create_model("ViT-B-16", seed=1, **R.TINY,
-                                       **R.COSMOS)[1],
+    """JAX's parameter trees, numpy values at the shapes ``jax.eval_shape``
+    gives (the placements read shapes alone); the HF towers' from the
+    bridge (``_bridge_tree``)."""
+    return {"native": H.jax_model(dict(R.TINY, **R.COSMOS))[1],
             "coca": jax_coca()[1],
-            "siglip": jax_model(dict(R.TINY, **R.SIGLIP_TOWERS))[1]}
+            "siglip": jax_model(dict(R.TINY, **R.SIGLIP_TOWERS))[1],
+            **{arch: _bridge_tree(create_model(
+                "ViT-B-16", device="meta", **H.model_kw(arch)))
+               for arch in ("bert", "t5")}}
 
 
 MESH_SHAPES = [(1, 2), (1, 8), (2, 2), (4, 2)]
@@ -182,7 +213,7 @@ MESH_SHAPES = [(1, 2), (1, 8), (2, 2), (4, 2)]
 @pytest.mark.parametrize("tp,n_data,model_name", [
     pytest.param(tp, n, "native", id=f"{tp}-{n}") for tp, n in MESH_SHAPES
 ] + [pytest.param(tp, n, name, id=f"{tp}-{n}-{name}")
-     for name in ("coca", "siglip") for tp, n in MESH_SHAPES])
+     for name in ("coca", "siglip", "bert", "t5") for tp, n in MESH_SHAPES])
 def test_placements_equal_jax_leaf_for_leaf(jax_params, tp, n_data,
                                             model_name):
     from cosmos_tpu_torch import create_model
@@ -190,6 +221,12 @@ def test_placements_equal_jax_leaf_for_leaf(jax_params, tp, n_data,
     jp = jax_params[model_name]
     if model_name == "coca":
         model = create_model("coca_Tiny-Test", device="meta")
+        entries = model_name_map(model)
+    elif model_name in ("bert", "t5"):
+        # an HF tower: its Dense kernels in JAX's [in, out], its embeddings
+        # and T5's relative_attention_bias in their own layout
+        model = create_model("ViT-B-16", device="meta",
+                             **H.model_kw(model_name))
         entries = model_name_map(model)
     else:
         towers = R.SIGLIP_TOWERS if model_name == "siglip" else R.COSMOS
@@ -322,3 +359,18 @@ def test_fsdp_wraps_the_decoder_s_cross_attention_blocks():
     assert len(blocks) == sum(len(s) for s in (
         model.visual.transformer.resblocks, model.text.transformer.resblocks,
         model.text_decoder.resblocks, model.text_decoder.cross_attn))
+
+
+@pytest.mark.parametrize("arch", ["bert", "t5"])
+def test_fsdp_wraps_an_hf_encoder_s_layers(arch):
+    """BERT's encoder.layer and T5's encoder.block members are FSDP units;
+    a T5 block's own ``layer``, its two sublayers, is not."""
+    from cosmos_tpu_torch import create_model
+
+    model = create_model("ViT-B-16", device="meta", **H.model_kw(arch))
+    encoder = model.text.transformer.encoder
+    layers = list(encoder.layer if arch == "bert" else encoder.block)
+    blocks = list(fsdp._blocks(model))
+    assert blocks == list(model.visual.transformer.resblocks) + layers
+    if arch == "t5":
+        assert not any(sub in blocks for b in layers for sub in b.layer)

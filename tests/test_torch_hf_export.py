@@ -6,7 +6,11 @@ the msgpack writer of models/msgpack.py) against cosmos_tpu's, and one
     reads the ``.bin`` and flax's ``from_bytes`` the ``.msgpack`` to the
     source parameters, bit for bit; ``open_clip_config.json`` is the text
     JAX's ``save_config_for_hf`` writes; ``generate_readme`` is JAX's;
-  - ``save_for_hf`` of an HF-tower model raises, as JAX's does;
+  - ``save_for_hf`` of an HF-tower model raises, as JAX's does, and so
+    does one of a timm-family tower;
+  - ``save_for_hf`` of a tiny ModifiedResNet CLIP writes JAX's ``.bin``
+    (``params_to_torch_state_dict``'s keys, values and dtypes), JAX's
+    ``.msgpack`` bytes and JAX's config;
   - one ``--siglip`` step on a BERT tower (its own ``cls_pooler``) against
     JAX's ``make_train_step``: metrics, student and teacher within 1e-5.
 """
@@ -162,3 +166,54 @@ def test_siglip_step_equals_jax():
         assert set(sd) == set(want[which])
         for n, w in want[which].items():
             H.close(sd[n].numpy(), w.numpy(), f"{which} {n}")
+
+
+# a ModifiedResNet CLIP by overrides: four stages of one block, width 8
+RESNET = dict(R.TINY, vision_layers=[1, 1, 1, 1], vision_width=8,
+              vision_image_size=64)
+
+
+@pytest.fixture(scope="module")
+def resnet_export(tmp_path_factory):
+    jm, jp = H.jax_model(RESNET, seed=5)
+    jp = jax.tree_util.tree_map(np.asarray, jp)
+    out = tmp_path_factory.mktemp("resnet_export")
+    save_for_hf(H.port_model(RESNET, H.to_port(jp)), str(out / "port"))
+    jhub.save_for_hf(jm, jp, str(out / "jax"))
+    return out
+
+
+def test_resnet_bin_is_jax_s(resnet_export):
+    got = torch.load(resnet_export / "port" / HF_WEIGHTS_NAME,
+                     weights_only=True)
+    want = torch.load(resnet_export / "jax" / HF_WEIGHTS_NAME,
+                      weights_only=True)
+    assert set(got) == set(want)
+    assert any(k.endswith("running_var") for k in want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+
+
+@pytest.mark.parametrize("name", [HF_FLAX_WEIGHTS_NAME, HF_CONFIG_NAME])
+def test_resnet_msgpack_and_config_are_jax_s_bytes(resnet_export, name):
+    got = (resnet_export / "port" / name).read_bytes()
+    assert got == (resnet_export / "jax" / name).read_bytes()
+
+
+def test_timm_tower_export_raises_in_both(tmp_path):
+    """JAX's ``params_to_torch_state_dict`` reads the ViT's
+    ``visual/transformer``, which a timm-family tree lacks."""
+    from cosmos_tpu.models import convnext as jconvnext
+    from cosmos_tpu_torch.models import convnext as pconvnext
+
+    for m in (jconvnext, pconvnext):
+        m.register_convnext("convnext_export_porttest", depths=(1, 1, 1, 1),
+                            dims=(8, 16, 32, 64))
+    kw = dict(R.TINY, vision_timm_model_name="convnext_export_porttest",
+              vision_image_size=64)
+    jm, jp = H.jax_model(kw)
+    with pytest.raises(KeyError, match="transformer"):
+        jhub.save_for_hf(jm, jp, str(tmp_path / "jax"))
+    with pytest.raises(NotImplementedError, match="timm-family"):
+        save_for_hf(H.port_model(kw), str(tmp_path / "port"))
+    assert not (tmp_path / "port").exists()

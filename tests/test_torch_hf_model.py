@@ -9,8 +9,24 @@ width 32 and 2 layers, in float32 within 1e-5:
   - ``encode_text`` and the full forward against JAX's on the same numpy
     parameters, with right-end pads of each architecture's pad id;
   - the refusals (COSMOS heads on an HF tower, ``m2m_100``, an unknown
-    type, a hub ``hf_model_name``), and the EOT gate as JAX's.
+    type, a hub ``hf_model_name``), and the EOT gate as JAX's;
+  - a local ``hf_model_name`` directory, written by transformers' own
+    classes (``FlaxBertModel``; ``FlaxRobertaForMaskedLM``, whose file nests
+    the encoder under ``roberta`` beside ``lm_head`` and has no pooler;
+    ``FlaxXLMRobertaModel``; ``FlaxT5Model`` and ``FlaxMT5Model`` with their
+    decoders, mT5's arrays in flax's chunks; a sharded index; torch's
+    ``model.safetensors``): its ``config.json`` resolves to transformers'
+    config, the port's loaded leaves are those of JAX's ``create_model(...,
+    hf_model_name=dir)`` exactly (JAX's random init replaced by numpy
+    parameters; the HF load is its own) and its text features within
+    1e-5 of JAX's; a ``pretrained`` checkpoint supersedes the directory and
+    an ``hf_model_config`` its ``config.json`` in both; a directory with
+    torch's ``pytorch_model.bin`` alone, or no weights, is refused with
+    JAX's error.
 """
+
+import json
+import logging
 
 import jax
 import numpy as np
@@ -18,6 +34,8 @@ import pytest
 import torch
 
 import torch_hf_cases as H
+from cosmos_tpu.models import factory as jax_factory
+from cosmos_tpu.models import hf_model as jax_hf
 from cosmos_tpu.models.config import build_clip_cfg as jax_build_cfg
 from cosmos_tpu.training.zero_shot import \
     supports_eot_truncation as jax_supports_eot
@@ -66,14 +84,43 @@ def test_t5_relative_buckets_equal_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def pair(request):
+IMAGES = np.random.default_rng(5).standard_normal(
+    (4, 16, 16, 3)).astype(np.float32)
+
+
+def _pair_kw(arch: str) -> dict:
+    return H.model_kw(arch, text_hf_proj_type="linear" if arch == "bert"
+                      else "mlp")
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    """arch -> (JAX model, JAX params, port model on those params, JAX's
+    ``encode_text`` and forward on IMAGES and ``H.tokens(arch)``, compiled
+    once for any parameters of those shapes), built on first use."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            kw = _pair_kw(arch)
+            jm, jp = H.jax_model(kw)
+
+            def run(p, x, t):
+                enc = jm.apply({"params": p}, t, False,
+                               method=jm.encode_text)
+                return enc["text_features"], jm.apply({"params": p}, x, t)
+
+            compiled = jax.jit(run).lower(jp, IMAGES, H.tokens(arch)).compile(
+                H.FAST_XLA)
+            cache[arch] = (jm, jp, H.port_model(kw, H.to_port(jp)), compiled)
+        return cache[arch]
+    return get
+
+
+@pytest.fixture(params=ARCHS)
+def pair(request, pairs):
     """(arch, JAX model, JAX params, port model on those params)."""
-    arch = request.param
-    kw = H.model_kw(arch, text_hf_proj_type="mlp" if arch != "bert"
-                    else "linear")
-    jm, jp = H.jax_model(kw)
-    return arch, jm, jp, H.port_model(kw, H.to_port(jp))
+    return (request.param, *pairs(request.param)[:3])
 
 
 def test_hf_tower_params_are_jax_s_leaf_for_leaf(pair):
@@ -92,21 +139,13 @@ def test_hf_tower_params_are_jax_s_leaf_for_leaf(pair):
     assert set(model.state_dict()) == set(H.to_port(jp))
 
 
-def test_encode_text_and_forward_equal_jax(pair):
+def test_encode_text_and_forward_equal_jax(pair, pairs):
     arch, jm, jp, model = pair
     text = H.tokens(arch)
-    images = np.random.default_rng(5).standard_normal(
-        (4, 16, 16, 3)).astype(np.float32)
-
-    @jax.jit
-    def run(p, x, t):
-        enc = jm.apply({"params": p}, t, False, method=jm.encode_text)
-        return enc["text_features"], jm.apply({"params": p}, x, t)
-
-    want_enc, want_fwd = H.run_jax(run, jp, images, text)
+    want_enc, want_fwd = pairs(arch)[3](jp, IMAGES, text)
     with torch.no_grad():
         got_enc = model.encode_text(torch.from_numpy(text))
-        got_fwd = model(torch.from_numpy(images), torch.from_numpy(text))
+        got_fwd = model(torch.from_numpy(IMAGES), torch.from_numpy(text))
     H.close(got_enc["text_features"], want_enc, f"{arch} encode_text")
     assert set(got_fwd) == set(want_fwd)
     for k, w in want_fwd.items():
@@ -266,3 +305,263 @@ def test_init_last_layer_refuses_an_hf_tower():
     model = create_model("ViT-B-16", device="cpu", **H.model_kw("bert"))
     with pytest.raises(ValueError, match="native text tower"):
         reinit_last_transformer_layer(model, torch.Generator())
+
+
+# --- a local hf_model_name directory --------------------------------------
+
+# case -> (architecture, the transformers class that writes it, options of
+# H.write_hf_dir)
+LOCAL = {
+    "bert": ("bert", "FlaxBertModel", {}),
+    # a head model's file: the encoder under "roberta", an "lm_head", no
+    # pooler
+    "roberta-mlm": ("roberta", "FlaxRobertaForMaskedLM", {}),
+    "xlm-roberta": ("xlm-roberta", "FlaxXLMRobertaModel", {}),
+    # FlaxT5Model: shared, encoder and decoder
+    "t5": ("t5", "FlaxT5Model", {}),
+    # arrays above 4 KiB in flax's chunks (mT5-large's shared, at full size)
+    "mt5-chunked": ("mt5", "FlaxMT5Model", {"chunk": 4096}),
+    "bert-sharded": ("bert", "FlaxBertModel", {"max_shard_size": "16KB"}),
+    # torch's model.safetensors, which JAX's Flax load converts
+    "bert-safetensors": ("bert", "torch", {}),
+}
+# the encoder's parameters a case's file lacks
+LOCAL_MISSING = {"roberta-mlm": ["pooler.dense.bias", "pooler.dense.weight"]}
+
+
+def _dir_kw(arch: str, directory: str, **extra) -> dict:
+    kw = dict(_pair_kw(arch), text_hf_model_name=directory,
+              text_hf_model_pretrained=True, **extra)
+    del kw["text_hf_model_config"]
+    return kw
+
+
+def _jax_create(kw, params, **extra):
+    """JAX's ``create_model`` with its random init replaced by ``params``
+    (numpy): what it loads after the init is its own."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_factory, "init_model_params",
+                   lambda model, seed=0: jax.tree_util.tree_map(np.array,
+                                                                params))
+        return jax_factory.create_model("ViT-B-16", use_flash=False,
+                                        **kw, **extra)
+
+
+@pytest.fixture(scope="module")
+def local(tmp_path_factory, pairs):
+    """case -> (directory, JAX's parameters from it, the port's model from
+    it), built on first use."""
+    from flax.core import unfreeze
+
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            arch, cls, opts = LOCAL[case]
+            d = str(tmp_path_factory.mktemp(case))
+            H.write_hf_dir(d, arch, cls, seed=len(cache) + 10, **opts)
+            kw = _dir_kw(arch, d)
+            _, jp = _jax_create(kw, pairs(arch)[1])
+            jp = jax.tree_util.tree_map(np.asarray, unfreeze(jp))
+            cache[case] = (d, jp, create_model("ViT-B-16", device="cpu",
+                                               **kw))
+        return cache[case]
+    return get
+
+
+def _encoder_leaves(jp) -> dict:
+    """JAX's ``text/hf`` leaves under the port's names, T5's decoder left
+    out (the tower reads none of it)."""
+    hf = {k: v for k, v in jp["text"]["hf"].items() if k != "decoder"}
+    return {k: v for k, v in H.to_port(dict(
+        jp, text=dict(jp["text"], hf=hf))).items()
+        if k.startswith("text.transformer.")}
+
+
+@pytest.mark.parametrize("case", sorted(LOCAL))
+def test_local_directory_leaves_are_jax_s(local, case):
+    d, jp, model = local(case)
+    arch, cls, opts = LOCAL[case]
+    files = sorted(p.name for p in __import__("pathlib").Path(d).iterdir())
+    if "max_shard_size" in opts:
+        assert "flax_model.msgpack.index.json" in files and len(files) > 3
+    if "chunk" in opts:
+        with open(f"{d}/flax_model.msgpack", "rb") as f:
+            assert b"__msgpack_chunked_array__" in f.read()
+    want = _encoder_leaves(jp)
+    got = {f"text.transformer.{k}": v for k, v in
+           model.text.transformer.state_dict().items()}
+    missing = {f"text.transformer.{k}" for k in LOCAL_MISSING.get(case, [])}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if k not in missing:
+            assert torch.equal(got[k], w.float()), k
+    # JAX's tree keeps T5's decoder; the port loads the encoder alone
+    assert ("decoder" in jp["text"]["hf"]) == (arch in ("t5", "mt5"))
+
+
+@pytest.mark.parametrize("case", sorted(LOCAL))
+def test_local_directory_features_are_jax_s(local, pairs, case):
+    d, jp, model = local(case)
+    arch = LOCAL[case][0]
+    _, pair_params, pair_model, run = pairs(arch)
+    # the rest of the model as the pair's, in both
+    rest = {k: v for k, v in pair_model.state_dict().items()
+            if not k.startswith("text.transformer.")}
+    model.load_state_dict(rest, strict=False)
+    hf = {k: v for k, v in jp["text"]["hf"].items() if k != "decoder"}
+    params = dict(pair_params, text=dict(pair_params["text"], hf=hf))
+    text = H.tokens(arch)
+    want, _ = run(params, IMAGES, text)
+    with torch.no_grad():
+        got = model.encode_text(torch.from_numpy(text))["text_features"]
+    H.close(got, want, f"{case} encode_text")
+
+
+@pytest.mark.parametrize("case", sorted(LOCAL))
+def test_local_config_is_transformers_from_pretrained(local, case):
+    from transformers import AutoConfig
+
+    d, _, model = local(case)
+    arch = LOCAL[case][0]
+    fields = H.T5_FIELDS if arch in ("t5", "mt5") else H.BERT_FIELDS
+    want = AutoConfig.from_pretrained(d).to_dict()
+    got = vars(model.text.config)
+    assert {k: got[k] for k in fields} == {k: want[k] for k in fields}
+    # transformers' bookkeeping is left out
+    assert not {"architectures", "transformers_version"} & set(got)
+    with open(f"{d}/config.json") as f:
+        assert "architectures" in json.load(f)
+
+
+def test_missing_leaves_keep_their_init_and_are_named(local, caplog):
+    """A head model's file without BERT's pooler: the port keeps its own
+    init there and warns, naming the leaves (transformers draws fresh
+    ones)."""
+    d = local("roberta-mlm")[0]
+    kw = _dir_kw("roberta", d)
+    init = create_model("ViT-B-16", device="cpu", seed=4, **dict(
+        kw, text_hf_model_pretrained=False)).state_dict()
+    with caplog.at_level(logging.WARNING):
+        got = create_model("ViT-B-16", device="cpu", seed=4,
+                           **kw).state_dict()
+    names = LOCAL_MISSING["roberta-mlm"]
+    assert all(n in caplog.text for n in names)
+    for n in names:
+        assert torch.equal(got[f"text.transformer.{n}"],
+                           init[f"text.transformer.{n}"])
+    assert not torch.equal(
+        got["text.transformer.embeddings.word_embeddings.weight"],
+        init["text.transformer.embeddings.word_embeddings.weight"])
+
+
+def test_a_dict_config_wins_over_the_directory(local):
+    """``hf_model_config`` beside a directory builds from the dict in both
+    packages (JAX's ``resolve_hf_config``), and the weights still load."""
+    d, jp, _ = local("bert")
+    kw = dict(_dir_kw("bert", d), text_hf_model_config=dict(
+        H.HF["bert"], hidden_act="relu", layer_norm_eps=1e-7))
+    model = create_model("ViT-B-16", device="cpu", **kw)
+    jcfg = jax_hf.resolve_hf_config(
+        jax_build_cfg("ViT-B-16", kw).text_cfg)
+    for key, value in (("hidden_act", "relu"), ("layer_norm_eps", 1e-7)):
+        assert getattr(model.text.config, key) == getattr(jcfg, key) == value
+    want = _encoder_leaves(jp)
+    for k, v in model.text.transformer.state_dict().items():
+        assert torch.equal(v, want[f"text.transformer.{k}"])
+
+
+def test_pretrained_supersedes_the_directory(local, pairs, tmp_path):
+    """A ``pretrained`` checkpoint wins over the directory in both
+    packages: the HF weights are the checkpoint's."""
+    from flax import serialization
+
+    d = local("bert")[0]
+    jp = pairs("bert")[1]
+    path = str(tmp_path / "ckpt.msgpack")
+    with open(path, "wb") as f:
+        f.write(serialization.to_bytes(jp))
+    kw = _dir_kw("bert", d)
+    _, got_jax = _jax_create(kw, jax.tree_util.tree_map(np.zeros_like, jp),
+                             pretrained=path)
+    model = create_model("ViT-B-16", device="cpu", pretrained=path, **kw)
+    want = H.to_port(jp)
+    got = model.state_dict()
+    for k, v in H.to_port(got_jax).items():
+        assert torch.equal(v, want[k]) and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("files", ["pytorch_model.bin", "none"])
+def test_a_directory_without_flax_weights_is_refused_as_jax_refuses(
+        tmp_path, pairs, files):
+    """JAX's load passes no ``from_pt``: torch's ``pytorch_model.bin``
+    alone, or no weights, raise its ``OSError``, with its message."""
+    H.hf_config("bert").save_pretrained(tmp_path)
+    if files != "none":
+        torch.save({}, tmp_path / files)
+    kw = _dir_kw("bert", str(tmp_path))
+    with pytest.raises(OSError) as want:
+        _jax_create(kw, pairs("bert")[1])
+    with pytest.raises(OSError) as got:
+        create_model("ViT-B-16", device="cpu", **kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_sharded_safetensors_are_refused_as_jax_refuses(tmp_path, pairs):
+    """transformers' Flax load refuses a ``model.safetensors.index.json``
+    (torch's sharded safetensors) without reading it."""
+    H.hf_config("bert").save_pretrained(tmp_path)
+    (tmp_path / "model.safetensors.index.json").write_text("{}")
+    kw = _dir_kw("bert", str(tmp_path))
+    with pytest.raises(NotImplementedError) as want:
+        _jax_create(kw, pairs("bert")[1])
+    with pytest.raises(NotImplementedError, match="sharded safetensors"
+                       ) as got:
+        create_model("ViT-B-16", device="cpu", **kw)
+    assert str(want.value) in str(got.value)
+
+
+def test_trainer_trains_a_tower_from_a_local_directory(tmp_path,
+                                                        monkeypatch):
+    """``--model`` naming a registered config whose ``text_cfg`` carries a
+    local ``hf_model_name``: the trainer starts from the directory's
+    weights (under ``--lock-text`` the frozen ones end on the file's
+    bits)."""
+    from cosmos_tpu_torch.models import config as pconfig
+    from cosmos_tpu_torch.models.msgpack import read_msgpack
+    from cosmos_tpu_torch.training import main as pmain
+    from cosmos_tpu_torch.training.train import frozen_mask
+
+    d = tmp_path / "bert"
+    # the tokenizer's vocabulary
+    H.write_hf_dir(str(d), "bert", "FlaxBertModel", seed=5,
+                   vocab_size=49408)
+    name = "hf-dir-tiny-test"
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps({
+        "embed_dim": 32,
+        "vision_cfg": {"image_size": 16, "patch_size": 8, "width": 32,
+                       "layers": 1, "head_width": 16},
+        "text_cfg": {"context_length": 16, "hf_model_name": str(d)}}))
+    monkeypatch.setattr(pconfig, "_EXTRA_CONFIGS",
+                        dict(pconfig._EXTRA_CONFIGS))
+    pconfig.add_model_config(str(path))
+    pmain.main(["--model", name, "--dataset-type", "synthetic",
+                "--train-num-samples", "4", "--batch-size", "4",
+                "--precision", "fp32", "--workers", "1", "--lr", "1e-3",
+                "--warmup", "1", "--seed", "3", "--epochs", "1",
+                "--lock-text", "--save-most-recent",
+                "--logs-dir", str(tmp_path), "--name", "hf"], device="cpu")
+    saved = torch.load(tmp_path / "hf" / "checkpoints" / "epoch_1.pt",
+                       weights_only=True)["student"]
+    tree = read_msgpack(str(d / "flax_model.msgpack"))
+    assert torch.equal(
+        saved["text.transformer.embeddings.word_embeddings.weight"],
+        tree["embeddings"]["word_embeddings"]["embedding"])
+    assert torch.equal(
+        saved["text.transformer.encoder.layer.1.attention.self.query.weight"],
+        tree["encoder"]["layer"]["1"]["attention"]["self"]["query"][
+            "kernel"].t())
+    frozen = frozen_mask(create_model(name, device="meta"), lock_text=True)
+    assert frozen["text.transformer.encoder.layer.1.attention.self.query."
+                  "weight"]

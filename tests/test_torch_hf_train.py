@@ -6,7 +6,8 @@
   - ``frozen_mask`` and ``wd_mask`` against JAX's, leaf for leaf through
     the weight bridge, for every ``--lock-text-unlocked-layers`` and
     LayerNorm state; T5 under ``--lock-text`` raises in both;
-  - FSDP and tensor parallelism refused on an HF tower;
+  - the sharded step's refusals on an HF tower, JAX's (FSDP and tensor
+    parallelism take the tower: ``test_torch_tp.py``);
   - the port's trainer on a registered tiny HF config: ``--dataset-type
     synthetic --lock-text``, 2 steps, a checkpoint, ``--resume latest``.
 """
@@ -30,19 +31,10 @@ from cosmos_tpu_torch.training.train import (TrainStepConfig, frozen_mask,
                                              wd_mask)
 
 
-def _batch(arch: str) -> dict:
-    """R.step_batch's views with the captions' right ends padded."""
-    batch = R.step_batch(4, 1)
-    texts = batch["texts"]
-    for v in range(texts.shape[0]):
-        texts[v] = H.tokens(arch, n=texts.shape[1], seed=v)
-    return batch
-
-
 def test_clip_step_equals_jax():
     kw = H.model_kw("bert", text_hf_pooler_type="mean_pooler")
     jm, jp = H.jax_model(kw)
-    batch = _batch("bert")
+    batch = H.step_batch("bert")
     lr = jax_sched.const_lr(R.LR, 0, 10)
     opt = jax_train.create_optimizer(lr, beta1=R.BETA1, beta2=0.98,
                                      eps=R.EPS, weight_decay=0.5)
@@ -137,14 +129,28 @@ def test_t5_lock_text_raises_in_both(towers):
 
 @pytest.mark.parametrize("mode", ["fsdp", "tp"])
 def test_sharded_modes_are_refused(mode):
-    from cosmos_tpu_torch.parallel.fsdp import shard_params_fsdp
-    from cosmos_tpu_torch.parallel.tp import shard_params_tp
+    """FSDP and TP place an HF tower (``test_torch_tp.py`` runs them); the
+    sharded step refuses on it only what JAX's GSPMD step refuses, with
+    its message."""
+    import types
+
+    from cosmos_tpu_torch.parallel.fsdp import fsdp_placements
+    from cosmos_tpu_torch.parallel.tp import tp_param_placements
+    from cosmos_tpu_torch.training import train as T
 
     model = create_model("ViT-B-16", device="cpu", **H.model_kw("bert"))
-    fn = shard_params_fsdp if mode == "fsdp" else shard_params_tp
-    with pytest.raises(NotImplementedError,
-                       match="HF text towers under FSDP and TP"):
-        fn(model, None)
+    placed = (fsdp_placements(model, 2) if mode == "fsdp"
+              else tp_param_placements(model))
+    assert set(placed) == {n for n, _ in model.named_parameters()}
+    mesh = types.SimpleNamespace(mesh_dim_names=(
+        ("data",) if mode == "fsdp" else ("data", "model")))
+    kw = dict(siglip=True, cosmos=False)
+    with pytest.raises(ValueError) as want:
+        jax_train.make_train_step_gspmd(None, None, None,
+                                        jax_train.TrainStepConfig(**kw))
+    with pytest.raises(ValueError) as got:
+        T.make_train_step_gspmd(model, None, mesh, T.TrainStepConfig(**kw))
+    assert str(got.value) == str(want.value)
 
 
 def test_trainer_locks_checkpoints_and_resumes(tmp_path, monkeypatch):

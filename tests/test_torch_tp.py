@@ -7,7 +7,8 @@ With no process: the placements equal JAX's ``tp_spec`` leaf for leaf for
 the native towers, CoCa and the timm ViT, EVA02, ConvNeXt and FastViT
 trunks, and ``make_train_step_gspmd`` refuses what JAX's refuses, with its
 messages.  One spawn of 4 ranks runs the TP encoders on (2, 2) and (4, 1)
-meshes for a batch no data axis divides (and EVA02's trunk on (2, 2)),
+meshes for a batch no data axis divides (and EVA02's trunk on (2, 2), and
+a BERT and a T5 text tower),
 the TP train step on (2, 2) through K1 and K2 (head dim 64, so the
 kernels' CPU versions run; the test counts their calls), the same step
 under ``FUSED_LN``, under ``fuse_ln`` (K5 and K6 on each rank's local
@@ -15,7 +16,11 @@ shard) with and without ``FUSED_LN``, coca_Tiny-Test's step, a CoCa of
 unequal widths (its pooler's separate q/k/v column-parallel), a
 data-parallel step whose checkpoint a TP state resumes, and the trainer:
 COSMOS tensor parallel then under FSDP x TP, CoCa under FSDP then tensor
-parallel.  The features, the loss and the updated student and teacher lie
+parallel, an HF tower under FSDP with --lock-text then FSDP x TP; and the
+plain-CLIP step of a BERT and a T5 text tower under TP, FSDP over 4 ranks
+and FSDP x TP, each against JAX's GSPMD step under its FSDP x TP placement
+(one function, whatever the placement), T5's q the one sharded leaf of
+the text tower.  The features, the loss and the updated student and teacher lie
 within ``rtol=1e-5, atol=1e-5`` of JAX's (the largest error found: 4.2e-07)
 or, for the CoCa JAX does not build, of the port's unsharded step.
 """
@@ -30,6 +35,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_dp_ranks as R
+import torch_hf_cases as H
 from cosmos_tpu.models import convnext as jconvnext
 from cosmos_tpu.models import eva as jeva
 from cosmos_tpu.models import fastvit as jfastvit
@@ -84,7 +90,19 @@ TOWERS = {
         vision_timm_model_name="fastvit_tp_porttest", vision_image_size=64)),
     "coca": ("coca_Tiny-Test", {}),
     "siglip": ("ViT-B-16", dict(R.TINY, **R.SIGLIP_TOWERS)),
+    "hf_bert": ("ViT-B-16", H.model_kw("bert")),
+    "hf_t5": ("ViT-B-16", H.model_kw("t5")),
 }
+# the HF towers' sharded steps and encoders: the vision tower at head dim 64
+# (K1, K2), the tiny BERT (mean pooling: its pooler takes no gradient) and
+# T5, whose SelfAttention q is JAX's one column-parallel leaf of an HF tree
+HF_TP = {arch: dict(H.model_kw(arch), vision_width=128, vision_head_width=64,
+                    **({"text_hf_pooler_type": "mean_pooler"}
+                       if arch == "bert" else {}))
+         for arch in ("bert", "t5")}
+# the port's sharded modes of an HF tower: (kind, mesh shape)
+HF_MODES = {"tp": ("tp", (2, 2)), "fsdp": ("fsdp", ()),
+            "fsdp_tp": ("fsdp_tp", (2, 2))}
 # the SigLIP towers at head dim 64 (K1, K2), the embedding at the ViT's
 # width (no projection), stepped as plain CLIP: JAX's GSPMD step refuses
 # the SigLIP loss
@@ -132,8 +150,28 @@ def _jax_tp_step(jm, jp, batch, mesh, mode="cosmos"):
 def _jax_encoders(jm, jp, shape, images, texts):
     mesh = jax_tp.create_tp_mesh(*shape, jax.devices()[:shape[0] * shape[1]])
     sharded, enc_image, enc_text = jax_tp.make_tp_encoders(jm, jp, mesh)
-    return {"image": np.asarray(enc_image(sharded, images)),
-            "text": np.asarray(enc_text(sharded, texts))}
+    out = {"text": np.asarray(enc_text(sharded, texts))}
+    if images is not None:
+        out["image"] = np.asarray(enc_image(sharded, images))
+    return out
+
+
+def _jax_fsdp_tp_step(jm, jp, batch, mesh):
+    """JAX's plain-CLIP GSPMD step under its FSDP x TP placement
+    (``create_train_state_fsdp`` on the (data, model) mesh): the function
+    every sharded mode of the port computes."""
+    lr = jax_sched.const_lr(R.LR, 0, 10)
+    opt = jax_train.create_optimizer(lr, beta1=R.BETA1, beta2=0.98,
+                                     eps=R.EPS, weight_decay=0.5)
+    state = jax_train.create_train_state_fsdp(
+        jax.tree_util.tree_map(np.array, jp), opt, mesh, min_size=256)
+    step = jax_train.make_train_step_gspmd(jm, opt, mesh, _cfg(lr, "clip"))
+    sharded = jax.tree_util.tree_map(
+        lambda x: jax.device_put(x, NamedSharding(mesh, P(None, DATA_AXIS))),
+        batch)
+    state, metrics = H.run_jax(step, state, sharded)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "student": _sd(state.params), "teacher": _sd(state.teacher_params)}
 
 
 @pytest.fixture(scope="module")
@@ -149,7 +187,9 @@ def runs(tmp_path_factory):
         "enc_eva_2x2": ("ViT-Tiny-Test", EVA_MODEL, (2, 2), EVA)}
     models, payload = {}, {}
     for case, (name, kw, shape, eva) in encoders.items():
-        models[case] = jax_create_model(name, seed=1, **kw)
+        # the (4, 1) mesh's model is the (2, 2) one's: one JAX init
+        models[case] = (models["enc_2x2"] if case == "enc_4x1"
+                        else jax_create_model(name, seed=1, **kw))
         payload[case] = ("tp_encoders", dict(
             init=_sd(models[case][1]), images=images,
             texts=texts.astype(np.int64), shape=shape, name=name,
@@ -221,11 +261,39 @@ def runs(tmp_path_factory):
                                       path=f"{ckpt}/epoch_1.pt",
                                       model_kw=KERNEL_TINY)),
     })
+    # the HF towers: each sharded mode's step on padded captions, the TP
+    # encoders; then an HF trainer under --fsdp and --lock-text, resumed
+    # under FSDP x TP
+    hf = {arch: H.jax_model(kw, seed=3) for arch, kw in HF_TP.items()}
+    hf_batch = {arch: H.step_batch(arch) for arch in hf}
+    hf_texts = {arch: H.tokens(arch, n=7, seed=4) for arch in hf}
+    for arch, (jm_hf, jp_hf) in hf.items():
+        for mode, (kind, shape) in HF_MODES.items():
+            payload[f"hf_{mode}_{arch}"] = ("sharded_step", dict(
+                kind=kind, shape=shape, init=_sd(jp_hf), batch=hf_batch[arch],
+                mode="clip", model_kw=HF_TP[arch]))
+        payload[f"enc_hf_{arch}"] = ("tp_encoders", dict(
+            init=_sd(jp_hf), images=images, texts=hf_texts[arch].astype(
+                np.int64), shape=(2, 2), name="ViT-B-16",
+            model_kw=HF_TP[arch]))
+    lock = ("--lock-text", "--lock-text-unlocked-layers", "1")
+    hf_model = R.hf_trainer_config()
+    payload["hf_trainer"] = ("trainer_runs", dict(config=hf_model, argvs=[
+        R.coca_trainer_argv(data, "hf", "--fsdp", "--train-num-samples",
+                            "16", "--epochs", "1", *lock, model=hf_model[0]),
+        R.coca_trainer_argv(data, "hf", *tp_argv, "--fsdp", "--epochs", "2",
+                            "--resume", "latest", *lock,
+                            model=hf_model[0])]))
     ranks = R.start(R.beyond_rank, 4, payload)
+    mesh = jax_tp.create_tp_mesh(2, 2, jax.devices()[:4])
     want = {case: _jax_encoders(*models[case], encoders[case][2],
                                 jnp.asarray(images), jnp.asarray(texts))
             for case in encoders}
-    mesh = jax_tp.create_tp_mesh(2, 2, jax.devices()[:4])
+    for arch, (jm_hf, jp_hf) in hf.items():
+        want[f"hf_{arch}"] = _jax_fsdp_tp_step(jm_hf, jp_hf, hf_batch[arch],
+                                               mesh)
+        want[f"enc_hf_{arch}"] = _jax_encoders(jm_hf, jp_hf, (2, 2), None,
+                                               jnp.asarray(hf_texts[arch]))
     want["tp"] = _jax_tp_step(jm, jp, batch, mesh)
     want["tp_fuse_ln"] = _jax_tp_step(jm_fuse, jp_fuse, batch, mesh)
     want["tp_coca"] = _jax_tp_step(jm_coca, jp_coca, coca_batch, mesh,
@@ -276,10 +344,10 @@ def _torch_dim(d, tf):
 
 def _jax_param_shapes(name, kw):
     """JAX's parameter tree of a model as zeros, from its shapes alone (a
-    COSMOS model's poolers take part only in its full forward: those
-    initialise)."""
+    COSMOS model's poolers take part only in its full forward, which
+    ``H.jax_model`` traces)."""
     if kw.get("cosmos"):
-        return jax_create_model(name, use_flash=False, seed=1, **kw)[1]
+        return jax.tree_util.tree_map(np.zeros_like, H.jax_model(kw)[1])
     if name.startswith("coca"):
         return jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype),
                                       jax_coca()[1])
@@ -297,7 +365,7 @@ def test_tp_spec_equals_jax_leaf_for_leaf(tower):
     name, kw = TOWERS[tower]
     jp = _jax_param_shapes(name, kw)
     model = create_model(name, device="meta", **kw)
-    if tower == "coca":
+    if tower == "coca" or tower.startswith("hf_"):
         entries = model_name_map(model)
     else:
         layers = {"visual": len(getattr(getattr(
@@ -329,6 +397,14 @@ def test_tp_spec_equals_jax_leaf_for_leaf(tower):
             "attn.proj.weight", "mlp.fc1_g.weight", "mlp.fc1_x.weight",
             "mlp.fc2.weight", "mlp.fc2.bias", "mlp.norm.weight")] == [
             0, 0, 0, 1, 0, 0, 1, None, None]
+    # an HF tower's one Megatron leaf: T5's SelfAttention q, by its parent
+    # name; BERT's query/key/value/dense and the head stay whole
+    if tower.startswith("hf_"):
+        text = {k: v for k, v in got.items() if k.startswith("text.")}
+        q = [k for k in text if k.endswith("SelfAttention.q.weight")]
+        assert {k: v for k, v in text.items() if v is not None} == \
+            dict.fromkeys(q, 0)
+        assert len(q) == (2 if tower == "hf_t5" else 0)
     # the decoder's cross-attention and the pooler, as JAX places them
     if tower == "coca":
         assert [got[n] for n in (
@@ -519,5 +595,51 @@ def test_coca_trainer_runs_fsdp_then_resumes_tensor_parallel(runs):
             assert np.isfinite(line["loss"])
             assert line["loss"] == pytest.approx(
                 line["contrastive_loss"] + line["caption_loss"], rel=1e-6)
+    assert all(np.isfinite(v) for v in ranks[0]["val_loss"])
+    assert all(r["val_loss"] == [None, None] for r in ranks[1:])
+
+
+# --- HF text towers --------------------------------------------------------
+
+@pytest.mark.parametrize("part", ["metrics", "student", "teacher"])
+@pytest.mark.parametrize("mode", sorted(HF_MODES))
+@pytest.mark.parametrize("arch", sorted(HF_TP))
+def test_hf_tower_sharded_steps_equal_jax(runs, arch, mode, part):
+    _close(runs["ranks"][0][f"hf_{mode}_{arch}"][part],
+           runs["want"][f"hf_{arch}"][part], f"hf {mode} {arch} {part}")
+
+
+@pytest.mark.parametrize("arch", sorted(HF_TP))
+def test_hf_tower_steps_run_k1_k2_and_shard_t5_s_q(runs, arch):
+    q = [f"text.transformer.encoder.block.{i}.layer.0.SelfAttention.q.weight"
+         for i in range(2)] if arch == "t5" else []
+    for rank in runs["ranks"]:
+        for mode in HF_MODES:
+            got = rank[f"hf_{mode}_{arch}"]
+            assert got["calls"]["K1"] > 0 and got["calls"]["K2"] > 0
+            assert got["metrics"] == rank[f"hf_fsdp_{arch}"]["metrics"] \
+                or mode != "fsdp"
+            text = [n for n in got["model_sharded"] if n.startswith("text.")]
+            assert text == ([] if mode == "fsdp" else q), mode
+
+
+@pytest.mark.parametrize("arch", sorted(HF_TP))
+def test_hf_tp_encoders_equal_jax(runs, arch):
+    want = runs["want"][f"enc_hf_{arch}"]["text"]
+    for rank in runs["ranks"]:
+        got = rank[f"enc_hf_{arch}"]
+        assert got["text"].shape == want.shape
+        np.testing.assert_allclose(got["text"].numpy(), want, **TOL)
+        # K1 takes the vision block; the HF tower attends on stock ops
+        assert (got["k1_image"], got["k1_text"]) == (1, 0)
+
+
+def test_hf_trainer_locks_text_under_fsdp_and_resumes_under_fsdp_tp(runs):
+    ranks = [r["hf_trainer"] for r in runs["ranks"]]
+    for r in ranks:
+        assert r["epochs"] == [[0], [1]]
+        assert r["losses"] == ranks[0]["losses"]
+        assert [len(x) for x in r["losses"]] == [2, 2]
+        assert np.all(np.isfinite(sum(r["losses"], [])))
     assert all(np.isfinite(v) for v in ranks[0]["val_loss"])
     assert all(r["val_loss"] == [None, None] for r in ranks[1:])

@@ -45,6 +45,15 @@ SIGLIP_TOWERS = dict(vision_class_token=False, vision_patch_bias=True,
                      vision_pool_type="map", text_no_causal_mask=True,
                      text_pool_type="last", text_proj_bias=True)
 LR, BETA1, EPS = 1e-3, 0.9, 1e-3
+# an HF text tower: BERT at width 32, 2 layers, the vocabulary of TINY;
+# mean pooling, so that its pooler takes no gradient (a zero one: AdamW
+# decays it, as optax does)
+HF_BERT = dict(
+    text_hf_model_config=dict(model_type="bert", hidden_size=32,
+                              num_hidden_layers=2, num_attention_heads=2,
+                              intermediate_size=64, vocab_size=128,
+                              max_position_embeddings=32),
+    text_hf_model_pretrained=False, text_hf_pooler_type="mean_pooler")
 
 
 def _entry(rank: int, world: int, store: str, fn: Callable, payload_path: str,
@@ -211,6 +220,7 @@ STEP_MODES = {
     "siglip": (SIGLIP, dict(cosmos=False, siglip=True), 1),
     "coca": ({}, dict(cosmos=False, coca=True, coca_caption_loss_weight=1.5),
              1),
+    "hf": (HF_BERT, dict(cosmos=False), 1),
 }
 # mode -> the config it trains as it stands (the others: ViT-B-16 cut to
 # TINY)
@@ -423,11 +433,27 @@ def trainer_argv(d: str, name: str, *extra: str) -> List[str]:
             "--name", name, *extra]
 
 
-def coca_trainer_argv(d: str, name: str, *extra: str) -> List[str]:
-    """The trainer's flags for a CoCa run (``coca_trainer_config``) on the
-    shards of ``write_trainer_data(d)``: one crop and one caption, 2 rows a
-    data rank, the val eval."""
-    return ["--model", coca_trainer_config()[0], "--dataset-type",
+def hf_trainer_config():
+    """(name, config): ViT-Tiny-Test's vision tower with HF_BERT's text
+    tower at the tokenizer's vocabulary."""
+    from cosmos_tpu_torch.models import config as pconfig
+
+    cfg = pconfig.get_model_config("ViT-Tiny-Test")
+    cfg["text_cfg"] = {
+        "context_length": 16, "hf_model_pretrained": False,
+        "hf_pooler_type": HF_BERT["text_hf_pooler_type"],
+        "hf_model_config": dict(HF_BERT["text_hf_model_config"],
+                                vocab_size=49408)}
+    return "hf-bert-Tiny-Test-49408", cfg
+
+
+def coca_trainer_argv(d: str, name: str, *extra: str,
+                      model: str = None) -> List[str]:
+    """The trainer's flags for a CoCa run (``coca_trainer_config``; or a
+    plain-CLIP run of ``model``) on the shards of
+    ``write_trainer_data(d)``: one crop and one caption, 2 rows a data
+    rank, the val eval."""
+    return ["--model", model or coca_trainer_config()[0], "--dataset-type",
             "webdataset", "--train-data", f"{d}/train-{{0000..0003}}.tar",
             "--batch-size", "2", "--precision", "fp32",
             "--log-every-n-steps", "1", "--workers", "0", "--lr", "1e-3",
@@ -471,6 +497,16 @@ def stateful_bytes(state) -> int:
                for k, v in s.items() if k in ("exp_avg", "exp_avg_sq")]
     return _local_bytes([*state.student.parameters(),
                          *state.teacher.parameters(), *moments])
+
+
+def model_sharded(model) -> List[str]:
+    """The parameters sharded over a model axis."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return sorted(
+        n for n, p in model.named_parameters() if isinstance(p, DTensor)
+        and any(isinstance(pl, Shard) and ax == "model" for pl, ax in zip(
+            p.placements, p.device_mesh.mesh_dim_names or ())))
 
 
 class kernel_calls:
@@ -561,7 +597,8 @@ def sharded_step(kind: str, init, batch, shape=(), cfg_kw=None,
     finally:
         layers.FUSED_LN = False
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
-           "bytes": stateful_bytes(state), "calls": calls}
+           "bytes": stateful_bytes(state), "calls": calls,
+           "model_sharded": model_sharded(state.student)}
     if checkpoint.is_sharded(state):
         whole = checkpoint.host_state(state, optimizer=False)
     else:

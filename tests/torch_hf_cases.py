@@ -1,8 +1,9 @@
 """Shared cases of the HF text-tower tests (``test_torch_hf_*.py``): tiny
 configs of the five architectures at width 32 and 2 layers, their token
-batches (pads at the right ends, each with its architecture's pad id), and
+batches (pads at the right ends, each with its architecture's pad id),
 JAX's model with parameters drawn with numpy at the shapes
-``jax.eval_shape`` gives (no JAX init is compiled)."""
+``jax.eval_shape`` gives (no JAX init is compiled), and local
+``hf_model_name`` directories written by transformers' own classes."""
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +63,18 @@ def tokens(arch: str, n: int = 4, seed: int = 0) -> np.ndarray:
     return t
 
 
+def step_batch(arch: str) -> dict:
+    """torch_dp_ranks.step_batch's views (global batch 4) with each
+    caption view's right ends padded with ``arch``'s pad id."""
+    import torch_dp_ranks as R
+
+    batch = R.step_batch(4, 1)
+    texts = batch["texts"]
+    for v in range(texts.shape[0]):
+        texts[v] = tokens(arch, n=texts.shape[1], seed=v)
+    return batch
+
+
 def jax_module(kw):
     """JAX's ViT-B-16 with the overrides ``kw``, no parameters."""
     return jax_create_model("ViT-B-16", use_flash=False, init_params=False,
@@ -119,3 +132,57 @@ def close(got, want, what=""):
 
 def as_torch(batch: dict) -> dict:
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def hf_config(arch: str, **overrides):
+    """transformers' config of ``arch``'s tiny tower."""
+    import transformers
+
+    fields = {k: v for k, v in HF[arch].items() if k != "model_type"}
+    return transformers.AutoConfig.for_model(arch, **dict(fields,
+                                                          **overrides))
+
+
+def write_hf_dir(path: str, arch: str, cls_name: str, seed: int = 0,
+                 max_shard_size=None, chunk: int = None, **overrides) -> None:
+    """A local ``hf_model_name`` directory of ``arch``'s tiny config:
+    ``config.json`` and seeded weights as transformers' Flax class
+    ``cls_name`` writes them with ``save_pretrained``
+    (``flax_model.msgpack``, or its sharded index at ``max_shard_size``;
+    ``chunk``: flax's chunk size in bytes, so that arrays above it are
+    written in chunks).  ``cls_name`` ``"torch"`` writes the
+    ``model.safetensors`` torch's ``save_pretrained`` writes for the base
+    model (transformers' torch names, which are the port's encoder's, and
+    ``{"format": "pt"}``), from the port's seeded encoder.  ``overrides``:
+    config fields over the tiny config's (Flax classes only)."""
+    import transformers
+    from flax import serialization
+
+    config = hf_config(arch, **overrides)
+    if cls_name == "torch":
+        from safetensors.torch import save_file
+
+        config.architectures = [type(config).__name__[:-len("Config")]
+                                + "Model"]
+        config.save_pretrained(path)
+        kw = model_kw(arch)
+        encoder = create_model("ViT-B-16", device="cpu", seed=seed,
+                               **kw).text.transformer
+        save_file({k: v.contiguous() for k, v in
+                   encoder.state_dict().items()},
+                  f"{path}/model.safetensors", metadata={"format": "pt"})
+        return
+    model = getattr(transformers, cls_name)(config, _do_init=False)
+    shapes = jax.eval_shape(
+        lambda: model.init_weights(jax.random.PRNGKey(0), (1, 1)))
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * 0.1).astype(np.float32),
+        shapes)
+    saved = serialization.MAX_CHUNK_SIZE
+    serialization.MAX_CHUNK_SIZE = chunk or saved
+    try:
+        kw = {"max_shard_size": max_shard_size} if max_shard_size else {}
+        model.save_pretrained(path, params=params, **kw)
+    finally:
+        serialization.MAX_CHUNK_SIZE = saved
