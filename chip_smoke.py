@@ -90,7 +90,7 @@ from the sources in the checkout and then:
      point, main([... "--eval-mode", "classification" ...]): ViT-B-16
      COSMOS in bfloat16 (amp) from a checkpoint of random weights, student
      and teacher, on an ImageNet val layout of 1000 class dirs x 1 seeded
-     JPEG and a CIFAR-10 test batch of 1000 seeded images; checks 12 K1
+     JPEG and a CIFAR-10 test batch of 500 seeded images; checks 12 K1
      launches in every text and image call and none of K2-K6, the
      classifiers' prompt counts (80000 for ImageNet), the images of each
      pass and top-1/top-5 in [0, 1]; prints the classifier's build time
@@ -99,7 +99,7 @@ from the sources in the checkout and then:
  14. drives the segmentation eval, python -m
      cosmos_tpu_torch.training.seg_eval, through main([...]) in float32
      (its default) from the same checkpoint's weights on a voc20 layout
-     (16 seeded 500x375 images) and an ade20k layout (16 images, 4 with a
+     (16 seeded 500x375 images) and an ade20k layout (8 images, 4 with a
      short side below 336), with --use-csa and without, then 10 PAMR
      steps on 2 images; checks 11 K1 launches in every vision call with
      CSA and 12 without (at most 8 windows a call), 12 in every text call,
@@ -320,6 +320,22 @@ from the sources in the checkout and then:
      text tower's one model-sharded weight, and the TP encoders against
      the unsharded features (1e-4); (d) save_for_hf of a ModifiedResNet
      CLIP at OpenAI RN50's widths, both files read back to the bits.
+ 26. HF tokenizers from a local directory: (a) the seven directories of
+     tests/torch_tokenizer_dirs.py (BERT tokenizer.json and vocab.txt,
+     RoBERTa tokenizer.json and vocab.json + merges.txt, XLM-R, T5, mT5),
+     written from the seed without transformers, each the committed
+     directory's sha256, each giving transformers' committed ids
+     (tests/torch_tokenizer_ids.json) of the fixed captions at 77; the
+     captions/s of each on 2560 synthetic captions, a host time, beside
+     SimpleTokenizer's; (b) roberta-ViT-B-32 (random weights) registered
+     with add_model_config under a config whose text tower names the
+     RoBERTa directory, through the trainer's eval-only run in bf16: COCO
+     retrieval (64 images, 320 captions) and CIFAR-10 classification (256
+     images) at batch 256; the text tower takes the tokenizer's ids (<s>
+     first, pad id 1), 12 K1 an image call and none a text call; its text
+     features of 16 captions card against CPU in float32; (c) seg_eval on
+     that model (float32) over phase 14's 16 voc20 images, the class
+     embeddings through the same tokenizer, 12 K1 a vision call.
 
 Every phase prints its seconds on a line of its own, ``[phase N] <s> s``,
 and the record keeps them (``phase_s``).
@@ -1333,7 +1349,7 @@ def _profile_steps(step, state, batch, n: int = 2):
 # torchrun against the same trainer in this process; (b) the step at world 2
 DP_RANK_FLAG = "--dp-rank"
 DP_STEPS = 2            # steps an epoch in 16(a)
-DP_VAL_SAMPLES = 64     # 16(a)'s and 19(a)'s val eval (one loader thread)
+DP_VAL_SAMPLES = 32     # 16(a)'s and 19(a)'s val eval (one loader thread)
 DP_WORLD = 2
 DP_BATCH = 32           # rows a rank in 16(b)
 # blocks a tower of the models on gloo ranks and their references (16(b),
@@ -2301,7 +2317,7 @@ def phase_trainer(K, tmp: str):
         run2 = trainer.main(argv + ["--epochs", "2", "--resume", "latest"])
     wall_s = time.perf_counter() - t0
     launches = read_launches(K)
-    loader = _loader_alone(argv + ["--epochs", "2"], batches=10)
+    loader = _loader_alone(argv + ["--epochs", "2"], batches=6)
     ckpt_dir = f"{logs}/trainer/checkpoints"
     model = create_model(TRAINER_MODEL, "amp", device="cuda", cosmos=True,
                          output_all=True, attentional_pool=True)
@@ -2428,7 +2444,7 @@ def phase_trainer(K, tmp: str):
 # segmentation eval through its own
 EVAL_MODEL_SEED = 7
 CLS_IMAGENET_CLASSES = 1000
-CLS_CIFAR_IMAGES = 1000
+CLS_CIFAR_IMAGES = 500                 # 1000 before PR 20
 CLS_BATCH = 256
 # ImageNet classes held card against CPU
 CLS_CARD_VS_CPU_CLASSES = 8
@@ -2436,9 +2452,10 @@ CLS_CARD_VS_CPU_CLASSES = 8
 # classifier's columns and the segmentor's logits are cosines
 EVAL_CARD_VS_CPU_TOL = (1e-4, 0.0)
 SEG_VOC_SIZES = [(500, 375)] * 16
-# ADE20K: 4 of 16 images with a short side below 336, which SegDataset
-# enlarges, so that the final logits shrink to the label's shape
-SEG_ADE_SIZES = [(640, 480), (512, 683), (600, 400)] * 4 + [
+# ADE20K: 4 of 8 images (of 16 before PR 20) with a short side below 336,
+# which SegDataset enlarges, so that the final logits shrink to the label's
+# shape
+SEG_ADE_SIZES = [(640, 480), (512, 683), (600, 400), (640, 480)] + [
     (400, 300), (300, 250), (500, 320), (256, 256)]
 SEG_PAMR_IMAGES = 2
 # the K1 geometry of one chunk of 8 segmentation windows in float32
@@ -2686,7 +2703,7 @@ def phase_segmentation(K, ckpt: str):
     """python -m cosmos_tpu_torch.training.seg_eval at full width, float32
     (its default): ViT-B-16 COSMOS teacher weights from a random
     checkpoint on a voc20 layout (16 seeded 500x375 images, labels 0-20
-    and 255) and an ade20k layout (16 images, 4 with a short side below
+    and 255) and an ade20k layout (8 images, 4 with a short side below
     336), with CSA and without, then PAMR (10 steps) on 2 voc20 images;
     then one image's segmentor logits, card against CPU, and K1 in float32
     at a chunk of 8 windows."""
@@ -3529,7 +3546,7 @@ TOWER_CONFIGS = ("EVA02-B-16", "EVA02-L-14", "convnext_base_w",
                  "convnext_large_d", "MobileCLIP-S1", "MobileCLIP-S2",
                  "MobileCLIP-B")
 TOWER_IMAGE_BATCH, TOWER_TEXT_BATCH = 64, 256
-TOWER_TIMED_CALLS = 3
+TOWER_TIMED_CALLS = 2
 TOWER_SEED = 18
 # OpenAI's RN50 geometry (OpenCLIP's RN50.json), registered at run time
 RN50_NAME = "RN50"
@@ -5057,7 +5074,7 @@ COCA_CONTEXT = 76
 COCA_RETRIEVAL = (512, 5, 256)      # images, captions an image, batch
 COCA_CPU = (2, 4)                   # images, captions of 21(b)
 COCA_CPU_TOL = 1e-5                 # float32 on both sides, TF32 off
-COCA_GEN = dict(seq_len=30, min_seq_len=5)
+COCA_GEN = dict(seq_len=16, min_seq_len=5)   # 30 before PR 20
 COCA_GEN_IMAGES, COCA_GEN_CPU_IMAGES, COCA_BEAMS = 16, 2, 6
 COCA_SAMPLING = {"greedy": {}, "top_k": dict(top_k=5),
                  "top_p": dict(top_p=0.9)}
@@ -5171,7 +5188,7 @@ def _coca_card_vs_cpu(cpu, gpu):
 
 def _coca_generation(K, model, cpu, gpu):
     """21(c): generate (greedy, top_k, top_p) and 6-beam search on 16
-    images at seq_len 30 in bfloat16, tokens/s, 12 K1 launches a call (the
+    images at seq_len 16 in bfloat16, tokens/s, 12 K1 launches a call (the
     image call; the decoder's masked and cross attention take the plain
     path); then float32 greedy tokens of 2 images on the CPU, the card's
     logits along them (teacher-forced) and the share of equal tokens."""
@@ -7472,6 +7489,274 @@ def phase_hf_local(K, tmp: str) -> dict:
     return out
 
 
+# phase 26: HF tokenizers from a local directory.  The card's machine has
+# neither transformers nor tokenizers, so the directories come from the
+# generator the tier-1 tests also run (tests/torch_tokenizer_dirs.py), and
+# the ids are held to transformers' ids of its captions committed beside it
+HFTOK_CAPTIONS = 2560          # (a): captions timed a directory
+HFTOK_CONTEXT = 77
+HFTOK_MODEL = "roberta-ViT-B-32-hf-tokenizer"
+HFTOK_SEED = 26
+HFTOK_COCO_IMAGES = 64         # (b): 5 captions an image
+HFTOK_CIFAR_IMAGES = 256
+HFTOK_BATCH = 256              # K1 at HF_K1_GEOMETRY
+HFTOK_CARD_VS_CPU = 16         # (b): captions, float32 features
+# seg_eval builds COSMOS heads unless told not to; an HF tower has none
+SEG_PLAIN_CLIP = ("--no-cosmos", "--no-output-all", "--no-attentional-pool",
+                  "--no-add-zero-attn")
+
+
+def _hftok_generator():
+    """tests/torch_tokenizer_dirs.py, which imports neither transformers
+    nor tokenizers."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_tokenizer_dirs
+
+    return torch_tokenizer_dirs
+
+
+def _hftok_ids(tmp: str) -> dict:
+    """26(a): the seven directories written from the seed, each the
+    committed directory's bits, each giving transformers' committed ids of
+    the fixed captions; then captions/s (host time) of a fresh tokenizer a
+    directory on HFTOK_CAPTIONS synthetic captions at context 77, beside
+    the byte-BPE SimpleTokenizer's."""
+    from cosmos_tpu_torch.data.synthetic import _caption
+    from cosmos_tpu_torch.data.tokenizer import HFTokenizer, SimpleTokenizer
+
+    D = _hftok_generator()
+    t0 = time.perf_counter()
+    dirs = D.write_all(f"{tmp}/tokenizers")
+    write_s = time.perf_counter() - t0
+    expected = json.loads(D.EXPECTED.read_text())
+    check(expected["context"] == HFTOK_CONTEXT, "committed ids' context")
+    rng = np.random.default_rng(HFTOK_SEED)
+    captions = [_caption(rng) for _ in range(HFTOK_CAPTIONS)]
+
+    def rate(make):
+        t0 = time.perf_counter()
+        tok = make()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids = tok(captions)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok(captions)
+        warm = time.perf_counter() - t0
+        check(ids.shape == (HFTOK_CAPTIONS, HFTOK_CONTEXT)
+              and ids.dtype == np.int32, f"ids of shape {ids.shape}")
+        return dict(load_s=load_s, captions_per_s=HFTOK_CAPTIONS / cold,
+                    warm_captions_per_s=HFTOK_CAPTIONS / warm)
+
+    out = {"write_s": write_s, "dirs": {}}
+    for name, path in dirs.items():
+        want = expected["dirs"][name]
+        check(D.digest(path) == want["digest"],
+              f"{name}: the written directory is not the committed one")
+        got = HFTokenizer(path)(D.CAPTIONS)
+        rows = np.full((len(D.CAPTIONS), HFTOK_CONTEXT), want["pad_id"],
+                       np.int32)
+        for row, ids in zip(rows, want["ids"]):
+            row[:len(ids)] = ids
+        check(got.dtype == np.int32 and np.array_equal(got, rows),
+              f"{name}: ids differ from transformers' in "
+              f"{int((got != rows).any(1).sum())} of {len(rows)} captions")
+        out["dirs"][name] = dict(path=path, **rate(lambda: HFTokenizer(path)))
+    out["simple"] = rate(SimpleTokenizer)
+    print(f"[hftok] 26(a) ids of {len(dirs)} directories equal "
+          "transformers'; captions/s on the host (cold / warm): "
+          + ", ".join(f"{k} {v['captions_per_s']:.1f} / "
+                      f"{v['warm_captions_per_s']:.1f}"
+                      for k, v in out["dirs"].items())
+          + f"; SimpleTokenizer {out['simple']['captions_per_s']:.1f} / "
+          f"{out['simple']['warm_captions_per_s']:.1f}")
+    return out
+
+
+def register_hftok_model(tmp: str, tokenizer: str) -> str:
+    """HFTOK_MODEL: ViT-B-32's config with roberta-ViT-B-32's text tower
+    (random weights) whose hf_tokenizer_name is ``tokenizer``."""
+    from cosmos_tpu_torch.models.config import add_model_config
+
+    cfg = json.loads((ROOT / "cosmos_tpu_torch" / "models" / "configs"
+                      / f"{HF_VISION}.json").read_text())
+    cfg["text_cfg"] = dict(
+        context_length=HFTOK_CONTEXT, hf_model_config=ROBERTA_BASE,
+        hf_tokenizer_name=tokenizer, hf_proj_type="mlp",
+        hf_pooler_type="mean_pooler", hf_model_pretrained=False)
+    path = Path(tmp) / f"{HFTOK_MODEL}.json"
+    path.write_text(json.dumps(cfg))
+    add_model_config(path)
+    return HFTOK_MODEL
+
+
+@contextlib.contextmanager
+def _text_tower_inputs(seen: list):
+    """Record the ids every HF text tower call receives."""
+    from cosmos_tpu_torch.models.hf_model import HFTextTower
+
+    forward = HFTextTower.forward
+
+    def recording(self, text, *a, **kw):
+        seen.append(text.detach().cpu().numpy())
+        return forward(self, text, *a, **kw)
+
+    HFTextTower.forward = recording
+    try:
+        yield
+    finally:
+        HFTextTower.forward = forward
+
+
+def _hftok_evals(K, tmp: str) -> dict:
+    """26(b): HFTOK_MODEL through the trainer's eval-only run in bf16 (amp)
+    on the card: COCO retrieval on a write_coco layout and the CIFAR-10
+    prompt-bank classifier; the text tower takes the RoBERTa tokenizer's
+    ids (pad id 1); K1 launches only in the vision tower; then the text
+    features of HFTOK_CARD_VS_CPU captions in float32, card against CPU."""
+    from cosmos_tpu_torch.data.datasets import RetrievalData
+    from cosmos_tpu_torch.data.synthetic import write_cifar10, write_coco
+    from cosmos_tpu_torch.models.factory import create_model, get_tokenizer
+    from cosmos_tpu_torch.training import main as trainer
+
+    t0 = time.perf_counter()
+    write_coco(f"{tmp}/data/coco", HFTOK_COCO_IMAGES, seed=HFTOK_SEED)
+    write_cifar10(f"{tmp}/cls/cifar10", HFTOK_CIFAR_IMAGES,
+                  seed=HFTOK_SEED + 1)
+    data_s = time.perf_counter() - t0
+    tok = get_tokenizer(HFTOK_MODEL)
+    check(type(tok).__name__ == "HFTokenizer",
+          f"get_tokenizer({HFTOK_MODEL}) gave {type(tok).__name__}")
+    want_ids = RetrievalData.load("coco", f"{tmp}/data/coco", tok).captions
+    argv = ["--model", HFTOK_MODEL, "--precision", "amp",
+            "--batch-size", str(HFTOK_BATCH), "--seed", str(HFTOK_SEED),
+            "--data-root-dir", f"{tmp}/data",
+            "--classification-data-dir", f"{tmp}/cls",
+            "--zeroshot-eval-datasets", "cifar10",
+            "--logs-dir", f"{tmp}/logs", "--name", "hftok"]
+    record, seen = _eval_record(), []
+    zero_launches(K)
+    t0 = time.perf_counter()
+    with _counted_evals(K, record), _text_tower_inputs(seen):
+        metrics = trainer.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(K)
+    for key in ("coco_image_to_text_R@1", "coco_text_to_image_R@1",
+                "cifar10-zeroshot-val-top1", "cifar10-zeroshot-val-top5"):
+        check(key in metrics and np.isfinite(metrics[key]),
+              f"26(b): metric {key} missing or not finite")
+    # the retrieval captions first, in order: the tokenizer's ids, a
+    # batch of HFTOK_BATCH rows padded past the captions, the columns
+    # past the longest caption (pads only) cut off
+    first = seen[0][:len(want_ids)]
+    n, width = first.shape
+    check(np.array_equal(first, want_ids[:n, :width])
+          and (want_ids[:n, width:] == 1).all(),
+          "26(b): the text tower's first batch is not the HF tokenizer's "
+          "ids of the retrieval captions")
+    every = np.concatenate([s.reshape(-1) for s in seen])
+    check(all((s[:, 0] == 0).all() for s in seen) and (every == 1).any()
+          and every.max() < ROBERTA_BASE["vocab_size"],
+          "26(b): the text tower's ids are not RoBERTa's (<s> first, pad 1)")
+    _k1_only(record["text_calls"], 0, "26(b) text")
+    _k1_only(record["image_calls"], HF_CALL_K1["image"], "26(b) image")
+    retrieval_calls = -(-HFTOK_COCO_IMAGES // HFTOK_BATCH)
+    image_calls = retrieval_calls + len(record["image_calls"])
+    check(launches["K1"] == HF_CALL_K1["image"] * image_calls
+          and all(launches[k] == 0 for k in launches if k != "K1"),
+          f"26(b): launches {launches} vs {image_calls} image calls")
+    # card against CPU, float32
+    cpu = create_model(HFTOK_MODEL, "fp32", device="cpu", seed=HFTOK_SEED)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    ids = torch.from_numpy(want_ids[:HFTOK_CARD_VS_CPU].astype(np.int64))
+    with torch.inference_mode():
+        w = cpu.encode_text(ids, True)["text_features"]
+        g = gpu.encode_text(ids.cuda(), True)["text_features"].cpu()
+    err = (g - w).abs().max().item()
+    check(err <= HF_CPU_TOL, f"26(b) card vs CPU text features: {err}")
+    del cpu, gpu
+    out = dict(metrics={k: float(v) for k, v in metrics.items()},
+               data_s=data_s, wall_s=wall_s, launches=launches,
+               image_calls=image_calls, text_calls=len(seen),
+               card_vs_cpu=err)
+    print(f"[hftok] 26(b) {HFTOK_MODEL} evals in {wall_s:.1f} s: "
+          + ", ".join(f"{k} {metrics[k]:.4g}" for k in (
+              "coco_image_to_text_R@1", "coco_text_to_image_R@1",
+              "cifar10-zeroshot-val-top1"))
+          + f"; K1 {launches['K1']} over {image_calls} image calls, "
+          f"{len(seen)} text calls on RoBERTa ids; card vs CPU text "
+          f"features {err:.3g}")
+    return out
+
+
+def _hftok_segmentation(K, tmp: str) -> dict:
+    """26(c): seg_eval on HFTOK_MODEL (random weights, float32) over phase
+    14's 16 voc20 images: the class embeddings through the RoBERTa
+    tokenizer, K1 only in the vision calls."""
+    from cosmos_tpu_torch.data.synthetic import write_segmentation
+    from cosmos_tpu_torch.training import seg_eval
+
+    write_segmentation(tmp, "voc", SEG_VOC_SIZES, n_labels=21, seed=20)
+    record, seen = _eval_record(), []
+    zero_launches(K)
+    t0 = time.perf_counter()
+    with _counted_evals(K, record), _text_tower_inputs(seen):
+        results = seg_eval.main(["--model", HFTOK_MODEL, *SEG_PLAIN_CLIP,
+                                 "--seg-data-root", tmp,
+                                 "--benchmarks", "voc20"])
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(K)
+    _k1_only(record["text_calls"], 0, "26(c) text")
+    _k1_only(record["vision_calls"], HF_CALL_K1["image"], "26(c) vision")
+    check(launches["K1"] == HF_CALL_K1["image"] * len(record["vision_calls"]),
+          f"26(c): launches {launches}")
+    check(len(seen) > 0 and all((s[:, 0] == 0).all() for s in seen),
+          "26(c): the class embeddings did not take RoBERTa's ids")
+    check(len(record["predictions"]) == len(SEG_VOC_SIZES),
+          f"26(c): {len(record['predictions'])} images predicted")
+    for key in ("mIoU", "aAcc", "mAcc"):
+        v = results["voc20"][key]
+        check(np.isfinite(v) and 0.0 <= v <= 100.0, f"26(c) {key} = {v}")
+    print(f"[hftok] 26(c) seg_eval voc20 in {wall_s:.1f} s: mIoU "
+          f"{results['voc20']['mIoU']:.4g}; K1 {launches['K1']} over "
+          f"{len(record['vision_calls'])} vision calls, {len(seen)} text "
+          "calls on RoBERTa ids")
+    return dict(results=results, wall_s=wall_s, launches=launches,
+                vision_calls=len(record["vision_calls"]),
+                text_calls=len(seen))
+
+
+def phase_hf_tokenizer(K, tmp: str) -> dict:
+    """Phase 26: (a) the seven tokenizer directories' ids against
+    transformers' and their captions/s; (b) roberta-ViT-B-32 with its own
+    tokenizer through the trainer's retrieval and classification evals;
+    (c) seg_eval's class embeddings through it."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    ids = _hftok_ids(tmp)
+    done("(a) ids")
+    register_hftok_model(tmp, ids["dirs"]["roberta"]["path"])
+    evals = _hftok_evals(K, f"{tmp}/hftok_evals")
+    done("(b) evals")
+    seg = _hftok_segmentation(K, f"{tmp}/hftok_seg")
+    done("(c) seg_eval")
+    k1 = {"HF tokenizer evals": evals["launches"]["K1"],
+          "HF tokenizer seg_eval": seg["launches"]["K1"]}
+    out = dict(ids=ids, evals=evals, segmentation=seg, k1_launches=k1,
+               launches_by_geometry={"K1 serving": k1["HF tokenizer evals"]},
+               parts_s=parts, phase_s=time.perf_counter() - t0)
+    print(f"[hftok] phase 26 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+          + "); K1 launches " + " ".join(f"{k}={v}" for k, v in k1.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -7538,6 +7823,7 @@ def main() -> int:
                        trainer["data_dir"], trainer["workers"], work)
         hf = timed("24", phase_hf, K, work)
         hfdir = timed("25", phase_hf_local, K, work)
+        hftok = timed("26", phase_hf_tokenizer, K, work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = timed("17", phase_last_flags, K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -7594,7 +7880,8 @@ def main() -> int:
         + sum(slice16["k1_launches"].values())
         + sum(siglip["k1_launches"].values())
         + sum(hf["k1_launches"].values())
-        + sum(hfdir["k1_launches"].values()),
+        + sum(hfdir["k1_launches"].values())
+        + sum(hftok["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -7613,7 +7900,8 @@ def main() -> int:
                              **slice16["k1_launches"],
                              **siglip["k1_launches"],
                              **hf["k1_launches"],
-                             **hfdir["k1_launches"]},
+                             **hfdir["k1_launches"],
+                             **hftok["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -7685,9 +7973,9 @@ def main() -> int:
             **{k: pick(table, (label, torch.bfloat16))[k]
                for k in attention_keys}})
         check(n > 0, f"{key} never launched at the SigLIP geometry")
-    # K1 and K2 at roberta-ViT-B-32's vision geometries (phases 24-25):
-    # the bf16 image calls of 24(a), (c) and 25(a), the steps of 24(b),
-    # (e), 25(a) and (b)
+    # K1 and K2 at roberta-ViT-B-32's vision geometries (phases 24-26):
+    # the bf16 image calls of 24(a), (c), 25(a) and 26(b), the steps of
+    # 24(b), (e), 25(a) and (b)
     for key, name, source, replaces, table, (label, *_) in (
             ("K1 serving", "fused_attention_qkv_fwd_hf_vision",
              "fused_attention_fwd.cu", "cosmos_tpu/ops/fused_attention.py:101",
@@ -7697,7 +7985,9 @@ def main() -> int:
              hf["kernel_bwd_rows"], HF_K2_GEOMETRY)):
         by_path = {f"HF towers, {key}": hf["launches_by_geometry"][key],
                    f"HF towers complete, {key}":
-                       hfdir["launches_by_geometry"][key]}
+                       hfdir["launches_by_geometry"][key],
+                   f"HF tokenizers, {key}":
+                       hftok["launches_by_geometry"].get(key, 0)}
         n = sum(by_path.values())
         kernels.append({
             "name": name, "route": "cuda",
@@ -7767,7 +8057,7 @@ def main() -> int:
                   data_parallel=data_parallel, last_flags=last,
                   towers=towers, beyond_dp=beyond, weights_in=weights,
                   coca=coca, slice16=slice16, siglip=siglip, hf=hf,
-                  hf_local=hfdir,
+                  hf_local=hfdir, hf_tokenizer=hftok,
                   phase_s=phase_s, total_s=time.perf_counter() - t0,
                   kernels=kernels)
     out_dir = ROOT / "chiprun_out"

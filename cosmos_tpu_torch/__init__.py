@@ -21,9 +21,10 @@ local checkpoint format and cached pretrained tag the JAX package's
 ``load_openai_model``, the registry, big_vision SigLIP files), and CoCa
 (``CoCa``, ``CoCaLoss``, caption generation in ``models.coca``), HF text
 towers built from an offline ``hf_model_config`` (BERT, RoBERTa,
-XLM-RoBERTa, T5, mT5: ``models.hf_model``) and the local HF export
-(``save_for_hf``).  What needs a download or an upload (HF tokenizers, hub
-models and weights, the hub) is refused.
+XLM-RoBERTa, T5, mT5: ``models.hf_model``) or a local directory, their
+tokenizers from a local directory (``data.hf_tokenizer``) and the local HF
+export (``save_for_hf``).  What needs a download or an upload (hub
+tokenizers, models and weights, the hub) is refused.
 
 The names below are the JAX package's public names.  They are imported on
 first use, so that the data loader's worker processes, which import

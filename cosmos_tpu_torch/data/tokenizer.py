@@ -1,7 +1,8 @@
 """Byte-BPE tokenizer of the OpenAI CLIP vocabulary (counterpart of
 ``cosmos_tpu/data/tokenizer.py``: ``bytes_to_unicode``, ``SimpleTokenizer``
 with its ``clean``, ``additional_special_tokens`` and ``reduction_mask``
-options, ``tokenize``, ``decode``).
+options, ``tokenize``, ``decode``), and ``HFTokenizer`` for an HF tokenizer
+directory (``hf_tokenizer.py``).
 
 The merge table (``cosmos_tpu_torch/assets/bpe_merges.json.gz``) is a byte
 copy of the JAX package's.  The vocabulary is built the same way: 256 byte
@@ -315,6 +316,38 @@ class SimpleTokenizer:
                 tokens[-1] = self.eot_token_id
             result[i, : len(tokens)] = tokens
         return result
+
+
+
+class HFTokenizer:
+    """The JAX package's ``HFTokenizer`` for a local directory (see
+    ``hf_tokenizer.load``; ``kwargs`` are the keywords it takes): the ids of
+    ``batch_encode_plus(max_length=context_length, padding="max_length",
+    truncation=True)`` of the cleaned texts, the separator's id made 0
+    under ``strip_sep_token``, as int32 ``[N, context_length]``."""
+
+    def __init__(self, tokenizer_name: str,
+                 context_length: Optional[int] = DEFAULT_CONTEXT_LENGTH,
+                 clean: str = "whitespace", strip_sep_token: bool = False,
+                 **kwargs):
+        from .hf_tokenizer import load
+
+        self.tokenizer = load(tokenizer_name, **kwargs)
+        self.context_length = context_length
+        self.clean_fn = get_clean_fn(clean)
+        self.strip_sep_token = strip_sep_token
+
+    def __call__(self, texts: Union[str, List[str]],
+                 context_length: Optional[int] = None) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        context_length = context_length or self.context_length
+        ids = self.tokenizer.encode_batch([self.clean_fn(t) for t in texts],
+                                          context_length)
+        sep = self.tokenizer.sep_id
+        if self.strip_sep_token and sep is not None:
+            ids = np.where(ids == sep, 0, ids)
+        return ids.astype(np.int32)
 
 
 _default_tokenizer: Optional[SimpleTokenizer] = None

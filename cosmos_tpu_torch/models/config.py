@@ -74,8 +74,9 @@ class TextCfg:
     output_all: bool = False
     # an HF text tower (``models/hf_model.py``): ``hf_model_config`` is an
     # offline dict with ``model_type`` and the config's fields, or
-    # ``hf_model_name`` a local directory (its config.json and weights); a
-    # hub ``hf_model_name`` and ``hf_tokenizer_name`` are refused (downloads)
+    # ``hf_model_name`` a local directory (its config.json and weights);
+    # ``hf_tokenizer_name`` a local tokenizer directory
+    # (``data/hf_tokenizer.py``); hub names are refused (downloads)
     hf_model_name: Optional[str] = None
     hf_tokenizer_name: Optional[str] = None
     hf_model_pretrained: bool = True

@@ -11,6 +11,7 @@ and the model moved.  ``precision`` stays the second positional argument;
 from __future__ import annotations
 
 import dataclasses
+import os
 import weakref
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -158,23 +159,29 @@ def create_model(
 
 def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
                   **kwargs: Any):
-    """The byte-BPE tokenizer at ``context_length``, by default the
-    config's (77 without a config; 76 for CoCa); ``kwargs`` go to
-    ``SimpleTokenizer`` (``clean``, ``additional_special_tokens``,
-    ``reduction_mask``, ``rng``).  A config that names an HF tokenizer is
-    refused."""
-    from ..data.tokenizer import SimpleTokenizer
+    """The config's tokenizer at ``context_length``, by default the
+    config's (77 without a config; 76 for CoCa).  A ``text_cfg`` that names
+    an ``hf_tokenizer_name`` directory gets ``HFTokenizer`` (``kwargs``:
+    ``clean``, ``strip_sep_token`` and the keywords ``hf_tokenizer.load``
+    takes), any other ``SimpleTokenizer`` (``kwargs``: ``clean``,
+    ``additional_special_tokens``, ``reduction_mask``, ``rng``).  A hub
+    name is refused (a download)."""
+    from ..data.tokenizer import HFTokenizer, SimpleTokenizer
     from .config import get_model_config
 
     cfg = get_model_config(model_name) if model_name else None
     text_cfg = (cfg or {}).get("text_cfg", {})
-    if text_cfg.get("hf_tokenizer_name"):
-        raise NotImplementedError(
-            f"{model_name}: HF tokenizers are not ported: one from a local "
-            'directory is ROADMAP queue 1, "An HF tokenizer from a local '
-            'directory"; a hub name needs a download ("Not queued")')
     if context_length is None:
         context_length = text_cfg.get("context_length", 77)
+    hf_tok = text_cfg.get("hf_tokenizer_name")
+    if hf_tok:
+        if not os.path.isdir(hf_tok):
+            raise NotImplementedError(
+                f"{model_name}: HF tokenizers from the hub are not ported: "
+                f"{hf_tok!r} is not a local directory, and a hub name needs "
+                'a download ("Not queued")')
+        return HFTokenizer(hf_tok, context_length=context_length or 77,
+                           **kwargs)
     return SimpleTokenizer(context_length=context_length, **kwargs)
 
 

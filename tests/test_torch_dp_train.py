@@ -71,7 +71,7 @@ def _jax_step(mode, jm, jp, batch):
     mesh = create_mesh(WORLD)
     step = jax_train.make_train_step(jm, opt, mesh, cfg)
     state = jax_train.create_train_state(jp, opt, mesh)
-    state, metrics = step(state, shard_batch(
+    state, metrics = H.run_jax(step, state, shard_batch(
         batch, mesh, batch_axis=2 if accum > 1 else 1))
     grads = jax.tree_util.tree_map(lambda m: np.asarray(m) / (1 - R.BETA1),
                                    _adam_mu(state.opt_state))
@@ -88,7 +88,7 @@ def _jax_model(mode):
     if mode == "hf":
         return H.jax_model(dict(R.TINY, **model_kw))
     if mode not in R.STEP_MODELS:
-        return jax_create_model("ViT-B-16", seed=1, **R.TINY, **model_kw)
+        return H.jax_create_fast("ViT-B-16", seed=1, **R.TINY, **model_kw)
     jm, _ = jax_create_model(R.STEP_MODELS[mode], init_params=False,
                              use_flash=False)
     rng = np.random.default_rng(1)
@@ -102,7 +102,7 @@ def _jax_model(mode):
 def steps():
     """{mode: (JAX on the 2-device mesh, [the port's 2 ranks], the port in
     one process without a process group, the port under a group of one
-    rank)}.  The ranks run while JAX compiles its steps."""
+    rank)}.  The ranks, both groups, run while JAX compiles its steps."""
     payload, models, built = {}, {}, {}
     for mode, (model_kw, _, accum) in R.STEP_MODES.items():
         # modes of one model (plain CLIP, its exact accumulation) share it;
@@ -118,6 +118,8 @@ def steps():
         payload[mode] = (_sd(jp), batch)
         models[mode] = (jm, jp, batch)
     join = R.start(R.steps_rank, WORLD, payload)
+    # the group of one rank runs beside them
+    join1 = R.start(R.steps_rank, 1, payload)
     want = {mode: _jax_step(mode, *models[mode]) for mode in models}
     ranks = join()
     # one thread, as each rank runs: the CPU kernels' summation order
@@ -128,7 +130,7 @@ def steps():
         one = {mode: R.port_step(mode, *payload[mode]) for mode in payload}
     finally:
         torch.set_num_threads(threads)
-    world1 = R.spawn(R.steps_rank, 1, payload)[0]
+    world1 = join1()[0]
     return {mode: (want[mode], [r[mode] for r in ranks], one[mode],
                    world1[mode])
             for mode in R.STEP_MODES}

@@ -81,7 +81,7 @@ def _jax_gspmd_step(jm, jp, batch, mesh, mode="cosmos"):
     sharded = jax.tree_util.tree_map(
         lambda x: jax.device_put(x, NamedSharding(mesh, P(None, DATA_AXIS))),
         batch)
-    state, metrics = step(state, sharded)
+    state, metrics = H.run_jax(step, state, sharded)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "student": _sd(state.params), "teacher": _sd(state.teacher_params)}
 
@@ -90,7 +90,7 @@ def _jax_gspmd_step(jm, jp, batch, mesh, mode="cosmos"):
 def runs(tmp_path_factory):
     """JAX's FSDP step on 2 devices and FSDP x TP on a (2, 2) mesh; the
     port's 2-rank and 4-rank spawns."""
-    jm, jp = jax_create_model("ViT-B-16", seed=1, **R.TINY, **R.COSMOS)
+    jm, jp = H.jax_create_fast("ViT-B-16", seed=1, **R.TINY, **R.COSMOS)
     init = _sd(jp)
     batch = R.step_batch(GLOBAL_BATCH, 1)
     ckpt = str(tmp_path_factory.mktemp("fsdp_ckpt"))

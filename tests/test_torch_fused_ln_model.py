@@ -22,9 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_hf_cases as H
 from cosmos_tpu.losses.contrastive import COSMOSLoss as JaxCOSMOSLoss
 from cosmos_tpu.models import layers as jlayers
-from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.ops.experimental import layer_norm as jln
 from cosmos_tpu_torch import COSMOSLoss, create_model
 from cosmos_tpu_torch.models import layers as tlayers
@@ -56,9 +56,9 @@ def pairs():
     """{fuse_ln: (jax model, jax params, port model)} on the same weights."""
     out = {}
     for fuse in (False, True):
-        jm, jp = jax_create_model("ViT-Tiny-Test", precision="fp32",
-                                  use_flash=True, seed=0, fuse_ln=fuse,
-                                  **COSMOS, **TINY)
+        jm, jp = H.jax_create_fast("ViT-Tiny-Test", precision="fp32",
+                                   use_flash=True, seed=0, fuse_ln=fuse,
+                                   **COSMOS, **TINY)
         tm = create_model("ViT-Tiny-Test", "fp32", device="cpu",
                           fuse_ln=fuse, **COSMOS, **TINY)
         tm.load_state_dict(state_dict_from_jax_params(
@@ -188,8 +188,8 @@ def test_every_parameter_gradient_equals_jax(monkeypatch, pairs, setting):
     jax.value_and_grad through the JAX package's custom VJPs."""
     jm, jp, tm = _setting(monkeypatch, pairs, setting)
     g, loc, t = _inputs(3)
-    want, want_g = jax.jit(jax.value_and_grad(
-        lambda p, *a: _jax_cosmos_loss(jm, p, *a, B)))(
+    want, want_g = H.run_jax(jax.jit(jax.value_and_grad(
+        lambda p, *a: _jax_cosmos_loss(jm, p, *a, B))),
         jp, jp, jnp.asarray(g), jnp.asarray(t, jnp.int32), jnp.asarray(loc))
     want_g = state_dict_from_jax_params(
         jax.tree_util.tree_map(np.asarray, want_g))

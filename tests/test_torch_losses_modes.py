@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch_hf_cases as H
 from cosmos_tpu.losses import contrastive as jloss
 from cosmos_tpu.models import attention as jattn
 from cosmos_tpu.models import layers as jlayers
-from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.training import evaluate as jeval
 from cosmos_tpu_torch.losses import DistillClipLoss, SigLipLoss
 from cosmos_tpu_torch.models import attention as pattn
@@ -201,7 +201,7 @@ def test_reinit_last_layer_redraws_only_the_last_blocks():
 
 @pytest.fixture(scope="module")
 def siglip_pair():
-    jm, jp = jax_create_model("ViT-B-16", seed=4, **SIGLIP, **TINY)
+    jm, jp = H.jax_create_fast("ViT-B-16", seed=4, **SIGLIP, **TINY)
     tm = create_model("ViT-B-16", device="cpu", **SIGLIP, **TINY)
     tm.load_state_dict(state_dict_from_jax_params(
         jax.tree_util.tree_map(np.asarray, jp)), strict=True)
@@ -232,7 +232,7 @@ def test_logit_bias_crosses_the_bridge_and_enters_the_logits(siglip_pair):
 @pytest.mark.parametrize("siglip", [False, True])
 def test_val_loss_of_clip_and_siglip_models_equals_jax(siglip):
     kw = dict(SIGLIP if siglip else {}, **TINY)
-    jm, jp = jax_create_model("ViT-B-16", seed=6, **kw)
+    jm, jp = H.jax_create_fast("ViT-B-16", seed=6, **kw)
     tm = create_model("ViT-B-16", device="cpu", **kw)
     tm.load_state_dict(state_dict_from_jax_params(
         jax.tree_util.tree_map(np.asarray, jp)), strict=True)

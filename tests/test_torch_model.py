@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_hf_cases as H
 from cosmos_tpu.models.checkpoint import params_to_torch_state_dict
 from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.models.vit import interpolate_pos_embed as jax_interp
@@ -55,16 +56,48 @@ def _images(n, size, seed):
         (n, size, size, 3)).astype(np.float32)
 
 
-def _pair(name, precision, **overrides):
-    """(jax model, jax params, port model with the same weights)."""
-    jm, jp = jax_create_model(name, precision=precision, use_flash=True,
-                              **COSMOS, **dict(overrides))
-    tm = create_model(name, precision, device="cpu", **COSMOS,
-                      **dict(overrides))
+# XLA's CPU compiler without its optimisation passes: the same functions,
+# compiled in about half the time
+FAST_XLA = {"xla_backend_optimization_level": 0}
+
+
+def _port(name, precision, jp, **overrides):
+    """The port's model built on the meta device, taking JAX's weights
+    whole (it has no buffers, so nothing is left uninitialised)."""
+    tm = create_model(name, precision, device="meta", **COSMOS,
+                      **overrides).to_empty(device="cpu")
     tm.load_state_dict(
         state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, jp)),
         strict=True)
-    return jm, jp, tm
+    return tm
+
+
+def _pair(name, precision, **overrides):
+    """(jax model, jax params, port model with the same weights)."""
+    jm, jp = H.jax_create_fast(name, precision=precision, use_flash=True,
+                               **COSMOS, **dict(overrides))
+    return jm, jp, _port(name, precision, jp, **overrides)
+
+
+def _drawn_params(jm, seed):
+    """Parameters at the shapes JAX's init gives (``jax.eval_shape``, no
+    init compiled or run), drawn with numpy as the init draws them: normal
+    weights of std 0.02, LayerNorm scales near 1."""
+    c = jm.cfg
+    shapes = jax.eval_shape(
+        lambda key, x, y: jm.init(key, x, y, batch_size=1)["params"],
+        jax.random.PRNGKey(0),
+        jnp.zeros((1, c.vision_cfg.image_size, c.vision_cfg.image_size, 3),
+                  jnp.float32),
+        jnp.zeros((1, c.text_cfg.context_length), jnp.int32))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        x = rng.standard_normal(s.shape).astype(np.float32) * np.float32(
+            0.02)
+        last = str(path[-1])
+        return x + np.float32(1.0) if "scale" in last and x.ndim == 1 else x
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 @pytest.fixture(scope="module")
@@ -177,12 +210,20 @@ def test_bf16_encoders():
 def test_full_width_vit_b16_encoders():
     """The real geometry once: ViT-B-16 COSMOS, f32, batch 2 (vision L=197
     with 12 heads, text L=77 causal with 8 heads)."""
-    jm, jp, tm = _pair("ViT-B-16", "fp32")
+    jm, _ = jax_create_model("ViT-B-16", precision="fp32", use_flash=True,
+                             init_params=False, **COSMOS)
+    jp = _drawn_params(jm, seed=3)
+    tm = _port("ViT-B-16", "fp32", jp)
     x, toks = _images(2, 224, 9), _tokens(2, 77, 10, 5, 40)
-    want_i = jm.apply({"params": jp}, jnp.asarray(x), False,
-                      method=jm.encode_image)["image_features"]
-    want_t = jm.apply({"params": jp}, jnp.asarray(toks, jnp.int32), False,
-                      method=jm.encode_text)["text_features"]
+
+    def run(method, key, inp):
+        fn = jax.jit(lambda p, a: jm.apply({"params": p}, a, False,
+                                           method=method)[key])
+        return fn.lower(jp, inp).compile(FAST_XLA)(jp, inp)
+
+    want_i = run(jm.encode_image, "image_features", jnp.asarray(x))
+    want_t = run(jm.encode_text, "text_features",
+                 jnp.asarray(toks, jnp.int32))
     with torch.no_grad():
         got_i = tm.encode_image(torch.from_numpy(x))["image_features"]
         got_t = tm.encode_text(torch.from_numpy(toks))["text_features"]

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import torch_dp_ranks as R
+import torch_hf_cases as H
 from cosmos_tpu.losses import contrastive as jax_losses
 from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.parallel.mesh import create_multislice_mesh, shard_batch
@@ -58,14 +59,15 @@ def _jax_step(jm, jp, batch, scope, local_loss):
     state = jax_train.create_train_state(
         jax.tree_util.tree_map(np.array, jp), opt, mesh)
     step = jax_train.make_train_step(jm, opt, mesh, cfg)
-    state, metrics = step(state, shard_batch(batch, mesh, batch_axis=1))
+    state, metrics = H.run_jax(step, state,
+                               shard_batch(batch, mesh, batch_axis=1))
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "student": _sd(state.params), "teacher": _sd(state.teacher_params)}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    jm, jp = jax_create_model("ViT-B-16", seed=1, **R.TINY, **R.COSMOS)
+    jm, jp = H.jax_create_fast("ViT-B-16", seed=1, **R.TINY, **R.COSMOS)
     batch = R.step_batch(8, 1)
     step = dict(init=_sd(jp), batch=batch)
     payload = {case: ("sharded_step", dict(

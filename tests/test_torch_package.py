@@ -1,6 +1,7 @@
-"""cosmos_tpu_torch stands alone: no module of it (nor chip_smoke.py)
-imports jax, flax, cosmos_tpu, or regex and transformers (absent on the
-card's machine), and
+"""cosmos_tpu_torch stands alone: no module of it (nor chip_smoke.py and
+the directory writer it imports, tests/torch_tokenizer_dirs.py) imports
+jax, flax, cosmos_tpu, or regex, transformers, tokenizers and
+sentencepiece (absent on the card's machine), and
 its entry points do not fall back to
 the CPU when CUDA is missing."""
 
@@ -17,7 +18,8 @@ from cosmos_tpu_torch import create_model
 
 PKG = Path(cosmos_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
-FORBIDDEN = ("jax", "flax", "cosmos_tpu", "regex", "transformers")
+FORBIDDEN = ("jax", "flax", "cosmos_tpu", "regex", "transformers",
+             "tokenizers", "sentencepiece")
 
 
 def _top_level_imports(path: Path):
@@ -30,7 +32,8 @@ def _top_level_imports(path: Path):
     return names
 
 
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tokenizer_dirs.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

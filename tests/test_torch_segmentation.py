@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_hf_cases as H
 from cosmos_tpu.models import attention as ja
-from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.models.factory import get_tokenizer as jax_get_tokenizer
 from cosmos_tpu.ops import fused_attention as jfa
 from cosmos_tpu.segmentation import dataset as jdataset
@@ -120,8 +120,8 @@ def test_csa_attention_matches_jax(d, heads, l, monkeypatch):
 
 @pytest.fixture(scope="module")
 def tiny_pair():
-    jm, jp = jax_create_model("ViT-Tiny-Test", precision="fp32", **COSMOS,
-                              **TINY)
+    jm, jp = H.jax_create_fast("ViT-Tiny-Test", precision="fp32", **COSMOS,
+                               **TINY)
     tm = create_model("ViT-Tiny-Test", "fp32", device="cpu", **COSMOS, **TINY)
     tm.load_state_dict(
         state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, jp)),

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import torch_dp_ranks as R
+import torch_hf_cases as H
 from cosmos_tpu.models import vit as jvit
 from cosmos_tpu.models.checkpoint import params_to_torch_state_dict
 from cosmos_tpu.models.convert import convert_state_dict as jax_convert
@@ -405,8 +406,9 @@ def test_siglip_step_equals_jax(monkeypatch):
                                     cosmos=False, siglip=True)
     mesh = create_mesh(1)
     step = jax_train.make_train_step(jm, opt, mesh, cfg)
-    state, metrics = step(jax_train.create_train_state(jp, opt, mesh),
-                          shard_batch(batch, mesh))
+    state, metrics = H.run_jax(step,
+                               jax_train.create_train_state(jp, opt, mesh),
+                               shard_batch(batch, mesh))
     assert len(jax_calls) == 1       # traced once
     want = {"metrics": {k: float(v) for k, v in metrics.items()},
             "student": _sd(state.params),

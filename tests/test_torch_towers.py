@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_hf_cases as H
 from cosmos_tpu.models import checkpoint as jckpt
 from cosmos_tpu.models import config as jconfig
 from cosmos_tpu.models import convnext as jconvnext
@@ -122,7 +123,7 @@ def towers():
     out = {}
     for kind in TOWERS:
         name, ov = _overrides(kind)
-        jm, jp = jax_create_model(name, use_flash=False, seed=1, **ov)
+        jm, jp = H.jax_create_fast(name, use_flash=False, seed=1, **ov)
         tm = create_model(name, device="cpu", **ov)
         tm.load_state_dict(state_dict_from_jax_params(_np_tree(jp)),
                            strict=True)
@@ -430,7 +431,7 @@ def test_native_vit_avg_pool_equals_jax():
               vision_image_size=32, vision_patch_size=8, vision_layers=2,
               vision_pool_type="avg", **{k: v for k, v in TEXT.items()
                                          if k != "embed_dim"})
-    jm, jp = jax_create_model("ViT-Tiny-Test", use_flash=False, seed=4, **ov)
+    jm, jp = H.jax_create_fast("ViT-Tiny-Test", use_flash=False, seed=4, **ov)
     tm = create_model("ViT-Tiny-Test", device="cpu", **ov)
     tm.load_state_dict(state_dict_from_jax_params(_np_tree(jp)), strict=True)
     x = _images(2, 32, 8)

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from cosmos_tpu.models.factory import create_model as jax_create_model
+import torch_hf_cases as H
 from cosmos_tpu.parallel.mesh import create_mesh, shard_batch
 from cosmos_tpu.training import scheduler as jax_sched
 from cosmos_tpu.training import train as jax_train
@@ -76,7 +76,7 @@ def _sd(tree):
 @pytest.mark.parametrize("kind", STEP_TOWERS)
 def test_plain_clip_step_matches_jax(kind, monkeypatch):
     name, ov = _overrides(kind)
-    jm, jp = jax_create_model(name, use_flash=False, seed=2, **ov)
+    jm, jp = H.jax_create_fast(name, use_flash=False, seed=2, **ov)
     init = _sd(jp)
     batch = _batch(_image_size(kind), 5)
 
@@ -88,7 +88,8 @@ def test_plain_clip_step_matches_jax(kind, monkeypatch):
     mesh = create_mesh(1)
     step = jax_train.make_train_step(jm, opt, mesh, cfg)
     state = jax_train.create_train_state(jp, opt, mesh)
-    state, metrics = step(state, shard_batch(batch, mesh, batch_axis=1))
+    state, metrics = H.run_jax(step, state,
+                               shard_batch(batch, mesh, batch_axis=1))
     want = {k: float(v) for k, v in metrics.items()}
     want_g = _sd(jax.tree_util.tree_map(lambda m: np.asarray(m) / (1 - BETA1),
                                         _adam_mu(state.opt_state)))

@@ -142,7 +142,7 @@ def _jax_tp_step(jm, jp, batch, mesh, mode="cosmos"):
     sharded = jax.tree_util.tree_map(
         lambda x: jax.device_put(x, NamedSharding(mesh, P(None, DATA_AXIS))),
         batch)
-    state, metrics = step(state, sharded)
+    state, metrics = H.run_jax(step, state, sharded)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "student": _sd(state.params), "teacher": _sd(state.teacher_params)}
 
@@ -189,12 +189,12 @@ def runs(tmp_path_factory):
     for case, (name, kw, shape, eva) in encoders.items():
         # the (4, 1) mesh's model is the (2, 2) one's: one JAX init
         models[case] = (models["enc_2x2"] if case == "enc_4x1"
-                        else jax_create_model(name, seed=1, **kw))
+                        else H.jax_create_fast(name, seed=1, **kw))
         payload[case] = ("tp_encoders", dict(
             init=_sd(models[case][1]), images=images,
             texts=texts.astype(np.int64), shape=shape, name=name,
             model_kw=kw, eva=eva))
-    jm, jp = jax_create_model("ViT-B-16", seed=1, **native, **R.COSMOS)
+    jm, jp = H.jax_create_fast("ViT-B-16", seed=1, **native, **R.COSMOS)
     # JAX's K5/K6 in interpret mode; its attention on the XLA path, the
     # same function as its kernel's, which compiles faster
     jm_fuse, _ = jax_create_model("ViT-B-16", init_params=False,

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from cosmos_tpu.models.factory import create_model as jax_create_model
+import torch_hf_cases as H
 from cosmos_tpu.models.trace import load_traced as jax_load_traced
 from cosmos_tpu.models.trace import save_traced as jax_save_traced
 from cosmos_tpu.models.trace import trace_model as jax_trace_model
@@ -48,7 +48,7 @@ def _inputs():
 @pytest.mark.parametrize("cfg,k1_nodes", [(TINY, 0), (KERNEL, 2)],
                          ids=["tiny", "head-dim-64"])
 def test_export_round_trip_equals_jax(cfg, k1_nodes, tmp_path):
-    jm, jp = jax_create_model("ViT-B-16", **cfg)
+    jm, jp = H.jax_create_fast("ViT-B-16", **cfg)
     images, tokens = _inputs()
     ji, jt = jnp.asarray(images), jnp.asarray(tokens, jnp.int32)
     want_img = np.asarray(jm.apply({"params": jp}, ji, True,

@@ -16,6 +16,7 @@ import optax
 import pytest
 import torch
 
+import torch_hf_cases as H
 from cosmos_tpu.losses.contrastive import COSMOSLoss as JaxCOSMOSLoss
 from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.training import scheduler as jax_sched
@@ -197,8 +198,8 @@ def test_every_parameter_gradient_equals_jax(tiny):
     loc = rng.standard_normal((2 * B, 32, 32, 3)).astype(np.float32)
     t = _captions([[5, 12], [7, 15], [3, 9], [4, 6]], seed=4).reshape(
         4 * B, 16)
-    want, want_g = jax.jit(jax.value_and_grad(
-        lambda p, *a: _jax_cosmos_loss(jm, p, *a, B)))(
+    want, want_g = H.run_jax(jax.jit(jax.value_and_grad(
+        lambda p, *a: _jax_cosmos_loss(jm, p, *a, B))),
         jp, jp, jnp.asarray(g), jnp.asarray(t, jnp.int32), jnp.asarray(loc))
     want_g = state_dict_from_jax_params(
         jax.tree_util.tree_map(np.asarray, want_g))

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from cosmos_tpu.models.factory import create_model as jax_create_model
+import torch_hf_cases as H
 from cosmos_tpu.parallel.mesh import create_mesh, shard_batch
 from cosmos_tpu.training import scheduler as jax_sched
 from cosmos_tpu.training import train as jax_train
@@ -104,7 +104,7 @@ def _jax_step(mode, jm, jp, batch, dist):
     args = (shard_batch(batch, mesh, batch_axis=2 if accum > 1 else 1),)
     if dist is not None:
         args += (dist[1],)
-    state, metrics = step(state, *args)
+    state, metrics = H.run_jax(step, state, *args)
     grads = jax.tree_util.tree_map(lambda m: np.asarray(m) / (1 - BETA1),
                                    _adam_mu(state.opt_state))
     return ({k: float(v) for k, v in metrics.items()}, _sd(grads),
@@ -141,10 +141,10 @@ def _port_step(mode, init, batch, dist_init):
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_train_step_matches_jax(mode):
     model_kw, cfg_kw, accum, locked = MODES[mode]
-    jm, jp = jax_create_model("ViT-B-16", seed=1, **TINY, **model_kw)
+    jm, jp = H.jax_create_fast("ViT-B-16", seed=1, **TINY, **model_kw)
     dist = None
     if cfg_kw.get("distill"):
-        dist = jax_create_model("ViT-B-16", seed=2, **TINY)
+        dist = H.jax_create_fast("ViT-B-16", seed=2, **TINY)
     batch = _batch(3, accum)
     # the JAX step donates its state: the weights are read first
     init = _sd(jp)

@@ -18,7 +18,7 @@ import optax
 import pytest
 import torch
 
-from cosmos_tpu.models.factory import create_model as jax_create_model
+import torch_hf_cases as H
 from cosmos_tpu.training import scheduler as jax_sched
 from cosmos_tpu.training import train as jax_train
 from cosmos_tpu_torch import (create_model, create_optimizer,
@@ -55,7 +55,7 @@ def _few_threads():
 
 @pytest.fixture(scope="module")
 def pair():
-    jm, jp = jax_create_model("ViT-B-16", seed=0, **COSMOS, **TINY)
+    jm, jp = H.jax_create_fast("ViT-B-16", seed=0, **COSMOS, **TINY)
     jp = jax.tree_util.tree_map(np.asarray, jp)
     tm = create_model("ViT-B-16", device="cpu", **COSMOS, **TINY)
     tm.load_state_dict(state_dict_from_jax_params(jp), strict=True)

@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_hf_cases as H
 from cosmos_tpu.data.tokenizer import SimpleTokenizer as JaxTokenizer
-from cosmos_tpu.models.factory import create_model as jax_create_model
 from cosmos_tpu.training import zero_shot as jz
 from cosmos_tpu_torch import create_model
 from cosmos_tpu_torch.data.synthetic import (write_cifar10, write_coco,
@@ -56,8 +56,8 @@ def classifier_pair():
     """JAX's classifier over 12 ImageNet classes × the 80 templates, 5
     classes a call (a ragged last call), EOT-truncated; and the port's
     model with the same weights."""
-    jm, jp = jax_create_model("ViT-Tiny-Test", precision="fp32", **COSMOS,
-                              **TINY)
+    jm, jp = H.jax_create_fast("ViT-Tiny-Test", precision="fp32", **COSMOS,
+                               **TINY)
     tm = create_model("ViT-Tiny-Test", "fp32", device="cpu", **COSMOS, **TINY)
     tm.load_state_dict(
         state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, jp)),
