@@ -320,9 +320,11 @@ from the sources in the checkout and then:
      text tower's one model-sharded weight, and the TP encoders against
      the unsharded features (1e-4); (d) save_for_hf of a ModifiedResNet
      CLIP at OpenAI RN50's widths, both files read back to the bits.
- 26. HF tokenizers from a local directory: (a) the seven directories of
+ 26. HF tokenizers from a local directory: (a) the directories of
      tests/torch_tokenizer_dirs.py (BERT tokenizer.json and vocab.txt,
-     RoBERTa tokenizer.json and vocab.json + merges.txt, XLM-R, T5, mT5),
+     RoBERTa tokenizer.json and vocab.json + merges.txt, XLM-R, T5, mT5;
+     since phase 27 also DistilBERT and ELECTRA in both layouts, ALBERT,
+     and RoBERTa-PreLayerNorm with no tokenizer_class),
      written from the seed without transformers, each the committed
      directory's sha256, each giving transformers' committed ids
      (tests/torch_tokenizer_ids.json) of the fixed captions at 77; the
@@ -336,8 +338,32 @@ from the sources in the checkout and then:
      features of 16 captions card against CPU in float32; (c) seg_eval on
      that model (float32) over phase 14's 16 voc20 images, the class
      embeddings through the same tokenizer, 12 K1 a vision call.
+ 27. HF text towers beyond the five, with the ViT-B-32 vision tower in
+     bf16 beside each: distilbert-base-uncased, electra-base- and
+     electra-small-discriminator (the small one projects its 128-wide
+     embeddings), albert-base-v2 (one layer group run 12 times),
+     RoBERTa-PreLayerNorm at roberta-base's widths, and BERT-base with
+     is_decoder (causal self-attention), random weights from a seed.  K1
+     held to its plain version at the serving geometry [64, 50, 2304];
+     (a) each served in bf16 (64 images, 256 captions of 77 ids: 12 K1 an
+     image call, none a text call); (b) 1 + 3 plain-CLIP steps at batch
+     64 of albert-base-v2 and distilbert-base (12/12 K1/K2 a step, median
+     ms, peak memory); (c) the five types and the causal one at the base
+     widths, 2 layers, float32 features and one plain-CLIP step, card
+     against CPU; (d) local directories of albert-base-v2 (a head model's
+     file) and distilbert-base (a sharded index) written by the script,
+     loaded to the source's bits; (e) phase 26's DistilBERT, ELECTRA,
+     ALBERT and RoBERTa-PreLayerNorm directories' ids held to
+     transformers' again, and albert-base-v2 with the ALBERT tokenizer
+     through the trainer's eval-only retrieval and CIFAR-10 runs; (f)
+     albert-base-v2's step under FSDP at world 1 on NCCL against the plain
+     step, and 2-layer ALBERT and DistilBERT steps under TP and FSDP x TP
+     on two gloo ranks against one process.  The ranks run while (c)-(e)
+     do, which time nothing; (a), (b) and the FSDP steps run after them.
 
-Every phase prints its seconds on a line of its own, ``[phase N] <s> s``,
+Since phase 27, phases 19 and 22 also run their gloo ranks while their
+trainer runs (host-bound steps, no timed comparison), after their timed
+steps.  Every phase prints its seconds on a line of its own, ``[phase N] <s> s``,
 and the record keeps them (``phase_s``).
 
 With ``--dp-rank OUT <trainer flags>`` the script is phase 16(a)'s rank
@@ -1442,10 +1468,13 @@ def _kernel_modules():
 def dp_rank(out: str, argv) -> int:
     """16(a)'s rank, started by torchrun: _dp_trainer_runs under the world
     torchrun made, its record written to ``out`` as JSON."""
+    entered_at = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     register_trainer_models(str(Path(out).parent))
     record = _dp_trainer_runs(_kernel_modules(), argv)
+    # wall-clock stamps, which the parent sets beside its own
+    record.update(entered_at=entered_at, done_at=time.time())
     Path(out).write_text(json.dumps(record))
     return 0
 
@@ -1493,10 +1522,10 @@ def _phase_dp_world1(K, data: str, tmp: str) -> dict:
 
     threads = torch.get_num_threads()
     env = dict(os.environ, OMP_NUM_THREADS=str(threads))
-    t0 = time.perf_counter()
+    t0, launched_at = time.perf_counter(), time.time()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
-    rank_s = time.perf_counter() - t0
+    rank_s, exited_at = time.perf_counter() - t0, time.time()
     check(proc.returncode == 0, f"torchrun world 1 exited "
           f"{proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     rank = json.loads(Path(out).read_text())
@@ -1544,7 +1573,12 @@ def _phase_dp_world1(K, data: str, tmp: str) -> dict:
         step_ms_world1_mean=float(np.mean(steady(rank))),
         mean_ms=mean_ms, mean_ms_median=float(np.median(mean_ms)),
         mean_bytes=rank["mean_bytes"], threads=threads, one_s=one_s,
-        torchrun_s=rank_s)
+        torchrun_s=rank_s,
+        # torchrun's run split: to the rank's first line, the rank's
+        # trainer runs, from the rank's end to torchrun's exit
+        torchrun_split_s=dict(start=rank["entered_at"] - launched_at,
+                              rank=rank["done_at"] - rank["entered_at"],
+                              exit=exited_at - rank["done_at"]))
     print(f"[dp] (a) world 1 on NCCL under torchrun: the logged metrics of "
           f"{steps} steps and epoch_2.pt (student, teacher, optimizer) are "
           f"the one-process run's bits; ms a step (CUDA events, steps 2+ of "
@@ -1553,7 +1587,9 @@ def _phase_dp_world1(K, data: str, tmp: str) -> dict:
           f"mean of {rank['mean_bytes'] / 1e9:.3f} GB median "
           f"{res['mean_ms_median']:.3f} ms (max {max(mean_ms):.3f}); "
           f"K1/K2 a step {want['K1']}/{want['K2']}; runs {one_s:.1f} s and "
-          f"{rank_s:.1f} s (torchrun, OMP_NUM_THREADS={threads})")
+          f"{rank_s:.1f} s (torchrun, OMP_NUM_THREADS={threads}: "
+          + ", ".join(f"{k} {v:.1f} s"
+                      for k, v in res["torchrun_split_s"].items()) + ")")
     return res
 
 
@@ -3990,11 +4026,11 @@ def _fsdp_run(K, fsdp: bool, layers: int, dtype, b: int, warmup: int,
     return out
 
 
-def _beyond_fsdp(K, data: str, tmp: str) -> dict:
+def _beyond_fsdp(K, data: str, tmp: str, before_trainer) -> dict:
     """19(a): the FSDP step against the plain step at 2 layers in float32
-    and at full width in bfloat16, then main([...]) under --fsdp: an epoch
-    and a checkpoint, and --resume latest into a second with the val
-    eval."""
+    and at full width in bfloat16, then ``before_trainer()``, then
+    main([...]) under --fsdp: an epoch and a checkpoint, and --resume
+    latest into a second with the val eval."""
     from cosmos_tpu_torch import create_model
 
     res = {}
@@ -4034,6 +4070,7 @@ def _beyond_fsdp(K, data: str, tmp: str) -> dict:
               f"{plain['step_ms_median']:.3f}; peak memory FSDP "
               f"{fsdp['peak_mem_gb']:.2f} GB, plain "
               f"{plain['peak_mem_gb']:.2f} GB")
+    before_trainer()
     logs = f"{tmp}/beyond_fsdp"
     t0 = time.perf_counter()
     rec = _dp_trainer_runs(K, _drop_flags(
@@ -4395,9 +4432,9 @@ def _beyond_reference(path: str) -> float:
     return time.perf_counter() - t0
 
 
-def _spawn_ranks(fn, spec: dict, timeout: float) -> list:
-    """``fn(rank, spec)`` in BEYOND_WORLD processes on this card; their
-    saved results in rank order."""
+def _start_ranks(fn, spec: dict):
+    """``fn(rank, spec)`` started in BEYOND_WORLD processes on this card,
+    ``spec`` given a free port: (their process context, the spec)."""
     import socket
 
     import torch.multiprocessing as mp
@@ -4405,37 +4442,66 @@ def _spawn_ranks(fn, spec: dict, timeout: float) -> list:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         spec = dict(spec, port=sock.getsockname()[1])
-    ctx = mp.start_processes(fn, args=(spec,), nprocs=BEYOND_WORLD,
-                             join=False, start_method="spawn")
+    return mp.start_processes(fn, args=(spec,), nprocs=BEYOND_WORLD,
+                              join=False, start_method="spawn"), spec
+
+
+def _stop_ranks(ctx) -> None:
+    for proc in ctx.processes:
+        if proc.is_alive():
+            proc.kill()
+        proc.join(10)
+
+
+def _join_ranks(started, timeout: float, label: str) -> list:
+    """The ranks of ``_start_ranks`` waited for (killed if they outlast
+    ``timeout`` seconds from now); their saved results in rank order."""
+    ctx, spec = started
     try:
         deadline = time.monotonic() + timeout
         while not ctx.join(timeout=1.0):
             check(time.monotonic() < deadline,
-                  f"{fn.__name__}: the ranks outlasted {timeout} s")
+                  f"{label}: the ranks outlasted {timeout} s")
     finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-            proc.join(10)
+        _stop_ranks(ctx)
     return [torch.load(f"{spec['out']}.{r}", weights_only=False)
             for r in range(BEYOND_WORLD)]
 
 
-def _beyond_gloo(tmp: str) -> dict:
-    """19(b)-(c): print what gloo takes on CUDA tensors, then run both
-    parts on two gloo ranks."""
+@contextlib.contextmanager
+def _ranks_started(fn, spec: dict):
+    """``_start_ranks`` for a block that works while the ranks run (the
+    caller joins them); the ranks are killed if the block raises."""
+    started = _start_ranks(fn, spec)
+    try:
+        yield started
+    except BaseException:
+        _stop_ranks(started[0])
+        raise
+
+
+def _spawn_ranks(fn, spec: dict, timeout: float) -> list:
+    """``fn(rank, spec)`` in BEYOND_WORLD processes on this card; their
+    saved results in rank order."""
+    return _join_ranks(_start_ranks(fn, spec), timeout, fn.__name__)
+
+
+def _beyond_gloo_probes(tmp: str) -> dict:
+    """19(b)'s probe of what gloo takes on CUDA tensors, printed."""
     probe = _gloo_probes(tmp)
     print("[beyond] gloo on CUDA tensors: " + "; ".join(
         f"{k} {v}" for k, v in probe.items()))
-    ref = f"{tmp}/beyond_ref.pt"
-    ref_s = _beyond_reference(ref)
-    t0 = time.perf_counter()
-    ranks = _spawn_ranks(_beyond_rank, dict(out=f"{tmp}/beyond", ref=ref),
-                         600)
+    return probe
+
+
+def _beyond_gloo(ranks, probe: dict, ref: str, ref_s: float,
+                 ranks_s: float) -> dict:
+    """19(b)-(c): both parts' results from two gloo ranks, against the
+    reference in ``ref``."""
     for r, got in enumerate(ranks):
         check({"encoders", "tp_step", "multislice"} <= got.keys(),
               f"19(b)-(c) rank {r}: stopped after {sorted(got)}")
-    res = dict(probe=probe, ref_s=ref_s, ranks_s=time.perf_counter() - t0,
+    res = dict(probe=probe, ref_s=ref_s, ranks_s=ranks_s,
                k1_launches=0, k2_launches=0)
     enc = [r["encoders"] for r in ranks]
     step = [r["tp_step"] for r in ranks]
@@ -4496,8 +4562,24 @@ def phase_beyond_dp(K, data: str, tmp: str) -> dict:
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fsdp = _beyond_fsdp(K, data, tmp)
-    gloo = _beyond_gloo(tmp)
+    ref = f"{tmp}/beyond_ref.pt"
+    gloo = {}
+
+    def start_gloo():
+        """(b)-(c)'s probe, reference and ranks, which run while the
+        trainer does (its steps are host-bound; (a)'s timed steps ran
+        before)."""
+        gloo["probe"] = _beyond_gloo_probes(tmp)
+        gloo["ref_s"] = _beyond_reference(ref)
+        gloo["t0"] = time.perf_counter()
+        gloo["started"] = stack.enter_context(_ranks_started(
+            _beyond_rank, dict(out=f"{tmp}/beyond", ref=ref)))
+
+    with contextlib.ExitStack() as stack:
+        fsdp = _beyond_fsdp(K, data, tmp, start_gloo)
+        ranks = _join_ranks(gloo["started"], 600, "19(b)-(c)")
+    gloo = _beyond_gloo(ranks, gloo["probe"], ref, gloo["ref_s"],
+                        time.perf_counter() - gloo["t0"])
     out = dict(fsdp=fsdp, gloo=gloo, phase_s=time.perf_counter() - t_phase)
     print(f"[beyond] phase {out['phase_s']:.1f} s")
     return out
@@ -5687,14 +5769,15 @@ def _slice16_kernels(K) -> dict:
 COCA_MODE = dict(cosmos=False, coca=True)
 
 
-def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
+def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str,
+                       before_trainer) -> dict:
     """22(c): the CoCa step at coca_ViT-B-32's full width in bf16, batch
     64, plain and under FSDP at world 1 on NCCL (a process group of this
     one rank), COCA_FSDP_STEPS steps of each from the same weights and
     batch: the same losses and the same student to the bit, 12/12 K1/K2 a
-    step; then main([...]) with phase 21's flags and --fsdp: an epoch of
-    COCA_TRAINER_STEPS steps and a gathered checkpoint, and --resume
-    latest into a second with the val eval."""
+    step; then ``before_trainer()``, then main([...]) with phase 21's
+    flags and --fsdp: an epoch of COCA_TRAINER_STEPS steps and a gathered
+    checkpoint, and --resume latest into a second with the val eval."""
     import hashlib
 
     from cosmos_tpu_torch.parallel import distributed
@@ -5749,6 +5832,7 @@ def _slice16_coca_fsdp(K, data: str, workers: int, tmp: str) -> dict:
     from cosmos_tpu_torch import create_model
     from cosmos_tpu_torch.training import main as trainer
 
+    before_trainer()
     logs = f"{tmp}/slice16_coca"
     # the val eval alone (no COCO retrieval), at the end of the second
     # epoch (--val-frequency 2)
@@ -5945,16 +6029,9 @@ def _max_err(got: dict, want: dict) -> float:
     return max((got[k] - v).abs().max().item() for k, v in want.items())
 
 
-def _slice16_tp(K, tmp: str) -> dict:
-    """22(b) and (d): the references in this process, then both parts on
-    SLICE16_TP gloo ranks of this card."""
-    t0 = time.perf_counter()
-    path = f"{tmp}/slice16_ref.pt"
-    ref = _slice16_reference(K, path)
-    ref_s = time.perf_counter() - t0
-    ranks = _spawn_ranks(_slice16_rank, dict(out=f"{tmp}/slice16", ref=path),
-                         600)
-    ranks_s = time.perf_counter() - t0 - ref_s
+def _slice16_tp(ranks, ref: dict, ref_s: float, ranks_s: float) -> dict:
+    """22(b) and (d): both parts' results from SLICE16_TP gloo ranks of
+    this card, against the references of this process."""
     for r, got in enumerate(ranks):
         check({"fuse", "fuse_small", "coca_encoders", "coca_small"}
               <= got.keys(), f"22(b)-(d) rank {r}: stopped after "
@@ -6062,9 +6139,24 @@ def phase_slice16(K, data: str, workers: int, tmp: str) -> dict:
 
     kernels = _slice16_kernels(K)
     done("(a) K5 at the column shards")
-    coca_fsdp = _slice16_coca_fsdp(K, data, workers, tmp)
-    done("(c) CoCa under FSDP")
-    tp = _slice16_tp(K, tmp)
+    path, tp = f"{tmp}/slice16_ref.pt", {}
+
+    def start_tp():
+        """(b) and (d)'s references, then their ranks, which run while
+        (c)'s trainer does (its steps are host-bound; (c)'s timed steps
+        ran before)."""
+        t = time.perf_counter()
+        tp["ref"] = _slice16_reference(K, path)
+        tp["ref_s"], tp["t0"] = time.perf_counter() - t, time.perf_counter()
+        tp["started"] = stack.enter_context(_ranks_started(
+            _slice16_rank, dict(out=f"{tmp}/slice16", ref=path)))
+
+    with contextlib.ExitStack() as stack:
+        coca_fsdp = _slice16_coca_fsdp(K, data, workers, tmp, start_tp)
+        done("(c) CoCa under FSDP, (b) and (d)'s references")
+        ranks = _join_ranks(tp["started"], 600, "22(b)-(d)")
+    tp = _slice16_tp(ranks, tp["ref"], tp["ref_s"],
+                     time.perf_counter() - tp["t0"])
     done("(b), (d) under TP")
     k1 = {"fuse_ln under TP": sum(x["K1"] for r in tp["fuse"]
                                   for x in r["launches"]),
@@ -6645,19 +6737,23 @@ def _hf_model(precision, device, seed, siglip=False, **overrides):
     return create_model(HF_VISION, precision, device=device, seed=seed, **kw)
 
 
-def _hf_batch(b: int, seed: int, device) -> dict:
-    """One 224 px crop and one caption view of ``b`` rows."""
+def _hf_batch(b: int, seed: int, device, vocab=ROBERTA_BASE["vocab_size"],
+              pad=1) -> dict:
+    """One 224 px crop and one caption view of ``b`` rows (ids of a
+    ``vocab``, trailing pads of ``pad``: RoBERTa's by default)."""
     rng = np.random.default_rng(seed)
     return {"global_images": torch.from_numpy(rng.integers(
                 0, 256, (1, b, 224, 224, 3), np.uint8)).to(device),
             "texts": torch.from_numpy(hf_captions(
-                b, ROBERTA_BASE["vocab_size"], 1, seed)[None]).to(device)}
+                b, vocab, pad, seed)[None]).to(device)}
 
 
-def _hf_step(K, model, siglip: bool, steps=HF_STEPS) -> dict:
+def _hf_step(K, model, siglip: bool, steps=HF_STEPS, batch=None,
+             tag="hf") -> dict:
     """24(b): the plain-CLIP or --siglip step in bf16 at batch 64 on one
-    fixed batch: ``steps``' warm-up and timed steps (CUDA events), exactly
-    12 K1 and 12 K2 a step (the vision tower), finite losses."""
+    fixed batch (``batch``, else RoBERTa ids): ``steps``' warm-up and
+    timed steps (CUDA events), exactly 12 K1 and 12 K2 a step (the vision
+    tower), finite losses."""
     from cosmos_tpu_torch import (create_optimizer, create_train_state,
                                   make_train_step)
     from cosmos_tpu_torch.training.scheduler import const_lr
@@ -6672,7 +6768,8 @@ def _hf_step(K, model, siglip: bool, steps=HF_STEPS) -> dict:
                           lr_schedule=lr, input_dtype=torch.bfloat16)
     step = make_train_step(model, opt, cfg)
     state = create_train_state(model, opt)
-    batch = _hf_batch(HF_STEP_BATCH, HF_SEED + 3, "cuda")
+    if batch is None:
+        batch = _hf_batch(HF_STEP_BATCH, HF_SEED + 3, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, ms = [], []
@@ -6698,7 +6795,7 @@ def _hf_step(K, model, siglip: bool, steps=HF_STEPS) -> dict:
                step_ms_mean=float(np.mean(ms)), peak_mem_gb=peak,
                samples_per_s=HF_STEP_BATCH / float(np.median(ms)) * 1e3,
                launches=launches)
-    print(f"[hf] {mode} step bf16 batch {HF_STEP_BATCH}: losses "
+    print(f"[{tag}] {mode} step bf16 batch {HF_STEP_BATCH}: losses "
           f"{' '.join(f'{x:.5f}' for x in losses)}; ms per step median "
           f"{out['step_ms_median']:.3f} mean {out['step_ms_mean']:.3f} "
           f"({out['samples_per_s']:.1f} samples/s); peak memory {peak:.2f} "
@@ -6752,17 +6849,19 @@ def _hf_lock_step(K, model) -> dict:
                 launches=launches)
 
 
-def _hf_card_vs_cpu() -> dict:
-    """24(d): for each architecture, a HF_SMALL-layer float32 model at the
-    base widths on the card and on the CPU from the same weights: the
-    normalised features of 2 images and 4 captions (right-end pads of the
-    architecture's pad id), then one plain-CLIP step at batch 2 (loss,
-    every gradient, the updated student)."""
+def _hf_card_vs_cpu(configs=HF_SMALL_CONFIGS, pads=HF_PAD,
+                    tag="hf") -> dict:
+    """24(d): for each architecture of ``configs``, a HF_SMALL-layer
+    float32 model at the base widths on the card and on the CPU from the
+    same weights: the normalised features of 2 images and 4 captions
+    (right-end pads of the architecture's pad id, ``pads``), then one
+    plain-CLIP step at batch 2 (loss, every gradient, the updated
+    student)."""
     from cosmos_tpu_torch import create_model
 
     errs = {}
     lr = 1e-4
-    for i, (arch, cfg) in enumerate(HF_SMALL_CONFIGS.items()):
+    for i, (arch, cfg) in enumerate(configs.items()):
         cpu = create_model(HF_VISION, "fp32", device="cpu",
                            seed=HF_SEED + 10 + i, vision_layers=HF_SMALL,
                            text_hf_model_config=cfg,
@@ -6771,7 +6870,7 @@ def _hf_card_vs_cpu() -> dict:
         rng = np.random.default_rng(HF_SEED + 20 + i)
         x = torch.from_numpy(rng.standard_normal((2, 224, 224, 3))
                              .astype(np.float32))
-        toks = torch.from_numpy(hf_captions(4, HF_SMALL_VOCAB, HF_PAD[arch],
+        toks = torch.from_numpy(hf_captions(4, HF_SMALL_VOCAB, pads[arch],
                                             HF_SEED + 20 + i))
         e = {}
         for what, fn, inp in (("image", "encode_image", x),
@@ -6807,7 +6906,7 @@ def _hf_card_vs_cpu() -> dict:
         check(e["student"] <= HF_CPU_TOL,
               f"{arch} updated student card vs CPU: max err {e['student']}")
         errs[arch] = e
-        print(f"[hf] {arch} {HF_SMALL}-layer float32 card vs CPU: features "
+        print(f"[{tag}] {arch} {HF_SMALL}-layer float32 card vs CPU: features "
               f"image {e['image']:.3g} text {e['text']:.3g}; step loss rel "
               f"err {e['loss']:.3g}, max grad err {e['grads']:.3g}, updated "
               f"student {e['student']:.3g}")
@@ -7115,7 +7214,8 @@ def _hfdir_local(K, written: dict) -> dict:
     return dict(out, serving=serve, serving_k1=k1, step=step)
 
 
-def _hfdir_fsdp(K) -> dict:
+def _hfdir_fsdp(K, make=None, batch=None, label="25(b)",
+                model_name=f"roberta-{HF_VISION}") -> dict:
     """25(b): roberta-ViT-B-32's plain-CLIP step in bf16 at batch 64,
     HFDIR_FSDP_STEPS steps from the same weights and batch, plain twice and
     under FSDP at world 1 on NCCL: the same losses, every parameter of the
@@ -7123,7 +7223,8 @@ def _hfdir_fsdp(K) -> dict:
     reach, decayed in both) but the embedding tables, whose CUDA backward
     sums repeated ids in no fixed order (the two plain runs differ there
     too), held within HFDIR_EMBED_ATOL; 12/12 K1/K2 a step; ms a step and
-    peak memory."""
+    peak memory.  ``make``: another bf16 model on the card in place of
+    roberta-ViT-B-32, ``batch`` its batch."""
     from cosmos_tpu_torch.models.hf_bert import Embed
     from cosmos_tpu_torch.parallel import distributed
     from cosmos_tpu_torch.parallel.mesh import create_mesh
@@ -7136,20 +7237,22 @@ def _hfdir_fsdp(K) -> dict:
         if fsdp:
             distributed.init_distributed(None, alone=True)
         try:
-            model = _hf_model("bf16", "cuda", HFDIR_SEED + 3).train()
+            model = (make() if make else _hf_model(
+                "bf16", "cuda", HFDIR_SEED + 3)).train()
             embed = {f"{m}.weight" for m, mod in model.named_modules()
                      if isinstance(mod, Embed)}
             step, state = _gspmd_setup(
                 model, const_lr(1e-4, 0, 100), torch.bfloat16,
                 create_mesh(device_type="cuda") if fsdp else None, fsdp,
                 mode=dict(cosmos=False))
-            batch = _hf_batch(HF_STEP_BATCH, HFDIR_SEED + 4, "cuda")
-            run = _timed_steps(K, step, state, batch, 0, HFDIR_FSDP_STEPS)
+            run = _timed_steps(K, step, state, batch if batch is not None
+                               else _hf_batch(HF_STEP_BATCH, HFDIR_SEED + 4,
+                                              "cuda"), 0, HFDIR_FSDP_STEPS)
             student = (host_state(state, optimizer=False)["student"] if fsdp
                        else state.student.state_dict())
             run["student"] = {k: v.detach().cpu() for k, v in student.items()}
             runs[name] = run
-            del model, step, state, batch, student
+            del model, step, state, student
         finally:
             if fsdp:
                 distributed.destroy()
@@ -7158,7 +7261,7 @@ def _hfdir_fsdp(K) -> dict:
             "K1": 12, "K2": 12}
     for name, run in runs.items():
         check(all(x == want for x in run["launches"]),
-              f"25(b) {name}: launches {run['launches']}, expected {want}")
+              f"{label} {name}: launches {run['launches']}, expected {want}")
     plain = runs["plain"]
     diffs = {}
     for name in ("plain again", "fsdp"):
@@ -7169,14 +7272,14 @@ def _hfdir_fsdp(K) -> dict:
         bad = {k: e for k, e in diffs[name].items()
                if k not in embed or e > HFDIR_EMBED_ATOL}
         check(run["losses"] == plain["losses"] and not bad,
-              f"25(b) {name}: losses {run['losses']}, plain "
+              f"{label} {name}: losses {run['losses']}, plain "
               f"{plain['losses']}; parameters off the plain run's bits "
               f"beyond the embedding tables' tolerance: "
               f"{dict(list(bad.items())[:8])}")
     for run in runs.values():
         del run["student"]
     fsdp = runs["fsdp"]
-    print(f"[hfdir] (b) roberta-{HF_VISION} CLIP step under FSDP at world 1 "
+    print(f"[hfdir] {label} {model_name} CLIP step under FSDP at world 1 "
           f"(NCCL), bf16 batch {HF_STEP_BATCH}: losses {fsdp['losses']}, "
           f"the plain run's; parameters off its bits: FSDP {diffs['fsdp']}, "
           f"a second plain run {diffs['plain again']} (embedding tables, "
@@ -7187,23 +7290,24 @@ def _hfdir_fsdp(K) -> dict:
     return dict(runs, off_bits=diffs)
 
 
-def _hfdir_small(arch: str, device):
-    """25(c)'s model: ``arch`` at the base widths, HF_SMALL layers a tower
-    and HF_SMALL_VOCAB ids (HF_SMALL_CONFIGS), float32, weights from
-    HFDIR_SEED."""
+def _hfdir_small(arch: str, device, spec: dict):
+    """25(c)'s model (or 27(f)'s): ``arch`` at the base widths (its config
+    in ``spec``), HF_SMALL layers a tower and HF_SMALL_VOCAB ids, float32,
+    weights from HFDIR_SEED."""
     from cosmos_tpu_torch import create_model
 
     return create_model(HF_VISION, "fp32", device=device,
                         seed=HFDIR_SEED + 5, vision_layers=HF_SMALL,
-                        text_hf_model_config=HF_SMALL_CONFIGS[arch],
+                        text_hf_model_config=spec["configs"][arch],
                         text_hf_model_pretrained=False)
 
 
-def _hfdir_inputs(arch: str) -> dict:
-    """25(c)'s inputs of ``arch``, on the CPU: the step's batch and the
-    encoders' images and captions (right-end pads of the pad id)."""
+def _hfdir_inputs(arch: str, spec: dict) -> dict:
+    """25(c)'s inputs of ``arch`` (or 27(f)'s), on the CPU: the step's
+    batch and the encoders' images and captions (right-end pads of the pad
+    id in ``spec``)."""
     rng = np.random.default_rng(HFDIR_SEED + 6)
-    pad = HF_PAD[arch]
+    pad = spec["pads"][arch]
     n_img, n_txt = HFDIR_TP_ENC
     return dict(
         batch={"global_images": torch.from_numpy(rng.integers(
@@ -7219,9 +7323,10 @@ def _hfdir_inputs(arch: str) -> dict:
 
 def _hfdir_rank(rank: int, spec: dict) -> None:
     """25(c)'s rank on a (1, 2) mesh of gloo ranks on this card: for a BERT
-    and a T5 tower, the float32 step under TP and under FSDP x TP (loss,
-    gathered student and teacher, K1-K6, the text parameters sharded over
-    the model axis), and the TP encoders' features with K1 a call."""
+    and a T5 tower (or the ``archs`` of ``spec``), the float32 step under
+    TP and under FSDP x TP (its ``modes``; loss, gathered student and
+    teacher, K1-K6, the text parameters sharded over the model axis), and
+    the TP encoders' features with K1 a call."""
     from cosmos_tpu_torch.parallel import distributed
     from cosmos_tpu_torch.parallel.mesh import create_tp_mesh
     from cosmos_tpu_torch.parallel.tp import make_tp_encoders
@@ -7236,10 +7341,10 @@ def _hfdir_rank(rank: int, spec: dict) -> None:
     out = {}
     try:
         with _sync_functional_collectives():
-            for arch in HFDIR_TP_ARCHS:
-                inputs = _hfdir_inputs(arch)
-                for mode in HFDIR_TP_MODES:
-                    model = _hfdir_small(arch, "cuda").train()
+            for arch in spec["archs"]:
+                inputs = _hfdir_inputs(arch, spec)
+                for mode in spec["modes"]:
+                    model = _hfdir_small(arch, "cuda", spec).train()
                     step, state = _gspmd_setup(
                         model, const_lr(DP_LR, 0, 100), torch.float32,
                         create_tp_mesh(1, SLICE16_TP, "cuda"),
@@ -7263,7 +7368,7 @@ def _hfdir_rank(rank: int, spec: dict) -> None:
                         _small_result(m, state, _gathered(state)),
                         launches=launches, text_sharded=sharded)
                     del model, step, state
-                model = _hfdir_small(arch, "cuda").eval()
+                model = _hfdir_small(arch, "cuda", spec).eval()
                 _, enc_image, enc_text = make_tp_encoders(
                     model, create_tp_mesh(1, SLICE16_TP, "cuda"))
                 feats, k1 = {}, {}
@@ -7279,21 +7384,21 @@ def _hfdir_rank(rank: int, spec: dict) -> None:
         distributed.destroy()
 
 
-def _hfdir_reference() -> dict:
+def _hfdir_reference(spec: dict) -> dict:
     """25(c)'s references in this process, on the card: each tower's
     unsharded float32 step and its normalised features."""
     from cosmos_tpu_torch.training.scheduler import const_lr
 
     ref = {}
-    for arch in HFDIR_TP_ARCHS:
-        inputs = _hfdir_inputs(arch)
-        model = _hfdir_small(arch, "cuda").train()
+    for arch in spec["archs"]:
+        inputs = _hfdir_inputs(arch, spec)
+        model = _hfdir_small(arch, "cuda", spec).train()
         step, state = _gspmd_setup(model, const_lr(DP_LR, 0, 100),
                                    torch.float32, eps=DP_EPS,
                                    mode=dict(cosmos=False))
         m = step(state, {k: v.cuda() for k, v in inputs["batch"].items()})
         ref[f"{arch} step"] = _small_result(m, state)
-        model = _hfdir_small(arch, "cuda").eval()
+        model = _hfdir_small(arch, "cuda", spec).eval()
         with torch.no_grad():
             ref[f"{arch} features"] = {
                 "image": model.encode_image(inputs["images"].cuda(),
@@ -7305,57 +7410,44 @@ def _hfdir_reference() -> dict:
     return ref
 
 
-def _hfdir_tp_start(tmp: str):
-    """25(c)'s ranks, started: (their process context, spec)."""
-    import socket
-
-    import torch.multiprocessing as mp
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        spec = dict(out=f"{tmp}/hfdir", port=sock.getsockname()[1],
-                    t0=time.perf_counter())
-    return mp.start_processes(_hfdir_rank, args=(spec,), nprocs=BEYOND_WORLD,
-                              join=False, start_method="spawn"), spec
+def _hfdir_tp_ranks(tmp: str, name: str = "hfdir", label: str = "25(c)",
+                    archs=HFDIR_TP_ARCHS, modes=HFDIR_TP_MODES,
+                    configs=HF_SMALL_CONFIGS, pads=HF_PAD):
+    """25(c)'s ranks (or another phase's: ``archs`` of ``configs`` under
+    ``modes``), started for the block (``_ranks_started``)."""
+    return _ranks_started(_hfdir_rank, dict(
+        out=f"{tmp}/{name}", t0=time.perf_counter(), label=label,
+        archs=archs, modes=modes, configs={a: configs[a] for a in archs},
+        pads={a: pads[a] for a in archs}))
 
 
 def _hfdir_tp(K, started) -> dict:
     """25(c): the references in this process while the ranks (started by
-    ``_hfdir_tp_start``) run, then the comparison."""
-    ctx, spec = started
+    ``_hfdir_tp_ranks``) run, then the comparison."""
+    _, spec = started
+    label = spec["label"]
     t0 = time.perf_counter()
-    try:
-        ref = _hfdir_reference()
-        ref_s = time.perf_counter() - t0
-        deadline = time.monotonic() + 600
-        while not ctx.join(timeout=1.0):
-            check(time.monotonic() < deadline,
-                  "25(c): the ranks outlasted 600 s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-            proc.join(10)
+    ref = _hfdir_reference(spec)
+    ref_s = time.perf_counter() - t0
+    ranks = _join_ranks(started, 600, label)
     ranks_s = time.perf_counter() - spec["t0"]
-    ranks = [torch.load(f"{spec['out']}.{r}", weights_only=False)
-             for r in range(BEYOND_WORLD)]
     want_step = {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0),
                  "K1": HF_SMALL, "K2": HF_SMALL}
     errs, launches = {}, {"K1": 0, "K2": 0}
-    for arch in HFDIR_TP_ARCHS:
+    for arch in spec["archs"]:
         q = [f"text.transformer.encoder.block.{i}.layer.0.SelfAttention.q."
              "weight" for i in range(HF_SMALL)] if arch == "t5" else []
         for r, got in enumerate(ranks):
-            check({f"{arch} {m}" for m in HFDIR_TP_MODES}
+            check({f"{arch} {m}" for m in spec["modes"]}
                   | {f"{arch} encoders"} <= got.keys(),
-                  f"25(c) rank {r}: stopped after {sorted(got)}")
-            for mode in HFDIR_TP_MODES:
+                  f"{label} rank {r}: stopped after {sorted(got)}")
+            for mode in spec["modes"]:
                 run = got[f"{arch} {mode}"]
                 ref_step = ref[f"{arch} step"]
-                check(run["launches"] == want_step, f"25(c) rank {r} {arch} "
+                check(run["launches"] == want_step, f"{label} rank {r} {arch} "
                       f"{mode}: launches {run['launches']}, expected "
                       f"{want_step}")
-                check(run["text_sharded"] == q, f"25(c) rank {r} {arch} "
+                check(run["text_sharded"] == q, f"{label} rank {r} {arch} "
                       f"{mode}: text parameters sharded over the model axis "
                       f"{run['text_sharded']}, expected {q}")
                 launches["K1"] += run["launches"]["K1"]
@@ -7364,28 +7456,29 @@ def _hfdir_tp(K, started) -> dict:
                     continue
                 e = {"loss": abs(run["loss"] - ref_step["loss"])
                      / abs(ref_step["loss"])}
-                check(e["loss"] <= DP_LOSS_RTOL, f"25(c) {arch} {mode}: loss "
+                check(e["loss"] <= DP_LOSS_RTOL, f"{label} {arch} {mode}: loss "
                       f"{run['loss']}, one process {ref_step['loss']}")
                 for which in ("student", "teacher"):
                     e[which] = _max_err(run[which], ref_step[which])
-                    check(e[which] <= DP_WEIGHT_ATOL, f"25(c) {arch} {mode}: "
+                    check(e[which] <= DP_WEIGHT_ATOL, f"{label} {arch} {mode}: "
                           f"updated {which} max err {e[which]}")
                 errs[f"{arch} {mode}"] = e
             enc = got[f"{arch} encoders"]
-            check(enc["k1"] == {"image": HF_SMALL, "text": 0}, f"25(c) rank "
+            check(enc["k1"] == {"image": HF_SMALL, "text": 0}, f"{label} rank "
                   f"{r} {arch}: K1 a TP encoder call {enc['k1']}")
             launches["K1"] += sum(enc["k1"].values())
             fe = {n: (enc["features"][n] - ref[f"{arch} features"][n]).abs()
                   .max().item() for n in ("image", "text")}
-            check(max(fe.values()) <= BEYOND_ENC_TOL, f"25(c) rank {r} "
+            check(max(fe.values()) <= BEYOND_ENC_TOL, f"{label} rank {r} "
                   f"{arch}: TP features off the unsharded {fe}")
             errs[f"{arch} encoders rank {r}"] = fe
-        print(f"[hfdir] (c) {arch} ({HF_SMALL} layers a tower, float32) on "
+        print(f"[hfdir] {label} {arch} ({HF_SMALL} layers a tower, float32) on "
               f"a (1, {SLICE16_TP}) mesh of gloo ranks: " + "; ".join(
                   f"{k}: " + " ".join(f"{n}={v:.3g}" for n, v in e.items())
                   for k, e in errs.items() if k.startswith(arch))
               + f"; K1/K2 a step {HF_SMALL}/{HF_SMALL} on each rank; text "
-              f"parameters sharded over the model axis: {len(q)} (T5's q)")
+              f"parameters sharded over the model axis: {len(q)}"
+              + (" (T5's q)" if q else ""))
     return dict(errs=errs, launches=launches, ref_s=ref_s, ranks_s=ranks_s)
 
 
@@ -7455,12 +7548,12 @@ def phase_hf_local(K, tmp: str) -> dict:
 
     # (c)'s gloo ranks start first; the CPU work of (d) and (a) runs while
     # they start, the card's measurements of (a) and (b) after they end
-    started = _hfdir_tp_start(tmp)
-    export = _hfdir_resnet_export(tmp)
-    done("(d) RN50 export")
-    written = _hfdir_write(tmp)
-    done("(a) directories written")
-    tp = _hfdir_tp(K, started)
+    with _hfdir_tp_ranks(tmp) as started:
+        export = _hfdir_resnet_export(tmp)
+        done("(d) RN50 export")
+        written = _hfdir_write(tmp)
+        done("(a) directories written")
+        tp = _hfdir_tp(K, started)
     done("(c) TP and FSDP x TP")
     local = _hfdir_local(K, written)
     done("(a) loads, serving, step")
@@ -7516,7 +7609,7 @@ def _hftok_generator():
 
 
 def _hftok_ids(tmp: str) -> dict:
-    """26(a): the seven directories written from the seed, each the
+    """26(a): the directories written from the seed, each the
     committed directory's bits, each giving transformers' committed ids of
     the fixed captions; then captions/s (host time) of a fresh tokenizer a
     directory on HFTOK_CAPTIONS synthetic captions at context 77, beside
@@ -7573,21 +7666,23 @@ def _hftok_ids(tmp: str) -> dict:
     return out
 
 
-def register_hftok_model(tmp: str, tokenizer: str) -> str:
-    """HFTOK_MODEL: ViT-B-32's config with roberta-ViT-B-32's text tower
-    (random weights) whose hf_tokenizer_name is ``tokenizer``."""
+def register_hftok_model(tmp: str, tokenizer: str, name: str = HFTOK_MODEL,
+                         config=ROBERTA_BASE) -> str:
+    """``name`` (HFTOK_MODEL): ViT-B-32's config with roberta-ViT-B-32's
+    text tower (or ``config``'s; random weights) whose hf_tokenizer_name
+    is ``tokenizer``."""
     from cosmos_tpu_torch.models.config import add_model_config
 
     cfg = json.loads((ROOT / "cosmos_tpu_torch" / "models" / "configs"
                       / f"{HF_VISION}.json").read_text())
     cfg["text_cfg"] = dict(
-        context_length=HFTOK_CONTEXT, hf_model_config=ROBERTA_BASE,
+        context_length=HFTOK_CONTEXT, hf_model_config=config,
         hf_tokenizer_name=tokenizer, hf_proj_type="mlp",
         hf_pooler_type="mean_pooler", hf_model_pretrained=False)
-    path = Path(tmp) / f"{HFTOK_MODEL}.json"
+    path = Path(tmp) / f"{name}.json"
     path.write_text(json.dumps(cfg))
     add_model_config(path)
-    return HFTOK_MODEL
+    return name
 
 
 @contextlib.contextmanager
@@ -7608,12 +7703,16 @@ def _text_tower_inputs(seen: list):
         HFTextTower.forward = forward
 
 
-def _hftok_evals(K, tmp: str) -> dict:
+def _hftok_evals(K, tmp: str, model=HFTOK_MODEL, first=0, pad=1,
+                 vocab=ROBERTA_BASE["vocab_size"], label="26(b)",
+                 family="RoBERTa") -> dict:
     """26(b): HFTOK_MODEL through the trainer's eval-only run in bf16 (amp)
     on the card: COCO retrieval on a write_coco layout and the CIFAR-10
     prompt-bank classifier; the text tower takes the RoBERTa tokenizer's
     ids (pad id 1); K1 launches only in the vision tower; then the text
-    features of HFTOK_CARD_VS_CPU captions in float32, card against CPU."""
+    features of HFTOK_CARD_VS_CPU captions in float32, card against CPU.
+    ``model``: another registered model, whose tokenizer's ids start with
+    ``first`` and pad with ``pad`` below ``vocab``."""
     from cosmos_tpu_torch.data.datasets import RetrievalData
     from cosmos_tpu_torch.data.synthetic import write_cifar10, write_coco
     from cosmos_tpu_torch.models.factory import create_model, get_tokenizer
@@ -7624,11 +7723,11 @@ def _hftok_evals(K, tmp: str) -> dict:
     write_cifar10(f"{tmp}/cls/cifar10", HFTOK_CIFAR_IMAGES,
                   seed=HFTOK_SEED + 1)
     data_s = time.perf_counter() - t0
-    tok = get_tokenizer(HFTOK_MODEL)
+    tok = get_tokenizer(model)
     check(type(tok).__name__ == "HFTokenizer",
-          f"get_tokenizer({HFTOK_MODEL}) gave {type(tok).__name__}")
+          f"get_tokenizer({model}) gave {type(tok).__name__}")
     want_ids = RetrievalData.load("coco", f"{tmp}/data/coco", tok).captions
-    argv = ["--model", HFTOK_MODEL, "--precision", "amp",
+    argv = ["--model", model, "--precision", "amp",
             "--batch-size", str(HFTOK_BATCH), "--seed", str(HFTOK_SEED),
             "--data-root-dir", f"{tmp}/data",
             "--classification-data-dir", f"{tmp}/cls",
@@ -7644,47 +7743,48 @@ def _hftok_evals(K, tmp: str) -> dict:
     for key in ("coco_image_to_text_R@1", "coco_text_to_image_R@1",
                 "cifar10-zeroshot-val-top1", "cifar10-zeroshot-val-top5"):
         check(key in metrics and np.isfinite(metrics[key]),
-              f"26(b): metric {key} missing or not finite")
+              f"{label}: metric {key} missing or not finite")
     # the retrieval captions first, in order: the tokenizer's ids, a
     # batch of HFTOK_BATCH rows padded past the captions, the columns
     # past the longest caption (pads only) cut off
-    first = seen[0][:len(want_ids)]
-    n, width = first.shape
-    check(np.array_equal(first, want_ids[:n, :width])
-          and (want_ids[:n, width:] == 1).all(),
-          "26(b): the text tower's first batch is not the HF tokenizer's "
+    head = seen[0][:len(want_ids)]
+    n, width = head.shape
+    check(np.array_equal(head, want_ids[:n, :width])
+          and (want_ids[:n, width:] == pad).all(),
+          f"{label}: the text tower's first batch is not the HF tokenizer's "
           "ids of the retrieval captions")
     every = np.concatenate([s.reshape(-1) for s in seen])
-    check(all((s[:, 0] == 0).all() for s in seen) and (every == 1).any()
-          and every.max() < ROBERTA_BASE["vocab_size"],
-          "26(b): the text tower's ids are not RoBERTa's (<s> first, pad 1)")
-    _k1_only(record["text_calls"], 0, "26(b) text")
-    _k1_only(record["image_calls"], HF_CALL_K1["image"], "26(b) image")
+    check(all((s[:, 0] == first).all() for s in seen)
+          and (every == pad).any() and every.max() < vocab,
+          f"{label}: the text tower's ids are not {family}'s ({first} "
+          f"first, pad {pad})")
+    _k1_only(record["text_calls"], 0, f"{label} text")
+    _k1_only(record["image_calls"], HF_CALL_K1["image"], f"{label} image")
     retrieval_calls = -(-HFTOK_COCO_IMAGES // HFTOK_BATCH)
     image_calls = retrieval_calls + len(record["image_calls"])
     check(launches["K1"] == HF_CALL_K1["image"] * image_calls
           and all(launches[k] == 0 for k in launches if k != "K1"),
-          f"26(b): launches {launches} vs {image_calls} image calls")
+          f"{label}: launches {launches} vs {image_calls} image calls")
     # card against CPU, float32
-    cpu = create_model(HFTOK_MODEL, "fp32", device="cpu", seed=HFTOK_SEED)
+    cpu = create_model(model, "fp32", device="cpu", seed=HFTOK_SEED)
     gpu = copy.deepcopy(cpu).to("cuda")
     ids = torch.from_numpy(want_ids[:HFTOK_CARD_VS_CPU].astype(np.int64))
     with torch.inference_mode():
         w = cpu.encode_text(ids, True)["text_features"]
         g = gpu.encode_text(ids.cuda(), True)["text_features"].cpu()
     err = (g - w).abs().max().item()
-    check(err <= HF_CPU_TOL, f"26(b) card vs CPU text features: {err}")
+    check(err <= HF_CPU_TOL, f"{label} card vs CPU text features: {err}")
     del cpu, gpu
     out = dict(metrics={k: float(v) for k, v in metrics.items()},
                data_s=data_s, wall_s=wall_s, launches=launches,
                image_calls=image_calls, text_calls=len(seen),
                card_vs_cpu=err)
-    print(f"[hftok] 26(b) {HFTOK_MODEL} evals in {wall_s:.1f} s: "
+    print(f"[hftok] {label} {model} evals in {wall_s:.1f} s: "
           + ", ".join(f"{k} {metrics[k]:.4g}" for k in (
               "coco_image_to_text_R@1", "coco_text_to_image_R@1",
               "cifar10-zeroshot-val-top1"))
           + f"; K1 {launches['K1']} over {image_calls} image calls, "
-          f"{len(seen)} text calls on RoBERTa ids; card vs CPU text "
+          f"{len(seen)} text calls on {family} ids; card vs CPU text "
           f"features {err:.3g}")
     return out
 
@@ -7727,7 +7827,7 @@ def _hftok_segmentation(K, tmp: str) -> dict:
 
 
 def phase_hf_tokenizer(K, tmp: str) -> dict:
-    """Phase 26: (a) the seven tokenizer directories' ids against
+    """Phase 26: (a) the tokenizer directories' ids against
     transformers' and their captions/s; (b) roberta-ViT-B-32 with its own
     tokenizer through the trainer's retrieval and classification evals;
     (c) seg_eval's class embeddings through it."""
@@ -7754,6 +7854,263 @@ def phase_hf_tokenizer(K, tmp: str) -> dict:
     print(f"[hftok] phase 26 in {out['phase_s']:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
           + "); K1 launches " + " ".join(f"{k}={v}" for k, v in k1.items()))
+    return out
+
+
+# phase 27: HF text towers beyond the five, at their published widths
+# (random weights from a seed), each beside the ViT-B-32 vision tower
+HFMORE_SEED = 27
+DISTILBERT_BASE = dict(model_type="distilbert", dim=768, n_layers=6,
+                       n_heads=12, hidden_dim=3072, vocab_size=30522)
+ELECTRA_BASE = dict(model_type="electra", embedding_size=768,
+                    hidden_size=768, num_hidden_layers=12,
+                    num_attention_heads=12, intermediate_size=3072,
+                    vocab_size=30522)
+ELECTRA_SMALL = dict(model_type="electra", embedding_size=128,
+                     hidden_size=256, num_hidden_layers=12,
+                     num_attention_heads=4, intermediate_size=1024,
+                     vocab_size=30522)
+ALBERT_BASE = dict(model_type="albert", embedding_size=128, hidden_size=768,
+                   num_hidden_layers=12, num_attention_heads=12,
+                   intermediate_size=3072, hidden_act="gelu_new",
+                   vocab_size=30000, num_hidden_groups=1, inner_group_num=1)
+HFMORE_TOWERS = {
+    "distilbert-base-uncased": DISTILBERT_BASE,
+    "electra-base-discriminator": ELECTRA_BASE,
+    "electra-small-discriminator": ELECTRA_SMALL,
+    "albert-base-v2": ALBERT_BASE,
+    "roberta-prelayernorm-base": dict(ROBERTA_BASE,
+                                      model_type="roberta-prelayernorm"),
+    "bert-base-causal": dict(model_type="bert", vocab_size=30522,
+                             is_decoder=True),
+}
+HFMORE_SERVE = (64, 256)       # (a): images and captions a call
+HFMORE_STEP_TOWERS = ("albert-base-v2", "distilbert-base-uncased")
+HFMORE_STEPS = (1, 3)          # (b): warm-up and timed steps a tower
+HFMORE_K1_GEOMETRY = ("vision HF towers serving", HFMORE_SERVE[0], 50,
+                      3 * 768, 12, False)
+# (c): each type at the base widths, HF_SMALL layers, HF_SMALL_VOCAB ids
+HFMORE_SMALL_CONFIGS = {
+    "distilbert": dict(DISTILBERT_BASE, n_layers=HF_SMALL,
+                       vocab_size=HF_SMALL_VOCAB),
+    "electra": dict(ELECTRA_SMALL, num_hidden_layers=HF_SMALL,
+                    vocab_size=HF_SMALL_VOCAB),
+    "albert": dict(ALBERT_BASE, num_hidden_layers=HF_SMALL,
+                   vocab_size=HF_SMALL_VOCAB),
+    "roberta-prelayernorm": dict(HF_SMALL_CONFIGS["roberta"],
+                                 model_type="roberta-prelayernorm"),
+    "bert-causal": dict(HF_SMALL_CONFIGS["bert"], is_decoder=True),
+}
+HFMORE_SMALL_PAD = {k: c.get("pad_token_id", 0)
+                    for k, c in HFMORE_SMALL_CONFIGS.items()}
+HFMORE_DIRS = {"albert-base-v2": "head model",
+               "distilbert-base-uncased": "sharded index"}
+HFMORE_TOKENIZERS = ("distilbert", "distilbert-vocab", "electra",
+                     "electra-vocab", "albert", "roberta-prelayernorm")
+HFMORE_TP_ARCHS = ("albert", "distilbert")
+
+
+def _hfmore_model(name: str, precision, device, seed, **overrides):
+    from cosmos_tpu_torch import create_model
+
+    kw = dict(text_hf_model_config=HFMORE_TOWERS[name],
+              text_hf_proj_type="mlp", text_hf_model_pretrained=False)
+    kw.update(overrides)
+    return create_model(HF_VISION, precision, device=device, seed=seed, **kw)
+
+
+def _hfmore_batch(name: str, seed: int) -> dict:
+    cfg = HFMORE_TOWERS[name]
+    return _hf_batch(HF_STEP_BATCH, seed, "cuda", cfg["vocab_size"],
+                     cfg.get("pad_token_id", 0))
+
+
+def _hfmore_serve(K) -> dict:
+    """27(a) and (b): each tower built in bf16 on the card and served (64
+    images, 256 captions of 77 ids with trailing pads of its pad id);
+    albert-base-v2's and distilbert-base's plain-CLIP steps at batch 64."""
+    out = {"serving": {}, "steps": {}, "build_s": {}, "params": {}}
+    k1 = {"serving": 0, "steps": 0}
+    k2 = 0
+    for i, (name, cfg) in enumerate(HFMORE_TOWERS.items()):
+        seed = HFMORE_SEED + 10 * i
+        t0 = time.perf_counter()
+        model = _hfmore_model(name, "bf16", "cuda", seed)
+        torch.cuda.synchronize()
+        out["build_s"][name] = time.perf_counter() - t0
+        out["params"][name] = sum(p.numel() for p in
+                                  model.text.transformer.parameters())
+        n_img, n_txt = HFMORE_SERVE
+        serve, n = _weights_serve(
+            K, model, 224, HF_CALL_K1, f"{name}-{HF_VISION}", seed + 1,
+            length=HF_CONTEXT, tag="hfmore", n_images=n_img,
+            captions=hf_captions(n_txt, cfg["vocab_size"],
+                                 cfg.get("pad_token_id", 0), seed + 1))
+        out["serving"][name] = serve
+        k1["serving"] += n
+        if name in HFMORE_STEP_TOWERS:
+            step = _hf_step(K, model, siglip=False, steps=HFMORE_STEPS,
+                            batch=_hfmore_batch(name, seed + 2),
+                            tag=f"hfmore {name}")
+            out["steps"][name] = step
+            k1["steps"] += step["launches"]["K1"]
+            k2 += step["launches"]["K2"]
+        del model
+        torch.cuda.empty_cache()
+    out["k1"], out["k2"] = k1, k2
+    return out
+
+
+def _hfmore_dirs(tmp: str) -> dict:
+    """27(d): a local hf_model_name directory of albert-base-v2 (a head
+    model's file, the encoder under "albert") and of distilbert-base (a
+    sharded index), written from a seeded bf16 model on the CPU; the
+    model built from each on the card holds every parameter at the
+    source's bits."""
+    from cosmos_tpu_torch import create_model
+
+    out = {}
+    for i, (name, variant) in enumerate(HFMORE_DIRS.items()):
+        seed = HFMORE_SEED + 100 + i
+        src = _hfmore_model(name, "bf16", "cpu", seed)
+        d = f"{tmp}/hfmore_{name}"
+        t0 = time.perf_counter()
+        write_hf_dir(d, src, variant)
+        write_s = time.perf_counter() - t0
+        files = sorted(p.name for p in Path(d).iterdir())
+        t0 = time.perf_counter()
+        model = create_model(HF_VISION, "bf16", device="cuda", seed=seed,
+                             text_hf_model_name=d, text_hf_proj_type="mlp",
+                             text_hf_model_pretrained=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want, got = src.state_dict(), model.state_dict()
+        moved = [k for k, v in want.items() if not torch.equal(
+            got[k].cpu(), v)]
+        check(got.keys() == want.keys() and not moved,
+              f"27(d) {name} ({variant}): loaded parameters off the source's "
+              f"bits: {moved[:6]}")
+        check(model.text.config.model_type == HFMORE_TOWERS[name][
+            "model_type"], f"27(d) {name}: config.json's type")
+        out[name] = dict(variant=variant, files=files, write_s=write_s,
+                         load_s=load_s, params=len(want))
+        print(f"[hfmore] 27(d) {name} from a directory ({variant}: "
+              f"{len(files)} files written in {write_s:.1f} s): "
+              f"create_model(..., text_hf_model_name=dir) {load_s:.1f} s, "
+              f"{len(want)} parameters the source's bits")
+        del src, model
+        shutil.rmtree(d)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _hfmore_tokenizers(K, tmp: str, hftok: dict) -> dict:
+    """27(e): the new tokenizer classes' directories (written by 26(a))
+    give transformers' committed ids of the fixed captions; then
+    albert-base-v2 (its vocabulary the ALBERT directory's) with the ALBERT
+    tokenizer through the trainer's eval-only retrieval and CIFAR-10
+    runs."""
+    from cosmos_tpu_torch.data.tokenizer import HFTokenizer
+
+    D = _hftok_generator()
+    expected = json.loads(D.EXPECTED.read_text())
+    for name in HFMORE_TOKENIZERS:
+        want = expected["dirs"][name]
+        path = hftok["ids"]["dirs"][name]["path"]
+        got = HFTokenizer(path)(D.CAPTIONS)
+        rows = np.full((len(D.CAPTIONS), HFTOK_CONTEXT), want["pad_id"],
+                       np.int32)
+        for row, ids in zip(rows, want["ids"]):
+            row[:len(ids)] = ids
+        check(np.array_equal(got, rows), f"27(e) {name}: ids differ from "
+              f"transformers' in {int((got != rows).any(1).sum())} captions")
+    print(f"[hfmore] 27(e) the ids of {', '.join(HFMORE_TOKENIZERS)} equal "
+          "transformers' committed ids")
+    path = hftok["ids"]["dirs"]["albert"]["path"]
+    vocab = len(json.loads((Path(path) / "tokenizer.json").read_text())[
+        "model"]["vocab"])
+    albert = expected["dirs"]["albert"]
+    model = register_hftok_model(
+        tmp, path, "albert-base-v2-ViT-B-32-hf-tokenizer",
+        dict(ALBERT_BASE, vocab_size=vocab))
+    evals = _hftok_evals(K, f"{tmp}/hfmore_evals", model=model,
+                         first=albert["ids"][0][0], pad=albert["pad_id"],
+                         vocab=vocab, label="27(e)", family="ALBERT")
+    return dict(tokenizers=list(HFMORE_TOKENIZERS), vocab=vocab,
+                evals=evals)
+
+
+def phase_hf_more(K, tmp: str, hftok: dict) -> dict:
+    """Phase 27: K1 at the serving geometry, then (a) the six towers
+    served, (b) albert-base-v2's and distilbert-base's steps, (c) each type
+    at 2 layers card against CPU, (d) two local directories, (e) the new
+    tokenizer classes' ids and albert-base-v2 through the evals with its
+    tokenizer, (f) albert-base-v2 under FSDP at world 1 and 2-layer ALBERT
+    and DistilBERT under TP and FSDP x TP on gloo ranks."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(HFMORE_SEED)
+    rows = [kernel_row(K.fa, *HFMORE_K1_GEOMETRY, torch.bfloat16, gen)]
+    done("kernels")
+    # (f)'s gloo ranks run while this process does the parts that measure
+    # no time; the timed parts, (a), (b) and (f)'s FSDP steps, come after
+    with _hfdir_tp_ranks(tmp, name="hfmore", label="27(f)",
+                         archs=HFMORE_TP_ARCHS, configs=HFMORE_SMALL_CONFIGS,
+                         pads=HFMORE_SMALL_PAD) as started:
+        zero_launches(K)
+        card_vs_cpu = _hf_card_vs_cpu(HFMORE_SMALL_CONFIGS,
+                                      HFMORE_SMALL_PAD, tag="hfmore")
+        small = read_launches(K)
+        done("(c) card vs CPU")
+        dirs = _hfmore_dirs(tmp)
+        done("(d) directories")
+        tokenizers = _hfmore_tokenizers(K, tmp, hftok)
+        done("(e) tokenizers, evals")
+        tp = _hfdir_tp(K, started)
+    done("(f) TP and FSDP x TP")
+    served = _hfmore_serve(K)
+    done("(a)-(b) serving, steps")
+    fsdp = _hfdir_fsdp(K, make=lambda: _hfmore_model(
+        "albert-base-v2", "bf16", "cuda", HFMORE_SEED + 200),
+        batch=_hfmore_batch("albert-base-v2", HFMORE_SEED + 201),
+        label="27(f)", model_name=f"albert-base-v2-{HF_VISION}")
+    done("(f) FSDP at world 1")
+    fsdp_k = {k: sum(x[k] for name, r in fsdp.items() if name != "off_bits"
+                     for x in r["launches"]) for k in ("K1", "K2")}
+    evals_k1 = tokenizers["evals"]["launches"]["K1"]
+    k1 = {"HF more serving": served["k1"]["serving"],
+          "HF more steps": served["k1"]["steps"],
+          "HF more 2-layer card vs CPU": small["K1"],
+          "HF more ALBERT evals": evals_k1,
+          "HF more under FSDP": fsdp_k["K1"],
+          "HF more under TP, 2 layers": tp["launches"]["K1"]}
+    k2 = {"HF more steps": served["k2"],
+          "HF more 2-layer card vs CPU": small["K2"],
+          "HF more under FSDP": fsdp_k["K2"],
+          "HF more under TP, 2 layers": tp["launches"]["K2"]}
+    check(all(v > 0 for v in k1.values()) and all(v > 0 for v in k2.values()),
+          f"27: a path launched no K1 or K2: {k1} {k2}")
+    out = dict(serving=served["serving"], steps=served["steps"],
+               build_s=served["build_s"], text_params=served["params"],
+               card_vs_cpu=card_vs_cpu, dirs=dirs, tokenizers=tokenizers,
+               fsdp=fsdp, tp=tp, kernel_rows=rows, k1_launches=k1,
+               k2_launches=k2,
+               launches_by_geometry={
+                   "K1 serving": evals_k1,
+                   "K2 step": served["k2"] + fsdp_k["K2"]},
+               parts_s=parts, phase_s=time.perf_counter() - t0)
+    print(f"[hfmore] phase 27 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+          + "); text tower parameters " + ", ".join(
+              f"{k} {v / 1e6:.2f} M" for k, v in served["params"].items())
+          + "; K1 launches " + " ".join(f"{k}={v}" for k, v in k1.items())
+          + "; K2 launches " + " ".join(f"{k}={v}" for k, v in k2.items()))
     return out
 
 
@@ -7824,6 +8181,7 @@ def main() -> int:
         hf = timed("24", phase_hf, K, work)
         hfdir = timed("25", phase_hf_local, K, work)
         hftok = timed("26", phase_hf_tokenizer, K, work)
+        hfmore = timed("27", phase_hf_more, K, work, hftok)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = timed("17", phase_last_flags, K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -7881,7 +8239,8 @@ def main() -> int:
         + sum(siglip["k1_launches"].values())
         + sum(hf["k1_launches"].values())
         + sum(hfdir["k1_launches"].values())
-        + sum(hftok["k1_launches"].values()),
+        + sum(hftok["k1_launches"].values())
+        + sum(hfmore["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -7901,7 +8260,8 @@ def main() -> int:
                              **siglip["k1_launches"],
                              **hf["k1_launches"],
                              **hfdir["k1_launches"],
-                             **hftok["k1_launches"]},
+                             **hftok["k1_launches"],
+                             **hfmore["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -7930,7 +8290,8 @@ def main() -> int:
         + sum(slice16["k2_launches"].values())
         + sum(siglip["k2_launches"].values())
         + sum(hf["k2_launches"].values())
-        + sum(hfdir["k2_launches"].values()),
+        + sum(hfdir["k2_launches"].values())
+        + sum(hfmore["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -7945,7 +8306,8 @@ def main() -> int:
                              **slice16["k2_launches"],
                              **siglip["k2_launches"],
                              **hf["k2_launches"],
-                             **hfdir["k2_launches"]},
+                             **hfdir["k2_launches"],
+                             **hfmore["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     # K1 and K2 at the SigLIP towers' geometries (phase 23): the bf16
@@ -7973,9 +8335,9 @@ def main() -> int:
             **{k: pick(table, (label, torch.bfloat16))[k]
                for k in attention_keys}})
         check(n > 0, f"{key} never launched at the SigLIP geometry")
-    # K1 and K2 at roberta-ViT-B-32's vision geometries (phases 24-26):
-    # the bf16 image calls of 24(a), (c), 25(a) and 26(b), the steps of
-    # 24(b), (e), 25(a) and (b)
+    # K1 and K2 at roberta-ViT-B-32's vision geometries (phases 24-27):
+    # the bf16 image calls of 24(a), (c), 25(a), 26(b) and 27(e), the steps
+    # of 24(b), (e), 25(a), (b), 27(b) and (f)
     for key, name, source, replaces, table, (label, *_) in (
             ("K1 serving", "fused_attention_qkv_fwd_hf_vision",
              "fused_attention_fwd.cu", "cosmos_tpu/ops/fused_attention.py:101",
@@ -7987,7 +8349,9 @@ def main() -> int:
                    f"HF towers complete, {key}":
                        hfdir["launches_by_geometry"][key],
                    f"HF tokenizers, {key}":
-                       hftok["launches_by_geometry"].get(key, 0)}
+                       hftok["launches_by_geometry"].get(key, 0),
+                   f"HF towers beyond the five, {key}":
+                       hfmore["launches_by_geometry"][key]}
         n = sum(by_path.values())
         kernels.append({
             "name": name, "route": "cuda",
@@ -8057,7 +8421,7 @@ def main() -> int:
                   data_parallel=data_parallel, last_flags=last,
                   towers=towers, beyond_dp=beyond, weights_in=weights,
                   coca=coca, slice16=slice16, siglip=siglip, hf=hf,
-                  hf_local=hfdir, hf_tokenizer=hftok,
+                  hf_local=hfdir, hf_tokenizer=hftok, hf_more=hfmore,
                   phase_s=phase_s, total_s=time.perf_counter() - t0,
                   kernels=kernels)
     out_dir = ROOT / "chiprun_out"

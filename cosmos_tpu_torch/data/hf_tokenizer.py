@@ -1,15 +1,16 @@
 """HF tokenizers from a local directory, without ``transformers``,
 ``tokenizers``, ``sentencepiece`` or ``regex`` (the counterpart of what
 ``AutoTokenizer.from_pretrained(dir)`` and ``batch_encode_plus`` do in the
-JAX package's ``HFTokenizer``, for the five text towers the port builds:
-BERT, RoBERTa, XLM-RoBERTa, T5 and mT5).
+JAX package's ``HFTokenizer``, for the text towers the port builds: the
+classes of BERT, DistilBERT, ELECTRA, RoBERTa (RoBERTa-PreLayerNorm's
+too), XLM-RoBERTa, ALBERT, T5 and mT5).
 
 ``load(path, **overrides)`` reads a directory as ``AutoTokenizer`` does:
 ``tokenizer_config.json`` (the class, its keywords, ``padding_side``,
 ``truncation_side``), ``special_tokens_map.json`` and ``tokenizer.json``;
-without ``tokenizer.json``, a BERT ``vocab.txt`` or a RoBERTa
-``vocab.json`` + ``merges.txt`` built into the pipeline transformers'
-converters build.  It returns a ``Pipeline``, whose
+without ``tokenizer.json``, a BERT, DistilBERT or ELECTRA ``vocab.txt`` or a
+RoBERTa ``vocab.json`` + ``merges.txt`` built into the pipeline
+transformers' converters build.  It returns a ``Pipeline``, whose
 ``encode_batch(texts, max_length)`` gives the ids of ``truncation=True,
 padding="max_length"``.
 
@@ -919,10 +920,13 @@ class Pipeline:
 
 # ----------------------------------------------------------- the directory
 
-# the five classes' special tokens by default
+_BERT_SPECIAL = dict(unk_token="[UNK]", sep_token="[SEP]", pad_token="[PAD]",
+                     cls_token="[CLS]", mask_token="[MASK]")
+# the classes' special tokens by default
 _CLASSES = {
-    "Bert": dict(unk_token="[UNK]", sep_token="[SEP]", pad_token="[PAD]",
-                 cls_token="[CLS]", mask_token="[MASK]"),
+    "Bert": _BERT_SPECIAL,
+    "DistilBert": _BERT_SPECIAL,
+    "Electra": _BERT_SPECIAL,
     "Roberta": dict(bos_token="<s>", eos_token="</s>", sep_token="</s>",
                     cls_token="<s>", unk_token="<unk>", pad_token="<pad>",
                     mask_token="<mask>"),
@@ -930,17 +934,28 @@ _CLASSES = {
                        cls_token="<s>", unk_token="<unk>", pad_token="<pad>",
                        mask_token="<mask>"),
     "T5": dict(eos_token="</s>", unk_token="<unk>", pad_token="<pad>"),
+    "Albert": dict(bos_token="[CLS]", eos_token="[SEP]", unk_token="<unk>",
+                   sep_token="[SEP]", pad_token="<pad>", cls_token="[CLS]",
+                   mask_token="[MASK]"),
 }
+# the WordPiece classes, whose vocab.txt BertConverter builds and whose
+# keywords rewrite the BertNormalizer
+_WORDPIECE = ("Bert", "DistilBert", "Electra")
+# the classes whose constructor makes a string mask token an AddedToken
+# that strips on its left
+_LSTRIP_MASK = ("Roberta", "XLMRoberta", "Albert")
 _SPECIAL = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
             "cls_token", "mask_token")
 _MODEL_TYPES = {"bert": "Bert", "roberta": "Roberta",
-                "xlm-roberta": "XLMRoberta", "t5": "T5", "mt5": "T5"}
+                "xlm-roberta": "XLMRoberta", "t5": "T5", "mt5": "T5",
+                "distilbert": "DistilBert", "electra": "Electra",
+                "albert": "Albert", "roberta-prelayernorm": "Roberta"}
 # the keywords the port reads, beside the special tokens
 KEYWORDS = frozenset(_SPECIAL) | {
     "additional_special_tokens", "padding_side", "truncation_side",
     "model_max_length", "do_lower_case", "strip_accents",
     "tokenize_chinese_chars", "do_basic_tokenize", "add_prefix_space",
-    "trim_offsets", "extra_ids"}
+    "trim_offsets", "extra_ids", "remove_space", "keep_accents"}
 
 
 def _json(path: Path) -> dict:
@@ -1031,9 +1046,10 @@ def _class_rewrites(cls: str, spec: dict, kw: dict) -> None:
     a ByteLevel pre-tokenizer's ``add_prefix_space`` from the keyword
     (false by default).  RoBERTa's post-processor takes
     ``add_prefix_space`` and ``trim_offsets`` too, which move offsets
-    only."""
+    only; ALBERT's ``do_lower_case``, ``remove_space`` and
+    ``keep_accents`` change nothing where a ``tokenizer.json`` is read."""
     n = spec.get("normalizer")
-    if cls == "Bert" and n and n.get("type") == "BertNormalizer":
+    if cls in _WORDPIECE and n and n.get("type") == "BertNormalizer":
         state = {"clean_text": n.get("clean_text", True),
                  "handle_chinese_chars": n.get("handle_chinese_chars", True),
                  "strip_accents": n.get("strip_accents"),
@@ -1057,7 +1073,7 @@ def _specials(cls: str, kw: dict) -> Tuple[Dict[str, Tuple[str, dict]],
         if value is None:
             continue
         content, flags = _content(value)
-        if key == "mask_token" and cls in ("Roberta", "XLMRoberta") \
+        if key == "mask_token" and cls in _LSTRIP_MASK \
                 and not isinstance(value, dict):
             flags = {"lstrip": True, "rstrip": False, "normalized": False}
         named[key] = (content, flags)
@@ -1097,7 +1113,7 @@ def load(path, **overrides) -> Pipeline:
                      SPM_ITEM)
     if (path / "tokenizer.json").is_file():
         spec = _json(path / "tokenizer.json")
-    elif cls == "Bert" and (path / "vocab.txt").is_file():
+    elif cls in _WORDPIECE and (path / "vocab.txt").is_file():
         spec = bert_spec(path, kw)
     elif cls == "Roberta" and (path / "vocab.json").is_file() and (
             path / "merges.txt").is_file():

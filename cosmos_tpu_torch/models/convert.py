@@ -236,7 +236,8 @@ def hf_tree_entries(text: Dict[str, Any]) -> List[Entry]:
 
 def hf_encoder_entries(encoder: torch.nn.Module) -> List[Entry]:
     """(name, flax path, transform) of every parameter of an HF tower's
-    encoder (``hf_bert.BertModel``, ``hf_t5.T5EncoderModel``), by the type
+    encoder (``hf_bert.BertModel``, ``hf_distilbert.DistilBertModel``,
+    ``hf_albert.AlbertModel``, ``hf_t5.T5EncoderModel``), by the type
     of the module that holds it: the paths of transformers' Flax module."""
     from .hf_bert import Embed
     from .layers import LayerNorm, Linear
@@ -275,7 +276,9 @@ def hf_model_entries(model: torch.nn.Module) -> List[Entry]:
 # head model's file (``FlaxBertForMaskedLM``, ...) holds the encoder under it
 HF_BASE_MODEL_PREFIX = {"bert": "bert", "roberta": "roberta",
                         "xlm-roberta": "roberta", "t5": "transformer",
-                        "mt5": "transformer"}
+                        "mt5": "transformer", "distilbert": "distilbert",
+                        "electra": "electra", "albert": "albert",
+                        "roberta-prelayernorm": "roberta_prelayernorm"}
 
 
 def hf_pretrained_state_dict(weights: Dict[str, Any], kind: str,

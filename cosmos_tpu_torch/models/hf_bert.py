@@ -1,22 +1,41 @@
-"""BERT-family text encoders (BERT, RoBERTa, XLM-RoBERTa) in PyTorch: the
-counterpart of transformers' ``FlaxBertModule``, ``FlaxRobertaModule`` and
-``FlaxXLMRobertaModule``, which the JAX package's HF tower wraps
-(``cosmos_tpu/models/hf_model.py``).
+"""BERT-family text encoders (BERT, RoBERTa, XLM-RoBERTa, ELECTRA,
+RoBERTa-PreLayerNorm) in PyTorch: the counterpart of transformers'
+``FlaxBertModule``, ``FlaxRobertaModule``, ``FlaxXLMRobertaModule``,
+``FlaxElectraModule`` and ``FlaxRobertaPreLayerNormModule``, which the JAX
+package's HF tower wraps (``cosmos_tpu/models/hf_model.py``).
 
 Parameters keep transformers' torch names (``embeddings.word_embeddings``,
 ``encoder.layer.N.attention.self.query``, ``pooler.dense``, ...), which
 are the Flax tree's paths with a Dense ``kernel`` as ``weight``
 (transposed), an ``embedding`` as ``weight`` and a LayerNorm ``scale`` as
 ``weight``.  Casts follow Flax's ``dtype``: embeddings and Dense layers
-compute in the compute dtype, LayerNorms reduce in float32 and return the
-input's dtype, and the attention mask is a bias of ``finfo(dtype).min``
+compute in the compute dtype (ELECTRA's embeddings, which Flax builds
+without a dtype, in float32), LayerNorms reduce in float32 and return the
+compute dtype, and the attention mask is a bias of ``finfo(dtype).min``
 added to the scaled logits before a softmax in the compute dtype.  The
 attention runs on stock torch ops, as it runs on XLA in JAX.
 
+The types differ where their Flax modules do:
+
+- ELECTRA: embeddings of ``embedding_size``, projected to ``hidden_size``
+  by ``embeddings_project`` where the two differ (flax's default
+  lecun-normal Dense); no pooler.
+- RoBERTa-PreLayerNorm: each sublayer's LayerNorm comes before it
+  (``attention.LayerNorm``, ``intermediate.LayerNorm``) and the residual
+  sums are not normalised; a final ``LayerNorm`` follows the layers, and
+  the pooler reads its output.
+- ``is_decoder`` (BERT, RoBERTa, XLM-RoBERTa, ELECTRA,
+  RoBERTa-PreLayerNorm): the self-attention is causal, Flax's
+  ``make_causal_mask`` combined with the padding mask.
+  ``add_cross_attention`` builds nothing: Flax creates the
+  cross-attention's leaves only when it is given encoder states, which
+  the tower never passes.
+
 The building blocks (``Dense``, ``Embed``, ``LayerNorm``, ``ACT2FN``,
-``attention``) are shared with ``hf_t5.py``.  Weights are drawn as
-transformers draws them: a normal at ``initializer_range`` for kernels and
-embeddings, zero biases, unit LayerNorms.
+``attention``) are shared with ``hf_t5.py``, ``hf_distilbert.py`` and
+``hf_albert.py``.  Weights are drawn as transformers draws them: a normal
+at ``initializer_range`` for kernels and embeddings, zero biases, unit
+LayerNorms.
 """
 
 from __future__ import annotations
@@ -81,19 +100,37 @@ class Embed(nn.Module):
 
 
 class LayerNorm(layers.LayerNorm):
-    """Flax ``nn.LayerNorm``; transformers' Flax modules do not use the
-    package's LayerNorm, so ``FUSED_LN``/``HYBRID_LN`` leave it plain."""
+    """Flax ``nn.LayerNorm(dtype=...)``: float32 statistics, the output in
+    ``dtype`` (the input's where None).  transformers' Flax modules do not
+    use the package's LayerNorm, so ``FUSED_LN``/``HYBRID_LN`` leave it
+    plain."""
 
     fusable = False
 
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(dim, eps)
+        self.dtype = dtype
 
-def mask_bias(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        return y if self.dtype is None else y.to(self.dtype)
+
+
+def mask_bias(mask: torch.Tensor, dtype: torch.dtype,
+              causal: bool = False) -> torch.Tensor:
     """A ``[B, L]`` 0/1 mask as the additive ``[B, 1, 1, L]`` bias of
-    transformers' Flax attention: 0 or ``finfo(dtype).min``."""
+    transformers' Flax attention: 0 or ``finfo(dtype).min``; ``causal``
+    combines it with ``make_causal_mask`` (key <= query), ``[B, 1, L,
+    L]``."""
+    keep = mask[:, None, None, :] > 0
+    if causal:
+        pos = torch.arange(mask.shape[1], device=mask.device)
+        keep = keep & (pos[None, :] <= pos[:, None])
     zero = torch.zeros((), dtype=dtype, device=mask.device)
     low = torch.full((), torch.finfo(dtype).min, dtype=dtype,
                      device=mask.device)
-    return torch.where(mask[:, None, None, :] > 0, zero, low)
+    return torch.where(keep, zero, low)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,47 +164,57 @@ class _SelfAttention(nn.Module):
                          self.heads, bias)
 
 
-class _AddNorm(nn.Module):
-    """``LayerNorm(dense(x) + residual)``: ``attention.output`` and
-    ``output``."""
+class _Output(nn.Module):
+    """``dense(x) + residual``, normalised after the sum in a post-LN layer:
+    ``attention.output`` and ``output``."""
 
-    def __init__(self, d_in, cfg, dtype):
+    def __init__(self, d_in, cfg, dtype, post_ln: bool = True):
         super().__init__()
         self.dense = Dense(d_in, cfg.hidden_size, cfg.initializer_range,
                            dtype=dtype)
-        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.LayerNorm = (LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                    dtype) if post_ln else None)
 
     def forward(self, x, residual):
-        return self.LayerNorm(self.dense(x) + residual)
+        h = self.dense(x) + residual
+        return h if self.LayerNorm is None else self.LayerNorm(h)
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg, dtype):
+    def __init__(self, cfg, dtype, pre_ln: bool):
         super().__init__()
         self.self = _SelfAttention(cfg, dtype)
-        self.output = _AddNorm(cfg.hidden_size, cfg, dtype)
+        self.output = _Output(cfg.hidden_size, cfg, dtype, not pre_ln)
+        self.LayerNorm = (LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                    dtype) if pre_ln else None)
 
     def forward(self, h, bias):
-        return self.output(self.self(h, bias), h)
+        x = h if self.LayerNorm is None else self.LayerNorm(h)
+        return self.output(self.self(x, bias), h)
 
 
 class _Intermediate(nn.Module):
-    def __init__(self, cfg, dtype):
+    def __init__(self, cfg, dtype, pre_ln: bool):
         super().__init__()
+        self.LayerNorm = (LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                    dtype) if pre_ln else None)
         self.dense = Dense(cfg.hidden_size, cfg.intermediate_size,
                            cfg.initializer_range, dtype=dtype)
         self.act = act_fn(cfg.hidden_act)
 
     def forward(self, h):
+        if self.LayerNorm is not None:
+            h = self.LayerNorm(h)
         return self.act(self.dense(h))
 
 
 class BertLayer(nn.Module):
     def __init__(self, cfg, dtype):
         super().__init__()
-        self.attention = _Attention(cfg, dtype)
-        self.intermediate = _Intermediate(cfg, dtype)
-        self.output = _AddNorm(cfg.intermediate_size, cfg, dtype)
+        pre_ln = cfg.model_type == "roberta-prelayernorm"
+        self.attention = _Attention(cfg, dtype, pre_ln)
+        self.intermediate = _Intermediate(cfg, dtype, pre_ln)
+        self.output = _Output(cfg.intermediate_size, cfg, dtype, not pre_ln)
 
     def forward(self, h, bias):
         h = self.attention(h, bias)
@@ -181,16 +228,22 @@ class _Encoder(nn.Module):
                                    for _ in range(cfg.num_hidden_layers))
 
 
-class _Embeddings(nn.Module):
-    def __init__(self, cfg, dtype):
+class Embeddings(nn.Module):
+    """Word, position and token-type rows of ``width`` (``hidden_size``, or
+    ELECTRA's and ALBERT's ``embedding_size``), summed in ``embed_dtype``
+    and normalised into the compute dtype."""
+
+    def __init__(self, cfg, dtype, width: Optional[int] = None,
+                 embed_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        d, std = cfg.hidden_size, cfg.initializer_range
-        self.word_embeddings = Embed(cfg.vocab_size, d, std, dtype)
+        d, std = width or cfg.hidden_size, cfg.initializer_range
+        embed_dtype = embed_dtype or dtype
+        self.word_embeddings = Embed(cfg.vocab_size, d, std, embed_dtype)
         self.position_embeddings = Embed(cfg.max_position_embeddings, d, std,
-                                         dtype)
+                                         embed_dtype)
         self.token_type_embeddings = Embed(cfg.type_vocab_size, d, std,
-                                           dtype)
-        self.LayerNorm = LayerNorm(d, cfg.layer_norm_eps)
+                                           embed_dtype)
+        self.LayerNorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
 
     def forward(self, ids, token_type_ids, position_ids):
         return self.LayerNorm(self.word_embeddings(ids)
@@ -208,29 +261,54 @@ class _Pooler(nn.Module):
         return torch.tanh(self.dense(hidden[:, 0]))
 
 
+def default_ids(ids: torch.Tensor, token_type_ids, position_ids):
+    """Zero token types and ``arange`` positions where none are given, as
+    the Flax modules fill them."""
+    if token_type_ids is None:
+        token_type_ids = torch.zeros_like(ids)
+    if position_ids is None:
+        position_ids = torch.arange(ids.shape[1], device=ids.device
+                                    ).expand_as(ids)
+    return token_type_ids, position_ids
+
+
 class BertModel(nn.Module):
     """``forward(ids, mask, token_type_ids, position_ids) -> (last hidden
-    state [B, L, D], pooler output [B, D])``.  The pooler exists whatever
-    the tower's pooling, as in Flax: its weights take zero gradients
-    under ``mean_pooler`` and are still decayed."""
+    state [B, L, D], pooler output [B, D] or None)``.  The pooler exists
+    whatever the tower's pooling, as in Flax (ELECTRA has none): its
+    weights take zero gradients under ``mean_pooler`` and are still
+    decayed."""
 
     def __init__(self, cfg, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.embeddings = _Embeddings(cfg, dtype)
+        self.causal = bool(cfg.is_decoder)
+        electra = cfg.model_type == "electra"
+        if electra:
+            self.embeddings = Embeddings(cfg, dtype, cfg.embedding_size,
+                                         torch.float32)
+            if cfg.embedding_size != cfg.hidden_size:
+                self.embeddings_project = layers.Linear(
+                    cfg.embedding_size, cfg.hidden_size, dtype=dtype)
+        else:
+            self.embeddings = Embeddings(cfg, dtype)
         self.encoder = _Encoder(cfg, dtype)
-        self.pooler = _Pooler(cfg, dtype)
+        if cfg.model_type == "roberta-prelayernorm":
+            self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                       dtype)
+        self.pooler = None if electra else _Pooler(cfg, dtype)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None):
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(ids)
-        if position_ids is None:
-            position_ids = torch.arange(ids.shape[1], device=ids.device
-                                        ).expand_as(ids)
+        token_type_ids, position_ids = default_ids(ids, token_type_ids,
+                                                   position_ids)
         h = self.embeddings(ids, token_type_ids, position_ids)
-        bias = mask_bias(mask, self.dtype)
+        if hasattr(self, "embeddings_project"):
+            h = self.embeddings_project(h)
+        bias = mask_bias(mask, self.dtype, self.causal)
         for layer in self.encoder.layer:
             h = layer(h, bias)
-        return h, self.pooler(h)
+        if hasattr(self, "LayerNorm"):
+            h = self.LayerNorm(h)
+        return h, None if self.pooler is None else self.pooler(h)

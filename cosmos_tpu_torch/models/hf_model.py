@@ -1,8 +1,10 @@
 """The HF text tower (counterpart of ``cosmos_tpu/models/hf_model.py``): an
 encoder built from an offline ``hf_model_config`` or the ``config.json``
 of a local ``hf_model_name`` directory (``hf_arch.py``: BERT, RoBERTa,
-XLM-RoBERTa in ``hf_bert.py``, T5 and mT5 in ``hf_t5.py``), a pooler and a
-projection head to the CLIP embedding width.
+XLM-RoBERTa, ELECTRA and RoBERTa-PreLayerNorm in ``hf_bert.py``,
+DistilBERT in ``hf_distilbert.py``, ALBERT in ``hf_albert.py``, T5 and mT5
+in ``hf_t5.py``), a pooler and a projection head to the CLIP embedding
+width.
 
 ``HFTextTower`` is OpenCLIP's ``HFTextEncoder`` under the ``text`` of its
 ``CustomTextCLIP``: the encoder is ``transformer``, the head ``proj``
@@ -33,8 +35,10 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 from torch import nn
 
-from .hf_arch import BERT_FAMILY, resolve_hf_config
+from .hf_albert import AlbertModel
+from .hf_arch import BERT_FAMILY, T5_FAMILY, resolve_hf_config
 from .hf_bert import BertModel
+from .hf_distilbert import DistilBertModel
 from .hf_t5 import T5EncoderModel
 from .layers import Linear
 
@@ -52,6 +56,9 @@ WEIGHTS_NAME = "pytorch_model.bin"
 # "pooler" entries of JAX's hf_configs.arch_dict; every other type pools
 # by the mean)
 DEFAULT_POOLER = {"bert": "cls_pooler"}
+# the types whose position ids are pad-offset in JAX's tower (its list also
+# names camembert, which has no Flax model)
+PAD_OFFSET_POSITIONS = ("roberta", "xlm-roberta")
 
 def mean_pooler(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask[..., None].to(hidden.dtype)
@@ -102,20 +109,26 @@ class HFTextTower(nn.Module):
             raise ValueError(f"unknown HF projection {proj_type!r}")
         self.config, self.pooler_type = config, pooler_type
         self.pad_id = pad_id
-        self.bert_family = config.model_type in BERT_FAMILY
-        if self.bert_family:
+        kind = config.model_type
+        # whether the encoder takes token types and position ids
+        self.takes_ids = kind in BERT_FAMILY or kind == "albert"
+        if kind in BERT_FAMILY:
             self.transformer = BertModel(config, dtype)
-            self.width = config.hidden_size
+        elif kind == "albert":
+            self.transformer = AlbertModel(config, dtype)
+        elif kind == "distilbert":
+            self.transformer = DistilBertModel(config, dtype)
         else:
             self.transformer = T5EncoderModel(config, dtype)
-            self.width = config.d_model
+        self.width = (config.d_model if kind in T5_FAMILY else config.dim
+                      if kind == "distilbert" else config.hidden_size)
         self.proj = projection_head(self.width, output_dim, proj_type, dtype)
 
     def forward(self, text: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         mask = (text != self.pad_id).to(torch.int32)
-        if self.bert_family:
-            if self.config.model_type in ("roberta", "xlm-roberta"):
+        if self.takes_ids:
+            if self.config.model_type in PAD_OFFSET_POSITIONS:
                 positions = mask.cumsum(1) * mask + self.config.pad_token_id
             else:
                 positions = None

@@ -124,14 +124,19 @@ def fsdp_placements(model: nn.Module, n_data: int, tp: int = 1,
 def _blocks(model: nn.Module):
     """The residual blocks of every tower: the members of each
     ``resblocks``/``blocks`` list, of CoCa's decoder's ``cross_attn``, and
-    an HF encoder's layers (BERT's ``encoder.layer``, T5's
-    ``encoder.block``; not the two sublayers of a T5 block, its
-    ``layer``)."""
+    an HF encoder's layers (BERT's ``encoder.layer``, DistilBERT's
+    ``transformer.layer``, T5's ``encoder.block``; not the two sublayers of
+    a T5 block, its ``layer``; ALBERT's layer groups, each run several
+    times in a forward: FSDP2 gathers such a unit at every call and sums
+    its gradients over the calls before it reduce-scatters them)."""
+    from ..models.hf_albert import AlbertLayerGroup
     from ..models.hf_bert import BertLayer
+    from ..models.hf_distilbert import TransformerBlock
     from ..models.hf_t5 import T5Block
 
     for name, m in model.named_modules():
-        if isinstance(m, (BertLayer, T5Block)):
+        if isinstance(m, (BertLayer, TransformerBlock, AlbertLayerGroup,
+                          T5Block)):
             yield m
         elif isinstance(m, nn.ModuleList) and name.split(".")[-1] in (
                 "resblocks", "blocks", "cross_attn"):

@@ -1,6 +1,10 @@
 """Shared cases of the HF text-tower tests (``test_torch_hf_*.py``): tiny
-configs of the five architectures at width 32 and 2 layers, their token
-batches (pads at the right ends, each with its architecture's pad id),
+configs of the five architectures at width 32 and 2 layers (``HF``) and of
+the later ones (``MORE``: DistilBERT with learned and sinusoidal
+positions, ELECTRA with and without its
+embedding projection, ALBERT with one group and with two groups of two
+layers, RoBERTa-PreLayerNorm, and causal BERT, RoBERTa and ELECTRA), their
+token batches (pads at the right ends, each with its architecture's pad id),
 JAX's model with parameters drawn with numpy at the shapes
 ``jax.eval_shape`` gives (no JAX init is compiled), and local
 ``hf_model_name`` directories written by transformers' own classes."""
@@ -46,11 +50,40 @@ T5_FIELDS = ("vocab_size", "d_model", "d_kv", "d_ff", "num_layers",
              "initializer_factor", "feed_forward_proj", "dense_act_fn",
              "is_gated_act", "tie_word_embeddings", "pad_token_id",
              "is_decoder", "is_encoder_decoder")
-PAD = {"bert": 0, "roberta": 1, "xlm-roberta": 1, "t5": 0, "mt5": 0}
+# case -> config of the types after the five, keyed by case name
+MORE = {
+    "distilbert": dict(model_type="distilbert", dim=32, n_layers=2,
+                       n_heads=2, hidden_dim=64, vocab_size=VOCAB,
+                       max_position_embeddings=32),
+    # the position table a constant, no leaf
+    "distilbert-sinusoidal": dict(model_type="distilbert", dim=32,
+                                  n_layers=2, n_heads=2, hidden_dim=64,
+                                  vocab_size=VOCAB,
+                                  max_position_embeddings=32,
+                                  sinusoidal_pos_embds=True,
+                                  activation="gelu_new"),
+    "electra": dict(_BERT, model_type="electra", embedding_size=32),
+    "electra-project": dict(_BERT, model_type="electra", embedding_size=16),
+    "albert": dict(_BERT, model_type="albert", embedding_size=16),
+    # layer i runs group int(i / 1.5): 0, 0, 1
+    "albert-groups": dict(_BERT, model_type="albert", embedding_size=16,
+                          num_hidden_layers=3, num_hidden_groups=2,
+                          inner_group_num=2),
+    "roberta-prelayernorm": dict(_BERT, model_type="roberta-prelayernorm"),
+    "bert-causal": dict(_BERT, model_type="bert", is_decoder=True),
+    "roberta-causal": dict(_BERT, model_type="roberta", is_decoder=True,
+                           add_cross_attention=True),
+    "electra-causal": dict(_BERT, model_type="electra", embedding_size=16,
+                           is_decoder=True),
+}
+CASES = {**HF, **MORE}
+PAD = {case: 1 if cfg["model_type"] in (
+    "roberta", "xlm-roberta", "roberta-prelayernorm") else 0
+    for case, cfg in CASES.items()}
 
 
 def model_kw(arch: str, **extra) -> dict:
-    return {**VISION, "text_hf_model_config": HF[arch],
+    return {**VISION, "text_hf_model_config": CASES[arch],
             "text_hf_model_pretrained": False, **extra}
 
 
@@ -162,9 +195,9 @@ def hf_config(arch: str, **overrides):
     """transformers' config of ``arch``'s tiny tower."""
     import transformers
 
-    fields = {k: v for k, v in HF[arch].items() if k != "model_type"}
-    return transformers.AutoConfig.for_model(arch, **dict(fields,
-                                                          **overrides))
+    fields = {k: v for k, v in CASES[arch].items() if k != "model_type"}
+    return transformers.AutoConfig.for_model(CASES[arch]["model_type"],
+                                             **dict(fields, **overrides))
 
 
 def write_hf_dir(path: str, arch: str, cls_name: str, seed: int = 0,

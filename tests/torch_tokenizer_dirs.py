@@ -8,18 +8,23 @@ The vocabularies come from the port's own CLIP merge table
 - byte-level BPE (RoBERTa): the merges in which neither part nor result
   carries ``</w>`` (closed under themselves), then a merge of the space
   symbol with each alphabetic result, ranked after them;
-- WordPiece (BERT): the single characters, the ``</w>`` results as words and
-  the other results as ``##`` continuations;
-- Unigram (XLM-R, T5, mT5): ``▁`` + each word, the other results and the
-  single characters, each scored from the seed.
+- WordPiece (BERT, DistilBERT, ELECTRA): the single characters, the
+  ``</w>`` results as words and the other results as ``##`` continuations;
+- Unigram (XLM-R, T5, mT5, ALBERT): ``▁`` + each word, the other results
+  and the single characters, each scored from the seed.
 
-The three Unigram types carry a precompiled charsmap written here in
+RoBERTa-PreLayerNorm's directory names no ``tokenizer_class``: its
+``config.json`` carries the model type, from which ``AutoTokenizer`` takes
+RoBERTa's class.  ELECTRA's ``tokenizer_config.json`` turns lowercasing
+off, which rewrites ``tokenizer.json``'s ``BertNormalizer``.
+
+The four Unigram types carry a precompiled charsmap written here in
 SentencePiece's layout (a darts-clone double array, then NUL-terminated
 replacements): every code point whose NFKC form differs maps to that form,
 and every two-character canonical decomposition of a Latin letter maps to
 its composed letter (keys that span a grapheme cluster).
 
-``write_all(root)`` writes the seven directories of ``DIRS`` and returns
+``write_all(root)`` writes the directories of ``DIRS`` and returns
 their paths; ``digest(path)`` hashes a directory's files.
 ``tests/torch_tokenizer_ids.json`` (``EXPECTED``) holds each directory's
 digest and transformers' ids of ``CAPTIONS``; ``PYTHONPATH=. python
@@ -55,7 +60,16 @@ DIRS = {
     "xlm-roberta": ("xlm-roberta", "tokenizer.json"),
     "t5": ("t5", "tokenizer.json"),
     "mt5": ("mt5", "tokenizer.json"),
+    "distilbert": ("distilbert", "tokenizer.json"),
+    "distilbert-vocab": ("distilbert", "vocab.txt"),
+    "electra": ("electra", "tokenizer.json"),
+    "electra-vocab": ("electra", "vocab.txt"),
+    "albert": ("albert", "tokenizer.json"),
+    "roberta-prelayernorm": ("roberta-prelayernorm", "config.json"),
 }
+# the tokenizer class of each WordPiece type
+WORDPIECE = {"bert": "BertTokenizer", "distilbert": "DistilBertTokenizer",
+             "electra": "ElectraTokenizer"}
 # a fixed caption set: plain captions, accents, CJK, full-width forms,
 # emoji and a ZWJ sequence, special tokens in the text, runs of spaces, a
 # caption past the context
@@ -297,12 +311,12 @@ def _config(path: Path, cls: str, added: list, special: dict,
         json.dumps(special, indent=2, ensure_ascii=False))
 
 
-def _string_mask(path: Path) -> None:
+def _string_mask(path: Path, content: str = "<mask>") -> None:
     """tokenizer_config.json names the mask token by its content (its
     flags stand in added_tokens_decoder), special_tokens_map.json whole."""
     f = path / "tokenizer_config.json"
     config = json.loads(f.read_text())
-    config["mask_token"] = "<mask>"
+    config["mask_token"] = content
     f.write_text(json.dumps(config, indent=2, ensure_ascii=False))
 
 
@@ -316,7 +330,8 @@ def _tokenizer_json(path: Path, model, normalizer, pre_tokenizer,
         json.dumps(doc, ensure_ascii=False))
 
 
-def write_bert(path: Path, layout: str) -> None:
+def write_bert(path: Path, layout: str, kind: str = "bert") -> None:
+    cls = WORDPIECE[kind]
     vocab = wordpiece_vocab()
     ids = {t: i for i, t in enumerate(vocab)}
     names = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
@@ -325,12 +340,13 @@ def write_bert(path: Path, layout: str) -> None:
                "pad_token": "[PAD]", "sep_token": "[SEP]",
                "unk_token": "[UNK]"}
     (path / "vocab.txt").write_text("".join(t + "\n" for t in vocab))
-    _config(path, "BertTokenizer", added, special, do_lower_case=True,
-            strip_accents=None, tokenize_chinese_chars=True,
-            do_basic_tokenize=True, never_split=None)
+    _config(path, cls, added, special,
+            do_lower_case=kind != "electra", strip_accents=None,
+            tokenize_chinese_chars=True, do_basic_tokenize=True,
+            never_split=None)
     if layout == "vocab.txt":
         (path / "tokenizer_config.json").unlink()
-        _config(path, "BertTokenizer", [], special, do_lower_case=True,
+        _config(path, cls, [], special, do_lower_case=True,
                 tokenize_chinese_chars=True)
         return
     _tokenizer_json(
@@ -357,6 +373,9 @@ def write_bert(path: Path, layout: str) -> None:
 
 
 def write_roberta(path: Path, layout: str) -> None:
+    """RoBERTa's files; ``layout`` ``"config.json"``: ``tokenizer.json``
+    with no ``tokenizer_class``, beside a ``config.json`` of
+    RoBERTa-PreLayerNorm."""
     vocab, merges = bpe_vocab_merges()
     names = ("<s>", "<pad>", "</s>", "<unk>", "<mask>")
     added = [_added(t, vocab[t], lstrip=t == "<mask>") for t in names]
@@ -374,6 +393,13 @@ def write_roberta(path: Path, layout: str) -> None:
     _string_mask(path)
     if layout == "vocab.json":
         return
+    if layout == "config.json":
+        f = path / "tokenizer_config.json"
+        config = json.loads(f.read_text())
+        del config["tokenizer_class"]
+        f.write_text(json.dumps(config, indent=2, ensure_ascii=False))
+        (path / "config.json").write_text(json.dumps(
+            {"model_type": "roberta-prelayernorm", "pad_token_id": 1}))
     # the release files' older form: merges as "a b" strings
     _tokenizer_json(
         path,
@@ -470,18 +496,64 @@ def write_unigram(path: Path, kind: str, charsmap: str) -> None:
                      "add_prefix_space": True})
 
 
+def write_albert(path: Path, charsmap: str) -> None:
+    """``AlbertConverter``'s pipeline: quotes, NFKD, accents stripped,
+    lowercase, the charsmap, runs of spaces, Metaspace, Unigram, ``[CLS]
+    $A [SEP]``."""
+    specials = ("<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]")
+    pieces = [(t, 0.0) for t in specials] + unigram_pieces(SEED + 2,
+                                                            cjk=False)
+    ids = {p: i for i, (p, _) in enumerate(pieces)}
+    added = [_added(t, ids[t], lstrip=t == "[MASK]") for t in specials]
+    special = {"bos_token": "[CLS]", "cls_token": "[CLS]",
+               "eos_token": "[SEP]", "mask_token": {
+                   "content": "[MASK]", "lstrip": True, "normalized": False,
+                   "rstrip": False, "single_word": False},
+               "pad_token": "<pad>", "sep_token": "[SEP]",
+               "unk_token": "<unk>"}
+    _config(path, "AlbertTokenizer", added, special, do_lower_case=True,
+            remove_space=True, keep_accents=False)
+    _string_mask(path, "[MASK]")
+    normalizer = {"type": "Sequence", "normalizers": [
+        {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+        {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+        {"type": "NFKD"}, {"type": "StripAccents"}, {"type": "Lowercase"},
+        {"type": "Precompiled", "precompiled_charsmap": charsmap},
+        {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
+    pre = {"type": "Metaspace", "replacement": "▁",
+           "prepend_scheme": "always", "split": True}
+    post = {"type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+            "special_tokens": {t: {"id": t, "ids": [ids[t]], "tokens": [t]}
+                               for t in ("[CLS]", "[SEP]")}}
+    model = {"type": "Unigram", "unk_id": ids["<unk>"],
+             "vocab": [[p, s] for p, s in pieces], "byte_fallback": False}
+    _tokenizer_json(path, model, normalizer, pre, post, added,
+                    {"type": "Metaspace", "replacement": "▁",
+                     "prepend_scheme": "always", "split": True})
+
+
 def write_all(root) -> Dict[str, str]:
-    """The seven directories of ``DIRS`` under ``root``; name -> path."""
+    """The directories of ``DIRS`` under ``root``; name -> path."""
     root = Path(root)
     charsmap = _charsmap_b64()
     out = {}
     for name, (kind, layout) in DIRS.items():
         path = root / name
         path.mkdir(parents=True, exist_ok=True)
-        if kind == "bert":
-            write_bert(path, layout)
-        elif kind == "roberta":
+        if kind in WORDPIECE:
+            write_bert(path, layout, kind)
+        elif kind in ("roberta", "roberta-prelayernorm"):
             write_roberta(path, layout)
+        elif kind == "albert":
+            write_albert(path, charsmap)
         else:
             write_unigram(path, kind, charsmap)
         out[name] = str(path)
