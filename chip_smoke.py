@@ -360,6 +360,26 @@ from the sources in the checkout and then:
      step, and 2-layer ALBERT and DistilBERT steps under TP and FSDP x TP
      on two gloo ranks against one process.  The ranks run while (c)-(e)
      do, which time nothing; (a), (b) and the FSDP steps run after them.
+ 28. The decoder-LM text towers, with the ViT-B-32 vision tower in bf16
+     beside each: gpt2, facebook/opt-125m, facebook/opt-350m (project_in/
+     project_out, post-LN blocks), TinyLlama-1.1B (4 KV heads),
+     mistralai/Mistral-7B-v0.1 (8 KV heads, a window of 4096) and
+     google/gemma-2b (1 KV head, head_dim 256, a vocabulary of 256000),
+     random weights from a seed drawn on the card.  K1 held to its plain
+     version at [64, 50, 2304]; (a) each at full depth served in bf16 (64
+     images, 256 captions of 77 ids), its parameter bytes beside the
+     card's memory; (b) 1 + 3 plain-CLIP and --siglip steps at batch 64,
+     gpt2, opt-125m and TinyLlama at full depth, Mistral-7B and gemma-2b at
+     full width and 2 layers (12/12 K1/K2 a step); (c) each type at its
+     published width, 2 layers, Mistral also with sliding_window null,
+     float32 features and one plain-CLIP step, card against CPU; (d) the
+     GPT-2, OPT, Llama, Mistral and Gemma tokenizer directories of
+     tests/torch_tokenizer_dirs.py held to transformers' committed ids,
+     and GPT-2 without a pad token refused; (e) TinyLlama's step under
+     FSDP at world 1 on NCCL against the plain step; (f) 2-layer GPT-2 and
+     Llama steps under TP and FSDP x TP on two gloo ranks against one
+     process, the parameters JAX's rule shards on the model axis sharded.
+     The ranks run while (c) and (d) do; (a), (b) and (e) after them.
 
 Since phase 27, phases 19 and 22 also run their gloo ranks while their
 trainer runs (host-bound steps, no timed comparison), after their timed
@@ -2986,17 +3006,26 @@ def _step_run(model, cfg_kw, batch, lr, frozen=None, dist=None, eps=1e-8):
         teacher={k: v.cpu() for k, v in state.teacher.state_dict().items()})
 
 
-def _grad_errs(got, want, rel, atol, what):
+def _grad_errs(got, want, rel, atol, what, norm=False):
     """Max abs error of every gradient, each held to ``rel`` times its
-    tensor's largest magnitude plus ``atol``."""
+    tensor's largest magnitude plus ``atol``; with ``norm``, the error's
+    L2 norm held to ``rel`` times the gradient's plus ``atol`` times the
+    root of its size."""
     check(got.keys() == want.keys(),
           f"{what}: gradients of {sorted(got.keys() ^ want.keys())} on one "
           "side only")
     worst = 0.0
     for name, w in want.items():
-        err = (got[name] - w).abs().max().item()
-        check(err <= rel * w.abs().max().item() + atol,
-              f"{what}: grad {name} max err {err}")
+        diff = got[name] - w
+        err = diff.abs().max().item()
+        if norm:
+            check(diff.norm().item() <= rel * w.norm().item()
+                  + atol * w.numel() ** 0.5,
+                  f"{what}: grad {name} error norm {diff.norm().item()}, "
+                  f"the gradient's {w.norm().item()}")
+        else:
+            check(err <= rel * w.abs().max().item() + atol,
+                  f"{what}: grad {name} max err {err}")
         worst = max(worst, err)
     return worst
 
@@ -6850,13 +6879,17 @@ def _hf_lock_step(K, model) -> dict:
 
 
 def _hf_card_vs_cpu(configs=HF_SMALL_CONFIGS, pads=HF_PAD,
-                    tag="hf") -> dict:
+                    tag="hf", grad_atol=1e-8, grad_norm=False,
+                    grad_rtol=None, probe=None) -> dict:
     """24(d): for each architecture of ``configs``, a HF_SMALL-layer
     float32 model at the base widths on the card and on the CPU from the
     same weights: the normalised features of 2 images and 4 captions
     (right-end pads of the architecture's pad id, ``pads``), then one
-    plain-CLIP step at batch 2 (loss, every gradient, the updated
-    student)."""
+    plain-CLIP step at batch 2 (loss, every gradient within HF_GRAD_RTOL,
+    or an architecture's ``grad_rtol``, of its largest entry plus
+    ``grad_atol``, or with ``grad_norm`` by its norm, ``_grad_errs``; the
+    updated student).  ``probe(arch, cpu, gpu, captions)``, where given,
+    runs before the step on its two captions and adds to the record."""
     from cosmos_tpu_torch import create_model
 
     errs = {}
@@ -6884,6 +6917,8 @@ def _hf_card_vs_cpu(configs=HF_SMALL_CONFIGS, pads=HF_PAD,
             e[what] = (g - w).abs().max().item()
             check(e[what] <= HF_CPU_TOL,
                   f"{arch} card vs CPU {what}: max err {e[what]}")
+        if probe is not None:
+            e.update(probe(arch, cpu, gpu, toks[:2]))
         small = {"global_images": torch.from_numpy(rng.integers(
                      0, 256, (1, 2, 224, 224, 3), np.uint8)),
                  "texts": toks[None, :2]}
@@ -6896,8 +6931,10 @@ def _hf_card_vs_cpu(configs=HF_SMALL_CONFIGS, pads=HF_PAD,
         e["loss"] = abs(got["loss"] - want["loss"]) / abs(want["loss"])
         check(e["loss"] <= HF_CPU_TOL,
               f"{arch} loss card {got['loss']} vs CPU {want['loss']}")
-        e["grads"] = _grad_errs(got["grads"], want["grads"], HF_GRAD_RTOL,
-                                1e-8, f"{arch} 2-layer step")
+        e["grads"] = _grad_errs(got["grads"], want["grads"],
+                                (grad_rtol or {}).get(arch, HF_GRAD_RTOL),
+                                grad_atol, f"{arch} 2-layer step",
+                                norm=grad_norm)
         # AdamW's first update is lr g / (|g| + eps): at DP_EPS a smooth
         # function of the gradient, so the two students agree as the
         # gradients do
@@ -7424,6 +7461,8 @@ def _hfdir_tp_ranks(tmp: str, name: str = "hfdir", label: str = "25(c)",
 def _hfdir_tp(K, started) -> dict:
     """25(c): the references in this process while the ranks (started by
     ``_hfdir_tp_ranks``) run, then the comparison."""
+    from cosmos_tpu_torch.parallel.tp import tp_param_placements
+
     _, spec = started
     label = spec["label"]
     t0 = time.perf_counter()
@@ -7435,8 +7474,11 @@ def _hfdir_tp(K, started) -> dict:
                  "K1": HF_SMALL, "K2": HF_SMALL}
     errs, launches = {}, {"K1": 0, "K2": 0}
     for arch in spec["archs"]:
-        q = [f"text.transformer.encoder.block.{i}.layer.0.SelfAttention.q."
-             "weight" for i in range(HF_SMALL)] if arch == "t5" else []
+        # the text parameters JAX's rule puts on the model axis: T5's q, a
+        # decoder LM's projections, none of a BERT-family tower
+        q = sorted(n for n, d in tp_param_placements(
+            _hfdir_small(arch, "meta", spec)).items()
+            if d is not None and n.startswith("text."))
         for r, got in enumerate(ranks):
             check({f"{arch} {m}" for m in spec["modes"]}
                   | {f"{arch} encoders"} <= got.keys(),
@@ -7477,8 +7519,7 @@ def _hfdir_tp(K, started) -> dict:
                   f"{k}: " + " ".join(f"{n}={v:.3g}" for n, v in e.items())
                   for k, e in errs.items() if k.startswith(arch))
               + f"; K1/K2 a step {HF_SMALL}/{HF_SMALL} on each rank; text "
-              f"parameters sharded over the model axis: {len(q)}"
-              + (" (T5's q)" if q else ""))
+              f"parameters sharded over the model axis: {len(q)}")
     return dict(errs=errs, launches=launches, ref_s=ref_s, ranks_s=ranks_s)
 
 
@@ -8114,6 +8155,326 @@ def phase_hf_more(K, tmp: str, hftok: dict) -> dict:
     return out
 
 
+# phase 28: the decoder-LM text towers (GPT-2, OPT, Llama, Mistral, Gemma) at
+# their published widths (random weights from a seed, drawn on the card),
+# each beside the ViT-B-32 vision tower
+HFDEC_SEED = 28
+GPT2_SMALL = dict(model_type="gpt2", n_embd=768, n_layer=12, n_head=12,
+                  vocab_size=50257, n_positions=1024)
+OPT_125M = dict(model_type="opt", hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, ffn_dim=3072, vocab_size=50272,
+                max_position_embeddings=2048)
+OPT_350M = dict(OPT_125M, hidden_size=1024, num_hidden_layers=24,
+                num_attention_heads=16, ffn_dim=4096, word_embed_proj_dim=512,
+                do_layer_norm_before=False)
+TINYLLAMA = dict(model_type="llama", hidden_size=2048, num_hidden_layers=22,
+                 num_attention_heads=32, num_key_value_heads=4,
+                 intermediate_size=5632, vocab_size=32000,
+                 max_position_embeddings=2048, rms_norm_eps=1e-5)
+MISTRAL_7B = dict(model_type="mistral", hidden_size=4096, num_hidden_layers=32,
+                  num_attention_heads=32, num_key_value_heads=8,
+                  intermediate_size=14336, vocab_size=32000,
+                  max_position_embeddings=32768, sliding_window=4096,
+                  rms_norm_eps=1e-5)
+GEMMA_2B = dict(model_type="gemma", hidden_size=2048, num_hidden_layers=18,
+                num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+                intermediate_size=16384, vocab_size=256000,
+                max_position_embeddings=8192, rms_norm_eps=1e-6,
+                hidden_activation="gelu_pytorch_tanh")
+HFDEC_TOWERS = {"gpt2": GPT2_SMALL, "facebook/opt-125m": OPT_125M,
+                "facebook/opt-350m": OPT_350M, "TinyLlama-1.1B": TINYLLAMA,
+                "mistralai/Mistral-7B-v0.1": MISTRAL_7B,
+                "google/gemma-2b": GEMMA_2B}
+HFDEC_SERVE = (64, 256)        # (a): images and captions a call
+HFDEC_STEPS = (1, 3)           # (b): warm-up and timed steps a mode
+# (b): the towers stepped at full depth; the others (their optimizer state
+# would not fit one card) at full width and HFDEC_STEP_LAYERS layers
+HFDEC_FULL_STEPS = ("gpt2", "facebook/opt-125m", "TinyLlama-1.1B")
+HFDEC_STEP_LAYERS = 2
+# (c): each type at its published width, HF_SMALL layers, HF_SMALL_VOCAB
+# ids; Mistral with its window of 4096 and with none
+HFDEC_SMALL_CONFIGS = {
+    "gpt2": dict(GPT2_SMALL, n_layer=HF_SMALL, vocab_size=HF_SMALL_VOCAB),
+    "opt": dict(OPT_125M, num_hidden_layers=HF_SMALL,
+                vocab_size=HF_SMALL_VOCAB),
+    "opt-350m": dict(OPT_350M, num_hidden_layers=HF_SMALL,
+                     vocab_size=HF_SMALL_VOCAB),
+    "llama": dict(TINYLLAMA, num_hidden_layers=HF_SMALL,
+                  vocab_size=HF_SMALL_VOCAB),
+    "mistral": dict(MISTRAL_7B, num_hidden_layers=HF_SMALL,
+                    vocab_size=HF_SMALL_VOCAB),
+    "mistral-no-window": dict(MISTRAL_7B, num_hidden_layers=HF_SMALL,
+                              vocab_size=HF_SMALL_VOCAB, sliding_window=None),
+    "gemma": dict(GEMMA_2B, num_hidden_layers=HF_SMALL,
+                  vocab_size=HF_SMALL_VOCAB),
+}
+
+
+def _decoder_pad(cfg: dict) -> int:
+    """The pad id of a decoder LM's tower: OPT's config's, 1; the others'
+    configs have none (or 0), so the tower takes text_cfg.pad_id, 0."""
+    return 1 if cfg["model_type"] == "opt" else 0
+
+
+HFDEC_SMALL_PAD = {k: _decoder_pad(c) for k, c in HFDEC_SMALL_CONFIGS.items()}
+# (c): each gradient is held by its norm (HF_GRAD_RTOL of the gradient's,
+# plus HFDEC_GRAD_ATOL an element), not entry by entry: at init the
+# decoders' attention is near uniform, so their q and k gradients are sums
+# of terms of the other gradients' size that nearly cancel (OPT's q_proj:
+# largest entry below 4e-3, 3.87e-07 off the CPU's, as the other tensors').
+# OPT's gradients get HFDEC_RELU_GRAD_RTOL: ReLU's derivative is a step,
+# so a pre-activation within rounding of 0 takes one side on the card and
+# the other on the CPU and moves its unit's row of fc1 by that row's whole
+# share (the probe, _relu_flips, found one such unit at each OPT config's
+# 2-layer widths, 1.15e-07 and 2.24e-07 from 0: 1.76e-05 off in layer 1's
+# fc1 at 125m's; through opt-350m's post-LN blocks, 1.78e-04 of the norm of
+# layer 0's v_proj bias gradient).  The features, the loss and the updated
+# student stay held entry by entry.
+HFDEC_GRAD_ATOL = 1e-6
+HFDEC_RELU_GRAD_RTOL = 1e-3
+HFDEC_TP_ARCHS = ("gpt2", "llama")
+HFDEC_FSDP_TOWER = "TinyLlama-1.1B"
+
+
+def _hfdec_model(name: str, seed: int, layers=None, siglip=False):
+    """``name``'s tower in bf16 beside ViT-B-32, built on the card and its
+    weights drawn there from ``seed`` (``create_model`` draws on the CPU,
+    38 s for Mistral-7B's 7.2 G parameters at 190 M/s); ``layers``: that
+    many layers at the published width."""
+    from cosmos_tpu_torch.models.clip import CLIP
+    from cosmos_tpu_torch.models.config import build_clip_cfg
+    from cosmos_tpu_torch.models.factory import init_weights
+
+    cfg = dict(HFDEC_TOWERS[name])
+    if layers is not None:
+        cfg["n_layer" if cfg["model_type"] == "gpt2"
+            else "num_hidden_layers"] = layers
+    overrides = dict(text_hf_model_config=cfg, text_hf_proj_type="mlp",
+                     text_hf_model_pretrained=False)
+    if siglip:
+        overrides.update(init_logit_scale=float(np.log(10.0)),
+                         init_logit_bias=-10.0)
+    with torch.device("cuda"):
+        model = CLIP(build_clip_cfg(HF_VISION, overrides),
+                     dtype=torch.bfloat16)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model.eval()
+
+
+def _hfdec_batch(name: str, seed: int) -> dict:
+    return _hf_batch(HF_STEP_BATCH, seed, "cuda",
+                     HFDEC_TOWERS[name]["vocab_size"],
+                     _decoder_pad(HFDEC_TOWERS[name]))
+
+
+def _hfdec_serve(K) -> dict:
+    """28(a) and (b): each tower at full depth in bf16 on the card serves
+    64 images and 256 captions of 77 ids (trailing pads of its pad id) a
+    call; then its plain-CLIP and --siglip steps at batch 64, at full depth
+    for HFDEC_FULL_STEPS and at HFDEC_STEP_LAYERS layers for the others."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"serving": {}, "steps": {}, "build_s": {}, "params": {},
+           "param_bytes": {}, "card_bytes": total}
+    k1 = {"serving": 0, "steps": 0}
+    k2 = 0
+    for i, (name, cfg) in enumerate(HFDEC_TOWERS.items()):
+        seed = HFDEC_SEED + 10 * i
+        t0 = time.perf_counter()
+        model = _hfdec_model(name, seed)
+        torch.cuda.synchronize()
+        out["build_s"][name] = time.perf_counter() - t0
+        n = sum(p.numel() for p in model.text.transformer.parameters())
+        out["params"][name] = n
+        out["param_bytes"][name] = {
+            "float32 held": sum(p.numel() * p.element_size()
+                                for p in model.text.transformer.parameters()),
+            "bf16 compute": 2 * n}
+        n_img, n_txt = HFDEC_SERVE
+        serve, launched = _weights_serve(
+            K, model, 224, HF_CALL_K1, f"{name}-{HF_VISION}", seed + 1,
+            length=HF_CONTEXT, tag="hfdec", n_images=n_img,
+            captions=hf_captions(n_txt, cfg["vocab_size"], _decoder_pad(cfg),
+                                 seed + 1))
+        out["serving"][name] = serve
+        k1["serving"] += launched
+        print(f"[hfdec] 28(a) {name}: {n / 1e9:.3f} G text parameters, "
+              f"{out['param_bytes'][name]['float32 held'] / 1e9:.2f} GB held "
+              f"in float32 ({2 * n / 1e9:.2f} GB in bf16) of the card's "
+              f"{total / 1e9:.2f} GB; built on the card in "
+              f"{out['build_s'][name]:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+        layers = None if name in HFDEC_FULL_STEPS else HFDEC_STEP_LAYERS
+        for siglip in (False, True):
+            model = _hfdec_model(name, seed + 2, layers, siglip)
+            step = _hf_step(K, model, siglip=siglip, steps=HFDEC_STEPS,
+                            batch=_hfdec_batch(name, seed + 3),
+                            tag=f"hfdec {name}"
+                            + (f" at {layers} layers" if layers else ""))
+            out["steps"][f"{name} {'siglip' if siglip else 'clip'}"] = dict(
+                step, layers=layers or "full")
+            k1["steps"] += step["launches"]["K1"]
+            k2 += step["launches"]["K2"]
+            del model
+            torch.cuda.empty_cache()
+    out["k1"], out["k2"] = k1, k2
+    return out
+
+
+def _relu_flips(arch: str, cpu, gpu, captions) -> dict:
+    """28(c)'s probe of OPT's towers, before the step: the fc1
+    pre-activations of the step's two captions whose sign differs between
+    the card and the CPU (there the ReLU's derivative differs), and the
+    largest of those in magnitude; nothing for the other types."""
+    from cosmos_tpu_torch.models.hf_opt import OPTDecoderLayer
+
+    if HFDEC_SMALL_CONFIGS[arch]["model_type"] != "opt":
+        return {}
+    pre = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        outs = []
+        hooks = [m.fc1.register_forward_hook(
+            lambda mod, args, out, outs=outs: outs.append(out.cpu()))
+            for m in model.modules() if isinstance(m, OPTDecoderLayer)]
+        with torch.inference_mode():
+            model.encode_text(captions.to(next(model.parameters()).device))
+        for h in hooks:
+            h.remove()
+        pre[name] = torch.cat([o.flatten() for o in outs])
+    flipped = (pre["cpu"] > 0) != (pre["card"] > 0)
+    out = dict(relu_units=pre["cpu"].numel(), relu_flipped=int(flipped.sum()),
+               relu_flipped_largest=float(pre["cpu"][flipped].abs().max())
+               if flipped.any() else 0.0)
+    print(f"[hfdec] 28(c) {arch}: {out['relu_flipped']} of "
+          f"{out['relu_units']} fc1 pre-activations of the step's captions "
+          "take the other sign on the card than on the CPU (the largest "
+          f"{out['relu_flipped_largest']:.3g}); ReLU's derivative differs "
+          "there")
+    return out
+
+
+def _hfdec_tokenizers(tmp: str) -> dict:
+    """28(d): the decoder LMs' tokenizer directories written from the
+    seed, each the committed directory's bits, each giving transformers'
+    committed ids of the fixed captions (Llama's and Gemma's classes pad on
+    the left; byte_fallback spells the CJK and emoji captions); the GPT-2
+    directory without a pad token raises transformers' padding error; then
+    captions/s (host) of a fresh tokenizer a directory."""
+    from cosmos_tpu_torch.data.synthetic import _caption
+    from cosmos_tpu_torch.data.tokenizer import HFTokenizer
+
+    D = _hftok_generator()
+    dirs = D.write_decoders(f"{tmp}/decoder_tokenizers")
+    expected = json.loads(D.DECODER_EXPECTED.read_text())
+    check(expected["context"] == HFTOK_CONTEXT, "committed ids' context")
+    rng = np.random.default_rng(HFDEC_SEED)
+    captions = [_caption(rng) for _ in range(HFTOK_CAPTIONS)]
+    out = {}
+    for name, want in expected["dirs"].items():
+        path = dirs[name]
+        check(D.digest(path) == want["digest"],
+              f"28(d) {name}: the written directory is not the committed one")
+        got = HFTokenizer(path)(D.CAPTIONS)
+        rows = np.asarray(want["ids"], np.int32)
+        check(got.dtype == np.int32 and np.array_equal(got, rows),
+              f"28(d) {name}: ids differ from transformers' in "
+              f"{int((got != rows).any(1).sum())} of {len(rows)} captions")
+        t0 = time.perf_counter()
+        tok = HFTokenizer(path)
+        ids = tok(captions)
+        cold = time.perf_counter() - t0
+        check(ids.shape == (HFTOK_CAPTIONS, HFTOK_CONTEXT), "ids' shape")
+        out[name] = dict(padding_side=want["padding_side"],
+                         captions_per_s=HFTOK_CAPTIONS / cold)
+    for name in D.NO_PAD:
+        try:
+            HFTokenizer(dirs[name])(D.CAPTIONS[:1])
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and raised.startswith(
+            "Asking to pad but the tokenizer does not have a padding token"),
+            f"28(d) {name}: padding without a pad token gave {raised!r}")
+    print("[hfdec] 28(d) the ids of " + ", ".join(out) + " equal "
+          "transformers' committed ids; GPT-2 without a pad token raises its "
+          "padding error; captions/s on the host (load and first call): "
+          + ", ".join(f"{k} {v['captions_per_s']:.1f}"
+                      for k, v in out.items()))
+    return out
+
+
+def phase_hf_decoders(K, tmp: str) -> dict:
+    """Phase 28: K1 at the serving geometry, then (a) the six towers at
+    full depth served, (b) their CLIP and SigLIP steps, (c) each type at 2
+    layers card against CPU, (d) the tokenizer directories' ids, (e)
+    TinyLlama under FSDP at world 1 and (f) 2-layer GPT-2 and Llama under
+    TP and FSDP x TP on gloo ranks."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    gen = torch.Generator(device="cuda").manual_seed(HFDEC_SEED)
+    rows = [kernel_row(K.fa, *HFMORE_K1_GEOMETRY, torch.bfloat16, gen)]
+    done("kernels")
+    # (f)'s gloo ranks run while this process does the parts that time
+    # nothing: (c) and (d); the timed parts come after them
+    with _hfdir_tp_ranks(tmp, name="hfdec", label="28(f)",
+                         archs=HFDEC_TP_ARCHS, configs=HFDEC_SMALL_CONFIGS,
+                         pads=HFDEC_SMALL_PAD) as started:
+        zero_launches(K)
+        card_vs_cpu = _hf_card_vs_cpu(
+            HFDEC_SMALL_CONFIGS, HFDEC_SMALL_PAD, tag="hfdec",
+            grad_atol=HFDEC_GRAD_ATOL, grad_norm=True, grad_rtol={
+                a: HFDEC_RELU_GRAD_RTOL for a, c in HFDEC_SMALL_CONFIGS.items()
+                if c["model_type"] == "opt"}, probe=_relu_flips)
+        small = read_launches(K)
+        done("(c) card vs CPU")
+        tokenizers = _hfdec_tokenizers(tmp)
+        done("(d) tokenizers")
+        tp = _hfdir_tp(K, started)
+    done("(f) TP and FSDP x TP")
+    served = _hfdec_serve(K)
+    done("(a)-(b) serving, steps")
+    fsdp = _hfdir_fsdp(K, make=lambda: _hfdec_model(
+        HFDEC_FSDP_TOWER, HFDEC_SEED + 200),
+        batch=_hfdec_batch(HFDEC_FSDP_TOWER, HFDEC_SEED + 201),
+        label="28(e)", model_name=f"{HFDEC_FSDP_TOWER}-{HF_VISION}")
+    done("(e) FSDP at world 1")
+    fsdp_k = {k: sum(x[k] for name, r in fsdp.items() if name != "off_bits"
+                     for x in r["launches"]) for k in ("K1", "K2")}
+    k1 = {"HF decoders serving": served["k1"]["serving"],
+          "HF decoders steps": served["k1"]["steps"],
+          "HF decoders 2-layer card vs CPU": small["K1"],
+          "HF decoders under FSDP": fsdp_k["K1"],
+          "HF decoders under TP, 2 layers": tp["launches"]["K1"]}
+    k2 = {"HF decoders steps": served["k2"],
+          "HF decoders 2-layer card vs CPU": small["K2"],
+          "HF decoders under FSDP": fsdp_k["K2"],
+          "HF decoders under TP, 2 layers": tp["launches"]["K2"]}
+    check(all(v > 0 for v in k1.values()) and all(v > 0 for v in k2.values()),
+          f"28: a path launched no K1 or K2: {k1} {k2}")
+    out = dict(serving=served["serving"], steps=served["steps"],
+               build_s=served["build_s"], text_params=served["params"],
+               param_bytes=served["param_bytes"],
+               card_bytes=served["card_bytes"], card_vs_cpu=card_vs_cpu,
+               tokenizers=tokenizers, fsdp=fsdp, tp=tp, kernel_rows=rows,
+               k1_launches=k1, k2_launches=k2,
+               launches_by_geometry={"K1 serving": 0,
+                                     "K2 step": served["k2"] + fsdp_k["K2"]},
+               parts_s=parts, phase_s=time.perf_counter() - t0)
+    print(f"[hfdec] phase 28 in {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+          + "); text tower parameters " + ", ".join(
+              f"{k} {v / 1e6:.2f} M" for k, v in served["params"].items())
+          + "; K1 launches " + " ".join(f"{k}={v}" for k, v in k1.items())
+          + "; K2 launches " + " ".join(f"{k}={v}" for k, v in k2.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the card",
@@ -8182,6 +8543,7 @@ def main() -> int:
         hfdir = timed("25", phase_hf_local, K, work)
         hftok = timed("26", phase_hf_tokenizer, K, work)
         hfmore = timed("27", phase_hf_more, K, work, hftok)
+        hfdec = timed("28", phase_hf_decoders, K, work)
     with tempfile.TemporaryDirectory(prefix="cosmos_last_flags_") as tmp:
         last = timed("17", phase_last_flags, K, card, train["step_ms"], tmp)
     seg_k1 = sum(r["launches"]["K1"] for r in segmentation["runs"].values())
@@ -8240,7 +8602,8 @@ def main() -> int:
         + sum(hf["k1_launches"].values())
         + sum(hfdir["k1_launches"].values())
         + sum(hftok["k1_launches"].values())
-        + sum(hfmore["k1_launches"].values()),
+        + sum(hfmore["k1_launches"].values())
+        + sum(hfdec["k1_launches"].values()),
         "launches_by_path": {"serving": serving["launches"],
                              "training": train["k1_launches"],
                              **{f"training {s}": r["launches"]["K1"]
@@ -8261,7 +8624,8 @@ def main() -> int:
                              **hf["k1_launches"],
                              **hfdir["k1_launches"],
                              **hftok["k1_launches"],
-                             **hfmore["k1_launches"]},
+                             **hfmore["k1_launches"],
+                             **hfdec["k1_launches"]},
         **{k: k1_row[k] for k in attention_keys},
     }, {
         # K1 at ViT-L-14's geometry (16 heads, D 1024): phase 20(a)'s
@@ -8291,7 +8655,8 @@ def main() -> int:
         + sum(siglip["k2_launches"].values())
         + sum(hf["k2_launches"].values())
         + sum(hfdir["k2_launches"].values())
-        + sum(hfmore["k2_launches"].values()),
+        + sum(hfmore["k2_launches"].values())
+        + sum(hfdec["k2_launches"].values()),
         "launches_by_path": {"training": train["k2_launches"],
                              **{f"training {s}": r["launches"]["K2"]
                                 for s, r in train_ln.items()},
@@ -8307,7 +8672,8 @@ def main() -> int:
                              **siglip["k2_launches"],
                              **hf["k2_launches"],
                              **hfdir["k2_launches"],
-                             **hfmore["k2_launches"]},
+                             **hfmore["k2_launches"],
+                             **hfdec["k2_launches"]},
         **{k: k2_row[k] for k in attention_keys},
     }]
     # K1 and K2 at the SigLIP towers' geometries (phase 23): the bf16
@@ -8335,9 +8701,9 @@ def main() -> int:
             **{k: pick(table, (label, torch.bfloat16))[k]
                for k in attention_keys}})
         check(n > 0, f"{key} never launched at the SigLIP geometry")
-    # K1 and K2 at roberta-ViT-B-32's vision geometries (phases 24-27):
+    # K1 and K2 at roberta-ViT-B-32's vision geometries (phases 24-28):
     # the bf16 image calls of 24(a), (c), 25(a), 26(b) and 27(e), the steps
-    # of 24(b), (e), 25(a), (b), 27(b) and (f)
+    # of 24(b), (e), 25(a), (b), 27(b), (f), 28(b) and (e)
     for key, name, source, replaces, table, (label, *_) in (
             ("K1 serving", "fused_attention_qkv_fwd_hf_vision",
              "fused_attention_fwd.cu", "cosmos_tpu/ops/fused_attention.py:101",
@@ -8351,7 +8717,9 @@ def main() -> int:
                    f"HF tokenizers, {key}":
                        hftok["launches_by_geometry"].get(key, 0),
                    f"HF towers beyond the five, {key}":
-                       hfmore["launches_by_geometry"][key]}
+                       hfmore["launches_by_geometry"][key],
+                   f"HF decoder LMs, {key}":
+                       hfdec["launches_by_geometry"][key]}
         n = sum(by_path.values())
         kernels.append({
             "name": name, "route": "cuda",
@@ -8422,6 +8790,7 @@ def main() -> int:
                   towers=towers, beyond_dp=beyond, weights_in=weights,
                   coca=coca, slice16=slice16, siglip=siglip, hf=hf,
                   hf_local=hfdir, hf_tokenizer=hftok, hf_more=hfmore,
+                  hf_decoders=hfdec,
                   phase_s=phase_s, total_s=time.perf_counter() - t0,
                   kernels=kernels)
     out_dir = ROOT / "chiprun_out"

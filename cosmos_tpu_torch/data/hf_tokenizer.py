@@ -3,21 +3,27 @@
 ``AutoTokenizer.from_pretrained(dir)`` and ``batch_encode_plus`` do in the
 JAX package's ``HFTokenizer``, for the text towers the port builds: the
 classes of BERT, DistilBERT, ELECTRA, RoBERTa (RoBERTa-PreLayerNorm's
-too), XLM-RoBERTa, ALBERT, T5 and mT5).
+too), XLM-RoBERTa, ALBERT, T5 and mT5, GPT-2 (OPT's too), Llama
+(Mistral's too) and Gemma).
 
 ``load(path, **overrides)`` reads a directory as ``AutoTokenizer`` does:
 ``tokenizer_config.json`` (the class, its keywords, ``padding_side``,
 ``truncation_side``), ``special_tokens_map.json`` and ``tokenizer.json``;
 without ``tokenizer.json``, a BERT, DistilBERT or ELECTRA ``vocab.txt`` or a
-RoBERTa ``vocab.json`` + ``merges.txt`` built into the pipeline
+RoBERTa or GPT-2 ``vocab.json`` + ``merges.txt`` built into the pipeline
 transformers' converters build.  It returns a ``Pipeline``, whose
 ``encode_batch(texts, max_length)`` gives the ids of ``truncation=True,
 padding="max_length"``.
 
 The pipeline is ``tokenizers``': added tokens split out (the special ones
 before normalization), a normalizer, a pre-tokenizer, a model (WordPiece,
-byte-level BPE, Unigram), truncation leaving room for the post-processor's
-specials, the post-processor, padding.  Each component reads the fields
+byte-level or SentencePiece-style BPE, Unigram; ``byte_fallback`` spells
+a piece the vocabulary lacks as the ``<0xNN>`` pieces of its UTF-8 bytes,
+where all of them exist), truncation leaving room for the
+post-processor's specials, the post-processor, padding.  A class with no
+pad token encodes, and ``encode_batch`` raises transformers' padding
+``ValueError``, as the JAX package's ``batch_encode_plus(padding=
+"max_length")`` does.  Each component reads the fields
 ``tokenizers`` 0.22 reads, the release files' older ones included.
 
 ``tokenizers`` reads older Unicode tables than ``unicodedata`` for some of
@@ -26,8 +32,8 @@ normalizer) by UAX #29, which the standard library does not do.  Both come
 from ``assets/hf_unicode.json.gz`` (its generator is
 ``tests/torch_hf_unicode.py``; the grapheme properties are Unicode 17.0's).
 
-Deliberate differences: ``byte_fallback``, BPE dropout and components the
-five types do not use are refused by name; ``Metaspace``'s
+Deliberate differences: BPE dropout and components the port's types do
+not use are refused by name; ``Metaspace``'s
 ``prepend_scheme: "first"`` prepends to the piece that starts the text,
 where ``tokenizers`` also looks through a normalizer that deleted the
 text's first characters.
@@ -585,6 +591,13 @@ def _merges(raw) -> List[Tuple[str, str]]:
     return out
 
 
+def byte_pieces(s: str, vocab: Dict[str, int]) -> Optional[List[int]]:
+    """The ids of ``<0xNN>`` for each UTF-8 byte of ``s``, or None where
+    the vocabulary lacks one (``tokenizers``' ``byte_fallback``)."""
+    ids = [vocab.get(f"<0x{b:02X}>") for b in s.encode("utf-8")]
+    return None if None in ids else ids
+
+
 class BPE:
     """Merges by rank over the word's symbols (``tokenizers``' queue: the
     lowest rank first, then the leftmost)."""
@@ -592,8 +605,7 @@ class BPE:
     def __init__(self, spec: dict) -> None:
         if spec.get("dropout") not in (None, 0, 0.0):
             raise refuse("BPE dropout")
-        if spec.get("byte_fallback"):
-            raise refuse("byte_fallback")
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
         self.vocab: Dict[str, int] = spec["vocab"]
         self.unk = spec.get("unk_token")
         self.prefix = spec.get("continuing_subword_prefix") or ""
@@ -617,7 +629,14 @@ class BPE:
                     out.append(unk)
                     unk = None
                 out.append(self.vocab[s])
-            elif self.unk is not None:
+                continue
+            if self.byte_fallback:
+                spelled = byte_pieces(s, self.vocab)
+                if spelled is not None:
+                    # a pending unk stays pending, as in tokenizers
+                    out += spelled
+                    continue
+            if self.unk is not None:
                 if unk is not None and not self.fuse_unk:
                     out.append(unk)
                 unk = self.vocab[self.unk]
@@ -669,11 +688,11 @@ class BPE:
 
 class Unigram:
     """Viterbi over the pieces' scores; a character no piece starts with
-    costs ``min_score - 10`` and is the unk, consecutive unks fused."""
+    costs ``min_score - 10`` and is the unk, consecutive unks fused (and,
+    under ``byte_fallback``, spelled in ``<0xNN>`` pieces)."""
 
     def __init__(self, spec: dict) -> None:
-        if spec.get("byte_fallback"):
-            raise refuse("byte_fallback")
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
         self.pieces = [(p, float(s)) for p, s in spec["vocab"]]
         self.ids = {p: i for i, (p, _) in enumerate(self.pieces)}
         self.unk_id = spec.get("unk_id")
@@ -720,7 +739,13 @@ class Unigram:
             end = s
         if unk:
             strings.append("".join(reversed(unk)))
-        out = [ids.get(t, self.unk_id) for t in reversed(strings)]
+        out = []
+        for t in reversed(strings):
+            if t in ids:
+                out.append(ids[t])
+                continue
+            spelled = byte_pieces(t, ids) if self.byte_fallback else None
+            out += [self.unk_id] if spelled is None else spelled
         self.cache[text] = out
         return out
 
@@ -856,13 +881,23 @@ def _is_word(c: str) -> bool:
 
 # ------------------------------------------------------------------ pipeline
 
+# transformers' refusal to pad with a tokenizer that has no pad token
+PAD_REFUSAL = (
+    "Asking to pad but the tokenizer does not have a padding token. Please "
+    "select a token to use as `pad_token` `(tokenizer.pad_token = "
+    "tokenizer.eos_token e.g.)` or add a new pad token via "
+    "`tokenizer.add_special_tokens({'pad_token': '[PAD]'})`.")
+
+
 class Pipeline:
     """One tokenizer: ``encode(text)`` without specials, ``encode_batch``
     as ``batch_encode_plus(max_length=, padding="max_length",
-    truncation=True)`` gives it."""
+    truncation=True)`` gives it (``pad_id`` None: transformers' padding
+    ``ValueError``)."""
 
-    def __init__(self, spec: dict, added: List[dict], *, pad_id: int,
-                 sep_id: Optional[int], padding_side: str = "right",
+    def __init__(self, spec: dict, added: List[dict], *,
+                 pad_id: Optional[int], sep_id: Optional[int],
+                 padding_side: str = "right",
                  truncation_side: str = "right") -> None:
         self.normalizer = normalizer(spec.get("normalizer"))
         self.pre_tokenizer = pre_tokenizer(spec.get("pre_tokenizer"))
@@ -900,6 +935,8 @@ class Pipeline:
 
     def encode_batch(self, texts: Sequence[str], max_length: int
                      ) -> np.ndarray:
+        if self.pad_id is None:
+            raise ValueError(PAD_REFUSAL)
         keep = max_length - self.post.added
         if keep < 0:
             raise ValueError(f"max_length {max_length} leaves no room for "
@@ -937,7 +974,19 @@ _CLASSES = {
     "Albert": dict(bos_token="[CLS]", eos_token="[SEP]", unk_token="<unk>",
                    sep_token="[SEP]", pad_token="<pad>", cls_token="[CLS]",
                    mask_token="[MASK]"),
+    # no pad token: padding to max_length raises
+    "GPT2": dict(unk_token="<|endoftext|>", bos_token="<|endoftext|>",
+                 eos_token="<|endoftext|>"),
+    "Llama": dict(unk_token="<unk>", bos_token="<s>", eos_token="</s>"),
+    "Gemma": dict(unk_token="<unk>", bos_token="<bos>", eos_token="<eos>",
+                  pad_token="<pad>"),
 }
+# the SentencePiece-BPE classes: their fast constructor rewrites the
+# post-processor from add_bos_token (default true) and add_eos_token
+# (default false), and their padding_side is "left" unless told otherwise
+_SPM_BPE = ("Llama", "Gemma")
+# the classes transformers has only a SentencePiece (slow) class of
+_SPM_ONLY = ("GPTSw3",)
 # the WordPiece classes, whose vocab.txt BertConverter builds and whose
 # keywords rewrite the BertNormalizer
 _WORDPIECE = ("Bert", "DistilBert", "Electra")
@@ -949,13 +998,16 @@ _SPECIAL = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
 _MODEL_TYPES = {"bert": "Bert", "roberta": "Roberta",
                 "xlm-roberta": "XLMRoberta", "t5": "T5", "mt5": "T5",
                 "distilbert": "DistilBert", "electra": "Electra",
-                "albert": "Albert", "roberta-prelayernorm": "Roberta"}
+                "albert": "Albert", "roberta-prelayernorm": "Roberta",
+                "gpt2": "GPT2", "opt": "GPT2", "llama": "Llama",
+                "mistral": "Llama", "gemma": "Gemma", "gpt-sw3": "GPTSw3"}
 # the keywords the port reads, beside the special tokens
 KEYWORDS = frozenset(_SPECIAL) | {
     "additional_special_tokens", "padding_side", "truncation_side",
     "model_max_length", "do_lower_case", "strip_accents",
     "tokenize_chinese_chars", "do_basic_tokenize", "add_prefix_space",
-    "trim_offsets", "extra_ids", "remove_space", "keep_accents"}
+    "trim_offsets", "extra_ids", "remove_space", "keep_accents",
+    "add_bos_token", "add_eos_token"}
 
 
 def _json(path: Path) -> dict:
@@ -974,7 +1026,7 @@ def _class_name(path: Path, config: dict) -> str:
     base = name[:-4] if name.endswith("Fast") else name
     base = base[:-9] if base.endswith("Tokenizer") else base
     base = {"MT5": "T5"}.get(base, base)
-    if base not in _CLASSES:
+    if base not in _CLASSES and base not in _SPM_ONLY:
         raise refuse(f"{path}: the tokenizer class {name}")
     return base
 
@@ -1040,6 +1092,32 @@ def roberta_spec(path: Path, kw: dict) -> dict:
         "added_tokens": []}
 
 
+def gpt2_spec(path: Path, kw: dict) -> dict:
+    """``GPT2Converter``'s pipeline of ``vocab.json`` + ``merges.txt``
+    (OPT's directories too): its post-processor adds the bos token under
+    ``add_bos_token``, whose id ``load`` fills in."""
+    spec = roberta_spec(path, kw)
+    if kw.get("add_bos_token", False):
+        bos = kw.get("bos_token", _CLASSES["GPT2"]["bos_token"])
+        spec["post_processor"] = _template(_content(bos)[0], None)
+    else:
+        spec["post_processor"] = {"type": "ByteLevel", "trim_offsets": False}
+    return spec
+
+
+def _template(bos: Optional[str], eos: Optional[str]) -> dict:
+    """``TemplateProcessing`` of ``[bos] $A [eos]``; the tokens' ids are
+    filled in by ``load``."""
+    single = [{"Sequence": {"id": "A", "type_id": 0}}]
+    if bos is not None:
+        single.insert(0, {"SpecialToken": {"id": bos, "type_id": 0}})
+    if eos is not None:
+        single.append({"SpecialToken": {"id": eos, "type_id": 0}})
+    return {"type": "TemplateProcessing", "single": single,
+            "special_tokens": {t: {"id": t, "ids": [None], "tokens": [t]}
+                               for t in (bos, eos) if t is not None}}
+
+
 def _class_rewrites(cls: str, spec: dict, kw: dict) -> None:
     """What the fast classes' constructors change in ``tokenizer.json``'s
     pipeline that reaches the ids: BERT's normalizer from its keywords, and
@@ -1047,7 +1125,11 @@ def _class_rewrites(cls: str, spec: dict, kw: dict) -> None:
     (false by default).  RoBERTa's post-processor takes
     ``add_prefix_space`` and ``trim_offsets`` too, which move offsets
     only; ALBERT's ``do_lower_case``, ``remove_space`` and
-    ``keep_accents`` change nothing where a ``tokenizer.json`` is read."""
+    ``keep_accents`` change nothing where a ``tokenizer.json`` is read.
+    Llama's and Gemma's post-processor becomes ``[bos] $A [eos]`` from
+    ``add_bos_token`` and ``add_eos_token`` (``update_post_processor``).
+    GPT-2's ``add_bos_token`` reaches the ids only through the converter
+    of ``vocab.json`` + ``merges.txt`` (``gpt2_spec``)."""
     n = spec.get("normalizer")
     if cls in _WORDPIECE and n and n.get("type") == "BertNormalizer":
         state = {"clean_text": n.get("clean_text", True),
@@ -1063,6 +1145,18 @@ def _class_rewrites(cls: str, spec: dict, kw: dict) -> None:
     pre = spec.get("pre_tokenizer")
     if pre and pre.get("type") == "ByteLevel":
         pre["add_prefix_space"] = kw.get("add_prefix_space", False)
+    if cls in _SPM_BPE:
+        bos = kw.get("bos_token", _CLASSES[cls]["bos_token"])
+        eos = kw.get("eos_token", _CLASSES[cls]["eos_token"])
+        add_bos = kw.get("add_bos_token", True)
+        add_eos = kw.get("add_eos_token", False)
+        if bos is None and add_bos:
+            raise ValueError("add_bos_token = True but bos_token = None")
+        if eos is None and add_eos:
+            raise ValueError("add_eos_token = True but eos_token = None")
+        spec["post_processor"] = _template(
+            _content(bos)[0] if add_bos else None,
+            _content(eos)[0] if add_eos else None)
 
 
 def _specials(cls: str, kw: dict) -> Tuple[Dict[str, Tuple[str, dict]],
@@ -1111,13 +1205,21 @@ def load(path, **overrides) -> Pipeline:
         # T5TokenizerFast rebuilds its pipeline from the SentencePiece model
         raise refuse(f"{path}: add_prefix_space on a T5 tokenizer",
                      SPM_ITEM)
+    if cls == "Llama" and kw.get("add_prefix_space") is not None:
+        # so does LlamaTokenizerFast (from_slow)
+        raise refuse(f"{path}: add_prefix_space on a Llama tokenizer",
+                     SPM_ITEM)
+    if cls in _SPM_ONLY:
+        raise refuse(f"{path}: the tokenizer class {cls}Tokenizer, which "
+                     "transformers builds from the SentencePiece .model "
+                     "alone", SPM_ITEM)
     if (path / "tokenizer.json").is_file():
         spec = _json(path / "tokenizer.json")
     elif cls in _WORDPIECE and (path / "vocab.txt").is_file():
         spec = bert_spec(path, kw)
-    elif cls == "Roberta" and (path / "vocab.json").is_file() and (
-            path / "merges.txt").is_file():
-        spec = roberta_spec(path, kw)
+    elif cls in ("Roberta", "GPT2") and (path / "vocab.json").is_file() \
+            and (path / "merges.txt").is_file():
+        spec = (roberta_spec if cls == "Roberta" else gpt2_spec)(path, kw)
     elif list(path.glob("*.model")):
         raise refuse(f"{path}: a SentencePiece .model with no "
                      "tokenizer.json", SPM_ITEM)
@@ -1126,8 +1228,6 @@ def load(path, **overrides) -> Pipeline:
                      "tokenizer.json")
     _class_rewrites(cls, spec, kw)
     m = spec["model"]
-    if m.get("byte_fallback"):
-        raise refuse(f"{path}: byte_fallback")
     vocab = (m["vocab"] if isinstance(m["vocab"], dict)
              else {p: i for i, (p, _) in enumerate(m["vocab"])})
     added: Dict[str, dict] = {}
@@ -1169,16 +1269,21 @@ def load(path, **overrides) -> Pipeline:
         unk = named.get("unk_token")
         return tid if tid is not None or unk is None else token_id(unk[0])
 
+    post = spec.get("post_processor") or {}
+    if post.get("type") == "TemplateProcessing":
+        for t in post.get("special_tokens", {}).values():
+            if t["ids"] == [None]:
+                t["ids"] = [token_id(t["id"])]
     pad = named.get("pad_token")
-    if pad is None:
-        raise ValueError(f"{path}: padding to max_length needs a pad token")
     sep = named.get("sep_token")
     padding = spec.get("padding") or {}
     truncation = spec.get("truncation") or {}
     return Pipeline(
         spec, sorted(added.values(), key=lambda t: t["id"]),
-        pad_id=token_id(pad[0]), sep_id=token_id(sep[0]) if sep else None,
-        padding_side=kw.get("padding_side", padding.get("direction",
-                                                        "right")).lower(),
+        pad_id=token_id(pad[0]) if pad else None,
+        sep_id=token_id(sep[0]) if sep else None,
+        padding_side=kw.get("padding_side", padding.get(
+            "direction", "left" if cls in _SPM_BPE else "right")
+        ).lower(),
         truncation_side=kw.get("truncation_side", truncation.get(
             "direction", "right")).lower())

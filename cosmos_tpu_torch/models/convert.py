@@ -237,9 +237,13 @@ def hf_tree_entries(text: Dict[str, Any]) -> List[Entry]:
 def hf_encoder_entries(encoder: torch.nn.Module) -> List[Entry]:
     """(name, flax path, transform) of every parameter of an HF tower's
     encoder (``hf_bert.BertModel``, ``hf_distilbert.DistilBertModel``,
-    ``hf_albert.AlbertModel``, ``hf_t5.T5EncoderModel``), by the type
-    of the module that holds it: the paths of transformers' Flax module."""
+    ``hf_albert.AlbertModel``, ``hf_t5.T5EncoderModel``,
+    ``hf_gpt2.GPT2Model``, ``hf_opt.OPTModel``, ``hf_llama.LlamaModel``),
+    by the type of the module that holds it: the paths of transformers'
+    Flax module.  A GPT-2 ``Conv1D`` weight ``[in, out]`` is the transpose
+    of Flax's ``[out, in]`` kernel, as a Dense weight is of its kernel."""
     from .hf_bert import Embed
+    from .hf_gpt2 import Conv1D
     from .layers import LayerNorm, Linear
 
     entries: List[Entry] = []
@@ -247,7 +251,7 @@ def hf_encoder_entries(encoder: torch.nn.Module) -> List[Entry]:
         path = tuple(mname.split(".")) if mname else ()
         for pname, _ in mod.named_parameters(recurse=False):
             tf = None
-            if isinstance(mod, Linear) and pname == "weight":
+            if isinstance(mod, (Linear, Conv1D)) and pname == "weight":
                 leaf, tf = "kernel", "t"
             elif isinstance(mod, Embed):
                 leaf = "embedding"
@@ -278,7 +282,10 @@ HF_BASE_MODEL_PREFIX = {"bert": "bert", "roberta": "roberta",
                         "xlm-roberta": "roberta", "t5": "transformer",
                         "mt5": "transformer", "distilbert": "distilbert",
                         "electra": "electra", "albert": "albert",
-                        "roberta-prelayernorm": "roberta_prelayernorm"}
+                        "roberta-prelayernorm": "roberta_prelayernorm",
+                        "gpt2": "transformer", "opt": "model",
+                        "llama": "model", "mistral": "model",
+                        "gemma": "model"}
 
 
 def hf_pretrained_state_dict(weights: Dict[str, Any], kind: str,
@@ -308,13 +315,16 @@ def hf_pretrained_state_dict(weights: Dict[str, Any], kind: str,
             else:
                 unexpected.append(key)
     else:
+        head: Dict[str, Any] = {}
         if prefix in weights:
+            head = {k: v for k, v in weights.items() if k != prefix}
             weights = weights[prefix]
         flat = dict(_leaves(weights))
         for name, path, tf in hf_encoder_entries(encoder):
             if path in flat:
                 state[name] = _from_flax(_tensor(flat.pop(path)), tf)
-        unexpected = ["/".join(path) for path in flat]
+        unexpected = ["/".join(path) for path in flat] + [
+            "/".join(path) for path, _ in _leaves(head)]
     for name, value in state.items():
         if tuple(value.shape) != tuple(params[name].shape):
             raise ValueError(

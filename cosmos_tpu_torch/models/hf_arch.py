@@ -5,10 +5,13 @@
 of transformers' config class of the type for every field the port's
 encoders read (``cosmos_tpu/models/hf_model.py`` ``resolve_hf_config``):
 ``hf_bert.py`` (BERT, RoBERTa, XLM-RoBERTa, ELECTRA,
-RoBERTa-PreLayerNorm), ``hf_distilbert.py``, ``hf_albert.py`` and
-``hf_t5.py`` (T5, mT5).  The dict's other keys (transformers' bookkeeping:
-``architectures``, ``transformers_version``, ``torch_dtype``, dropout
-rates, ...) are left out.  The port never imports ``transformers``: the
+RoBERTa-PreLayerNorm), ``hf_distilbert.py``, ``hf_albert.py``,
+``hf_t5.py`` (T5, mT5), and the decoder LMs ``hf_gpt2.py`` (GPT-2, which
+also serves ``gpt-sw3``: ``AutoConfig.for_model("gpt-sw3")`` is a
+``GPT2Config`` of ``model_type`` ``gpt2``), ``hf_opt.py`` and
+``hf_llama.py`` (Llama, Mistral, Gemma).  The dict's other keys
+(transformers' bookkeeping: ``architectures``, ``transformers_version``,
+``torch_dtype``, dropout rates, ...) are left out.  The port never imports ``transformers``: the
 card's machine does not have it.
 
 T5's ``feed_forward_proj`` parses as transformers parses it: ``"relu"`` or
@@ -16,7 +19,14 @@ T5's ``feed_forward_proj`` parses as transformers parses it: ``"relu"`` or
 a saved config's own ``dense_act_fn`` and ``is_gated_act`` win over the
 parse, as they do in ``T5Config``.  DistilBERT's config takes BERT's
 names for its own (``hidden_size`` for ``dim``, ...), as its
-``attribute_map`` does.
+``attribute_map`` does; GPT-2's takes them for ``n_embd``, ``n_layer``,
+``n_head`` and ``n_positions``.  As their configs do, Llama and Mistral
+fill an unset ``num_key_value_heads`` with ``num_attention_heads``, and
+OPT an unset ``word_embed_proj_dim`` with ``hidden_size``.  ``mlp_act``
+is the activation the Flax MLP of a Llama-family type applies: Llama's
+and Mistral's ``hidden_act``; Gemma's ``hidden_activation``, and
+``gelu_pytorch_tanh`` where that is unset, whatever ``hidden_act`` says
+(``FlaxGemmaMLP``).
 
 A type is refused as the JAX package refuses it, in its order of checks,
 by the lists of ``assets/hf_model_types.json`` (taken from transformers
@@ -41,6 +51,10 @@ from typing import Any, Dict
 BERT_FAMILY = ("bert", "roberta", "xlm-roberta", "electra",
                "roberta-prelayernorm")
 T5_FAMILY = ("t5", "mt5")
+# the decoder LMs of hf_llama.py
+LLAMA_FAMILY = ("llama", "mistral", "gemma")
+# the types AutoConfig.for_model resolves to another type's config
+TYPE_ALIASES = {"gpt-sw3": "gpt2"}
 
 _BERT = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
              num_attention_heads=12, intermediate_size=3072,
@@ -54,6 +68,11 @@ _T5 = dict(vocab_size=32128, d_model=512, d_kv=64, d_ff=2048, num_layers=6,
            initializer_factor=1.0, feed_forward_proj="relu",
            tie_word_embeddings=True, pad_token_id=0, is_decoder=False,
            is_encoder_decoder=True)
+_LLAMA = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+              num_hidden_layers=32, num_attention_heads=32,
+              num_key_value_heads=None, hidden_act="silu",
+              max_position_embeddings=2048, initializer_range=0.02,
+              rms_norm_eps=1e-6, pad_token_id=None, is_encoder_decoder=False)
 DEFAULTS: Dict[str, Dict[str, Any]] = {
     "bert": _BERT,
     "roberta": dict(_BERT, vocab_size=50265, pad_token_id=1),
@@ -79,10 +98,34 @@ DEFAULTS: Dict[str, Dict[str, Any]] = {
     "mt5": dict(_T5, vocab_size=250112, d_ff=1024, num_layers=8,
                 num_heads=6, feed_forward_proj="gated-gelu",
                 tie_word_embeddings=False),
+    "gpt2": dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+                 n_head=12, n_inner=None, activation_function="gelu_new",
+                 layer_norm_epsilon=1e-5, initializer_range=0.02,
+                 pad_token_id=None, is_encoder_decoder=False),
+    "opt": dict(vocab_size=50272, hidden_size=768, num_hidden_layers=12,
+                ffn_dim=3072, max_position_embeddings=2048,
+                do_layer_norm_before=True, _remove_final_layer_norm=False,
+                word_embed_proj_dim=None, num_attention_heads=12,
+                activation_function="relu", init_std=0.02, pad_token_id=1,
+                is_encoder_decoder=False),
+    # LlamaConfig's defaults are Llama-2-7B's, MistralConfig's
+    # Mistral-7B's, GemmaConfig's gemma-7b's
+    "llama": dict(_LLAMA, attention_bias=False),
+    "mistral": dict(_LLAMA, intermediate_size=14336, num_key_value_heads=8,
+                    max_position_embeddings=131072, sliding_window=4096),
+    "gemma": dict(_LLAMA, vocab_size=256000, hidden_size=3072,
+                  intermediate_size=24576, num_hidden_layers=28,
+                  num_attention_heads=16, num_key_value_heads=16,
+                  head_dim=256, hidden_act="gelu_pytorch_tanh",
+                  hidden_activation=None, max_position_embeddings=8192,
+                  pad_token_id=0, attention_bias=False),
 }
-# DistilBertConfig.attribute_map
+# DistilBertConfig.attribute_map, GPT2Config.attribute_map
 ALIASES = {"distilbert": {"hidden_size": "dim", "num_attention_heads":
-                          "n_heads", "num_hidden_layers": "n_layers"}}
+                          "n_heads", "num_hidden_layers": "n_layers"},
+           "gpt2": {"hidden_size": "n_embd", "max_position_embeddings":
+                    "n_positions", "num_attention_heads": "n_head",
+                    "num_hidden_layers": "n_layer"}}
 
 UNPORTED = ("the ROADMAP.md item \"HF text towers: Flax architectures the "
             "port has not written\"")
@@ -154,6 +197,7 @@ def resolve_hf_config(hf_model_config: Dict[str, Any]) -> SimpleNamespace:
     fields the encoders read, and ``model_type``)."""
     d = dict(hf_model_config)
     model_type = d.pop("model_type")
+    model_type = TYPE_ALIASES.get(model_type, model_type)
     if model_type not in DEFAULTS or (
             d.get("is_encoder_decoder") and model_type not in T5_FAMILY):
         refuse(model_type, d)
@@ -167,4 +211,13 @@ def resolve_hf_config(hf_model_config: Dict[str, Any]) -> SimpleNamespace:
         act, gated = _parse_ff(fields["feed_forward_proj"])
         fields["dense_act_fn"] = d.get("dense_act_fn", act)
         fields["is_gated_act"] = d.get("is_gated_act", gated)
+    if model_type in ("llama", "mistral") and \
+            fields["num_key_value_heads"] is None:
+        fields["num_key_value_heads"] = fields["num_attention_heads"]
+    if model_type == "opt" and fields["word_embed_proj_dim"] is None:
+        fields["word_embed_proj_dim"] = fields["hidden_size"]
+    if model_type in LLAMA_FAMILY:
+        fields["mlp_act"] = (
+            (fields["hidden_activation"] or "gelu_pytorch_tanh")
+            if model_type == "gemma" else fields["hidden_act"])
     return SimpleNamespace(**fields)

@@ -118,15 +118,19 @@ class LayerNorm(layers.LayerNorm):
 
 
 def mask_bias(mask: torch.Tensor, dtype: torch.dtype,
-              causal: bool = False) -> torch.Tensor:
+              causal: bool = False, window: Optional[int] = None
+              ) -> torch.Tensor:
     """A ``[B, L]`` 0/1 mask as the additive ``[B, 1, 1, L]`` bias of
     transformers' Flax attention: 0 or ``finfo(dtype).min``; ``causal``
     combines it with ``make_causal_mask`` (key <= query), ``[B, 1, L,
-    L]``."""
+    L]``, and ``window`` with Flax Mistral's ``triu(causal, k=-window)``
+    (key >= query - window)."""
     keep = mask[:, None, None, :] > 0
     if causal:
         pos = torch.arange(mask.shape[1], device=mask.device)
         keep = keep & (pos[None, :] <= pos[:, None])
+        if window is not None:
+            keep = keep & (pos[None, :] >= pos[:, None] - window)
     zero = torch.zeros((), dtype=dtype, device=mask.device)
     low = torch.full((), torch.finfo(dtype).min, dtype=dtype,
                      device=mask.device)

@@ -3,8 +3,9 @@ encoder built from an offline ``hf_model_config`` or the ``config.json``
 of a local ``hf_model_name`` directory (``hf_arch.py``: BERT, RoBERTa,
 XLM-RoBERTa, ELECTRA and RoBERTa-PreLayerNorm in ``hf_bert.py``,
 DistilBERT in ``hf_distilbert.py``, ALBERT in ``hf_albert.py``, T5 and mT5
-in ``hf_t5.py``), a pooler and a projection head to the CLIP embedding
-width.
+in ``hf_t5.py``, the decoder LMs GPT-2 in ``hf_gpt2.py``, OPT in
+``hf_opt.py``, Llama, Mistral and Gemma in ``hf_llama.py``), a pooler and
+a projection head to the CLIP embedding width.
 
 ``HFTextTower`` is OpenCLIP's ``HFTextEncoder`` under the ``text`` of its
 ``CustomTextCLIP``: the encoder is ``transformer``, the head ``proj``
@@ -13,7 +14,8 @@ hidden width ``(d + out) // 2``, exact GELU, no biases, for ``mlp``).  Its
 forward is the JAX tower's: the attention mask is ``text != pad_id`` with
 the config's pad id, RoBERTa-family position ids count up from
 ``pad_id + 1`` over real tokens and sit at ``pad_id`` on pads, token types
-are zeros, and ``cls_pooler`` takes the encoder's pooler output (the
+are zeros (the decoder LMs take neither: their positions are ``arange``),
+and ``cls_pooler`` takes the encoder's pooler output (the
 first state where it has none) and the states after the first as tokens.
 
 ``load_hf_pretrained`` reads a local directory's weights as
@@ -36,9 +38,12 @@ import torch
 from torch import nn
 
 from .hf_albert import AlbertModel
-from .hf_arch import BERT_FAMILY, T5_FAMILY, resolve_hf_config
+from .hf_arch import BERT_FAMILY, LLAMA_FAMILY, T5_FAMILY, resolve_hf_config
 from .hf_bert import BertModel
 from .hf_distilbert import DistilBertModel
+from .hf_gpt2 import GPT2Model
+from .hf_llama import LlamaModel
+from .hf_opt import OPTModel
 from .hf_t5 import T5EncoderModel
 from .layers import Linear
 
@@ -118,10 +123,18 @@ class HFTextTower(nn.Module):
             self.transformer = AlbertModel(config, dtype)
         elif kind == "distilbert":
             self.transformer = DistilBertModel(config, dtype)
+        elif kind == "gpt2":
+            self.transformer = GPT2Model(config, dtype)
+        elif kind == "opt":
+            self.transformer = OPTModel(config, dtype)
+        elif kind in LLAMA_FAMILY:
+            self.transformer = LlamaModel(config, dtype)
         else:
             self.transformer = T5EncoderModel(config, dtype)
         self.width = (config.d_model if kind in T5_FAMILY else config.dim
-                      if kind == "distilbert" else config.hidden_size)
+                      if kind == "distilbert" else config.n_embd
+                      if kind == "gpt2" else config.word_embed_proj_dim
+                      if kind == "opt" else config.hidden_size)
         self.proj = projection_head(self.width, output_dim, proj_type, dtype)
 
     def forward(self, text: torch.Tensor

@@ -77,15 +77,17 @@ def fsdp_tp_spec(name: str, shape: Sequence[int], n_data: int, tp: int,
 
 
 def _linear_weights(model: nn.Module) -> set:
-    """ids of the ``[out, in]`` weights JAX holds as ``[in, out]``
-    kernels: the Linear weights and the in-projections, packed or
-    separate."""
+    """ids of the 2-d weights JAX holds transposed: the ``[out, in]``
+    Linear weights and in-projections, packed or separate, whose kernels
+    are ``[in, out]``, and GPT-2's ``[in, out]`` Conv1D weights, whose
+    Flax kernels are ``[out, in]``."""
     from ..models.attention import MultiheadAttention
+    from ..models.hf_gpt2 import Conv1D
     from ..models.layers import Linear
 
     out = set()
     for m in model.modules():
-        if isinstance(m, Linear):
+        if isinstance(m, (Linear, Conv1D)):
             out.add(id(m.weight))
         elif isinstance(m, MultiheadAttention):
             if m.in_proj_weight is not None:
@@ -128,15 +130,20 @@ def _blocks(model: nn.Module):
     ``transformer.layer``, T5's ``encoder.block``; not the two sublayers of
     a T5 block, its ``layer``; ALBERT's layer groups, each run several
     times in a forward: FSDP2 gathers such a unit at every call and sums
-    its gradients over the calls before it reduce-scatters them)."""
+    its gradients over the calls before it reduce-scatters them; GPT-2's
+    ``h``, OPT's ``decoder.layers`` and the Llama family's ``layers``)."""
     from ..models.hf_albert import AlbertLayerGroup
     from ..models.hf_bert import BertLayer
     from ..models.hf_distilbert import TransformerBlock
+    from ..models.hf_gpt2 import GPT2Block
+    from ..models.hf_llama import LlamaDecoderLayer
+    from ..models.hf_opt import OPTDecoderLayer
     from ..models.hf_t5 import T5Block
 
     for name, m in model.named_modules():
         if isinstance(m, (BertLayer, TransformerBlock, AlbertLayerGroup,
-                          T5Block)):
+                          T5Block, GPT2Block, OPTDecoderLayer,
+                          LlamaDecoderLayer)):
             yield m
         elif isinstance(m, nn.ModuleList) and name.split(".")[-1] in (
                 "resblocks", "blocks", "cross_attn"):

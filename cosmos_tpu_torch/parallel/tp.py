@@ -38,7 +38,13 @@ hooks on their modules place the activations:
     kernel on the rank's local shard;
   - a row-parallel ``Linear`` takes a feature-sharded input (a replicated
     one is sliced locally) and returns the reduced, replicated output as a
-    local tensor.
+    local tensor;
+  - GPT-2's ``Conv1D`` weights are ``[in, out]``, the transpose of Flax's
+    ``[out, in]`` kernels, on which JAX's rule splits ``c_fc``'s input
+    features (and its bias's output features) and ``c_proj``'s output
+    features: the same tensor dims are sharded here (``tp_spec`` gives 0
+    and 1, as for a Linear, since both layouts are transposed), and the
+    layer computes with the whole tensors, no hook.
 
 So every activation between the parallel layers is an ordinary tensor,
 whole on every rank of the model group.  The data axis is the trainer's:
@@ -55,6 +61,7 @@ import torch
 from torch import nn
 
 from ..models.attention import MultiheadAttention
+from ..models.hf_gpt2 import Conv1D
 from ..models.layers import Linear, Mlp
 from .mesh import DATA_AXIS, MODEL_AXIS, axis_group, batch_sharding
 
@@ -188,6 +195,11 @@ def shard_params_tp(model: nn.Module, mesh) -> nn.Module:
             for leaf in leaves:
                 if tp_spec(prefix + leaf, getattr(module, leaf).shape) == 0:
                     _distribute(module, leaf, sub, Shard(0))
+        elif isinstance(module, Conv1D):
+            for leaf in ("weight", "bias"):
+                dim = tp_spec(prefix + leaf, getattr(module, leaf).shape)
+                if dim is not None:
+                    _distribute(module, leaf, sub, Shard(dim))
         elif isinstance(module, Linear):
             dim = tp_spec(prefix + "weight", module.weight.shape)
             if dim is None:

@@ -115,9 +115,9 @@ def frozen_mask(model: nn.Module, lock_image: bool = False,
     An HF text tower (BERT family) follows the reference's module list:
     ``[embeddings, *encoder.layer][:-n]`` frozen (all of them for n = 0),
     the pooler and the projection head never; its LayerNorms stay
-    trainable unless ``text_freeze_layer_norm`` is True.  A T5, DistilBERT or
-    ALBERT tower has no ``encoder.layer`` and ``lock_text`` raises, as in
-    JAX.
+    trainable unless ``text_freeze_layer_norm`` is True.  A T5, DistilBERT,
+    ALBERT, GPT-2, OPT, Llama, Mistral or Gemma tower has no
+    ``encoder.layer`` and ``lock_text`` raises, as in JAX.
 
     A timm-family or ModifiedResNet tower has no groups: ``lock_image``
     freezes all of it, and ``unlocked_groups`` > 0 raises, as in JAX."""
@@ -155,7 +155,8 @@ def frozen_mask(model: nn.Module, lock_image: bool = False,
         else text_freeze_layer_norm
     hf_frozen = None
     if lock_text and hf:
-        # DistilBERT has no encoder, ALBERT's encoder no layer list
+        # DistilBERT and the decoder LMs have no encoder, ALBERT's encoder
+        # no layer list
         encoder = getattr(model.text.transformer, "encoder", None)
         layer = getattr(encoder, "layer", None)
         if layer is None:

@@ -187,7 +187,7 @@ def test_cosmos_heads_on_an_hf_tower_are_refused():
 
 @pytest.mark.parametrize("cfg,error,match", [
     ({"model_type": "m2m_100"}, NotImplementedError, "no Flax encoder"),
-    ({"model_type": "gpt2"}, NotImplementedError, "ROADMAP.md"),
+    ({"model_type": "bloom"}, NotImplementedError, "ROADMAP.md"),
     ({"model_type": "not-a-model"}, ValueError,
      "Unrecognized model identifier"),
     ({**H.HF["t5"], "feed_forward_proj": "gated-gelu-x"}, ValueError,

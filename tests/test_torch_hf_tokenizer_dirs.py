@@ -280,17 +280,17 @@ def test_refusals_name_their_roadmap_items(dirs, tmp_path):
     with pytest.raises(NotImplementedError, match="SentencePiece .model"):
         HFTokenizer(str(spm))
     # a class the port does not build
-    other = _copy(dirs, "roberta", tmp_path / "gpt2",
-                  config={"tokenizer_class": "GPT2Tokenizer"})
+    other = _copy(dirs, "roberta", tmp_path / "bloom",
+                  config={"tokenizer_class": "BloomTokenizerFast"})
     with pytest.raises(NotImplementedError,
-                       match="GPT2Tokenizer.*An HF tokenizer from a local"):
+                       match="BloomTokenizer.*An HF tokenizer from a local"):
         HFTokenizer(other)
-    # byte_fallback, which none of the five types sets
+    # BPE dropout, which draws from tokenizers' own generator
 
-    def fallback(doc):
-        doc["model"]["byte_fallback"] = True
-    path = _copy(dirs, "t5", tmp_path / "fallback", tokenizer=fallback)
-    with pytest.raises(NotImplementedError, match="byte_fallback"):
+    def dropout(doc):
+        doc["model"]["dropout"] = 0.1
+    path = _copy(dirs, "roberta", tmp_path / "dropout", tokenizer=dropout)
+    with pytest.raises(NotImplementedError, match="BPE dropout"):
         HFTokenizer(path)
     # a keyword of AutoTokenizer the port does not take
     with pytest.raises(NotImplementedError, match="use_fast"):

@@ -3,10 +3,12 @@ configs of the five architectures at width 32 and 2 layers (``HF``) and of
 the later ones (``MORE``: DistilBERT with learned and sinusoidal
 positions, ELECTRA with and without its
 embedding projection, ALBERT with one group and with two groups of two
-layers, RoBERTa-PreLayerNorm, and causal BERT, RoBERTa and ELECTRA), their
-token batches (pads at the right ends, each with its architecture's pad id),
-JAX's model with parameters drawn with numpy at the shapes
-``jax.eval_shape`` gives (no JAX init is compiled), and local
+layers, RoBERTa-PreLayerNorm, and causal BERT, RoBERTa and ELECTRA), of
+the decoder LMs (``DECODERS``: GPT-2 and ``gpt-sw3``, OPT pre-LN and in
+opt-350m's layout, Llama, Mistral with a window of 4 and with none,
+Gemma), their token batches (pads at the right ends, each with its
+architecture's pad id), JAX's model with parameters drawn with numpy at
+the shapes ``jax.eval_shape`` gives (no JAX init is compiled), and local
 ``hf_model_name`` directories written by transformers' own classes."""
 
 import functools
@@ -76,9 +78,34 @@ MORE = {
     "electra-causal": dict(_BERT, model_type="electra", embedding_size=16,
                            is_decoder=True),
 }
-CASES = {**HF, **MORE}
+# the decoder LMs: max_position_embeddings holds twice a rotary head's
+# features (Flax's table cuts its last axis to max_position_embeddings)
+_LLAMA = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+              num_key_value_heads=2, intermediate_size=64, vocab_size=VOCAB,
+              max_position_embeddings=32)
+_GPT2 = dict(n_embd=32, n_layer=2, n_head=2, n_inner=64, vocab_size=VOCAB,
+             n_positions=32)
+_OPT = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+            ffn_dim=64, vocab_size=VOCAB, max_position_embeddings=32)
+DECODERS = {
+    "gpt2": dict(_GPT2, model_type="gpt2"),
+    "gpt-sw3": dict(_GPT2, model_type="gpt-sw3", activation_function="gelu"),
+    "opt": dict(_OPT, model_type="opt"),
+    # project_in/project_out and post-LN blocks, no final LayerNorm
+    "opt-350m": dict(_OPT, model_type="opt", word_embed_proj_dim=16,
+                     do_layer_norm_before=False),
+    "llama": dict(_LLAMA, model_type="llama", rms_norm_eps=1e-5,
+                  attention_bias=True),
+    "mistral": dict(_LLAMA, model_type="mistral", sliding_window=4),
+    "mistral-no-window": dict(_LLAMA, model_type="mistral",
+                              sliding_window=None),
+    "gemma": dict(_LLAMA, model_type="gemma", num_key_value_heads=1,
+                  head_dim=16),
+}
+CASES = {**HF, **MORE, **DECODERS}
+# the pad id of each case's tower: the config's, else text_cfg.pad_id (0)
 PAD = {case: 1 if cfg["model_type"] in (
-    "roberta", "xlm-roberta", "roberta-prelayernorm") else 0
+    "roberta", "xlm-roberta", "roberta-prelayernorm", "opt") else 0
     for case, cfg in CASES.items()}
 
 

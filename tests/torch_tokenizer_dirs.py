@@ -24,11 +24,25 @@ replacements): every code point whose NFKC form differs maps to that form,
 and every two-character canonical decomposition of a Latin letter maps to
 its composed letter (keys that span a grapheme cluster).
 
+The decoder LMs' directories (``DECODER_DIRS``) take the byte-level BPE
+vocabulary in GPT-2's layout (``<|endoftext|>`` last; no pad token, and a
+variant that names one and sets ``add_prefix_space``) and in OPT's
+(``vocab.json`` + ``merges.txt`` under ``GPT2Tokenizer`` with
+``add_bos_token``, the special tokens in ``special_tokens_map.json``
+alone), and a SentencePiece-style BPE with ``byte_fallback`` (Llama,
+Mistral, Gemma): the byte-level merges as text, the space symbol as ``▁``,
+the 256 ``<0xNN>`` pieces, and a Llama normalizer (``Prepend`` and
+``Replace``), a ``Metaspace`` of scheme ``first`` under ``LlamaTokenizer``
+with ``add_eos_token`` (Mistral), and Gemma's ``Replace`` and ``Split``.
+
 ``write_all(root)`` writes the directories of ``DIRS`` and returns
-their paths; ``digest(path)`` hashes a directory's files.
+their paths, ``write_decoders(root)`` those of ``DECODER_DIRS``;
+``digest(path)`` hashes a directory's files.
 ``tests/torch_tokenizer_ids.json`` (``EXPECTED``) holds each directory's
 digest and transformers' ids of ``CAPTIONS``; ``PYTHONPATH=. python
-tests/test_torch_hf_tokenizer_dirs.py`` rewrites it.  This module imports
+tests/test_torch_hf_tokenizer_dirs.py`` rewrites it; ``DECODER_EXPECTED``
+holds the decoder LMs' (``PYTHONPATH=. python
+tests/test_torch_hf_decoder_tokenizers.py``).  This module imports
 neither ``transformers`` nor ``tokenizers``: ``chip_smoke.py`` runs it on
 the card's machine.
 """
@@ -67,6 +81,18 @@ DIRS = {
     "albert": ("albert", "tokenizer.json"),
     "roberta-prelayernorm": ("roberta-prelayernorm", "config.json"),
 }
+# the decoder LMs' directories: name -> (type, layout); NO_PAD names those
+# with no pad token, whose padding raises (they have no committed ids)
+DECODER_DIRS = {
+    "gpt2": ("gpt2", "tokenizer.json"),
+    "gpt2-pad": ("gpt2", "pad"),
+    "opt": ("opt", "vocab.json"),
+    "llama": ("llama", "tokenizer.json"),
+    "mistral": ("mistral", "tokenizer.json"),
+    "gemma": ("gemma", "tokenizer.json"),
+}
+NO_PAD = ("gpt2",)
+DECODER_EXPECTED = EXPECTED.with_name("torch_tokenizer_decoder_ids.json")
 # the tokenizer class of each WordPiece type
 WORDPIECE = {"bert": "BertTokenizer", "distilbert": "DistilBertTokenizer",
              "electra": "ElectraTokenizer"}
@@ -556,6 +582,163 @@ def write_all(root) -> Dict[str, str]:
             write_albert(path, charsmap)
         else:
             write_unigram(path, kind, charsmap)
+        out[name] = str(path)
+    return out
+
+
+def spm_bpe_vocab_merges(specials: List[str]
+                         ) -> Tuple[Dict[str, int], List[Tuple[str, str]]]:
+    """SentencePiece-style BPE: ``specials``, the 256 ``<0xNN>`` byte
+    pieces, ``▁``, the characters and the results of ``bpe_vocab_merges``'
+    merges written as text (its space symbol as ``▁``), the merges whose
+    parts are text."""
+    dec = _byte_decoder()
+
+    def text(symbols: str) -> str:
+        return _text(symbols, dec).replace(" ", "▁")
+
+    _, byte_merges = bpe_vocab_merges()
+    merges = [(text(a), text(b)) for a, b in byte_merges]
+    merges = [(a, b) for a, b in merges if a and b]
+    chars = _dedupe(["▁"] + [c for a, b in merges for c in a + b]
+                    + [chr(c) for c in range(0x21, 0x7F)])
+    tokens = _dedupe(list(specials) + [f"<0x{b:02X}>" for b in range(256)]
+                     + chars + [t for a, b in merges for t in (a, b, a + b)])
+    return {t: i for i, t in enumerate(tokens)}, merges
+
+
+def _bpe_model(vocab, merges, **extra) -> dict:
+    return {"type": "BPE", "dropout": None, "unk_token": None,
+            "continuing_subword_prefix": None, "end_of_word_suffix": None,
+            "fuse_unk": False, "byte_fallback": False,
+            "ignore_merges": False, "vocab": vocab,
+            "merges": [[a, b] for a, b in merges], **extra}
+
+
+def write_gpt2(path: Path, layout: str) -> None:
+    """GPT-2's files: ``<|endoftext|>`` bos, eos and unk, no pad token;
+    ``layout`` ``"pad"`` names it the pad token and sets
+    ``add_prefix_space``."""
+    vocab, merges = bpe_vocab_merges()
+    for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>"):
+        del vocab[t]
+    vocab = {t: i for i, t in enumerate(list(vocab) + ["<|endoftext|>"])}
+    end = "<|endoftext|>"
+    added = [_added(end, vocab[end])]
+    special = {"bos_token": end, "eos_token": end, "unk_token": end}
+    extra = {"add_prefix_space": False, "errors": "replace",
+             "add_bos_token": False}
+    if layout == "pad":
+        special["pad_token"] = end
+        extra["add_prefix_space"] = True
+    _config(path, "GPT2Tokenizer", added, special, **extra)
+    _tokenizer_json(
+        path, _bpe_model(vocab, merges, continuing_subword_prefix="",
+                         end_of_word_suffix=""),
+        None, {"type": "ByteLevel", "add_prefix_space": False,
+               "trim_offsets": True, "use_regex": True},
+        {"type": "ByteLevel", "add_prefix_space": True,
+         "trim_offsets": False, "use_regex": True},
+        added, {"type": "ByteLevel", "add_prefix_space": True,
+                "trim_offsets": True, "use_regex": True})
+
+
+def write_opt(path: Path) -> None:
+    """OPT's files: RoBERTa's ``vocab.json`` and ``merges.txt`` (``<s>
+    <pad> </s> <unk>`` first) under ``GPT2Tokenizer`` with
+    ``add_bos_token``, ``</s>`` its bos, eos and unk, ``<pad>`` its pad,
+    as AddedToken fields in ``special_tokens_map.json`` (no
+    ``added_tokens_decoder``)."""
+    vocab, merges = bpe_vocab_merges()
+    del vocab["<mask>"]
+    (path / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False))
+    (path / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+    def token(content):
+        return {"content": content, "lstrip": False, "normalized": True,
+                "rstrip": False, "single_word": False}
+
+    special = {"bos_token": token("</s>"), "eos_token": token("</s>"),
+               "unk_token": token("</s>"), "pad_token": token("<pad>")}
+    (path / "tokenizer_config.json").write_text(json.dumps(dict(
+        special, add_bos_token=True, add_prefix_space=False,
+        errors="replace", model_max_length=1000000000000000019884624838656,
+        tokenizer_class="GPT2Tokenizer"), indent=2))
+    (path / "special_tokens_map.json").write_text(
+        json.dumps(special, indent=2))
+
+
+def write_spm_bpe(path: Path, kind: str) -> None:
+    """Llama's, Mistral's or Gemma's ``tokenizer.json``: BPE with
+    ``byte_fallback``, ``fuse_unk`` and an unk."""
+    if kind == "gemma":
+        specials = ["<pad>", "<eos>", "<bos>", "<unk>", "<mask>",
+                    "<start_of_turn>", "<end_of_turn>"]
+        cls, pad = "GemmaTokenizer", "<pad>"
+        special = {"bos_token": "<bos>", "eos_token": "<eos>",
+                   "unk_token": "<unk>", "pad_token": "<pad>",
+                   "additional_special_tokens": ["<start_of_turn>",
+                                                 "<end_of_turn>"]}
+        extra = {"add_bos_token": True, "add_eos_token": False}
+        normalizer = {"type": "Replace", "pattern": {"String": " "},
+                      "content": "▁"}
+        pre = {"type": "Split", "pattern": {"String": " "},
+               "behavior": "MergedWithPrevious", "invert": False}
+    else:
+        specials = ["<unk>", "<s>", "</s>"]
+        cls = "LlamaTokenizer"
+        special = {"bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>"}
+        if kind == "llama":
+            special["pad_token"] = "</s>"
+            extra = {"add_bos_token": True, "add_eos_token": False,
+                     "legacy": True}
+            normalizer = {"type": "Sequence", "normalizers": [
+                {"type": "Prepend", "prepend": "▁"},
+                {"type": "Replace", "pattern": {"String": " "},
+                 "content": "▁"}]}
+            pre = None
+        else:
+            special["pad_token"] = "<unk>"
+            extra = {"add_bos_token": True, "add_eos_token": True,
+                     "legacy": False}
+            normalizer = None
+            pre = {"type": "Metaspace", "replacement": "▁",
+                   "prepend_scheme": "first", "split": False}
+    vocab, merges = spm_bpe_vocab_merges(specials)
+    added = [_added(t, vocab[t]) for t in specials]
+    _config(path, cls, added, special, clean_up_tokenization_spaces=False,
+            **extra)
+    first = special["bos_token"]
+    post = {"type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": first, "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [],
+            "special_tokens": {first: {"id": first, "ids": [vocab[first]],
+                                       "tokens": [first]}}}
+    _tokenizer_json(
+        path, _bpe_model(vocab, merges, unk_token="<unk>", fuse_unk=True,
+                         byte_fallback=True),
+        normalizer, pre, post, added,
+        {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}]})
+
+
+def write_decoders(root) -> Dict[str, str]:
+    """The directories of ``DECODER_DIRS`` under ``root``; name -> path."""
+    root = Path(root)
+    out = {}
+    for name, (kind, layout) in DECODER_DIRS.items():
+        path = root / name
+        path.mkdir(parents=True, exist_ok=True)
+        if kind == "gpt2":
+            write_gpt2(path, layout)
+        elif kind == "opt":
+            write_opt(path)
+        else:
+            write_spm_bpe(path, kind)
         out[name] = str(path)
     return out
 
